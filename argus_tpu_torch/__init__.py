@@ -1,0 +1,34 @@
+"""argus_tpu_torch: the PyTorch/CUDA port of argus_tpu for NVIDIA Hopper (H100).
+
+The JAX package `argus_tpu` stays the reference; this package runs the same
+models on a CUDA card with hand-written sm_90a kernels in place of the Pallas
+TPU kernels. It imports torch, numpy and the standard library only: never
+jax, flax, msgpack or anything of `argus_tpu`.
+
+Covered so far: the batched serving path (`serve.Estimator`) of the
+NCameraCNN pose regressor, with four CUDA kernels (`ops.kernels`).
+
+Entry points take `device=None`, meaning CUDA; they raise when no card is
+present, and run on the CPU only when the caller passes `device="cpu"`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names one.
+
+    Raises when CUDA is asked for (explicitly or by default) and absent, so a
+    missing card never silently turns into a CPU run."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "argus_tpu_torch runs on a CUDA device by default and none is available; "
+            "pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,31 @@
+// Projection (stage-entry) bottleneck block forward on folded frozen-BN
+// weights, NHWC bf16, stride S in {1, 2} on the 3x3 (torchvision v1.5).
+//
+// Replaces: argus_tpu/ops/pallas/proj_fused.py `_proj_fwd_pallas(save=False)`
+// (:205, body `_proj_fwd_kernel` :171), the stage 1-3 entry blocks of eval and
+// serving.
+//
+//   h1  = bf16(relu(x @ w1 + b1))                          1x1, CIN -> F
+//   h2  = bf16(relu(conv3x3_s(h1) + b2))                   stride S, pad 1
+//   out = bf16(relu(h2 @ w3 + x[::S, ::S] @ wsc + b3 + bsc))
+//
+// Bound on the H100: tensor-core issue (the last GEMM has K = F + CIN, up to
+// 1536 at stage 3); h1 at full input resolution is the largest device-memory
+// round trip of the block. Design: three launches of the implicit-GEMM kernel
+// (conv_gemm.cuh). The strided shortcut is a second K segment of the last
+// GEMM, read straight from x with stride S against its own weight matrix, so
+// it needs no subsampled copy and no concatenated weights, and shares the f32
+// accumulator with h2 @ w3. The lane-merged stride-2 views of the TPU kernel
+// (_LANE_MERGE_MAX) exist for Mosaic and are not ported: the gather computes
+// strided addresses directly.
+
+#include "conv_gemm.cuh"
+
+extern "C" int argus_proj_fwd(const void* x, void* h1, void* h2, void* out, const void* w1,
+                              const void* b1, const void* w2, const void* b2, const void* w3,
+                              const void* b3, const void* wsc, const void* bsc, int N, int H,
+                              int W, int CIN, int F, int COUT, int S, void* stream) {
+  return static_cast<int>(argus::projection_block(x, h1, h2, out, w1, b1, w2, b2, w3, b3, wsc, bsc,
+                                                  N, H, W, CIN, F, COUT, S,
+                                                  static_cast<cudaStream_t>(stream)));
+}

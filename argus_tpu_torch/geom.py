@@ -1,0 +1,110 @@
+"""SE(3) / so(3) / quaternion math for serving, in PyTorch.
+
+Port of the serving subset of `argus_tpu/geom.py`, with the same conventions
+(pypose's): quaternions are xyzw (scalar last), SE(3) elements are 7-vectors
+``[tx, ty, tz, qx, qy, qz, qw]``, se(3) tangents are ``[rho(3), phi(3)]``, and
+``se3_exp`` is the full exponential ``t = J_l(phi) @ rho``, ``q = so3_exp(phi)``.
+
+Everything is batched over leading dims and uses Taylor branches below
+``|phi|^2 < 1e-6`` selected with `torch.where` on safe denominators, so no
+branch ever evaluates 0/0.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_EPS = 1e-6
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of xyzw quaternions."""
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (the inverse of a unit quaternion), xyzw."""
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (..., 3) by unit quaternions q (..., 4):
+    v' = v + 2 qv x (qv x v + qw v)."""
+    qv, qw = q[..., :3], q[..., 3:4]
+    t = torch.linalg.cross(qv, torch.linalg.cross(qv, v, dim=-1) + qw * v, dim=-1)
+    return v + 2.0 * t
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_canonical(q: torch.Tensor) -> torch.Tensor:
+    """Flip the sign so that w >= 0."""
+    return torch.where(q[..., 3:4] < 0.0, -q, q)
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Rotation vector -> xyzw unit quaternion:
+    q_xyz = phi sin(|phi|/2)/|phi|, q_w = cos(|phi|/2); Taylor near 0."""
+    theta_sq = (phi * phi).sum(-1, keepdim=True)
+    small = theta_sq < _EPS
+    theta = torch.sqrt(torch.where(small, torch.ones_like(theta_sq), theta_sq))
+    half = 0.5 * theta
+    sinc_half = torch.where(
+        small,
+        0.5 - theta_sq / 48.0 + theta_sq * theta_sq / 3840.0,
+        torch.sin(half) / theta,
+    )
+    qw = torch.where(
+        small,
+        1.0 - theta_sq / 8.0 + theta_sq * theta_sq / 384.0,
+        torch.cos(half),
+    )
+    return torch.cat([phi * sinc_half, qw], dim=-1)
+
+
+def _jacobian_coeff_AB(phi: torch.Tensor):
+    """A = (1 - cos t)/t^2 and B = (t - sin t)/t^3, Taylor near 0, keepdim."""
+    theta_sq = (phi * phi).sum(-1, keepdim=True)
+    small = theta_sq < _EPS
+    safe_sq = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(safe_sq)
+    A = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(theta)) / safe_sq)
+    B = torch.where(
+        small, 1.0 / 6.0 - theta_sq / 120.0, (theta - torch.sin(theta)) / (safe_sq * theta)
+    )
+    return A, B
+
+
+def so3_left_jacobian_apply(phi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """J_l(phi) @ v = v + A (phi x v) + B phi x (phi x v), without the matrix."""
+    A, B = _jacobian_coeff_AB(phi)
+    pv = torch.linalg.cross(phi, v, dim=-1)
+    ppv = torch.linalg.cross(phi, pv, dim=-1)
+    return v + A * pv + B * ppv
+
+
+def se3_exp(tau: torch.Tensor) -> torch.Tensor:
+    """se(3) 6-vector [rho, phi] -> SE(3) 7-vector [t, q_xyzw] (pypose Exp)."""
+    rho, phi = tau[..., :3], tau[..., 3:6]
+    return torch.cat([so3_left_jacobian_apply(phi, rho), so3_exp(phi)], dim=-1)
+
+
+def xyzxyzw_to_xyzwxyz_SE3(pose):
+    """(x,y,z, qx,qy,qz,qw) -> (x,y,z, qw,qx,qy,qz), the MuJoCo qpos order.
+    Takes a torch tensor or a numpy array and returns the same kind."""
+    if isinstance(pose, torch.Tensor):
+        return torch.cat([pose[..., :3], pose[..., -1:], pose[..., -4:-1]], dim=-1)
+    return np.concatenate([pose[..., :3], pose[..., -1:], pose[..., -4:-1]], axis=-1)

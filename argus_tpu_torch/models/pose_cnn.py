@@ -1,0 +1,98 @@
+"""NCameraCNN: the N-camera cube-pose regressor, in PyTorch (eval forward).
+
+Port of `argus_tpu/models/pose_cnn.py`: the cameras are folded into the batch
+so one shared ResNet backbone sees every view, the per-camera features are
+concatenated, then exact GELU and a 128-128-6 head. The head's first two
+layers run in the compute dtype and `head_out` in f32; casts are explicit
+(no autocast) so bf16 rounds where flax rounds. The output is a raw se(3)
+6-vector; `geom.se3_exp` maps it to a pose.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from argus_tpu_torch.models.resnet import BACKBONES, DTYPES
+
+
+@dataclass(frozen=True)
+class NCameraCNNConfig:
+    """Same fields and defaults as `argus_tpu.models.NCameraCNNConfig`, so a
+    checkpoint's stored config loads unchanged. Fields that only shape the
+    training step (BN statistics strides and engine, remat, stem freezing and
+    gradient stride) have no effect on this eval forward."""
+
+    n_cams: int = 2
+    resnet_output_dim: int = 1024
+    backbone: str = "resnet50"
+    dtype: str = "float32"
+    stem_space_to_depth: bool = False
+    stem_frozen: bool = False
+    stem_grad_stride: int = 1
+    frozen_stages: int = 0
+    bn_stats_stride: int = 1
+    bn_grad_stride: int = 1
+    bn_impl: str = "xla"
+    bn_frozen: bool = False
+    bn_frozen_affine: bool = False
+    fuse_pointwise: str = "off"
+    fuse_block: str = "auto"
+    fuse_block_stages: tuple = (0, 1, 2, 3)
+    fuse_proj: str = "auto"
+    fuse_stem: str = "auto"
+    fuse_stage: str = "auto"
+    fuse_stage_stages: tuple = (0,)
+    remat: bool = False
+    remat_stages: tuple = ()
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax Dense with `dtype`: input, kernel and bias cast to it, the
+    product rounded before the bias add."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+class NCameraCNN(nn.Module):
+    """(B, H, W, 3 * n_cams) images in [0, 1] -> (B, 6) se(3) tangents."""
+
+    def __init__(self, cfg: NCameraCNNConfig = NCameraCNNConfig()) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = DTYPES[cfg.dtype]
+        self.backbone = BACKBONES[cfg.backbone](
+            output_dim=cfg.resnet_output_dim,
+            dtype=cfg.dtype,
+            stem_space_to_depth=cfg.stem_space_to_depth,
+            frozen_stages=cfg.frozen_stages,
+            bn_frozen=cfg.bn_frozen,
+            bn_frozen_affine=cfg.bn_frozen_affine,
+            fuse_pointwise=cfg.fuse_pointwise,
+            fuse_block=cfg.fuse_block,
+            fuse_block_stages=cfg.fuse_block_stages,
+            fuse_proj=cfg.fuse_proj,
+            fuse_stem=cfg.fuse_stem,
+            fuse_stage=cfg.fuse_stage,
+            fuse_stage_stages=cfg.fuse_stage_stages,
+        )
+        self.head_fc1 = nn.Linear(cfg.n_cams * cfg.resnet_output_dim, 128)
+        self.head_fc2 = nn.Linear(128, 128)
+        self.head_out = nn.Linear(128, 6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim != 4:
+            raise ValueError("The input images must be of shape (B, H, W, C)! If B=1, add a dummy dimension.")
+        cfg = self.cfg
+        b, h, w, c = x.shape
+        if c != 3 * cfg.n_cams:
+            raise ValueError(f"Expected {3 * cfg.n_cams} channels (n_cams={cfg.n_cams}), got {c}.")
+        # fold cameras into the batch so one backbone (shared weights) sees all views
+        x = x.reshape(b, h, w, cfg.n_cams, 3).movedim(3, 1).reshape(b * cfg.n_cams, h, w, 3)
+        feats = self.backbone(x).reshape(b, cfg.n_cams * cfg.resnet_output_dim)
+        feats = F.gelu(feats)
+        y = F.gelu(_dense(self.head_fc1, feats, self.dtype))
+        y = F.gelu(_dense(self.head_fc2, y, self.dtype))
+        return _dense(self.head_out, y, torch.float32)

@@ -1,0 +1,330 @@
+"""ResNet backbones in PyTorch over NHWC activations (eval forward).
+
+Port of `argus_tpu/models/resnet.py`: the same stage layout, torch-exact
+padding (7x7/s2 pad 3, 3x3 pad 1, maxpool 3x3/s2 pad 1), the bottleneck's
+stride on the 3x3 (torchvision v1.5), global mean pool then an `output_dim`
+projection. Submodules carry the flax scope names (`conv_init`,
+`stage{i}_block{j}.Conv_0`, `BatchNorm_0`, `conv_proj`, `norm_proj`, `fc`),
+so `models.jax_import` maps argus_tpu variables onto `state_dict` keys
+mechanically.
+
+Activations are (N, H, W, C) tensors, in the compute dtype (`dtype`); params
+stay f32 and are cast where they are used, as flax does. The `fuse_*` flags
+keep argus_tpu's names and values ("on" | "off" | "auto", where "auto" means
+on when the activation is a CUDA tensor). Under frozen BN (`bn_frozen` and
+`bn_frozen_affine`) with fusion on, the stem, stage chains, projection and
+identity bottlenecks run through the kernel functions of
+`argus_tpu_torch.ops.kernels` on BN-folded weights (hand-written CUDA on the
+card, their plain versions on the CPU); otherwise each conv is `F.conv2d`
+followed by the frozen BatchNorm.
+
+Training-only fields of the config (BN statistics strides, remat, stem
+gradient stride) do not change the eval forward and are not taken here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from argus_tpu_torch.ops.kernels.block_fused import bottleneck_block, fold_bottleneck_params
+from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, projection_block
+from argus_tpu_torch.ops.kernels.stage_fused import fused_stage
+from argus_tpu_torch.ops.kernels.stem_fused import fold_stem_params, stem_pool
+from argus_tpu_torch.ops.norm import BatchNorm
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def flag_on(flag: str, x: torch.Tensor) -> bool:
+    """A fuse flag's value for this activation: "auto" is on for CUDA tensors."""
+    if flag not in ("on", "off", "auto"):
+        raise ValueError(f"fuse flag must be 'on', 'off' or 'auto', got {flag!r}")
+    return flag == "on" or (flag == "auto" and x.is_cuda)
+
+
+class Conv(nn.Module):
+    """Bias-free conv with a torch (OIHW) weight, applied to NHWC activations
+    in their dtype. `padding` is symmetric, or ((top, bottom), (left, right))."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding=0) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        nn.init.kaiming_normal_(self.weight, nonlinearity="linear")
+        self.stride = stride
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        pad = self.padding
+        if isinstance(pad, tuple):
+            (top, bottom), (left, right) = pad
+            x, pad = F.pad(x, (left, right, top, bottom)), 0
+        y = F.conv2d(x, self.weight.to(x.dtype), stride=self.stride, padding=pad)
+        return y.permute(0, 2, 3, 1)
+
+    def hwio(self) -> torch.Tensor:
+        """The weight in argus_tpu's HWIO layout."""
+        return self.weight.permute(2, 3, 1, 0)
+
+
+def _fold(conv: Conv, bn: BatchNorm):
+    """(HWIO kernel, scale, bias, mean, var): the fold helpers' arguments."""
+    return conv.hwio(), bn.weight, bn.bias, bn.running_mean, bn.running_var
+
+
+class BasicBlock(nn.Module):
+    """3x3 + 3x3 residual block (ResNet-18/34), unfused."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, strides: int, eps: float) -> None:
+        super().__init__()
+        self.Conv_0 = Conv(cin, filters, 3, strides, 1)
+        self.BatchNorm_0 = BatchNorm(filters, eps)
+        self.Conv_1 = Conv(filters, filters, 3, 1, 1)
+        self.BatchNorm_1 = BatchNorm(filters, eps)
+        self.is_identity = strides == 1 and cin == filters
+        if not self.is_identity:
+            self.conv_proj = Conv(cin, filters, 1, strides)
+            self.norm_proj = BatchNorm(filters, eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = self.BatchNorm_1(self.Conv_1(y))
+        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x))
+        return torch.relu(y + residual)
+
+
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (stride) -> 1x1 residual block (ResNet-50/101), expansion 4."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, strides: int, eps: float) -> None:
+        super().__init__()
+        cout = filters * self.expansion
+        self.strides = strides
+        self.eps = eps
+        self.Conv_0 = Conv(cin, filters, 1)
+        self.BatchNorm_0 = BatchNorm(filters, eps)
+        self.Conv_1 = Conv(filters, filters, 3, strides, 1)
+        self.BatchNorm_1 = BatchNorm(filters, eps)
+        self.Conv_2 = Conv(filters, cout, 1)
+        self.BatchNorm_2 = BatchNorm(cout, eps)
+        self.is_identity = strides == 1 and cin == cout
+        if not self.is_identity:
+            self.conv_proj = Conv(cin, cout, 1, strides)
+            self.norm_proj = BatchNorm(cout, eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = torch.relu(self.BatchNorm_1(self.Conv_1(y)))
+        y = self.BatchNorm_2(self.Conv_2(y))
+        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x))
+        return torch.relu(y + residual)
+
+    def fold(self, dtype) -> tuple:
+        """Frozen-BN-folded weights: the 6-tuple of the identity block kernel,
+        or the 8-tuple of the projection kernel."""
+        args = [
+            *_fold(self.Conv_0, self.BatchNorm_0),
+            *_fold(self.Conv_1, self.BatchNorm_1),
+            *_fold(self.Conv_2, self.BatchNorm_2),
+        ]
+        if self.is_identity:
+            return fold_bottleneck_params(dtype, *args, eps=self.eps)
+        return fold_projection_params(
+            dtype, *args, *_fold(self.conv_proj, self.norm_proj), eps=self.eps
+        )
+
+    def forward_fused(self, x: torch.Tensor, folded: tuple) -> torch.Tensor:
+        if self.is_identity:
+            return bottleneck_block(x, *folded)
+        return projection_block(x, *folded, self.strides)
+
+
+class ResNet(nn.Module):
+    """NHWC ResNet with a trailing `output_dim` projection."""
+
+    def __init__(
+        self,
+        stage_sizes: Sequence[int],
+        block_cls,
+        output_dim: Optional[int] = 1024,
+        num_filters: int = 64,
+        dtype: str = "float32",
+        norm_eps: float = 1e-5,
+        stem_space_to_depth: bool = False,
+        frozen_stages: int = 0,
+        bn_frozen: bool = False,
+        bn_frozen_affine: bool = False,
+        fuse_pointwise: str = "off",
+        fuse_block: str = "auto",
+        fuse_block_stages: Sequence[int] = (0, 1, 2, 3),
+        fuse_proj: str = "auto",
+        fuse_stem: str = "auto",
+        fuse_stage: str = "auto",
+        fuse_stage_stages: Sequence[int] = (0,),
+    ) -> None:
+        super().__init__()
+        if fuse_pointwise != "off":
+            raise NotImplementedError(
+                "fuse_pointwise: the pointwise kernel is not ported yet (ROADMAP queue B)"
+            )
+        if not 0 <= frozen_stages <= len(stage_sizes):
+            raise ValueError(f"frozen_stages={frozen_stages} out of range for {len(stage_sizes)} stages")
+        self.stage_sizes = tuple(stage_sizes)
+        self.block_cls = block_cls
+        self.output_dim = output_dim
+        self.num_filters = num_filters
+        self.dtype = DTYPES[dtype]
+        self.norm_eps = norm_eps
+        self.stem_space_to_depth = stem_space_to_depth
+        self.frozen_stages = frozen_stages
+        self.frozen = bn_frozen and bn_frozen_affine
+        self.fuse_block, self.fuse_proj = fuse_block, fuse_proj
+        self.fuse_stem, self.fuse_stage = fuse_stem, fuse_stage
+        self.fuse_block_stages = tuple(fuse_block_stages)
+        self.fuse_stage_stages = tuple(fuse_stage_stages)
+
+        if stem_space_to_depth:
+            self.conv_init_s2d = Conv(12, num_filters, 4, 1, ((2, 1), (2, 1)))
+        else:
+            self.conv_init = Conv(3, num_filters, 7, 2, 3)
+        self.norm_init = BatchNorm(num_filters, norm_eps)
+        cin = num_filters
+        for i, count in enumerate(self.stage_sizes):
+            filters = num_filters * 2**i
+            for j in range(count):
+                strides = 2 if i > 0 and j == 0 else 1
+                self.add_module(f"stage{i}_block{j}", block_cls(cin, filters, strides, norm_eps))
+                cin = filters * block_cls.expansion
+        if output_dim is not None:
+            self.fc = nn.Linear(cin, output_dim)
+        self._folded: Optional[Dict[str, tuple]] = None
+
+    def blocks(self, i: int):
+        return [getattr(self, f"stage{i}_block{j}") for j in range(self.stage_sizes[i])]
+
+    # ─────────────── BN folding for the fused kernels ───────────────
+
+    def _fold_all(self) -> Dict[str, tuple]:
+        folded = {}
+        if not self.stem_space_to_depth:
+            folded["stem"] = fold_stem_params(
+                *_fold(self.conv_init, self.norm_init), self.norm_eps, self.dtype
+            )
+        if self.block_cls is BottleneckBlock:
+            for i in range(len(self.stage_sizes)):
+                for j, blk in enumerate(self.blocks(i)):
+                    folded[f"stage{i}_block{j}"] = blk.fold(self.dtype)
+        return folded
+
+    @torch.no_grad()
+    def fold_frozen_bn(self) -> None:
+        """Fold every frozen BN affine into its conv once and keep the result
+        for the fused forward. Call again after the weights change or the
+        module moves to another device; without it the forward folds on each
+        call."""
+        self._folded = self._fold_all()
+
+    def _folded_weights(self) -> Dict[str, tuple]:
+        return self._folded if self._folded is not None else self._fold_all()
+
+    # ─────────────── forward ───────────────
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bottleneck = self.block_cls is BottleneckBlock
+        fuse_stem = (
+            self.frozen
+            and self.num_filters == 64
+            and not self.stem_space_to_depth
+            and x.shape[1] % 8 == 0
+            and x.shape[2] % 8 == 0
+            and x.shape[3] == 3
+            and flag_on(self.fuse_stem, x)
+        )
+        fuse_blk = self.frozen and flag_on(self.fuse_block, x)
+        if fuse_blk and not bottleneck:
+            raise NotImplementedError(
+                "fused BasicBlock: the basic_fused kernel is not ported yet (ROADMAP queue B)"
+            )
+        fuse_prj = bottleneck and self.frozen and flag_on(self.fuse_proj, x)
+        fuse_stg = fuse_blk and fuse_prj and flag_on(self.fuse_stage, x)
+        folded = self._folded_weights() if (fuse_stem or fuse_blk or fuse_prj) else {}
+
+        x = x.to(dt)
+        if fuse_stem:
+            x = stem_pool(x, *folded["stem"])
+        else:
+            if self.stem_space_to_depth:
+                n, h, w, c = x.shape
+                x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+                x = self.conv_init_s2d(x.reshape(n, h // 2, w // 2, 4 * c))
+            else:
+                x = self.conv_init(x)
+            x = torch.relu(self.norm_init(x))
+            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+
+        for i in range(len(self.stage_sizes)):
+            blocks = self.blocks(i)
+            fused_here = i in self.fuse_block_stages
+            chain = (
+                fuse_stg
+                and fused_here
+                and (i in self.fuse_stage_stages or i < self.frozen_stages)
+            )
+            if chain:
+                ws = [folded[f"stage{i}_block{j}"] for j in range(len(blocks))]
+                proj = None if blocks[0].is_identity else ws[0]
+                ids = ws if proj is None else ws[1:]
+                x = fused_stage(x, proj, ids, blocks[0].strides)
+                continue
+            for j, blk in enumerate(blocks):
+                if fused_here and ((fuse_blk and blk.is_identity) or (fuse_prj and not blk.is_identity)):
+                    x = blk.forward_fused(x, folded[f"stage{i}_block{j}"])
+                else:
+                    x = blk(x)
+
+        # global average pool: f32 sum, result in the compute dtype (jnp.mean)
+        x = x.float().mean(dim=(1, 2)).to(dt)
+        if self.output_dim is not None:
+            x = F.linear(x, self.fc.weight.to(dt)) + self.fc.bias.to(dt)
+        return x.float()
+
+
+def resnet18(**kw) -> ResNet:
+    return ResNet(stage_sizes=(2, 2, 2, 2), block_cls=BasicBlock, **kw)
+
+
+def resnet34(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=BasicBlock, **kw)
+
+
+def resnet50(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), block_cls=BottleneckBlock, **kw)
+
+
+def resnet101(**kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), block_cls=BottleneckBlock, **kw)
+
+
+BACKBONES: Dict[str, Callable[..., ResNet]] = {
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
+    "resnet101": resnet101,
+}
+
+# block class of each backbone: the serving tuner keys the fused kernels on it
+BACKBONE_BLOCKS = {
+    "resnet18": BasicBlock,
+    "resnet34": BasicBlock,
+    "resnet50": BottleneckBlock,
+    "resnet101": BottleneckBlock,
+}

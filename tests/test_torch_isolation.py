@@ -1,0 +1,78 @@
+"""The port stands alone: it imports without jax, flax, msgpack or
+argus_tpu, and its entry points refuse to fall back to the CPU when no card
+is present."""
+
+import os
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = textwrap.dedent(
+    """
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "argus_tpu")
+
+    def blocked(name):
+        return name.split(".")[0] in BLOCKED
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    # forget anything a site hook imported at start-up, then refuse it
+    for name in [m for m in sys.modules if blocked(m)]:
+        del sys.modules[name]
+    sys.meta_path.insert(0, Block())
+
+    import argus_tpu_torch
+    names = ["argus_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(argus_tpu_torch.__path__, "argus_tpu_torch.")
+    ]
+    for name in names:
+        importlib.import_module(name)
+    leaked = sorted(m for m in sys.modules if blocked(m))
+    assert not leaked, leaked
+    print("imported", len(names), "modules")
+    """
+)
+
+
+def test_port_imports_without_jax_or_argus_tpu():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    n = int(proc.stdout.split()[-2])
+    assert n >= 15, proc.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack|argus_tpu)\b", re.M)
+    assert not banned.findall(src)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    from argus_tpu_torch import resolve_device
+    from argus_tpu_torch.checkpoint import save_checkpoint
+    from argus_tpu_torch.serve import Estimator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    path = str(tmp_path / "any.ckpt")
+    save_checkpoint(path, {"params": {}, "batch_stats": {}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Estimator(path)

@@ -1,0 +1,151 @@
+"""The serving slice end to end on the CPU: argus_tpu's Estimator against the
+port's, loading the same format-2 checkpoint (built with argus_tpu's
+create_train_state and checkpoint_meta, BN buffers and scales perturbed)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from argus_tpu.checkpoint import load_checkpoint_with_meta, save_checkpoint
+from argus_tpu.models import NCameraCNNConfig as JaxConfig
+from argus_tpu.models import resolve_model as jax_resolve_model
+from argus_tpu.serve import Estimator as JaxEstimator
+from argus_tpu.serve import serving_tuned_config as jax_serving_tuned_config
+from argus_tpu.train import TrainConfig, checkpoint_meta, create_train_state
+from argus_tpu_torch.models import NCameraCNNConfig
+from argus_tpu_torch.models.jax_import import state_dict_from_variables
+from argus_tpu_torch.models.pose_cnn import NCameraCNN
+from argus_tpu_torch.serve import (
+    SERVING_FUSED_MIN_BATCH,
+    Estimator,
+    latency_tuned_config,
+    serving_tuned_config,
+    throughput_tuned_config,
+)
+
+HW = 64
+
+
+def _perturbed(tree, rng):
+    """Every BN scale/bias/mean/var perturbed (the zero-init last-BN scale
+    would otherwise hide each block's conv3 behind its identity)."""
+
+    def f(path, x):
+        x = np.asarray(x)
+        name = path[-1].key
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        if name in ("bias", "mean"):
+            return rng.normal(0, 0.1, x.shape).astype(np.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(f, tree)
+
+
+@pytest.fixture(scope="module")
+def resnet50_ckpt(tmp_path_factory):
+    cfg = TrainConfig(
+        model_config=JaxConfig(n_cams=2, backbone="resnet50", resnet_output_dim=32), wandb_log=False
+    )
+    _, state = create_train_state(cfg, jax.random.PRNGKey(0), (HW, HW))
+    rng = np.random.default_rng(0)
+    state = state.replace(
+        params=_perturbed(state.params, rng), batch_stats=_perturbed(state.batch_stats, rng)
+    )
+    meta = checkpoint_meta(cfg)
+    meta["center_crop"] = [HW, HW]
+    path = str(tmp_path_factory.mktemp("serve") / "r50.ckpt")
+    save_checkpoint(path, state, meta=meta)
+    return path
+
+
+def _batch(n, seed=1):
+    return np.random.default_rng(seed).integers(0, 256, (n, HW, HW, 6), dtype=np.uint8)
+
+
+def test_batched_bf16_estimator_matches_argus_tpu(resnet50_ckpt):
+    """Batch 8: both sides switch to bf16, folded frozen BN and every fused
+    path (argus_tpu's CPU path runs the kernels' XLA reference math, the
+    port's the kernels' plain versions).
+
+    Tolerance 2e-2 on poses: the two sides round bf16 at different points
+    (argus_tpu's CPU reference rounds each conv output to bf16 before the
+    bias add, the port rounds once after it, as the TPU kernels do), about
+    37% of a block's outputs land one bf16 ulp apart, and through ResNet-50
+    and the head that measured 8.7e-3 at most on these poses, the same size
+    as argus_tpu's own bf16-vs-f32 gap (9.0e-3)."""
+    jax_est = JaxEstimator(resnet50_ckpt, batch_size=8)
+    est = Estimator(resnet50_ckpt, batch_size=8, device="cpu")
+    assert est.cfg.dtype == "bfloat16" and est.cfg.fuse_stage == "on"
+    assert est.hw == jax_est.hw == (HW, HW)
+    batch = _batch(8)
+    got, want = est.predict(batch), jax_est.predict(batch)
+    assert got.shape == (8, 7) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(got[:, 3:], axis=-1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(est.predict(batch, wxyz=True)[:, 3], got[:, 6])
+
+
+def test_latency_f32_estimator_matches_argus_tpu(resnet50_ckpt):
+    """Batch 1: f32, every fused path off, plain convolutions on both sides."""
+    jax_est = JaxEstimator(resnet50_ckpt, batch_size=1)
+    est = Estimator(resnet50_ckpt, batch_size=1, device="cpu")
+    assert est.cfg.dtype == "float32" and est.cfg.fuse_block == "off"
+    batch = _batch(1, seed=2)
+    np.testing.assert_allclose(est.predict(batch), jax_est.predict(batch), atol=1e-4, rtol=0)
+    frames = [batch[0, ..., :3], batch[0, ..., 3:]]
+    np.testing.assert_allclose(est.predict_frames(frames), jax_est.predict_frames(frames), atol=1e-4)
+
+
+def test_fused_f32_model_matches_argus_tpu(resnet50_ckpt):
+    """The fused wiring at f32 (stem kernel, stage-0 chain, projection and
+    identity kernels, folded BN), so rounding cannot hide a wiring fault:
+    both models with fuse "on", frozen BN, float32."""
+    raw, meta = load_checkpoint_with_meta(resnet50_ckpt)
+    model, jcfg, _ = jax_resolve_model(meta)
+    jcfg = dataclasses.replace(
+        jcfg, bn_frozen=True, bn_frozen_affine=True, fuse_block="on", fuse_proj="on",
+        fuse_stem="on", fuse_stage="on",
+    )
+    images = _batch(2, seed=3).astype(np.float32) / 255.0
+    want = type(model)(jcfg).apply(
+        {"params": raw["params"], "batch_stats": raw["batch_stats"]}, jnp.asarray(images), train=False
+    )
+    cfg = NCameraCNNConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)})
+    port = NCameraCNN(cfg)
+    port.load_state_dict(state_dict_from_variables(raw["params"], raw["batch_stats"], port.state_dict()))
+    with torch.no_grad():
+        got = port(torch.from_numpy(images)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def test_serving_tuned_config_matches_argus_tpu():
+    for backbone in ("resnet18", "resnet50"):
+        jcfg = JaxConfig(n_cams=2, backbone=backbone, resnet_output_dim=16)
+        cfg = NCameraCNNConfig(n_cams=2, backbone=backbone, resnet_output_dim=16)
+        for bs in (1, SERVING_FUSED_MIN_BATCH - 1, SERVING_FUSED_MIN_BATCH, 256):
+            assert dataclasses.asdict(serving_tuned_config(cfg, bs)) == dataclasses.asdict(
+                jax_serving_tuned_config(jcfg, bs)
+            )
+    hi = throughput_tuned_config(NCameraCNNConfig())
+    assert hi.fuse_stem == hi.fuse_stage == "on" and hi.dtype == "bfloat16"
+    assert latency_tuned_config(NCameraCNNConfig()).fuse_pointwise == "off"
+
+
+def test_keypoint_checkpoint_raises(tmp_path):
+    from argus_tpu_torch.checkpoint import save_checkpoint as port_save
+
+    path = str(tmp_path / "kp.ckpt")
+    port_save(path, {"params": {}, "batch_stats": {}}, meta={"model_type": "keypoint"})
+    with pytest.raises(NotImplementedError, match="queue A"):
+        Estimator(path, device="cpu")
+
+
+def test_predict_rejects_bad_input(resnet50_ckpt):
+    est = Estimator(resnet50_ckpt, batch_size=1, device="cpu")
+    with pytest.raises(ValueError):
+        est.predict(_batch(1).astype(np.float32))
