@@ -5,8 +5,11 @@ models on a CUDA card with hand-written sm_90a kernels in place of the Pallas
 TPU kernels. It imports torch, numpy and the standard library only: never
 jax, flax, msgpack or anything of `argus_tpu`.
 
-Covered so far: the batched serving path (`serve.Estimator`) of the
-NCameraCNN pose regressor, with four CUDA kernels (`ops.kernels`).
+Covered so far: the batched serving path (`serve.Estimator`) and the
+frozen-BN train step without augmentation (`train.make_train_step`) of the
+NCameraCNN pose regressor, with ten CUDA kernels (`ops.kernels`): the
+forwards, saving forwards and one-pass backwards of the stem, stage chain,
+projection and identity blocks.
 
 Entry points take `device=None`, meaning CUDA; they raise when no card is
 present, and run on the CPU only when the caller passes `device="cpu"`.

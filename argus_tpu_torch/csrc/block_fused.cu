@@ -2,7 +2,9 @@
 //
 // Replaces: argus_tpu/ops/pallas/block_fused.py `_block_fwd_pallas` (:270,
 // body `_fwd_kernel` :249), the no-save forward that eval and serving run for
-// every stride-1 identity bottleneck.
+// every stride-1 identity bottleneck, and `_block_fwd_save_pallas` (:314,
+// body `_fwd_save_kernel` :299), the training forward that also emits h1 and
+// h2 for the one-pass backward (block_fused_bwd.cu).
 //
 //   h1  = bf16(relu(x @ w1 + b1))            1x1, CIN -> F
 //   h2  = bf16(relu(conv3x3(h1) + b2))       pad 1
@@ -16,7 +18,9 @@
 // Design: three launches of the implicit-GEMM kernel (conv_gemm.cuh), each
 // with its bias/relu (and the residual add) fused into the epilogue, so every
 // rounding point matches the TPU kernel. Keeping h1/h2 on chip in one launch
-// per block is the first redesign item.
+// per block is the first redesign item. The save variant is the same three
+// launches: h1/h2 go through device memory either way, so saving them costs
+// nothing extra here (the caller keeps the buffers instead of dropping them).
 
 #include "conv_gemm.cuh"
 

@@ -3,7 +3,10 @@
 //
 // Replaces: argus_tpu/ops/pallas/proj_fused.py `_proj_fwd_pallas(save=False)`
 // (:205, body `_proj_fwd_kernel` :171), the stage 1-3 entry blocks of eval and
-// serving.
+// serving, and `_proj_fwd_pallas(save=True)` (body `_proj_fwd_save_kernel`
+// :180), the training forward that also emits h1 and h2 for the one-pass
+// backward (proj_fused_bwd.cu): the same launches, the caller keeping the
+// buffers.
 //
 //   h1  = bf16(relu(x @ w1 + b1))                          1x1, CIN -> F
 //   h2  = bf16(relu(conv3x3_s(h1) + b2))                   stride S, pad 1

@@ -3,7 +3,10 @@
 //
 // Replaces: argus_tpu/ops/pallas/stage_fused.py `_chain_fwd_packed` (:527,
 // body `_make_fwd_kernel_packed` :501), the forward chain that eval and
-// serving run for stage 0 (projection at stride 1 + 2 identity blocks).
+// serving run for stage 0 (projection at stride 1 + 2 identity blocks), and
+// `_chain_fwd_pallas(save=True)` (:364, body `_make_fwd_kernel` :235), the
+// training forward that keeps every block's output, h1 and h2 for the chain
+// backward (stage_fused_bwd.cu).
 //
 // Bound on the H100: stage 0 has F = 64, so its 1x1s (K = 64 or 256) sit near
 // the bf16 ridge and device-memory traffic matters as much as tensor-core
@@ -46,6 +49,37 @@ extern "C" int argus_stage_fwd(const void* x, void* out, void* h1, void* h2, voi
     if (e != cudaSuccess) return static_cast<int>(e);
     cur = dst;
     slot ^= 1;
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+// The training forward: block b writes its output to bnds[b] (the last block
+// to `out`) and its h1/h2 to h1s[b]/h2s[b]; no buffer is reused.
+extern "C" int argus_stage_fwd_save(const void* x, void* out, void* const* bnds,
+                                    void* const* h1s, void* const* h2s, const void* const* proj,
+                                    const void* const* ids, int K, int N, int H, int W, int CIN,
+                                    int F, int COUT, int S, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Ho = H / S, Wo = W / S;
+  const int nblocks = (proj != nullptr ? 1 : 0) + K;
+  const void* cur = x;
+  int b = 0;
+  if (proj != nullptr) {
+    void* dst = nblocks == 1 ? out : bnds[0];
+    const cudaError_t e =
+        argus::projection_block(x, h1s[0], h2s[0], dst, proj[0], proj[1], proj[2], proj[3],
+                                proj[4], proj[5], proj[6], proj[7], N, H, W, CIN, F, COUT, S, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cur = dst;
+    b = 1;
+  }
+  for (int j = 0; j < K; ++j, ++b) {
+    void* dst = b == nblocks - 1 ? out : bnds[b];
+    const void* const* w = ids + 6 * j;
+    const cudaError_t e = argus::identity_block(cur, h1s[b], h2s[b], dst, w[0], w[1], w[2], w[3],
+                                                w[4], w[5], N, Ho, Wo, COUT, F, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cur = dst;
   }
   return static_cast<int>(cudaSuccess);
 }

@@ -1,13 +1,15 @@
-"""SE(3) / so(3) / quaternion math for serving, in PyTorch.
+"""SE(3) / so(3) / quaternion math for serving and the training loss, in
+PyTorch.
 
-Port of the serving subset of `argus_tpu/geom.py`, with the same conventions
+Port of `argus_tpu/geom.py` (the group operations, Exp and Log), with the same conventions
 (pypose's): quaternions are xyzw (scalar last), SE(3) elements are 7-vectors
 ``[tx, ty, tz, qx, qy, qz, qw]``, se(3) tangents are ``[rho(3), phi(3)]``, and
 ``se3_exp`` is the full exponential ``t = J_l(phi) @ rho``, ``q = so3_exp(phi)``.
 
 Everything is batched over leading dims and uses Taylor branches below
 ``|phi|^2 < 1e-6`` selected with `torch.where` on safe denominators, so no
-branch ever evaluates 0/0.
+branch ever evaluates 0/0: `torch.where` passes the untaken branch's NaN
+gradient on as `jnp.where` does, so the guard sits inside each branch too.
 """
 
 from __future__ import annotations
@@ -75,6 +77,22 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     return torch.cat([phi * sinc_half, qw], dim=-1)
 
 
+def so3_log(q: torch.Tensor) -> torch.Tensor:
+    """xyzw unit quaternion -> so(3) rotation vector (angle in (-pi, pi]):
+    scale = 2 atan2(n, w) / n, Taylor 2/w (1 - n^2 / (3 w^2)) near n = 0."""
+    q = quat_canonical(q)  # w >= 0: the short way around
+    qv, qw = q[..., :3], q[..., 3:4]
+    n_sq = (qv * qv).sum(-1, keepdim=True)
+    small = n_sq < _EPS
+    safe_n = torch.sqrt(torch.where(small, torch.ones_like(n_sq), n_sq))
+    scale = torch.where(
+        small,
+        2.0 / qw - 2.0 * n_sq / (3.0 * qw**3),
+        2.0 * torch.atan2(safe_n, qw) / safe_n,
+    )
+    return qv * scale
+
+
 def _jacobian_coeff_AB(phi: torch.Tensor):
     """A = (1 - cos t)/t^2 and B = (t - sin t)/t^3, Taylor near 0, keepdim."""
     theta_sq = (phi * phi).sum(-1, keepdim=True)
@@ -88,6 +106,22 @@ def _jacobian_coeff_AB(phi: torch.Tensor):
     return A, B
 
 
+def _jacobian_coeff_C(phi: torch.Tensor) -> torch.Tensor:
+    """C = 1/t^2 - (1 + cos t) / (2 t sin t), Taylor near 0, keepdim; near
+    t = pi both (1 + cos t) and sin t vanish and the ratio stays finite."""
+    theta_sq = (phi * phi).sum(-1, keepdim=True)
+    small = theta_sq < _EPS
+    safe_sq = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    theta = torch.sqrt(safe_sq)
+    sin_t = torch.sin(theta)
+    safe_sin = torch.where(sin_t.abs() < 1e-20, torch.full_like(sin_t, 1e-20), sin_t)
+    return torch.where(
+        small,
+        1.0 / 12.0 + theta_sq / 720.0,
+        1.0 / safe_sq - (1.0 + torch.cos(theta)) / (2.0 * theta * safe_sin),
+    )
+
+
 def so3_left_jacobian_apply(phi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """J_l(phi) @ v = v + A (phi x v) + B phi x (phi x v), without the matrix."""
     A, B = _jacobian_coeff_AB(phi)
@@ -96,10 +130,37 @@ def so3_left_jacobian_apply(phi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + A * pv + B * ppv
 
 
+def so3_left_jacobian_inv_apply(phi: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """J_l(phi)^-1 @ v = v - 1/2 (phi x v) + C phi x (phi x v), without the matrix."""
+    C = _jacobian_coeff_C(phi)
+    pv = torch.linalg.cross(phi, v, dim=-1)
+    ppv = torch.linalg.cross(phi, pv, dim=-1)
+    return v - 0.5 * pv + C * ppv
+
+
 def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     """se(3) 6-vector [rho, phi] -> SE(3) 7-vector [t, q_xyzw] (pypose Exp)."""
     rho, phi = tau[..., :3], tau[..., 3:6]
     return torch.cat([so3_left_jacobian_apply(phi, rho), so3_exp(phi)], dim=-1)
+
+
+def se3_log(pose: torch.Tensor) -> torch.Tensor:
+    """SE(3) 7-vector [t, q_xyzw] -> se(3) 6-vector [rho, phi] (pypose Log):
+    phi = so3_log(q), rho = J_l(phi)^-1 @ t."""
+    phi = so3_log(pose[..., 3:7])
+    return torch.cat([so3_left_jacobian_inv_apply(phi, pose[..., :3]), phi], dim=-1)
+
+
+def se3_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose SE(3) 7-vectors a . b (pypose `a @ b`)."""
+    t = a[..., :3] + quat_rotate(a[..., 3:7], b[..., :3])
+    return torch.cat([t, quat_multiply(a[..., 3:7], b[..., 3:7])], dim=-1)
+
+
+def se3_inverse(pose: torch.Tensor) -> torch.Tensor:
+    """Inverse of an SE(3) 7-vector (pypose `Inv`)."""
+    q_inv = quat_conjugate(pose[..., 3:7])
+    return torch.cat([-quat_rotate(q_inv, pose[..., :3]), q_inv], dim=-1)
 
 
 def xyzxyzw_to_xyzwxyz_SE3(pose):

@@ -14,6 +14,11 @@ joining the path with dots and renaming the leaf:
 `state_dict_from_variables` takes the numpy nested dicts that
 `checkpoint.load_checkpoint_with_meta` returns; `variables_from_state_dict`
 is its exact inverse.
+
+The optimizer state crosses the same way: optax's `ScaleByAdamState`
+(`count`, and `mu`/`nu` trees shaped like the params) maps onto the port's
+Adam moments keyed by parameter name (`adam_moments_from_optax`), and back
+(`optax_moments_from_adam`).
 """
 
 from __future__ import annotations
@@ -125,3 +130,22 @@ def variables_from_state_dict(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, An
         else:
             raise KeyError(f"state_dict key {key} has no argus_tpu counterpart")
     return params, stats
+
+
+def adam_moments_from_optax(count, mu: Dict[str, Any], nu: Dict[str, Any]):
+    """optax `ScaleByAdamState` leaves (count, mu tree, nu tree) -> (count as
+    an int32 tensor, mu, nu keyed by the port's parameter names), through the
+    params key map (kernels transposed like the weights they track)."""
+    mu_sd = OrderedDict(_param_entry(path, v) for path, v in _flatten(mu))
+    nu_sd = OrderedDict(_param_entry(path, v) for path, v in _flatten(nu))
+    if list(mu_sd) != list(nu_sd):
+        raise ValueError("optax mu and nu trees differ in structure")
+    return torch.tensor(int(np.asarray(count)), dtype=torch.int32), mu_sd, nu_sd
+
+
+def optax_moments_from_adam(count, mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor]):
+    """The inverse of `adam_moments_from_optax`: (count as a numpy int32
+    scalar, mu tree, nu tree) for optax's `ScaleByAdamState`."""
+    mu_tree, _ = variables_from_state_dict(mu)
+    nu_tree, _ = variables_from_state_dict(nu)
+    return np.asarray(int(count), np.int32), mu_tree, nu_tree

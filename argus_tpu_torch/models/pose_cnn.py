@@ -1,11 +1,14 @@
-"""NCameraCNN: the N-camera cube-pose regressor, in PyTorch (eval forward).
+"""NCameraCNN: the N-camera cube-pose regressor, in PyTorch (eval and
+training forward).
 
 Port of `argus_tpu/models/pose_cnn.py`: the cameras are folded into the batch
 so one shared ResNet backbone sees every view, the per-camera features are
 concatenated, then exact GELU and a 128-128-6 head. The head's first two
 layers run in the compute dtype and `head_out` in f32; casts are explicit
 (no autocast) so bf16 rounds where flax rounds. The output is a raw se(3)
-6-vector; `geom.se3_exp` maps it to a pose.
+6-vector; `geom.se3_exp` maps it to a pose. `forward(x, train=True)` is the
+training forward of the backbone (see `models.resnet`); the head
+differentiates by autograd.
 """
 
 from __future__ import annotations
@@ -22,9 +25,13 @@ from argus_tpu_torch.models.resnet import BACKBONES, DTYPES
 @dataclass(frozen=True)
 class NCameraCNNConfig:
     """Same fields and defaults as `argus_tpu.models.NCameraCNNConfig`, so a
-    checkpoint's stored config loads unchanged. Fields that only shape the
-    training step (BN statistics strides and engine, remat, stem freezing and
-    gradient stride) have no effect on this eval forward."""
+    checkpoint's stored config loads unchanged. `stem_frozen` and
+    `frozen_stages` stop gradients in the training forward as argus_tpu's
+    do; `bn_frozen` + `bn_frozen_affine` is the one BN mode training takes.
+    The BN statistics strides and engine, remat and the stem gradient stride
+    belong to training modes that are not ported yet (exact BN, remat, an
+    unfrozen fused stem: the training forward raises for those) and change
+    nothing in eval."""
 
     n_cams: int = 2
     resnet_output_dim: int = 1024
@@ -67,6 +74,7 @@ class NCameraCNN(nn.Module):
             output_dim=cfg.resnet_output_dim,
             dtype=cfg.dtype,
             stem_space_to_depth=cfg.stem_space_to_depth,
+            stem_frozen=cfg.stem_frozen,
             frozen_stages=cfg.frozen_stages,
             bn_frozen=cfg.bn_frozen,
             bn_frozen_affine=cfg.bn_frozen_affine,
@@ -77,12 +85,14 @@ class NCameraCNN(nn.Module):
             fuse_stem=cfg.fuse_stem,
             fuse_stage=cfg.fuse_stage,
             fuse_stage_stages=cfg.fuse_stage_stages,
+            remat=cfg.remat,
+            remat_stages=cfg.remat_stages,
         )
         self.head_fc1 = nn.Linear(cfg.n_cams * cfg.resnet_output_dim, 128)
         self.head_fc2 = nn.Linear(128, 128)
         self.head_out = nn.Linear(128, 6)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if x.ndim != 4:
             raise ValueError("The input images must be of shape (B, H, W, C)! If B=1, add a dummy dimension.")
         cfg = self.cfg
@@ -91,7 +101,7 @@ class NCameraCNN(nn.Module):
             raise ValueError(f"Expected {3 * cfg.n_cams} channels (n_cams={cfg.n_cams}), got {c}.")
         # fold cameras into the batch so one backbone (shared weights) sees all views
         x = x.reshape(b, h, w, cfg.n_cams, 3).movedim(3, 1).reshape(b * cfg.n_cams, h, w, 3)
-        feats = self.backbone(x).reshape(b, cfg.n_cams * cfg.resnet_output_dim)
+        feats = self.backbone(x, train=train).reshape(b, cfg.n_cams * cfg.resnet_output_dim)
         feats = F.gelu(feats)
         y = F.gelu(_dense(self.head_fc1, feats, self.dtype))
         y = F.gelu(_dense(self.head_fc2, y, self.dtype))

@@ -1,4 +1,5 @@
-"""ResNet backbones in PyTorch over NHWC activations (eval forward).
+"""ResNet backbones in PyTorch over NHWC activations (eval and training
+forward).
 
 Port of `argus_tpu/models/resnet.py`: the same stage layout, torch-exact
 padding (7x7/s2 pad 3, 3x3 pad 1, maxpool 3x3/s2 pad 1), the bottleneck's
@@ -18,21 +19,32 @@ identity bottlenecks run through the kernel functions of
 card, their plain versions on the CPU); otherwise each conv is `F.conv2d`
 followed by the frozen BatchNorm.
 
-Training-only fields of the config (BN statistics strides, remat, stem
-gradient stride) do not change the eval forward and are not taken here.
+`forward(x, train=True)` is the training forward, under argus_tpu's
+frozen-BN fine-tune semantics: BN with running statistics and a frozen affine
+(no gradient to scale or bias), the BN folded into the conv weights with
+autograd on every call (a gradient dk = bf16(dw) * c flows back through the
+fold), and the fused blocks and chains as `torch.autograd.Function`s whose
+backward is a kernel too. `stem_frozen` stops the gradient at the stem, and
+`frozen_stages=k` at the output of stage k-1, so the frozen part runs its
+no-save forwards under `torch.no_grad()`. Training configurations that are
+not ported yet raise `NotImplementedError`: exact train-mode BN or a
+trainable BN affine, and remat (ROADMAP A3); an unfrozen fused stem (its
+backward kernel, ROADMAP B6). The BN statistics strides and the stem
+gradient stride only act in those configurations.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from argus_tpu_torch.ops.kernels.block_fused import bottleneck_block, fold_bottleneck_params
-from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, projection_block
-from argus_tpu_torch.ops.kernels.stage_fused import fused_stage
+from argus_tpu_torch.ops.kernels.block_fused import block_saved, fold_bottleneck_params
+from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, proj_saved
+from argus_tpu_torch.ops.kernels.stage_fused import stage_chain
 from argus_tpu_torch.ops.kernels.stem_fused import fold_stem_params, stem_pool
 from argus_tpu_torch.ops.norm import BatchNorm
 
@@ -72,7 +84,8 @@ class Conv(nn.Module):
 
 
 def _fold(conv: Conv, bn: BatchNorm):
-    """(HWIO kernel, scale, bias, mean, var): the fold helpers' arguments."""
+    """(HWIO kernel, scale, bias, mean, var): the fold helpers' arguments
+    (they detach the BN tensors; the gradient reaches the kernel only)."""
     return conv.hwio(), bn.weight, bn.bias, bn.running_mean, bn.running_var
 
 
@@ -143,8 +156,8 @@ class BottleneckBlock(nn.Module):
 
     def forward_fused(self, x: torch.Tensor, folded: tuple) -> torch.Tensor:
         if self.is_identity:
-            return bottleneck_block(x, *folded)
-        return projection_block(x, *folded, self.strides)
+            return block_saved(x, *folded)
+        return proj_saved(x, *folded, self.strides)
 
 
 class ResNet(nn.Module):
@@ -159,6 +172,7 @@ class ResNet(nn.Module):
         dtype: str = "float32",
         norm_eps: float = 1e-5,
         stem_space_to_depth: bool = False,
+        stem_frozen: bool = False,
         frozen_stages: int = 0,
         bn_frozen: bool = False,
         bn_frozen_affine: bool = False,
@@ -169,6 +183,8 @@ class ResNet(nn.Module):
         fuse_stem: str = "auto",
         fuse_stage: str = "auto",
         fuse_stage_stages: Sequence[int] = (0,),
+        remat: bool = False,
+        remat_stages: Sequence[int] = (),
     ) -> None:
         super().__init__()
         if fuse_pointwise != "off":
@@ -184,8 +200,10 @@ class ResNet(nn.Module):
         self.dtype = DTYPES[dtype]
         self.norm_eps = norm_eps
         self.stem_space_to_depth = stem_space_to_depth
+        self.stem_frozen = stem_frozen
         self.frozen_stages = frozen_stages
         self.frozen = bn_frozen and bn_frozen_affine
+        self.remat = remat or bool(tuple(remat_stages))
         self.fuse_block, self.fuse_proj = fuse_block, fuse_proj
         self.fuse_stem, self.fuse_stage = fuse_stem, fuse_stage
         self.fuse_block_stages = tuple(fuse_block_stages)
@@ -205,6 +223,9 @@ class ResNet(nn.Module):
                 cin = filters * block_cls.expansion
         if output_dim is not None:
             self.fc = nn.Linear(cin, output_dim)
+        for mod in self.modules():
+            if isinstance(mod, BatchNorm):
+                mod.frozen_affine = self.frozen
         self._folded: Optional[Dict[str, tuple]] = None
 
     def blocks(self, i: int):
@@ -212,32 +233,44 @@ class ResNet(nn.Module):
 
     # ─────────────── BN folding for the fused kernels ───────────────
 
-    def _fold_all(self) -> Dict[str, tuple]:
-        folded = {}
-        if not self.stem_space_to_depth:
-            folded["stem"] = fold_stem_params(
-                *_fold(self.conv_init, self.norm_init), self.norm_eps, self.dtype
-            )
-        if self.block_cls is BottleneckBlock:
-            for i in range(len(self.stage_sizes)):
-                for j, blk in enumerate(self.blocks(i)):
-                    folded[f"stage{i}_block{j}"] = blk.fold(self.dtype)
-        return folded
+    def _fold_one(self, key: str) -> tuple:
+        if key == "stem":
+            return fold_stem_params(*_fold(self.conv_init, self.norm_init), self.norm_eps, self.dtype)
+        return getattr(self, key).fold(self.dtype)
 
     @torch.no_grad()
     def fold_frozen_bn(self) -> None:
         """Fold every frozen BN affine into its conv once and keep the result
-        for the fused forward. Call again after the weights change or the
-        module moves to another device; without it the forward folds on each
-        call."""
-        self._folded = self._fold_all()
+        for the fused forward of inference. Call again after the weights
+        change or the module moves to another device. The cache is used only
+        while gradients are disabled: with gradients on (training) the
+        forward folds anew on every call, so it never trains against stale
+        weights and the gradient reaches the conv kernels."""
+        keys = [] if self.stem_space_to_depth else ["stem"]
+        if self.block_cls is BottleneckBlock:
+            keys += [f"stage{i}_block{j}" for i in range(len(self.stage_sizes))
+                     for j in range(self.stage_sizes[i])]
+        self._folded = {k: self._fold_one(k) for k in keys}
 
-    def _folded_weights(self) -> Dict[str, tuple]:
-        return self._folded if self._folded is not None else self._fold_all()
+    def _folded_weights(self, key: str) -> tuple:
+        if self._folded is not None and not torch.is_grad_enabled():
+            return self._folded[key]
+        return self._fold_one(key)
+
+    def _check_trainable(self) -> None:
+        if not self.frozen:
+            raise NotImplementedError(
+                "training with exact (batch-statistics) BatchNorm or a trainable BN affine is not "
+                "ported yet (ROADMAP A3): set bn_frozen and bn_frozen_affine"
+            )
+        if self.remat:
+            raise NotImplementedError("remat in the training step is not ported yet (ROADMAP A3)")
 
     # ─────────────── forward ───────────────
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            self._check_trainable()
         dt = self.dtype
         bottleneck = self.block_cls is BottleneckBlock
         fuse_stem = (
@@ -256,46 +289,53 @@ class ResNet(nn.Module):
             )
         fuse_prj = bottleneck and self.frozen and flag_on(self.fuse_proj, x)
         fuse_stg = fuse_blk and fuse_prj and flag_on(self.fuse_stage, x)
-        folded = self._folded_weights() if (fuse_stem or fuse_blk or fuse_prj) else {}
+        # the stem is frozen under stem_frozen or any frozen_stages depth: its
+        # forward records no graph, and the frozen stages' neither
+        stem_frozen = self.stem_frozen or self.frozen_stages >= 1
+        if train and fuse_stem and not stem_frozen:
+            raise NotImplementedError(
+                "training an unfrozen fused stem needs its backward kernel, not ported yet "
+                "(ROADMAP B6): set stem_frozen"
+            )
 
         x = x.to(dt)
-        if fuse_stem:
-            x = stem_pool(x, *folded["stem"])
-        else:
-            if self.stem_space_to_depth:
-                n, h, w, c = x.shape
-                x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
-                x = self.conv_init_s2d(x.reshape(n, h // 2, w // 2, 4 * c))
+        with torch.no_grad() if stem_frozen else contextlib.nullcontext():
+            if fuse_stem:
+                x = stem_pool(x, *self._folded_weights("stem"))
             else:
-                x = self.conv_init(x)
-            x = torch.relu(self.norm_init(x))
-            x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
+                if self.stem_space_to_depth:
+                    n, h, w, c = x.shape
+                    x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+                    x = self.conv_init_s2d(x.reshape(n, h // 2, w // 2, 4 * c))
+                else:
+                    x = self.conv_init(x)
+                x = torch.relu(self.norm_init(x))
+                x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
         for i in range(len(self.stage_sizes)):
-            blocks = self.blocks(i)
-            fused_here = i in self.fuse_block_stages
-            chain = (
-                fuse_stg
-                and fused_here
-                and (i in self.fuse_stage_stages or i < self.frozen_stages)
-            )
-            if chain:
-                ws = [folded[f"stage{i}_block{j}"] for j in range(len(blocks))]
-                proj = None if blocks[0].is_identity else ws[0]
-                ids = ws if proj is None else ws[1:]
-                x = fused_stage(x, proj, ids, blocks[0].strides)
-                continue
-            for j, blk in enumerate(blocks):
-                if fused_here and ((fuse_blk and blk.is_identity) or (fuse_prj and not blk.is_identity)):
-                    x = blk.forward_fused(x, folded[f"stage{i}_block{j}"])
-                else:
-                    x = blk(x)
+            with torch.no_grad() if i < self.frozen_stages else contextlib.nullcontext():
+                x = self._stage(i, x, fuse_blk, fuse_prj, fuse_stg)
 
         # global average pool: f32 sum, result in the compute dtype (jnp.mean)
         x = x.float().mean(dim=(1, 2)).to(dt)
         if self.output_dim is not None:
             x = F.linear(x, self.fc.weight.to(dt)) + self.fc.bias.to(dt)
         return x.float()
+
+    def _stage(self, i: int, x: torch.Tensor, fuse_blk: bool, fuse_prj: bool, fuse_stg: bool):
+        blocks = self.blocks(i)
+        fused_here = i in self.fuse_block_stages
+        if fuse_stg and fused_here and (i in self.fuse_stage_stages or i < self.frozen_stages):
+            ws = [self._folded_weights(f"stage{i}_block{j}") for j in range(len(blocks))]
+            proj = None if blocks[0].is_identity else ws[0]
+            ids = ws if proj is None else ws[1:]
+            return stage_chain(x, proj, ids, blocks[0].strides)
+        for j, blk in enumerate(blocks):
+            if fused_here and ((fuse_blk and blk.is_identity) or (fuse_prj and not blk.is_identity)):
+                x = blk.forward_fused(x, self._folded_weights(f"stage{i}_block{j}"))
+            else:
+                x = blk(x)
+        return x
 
 
 def resnet18(**kw) -> ResNet:

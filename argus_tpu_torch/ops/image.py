@@ -1,0 +1,15 @@
+"""Basic on-device image ops (NHWC).
+
+Port of `argus_tpu/ops/image.py` `u8_to_f32`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def u8_to_f32(images: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """uint8 [0, 255] -> float [0, 1] in `dtype`, as argus_tpu computes it:
+    the cast, then a multiply by 1/255 rounded to `dtype` (under amp a bf16
+    multiply, not a float division)."""
+    return images.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype, device=images.device)

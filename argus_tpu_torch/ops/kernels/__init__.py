@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, one module per argus_tpu Pallas
-kernel, each with its plain PyTorch version beside it (see `_build` for how
-the CUDA sources are compiled and bound).
+kernel family (forward, saving forward, backward), each with its plain
+PyTorch version beside it (see `_build` for how the CUDA sources are
+compiled and bound).
 
 `KERNELS` maps each kernel's name to its `Kernel` handle, whose `launches`
 counts the wrapper's successful launches.
@@ -15,6 +16,12 @@ KERNELS = {
     "stage_fused": stage_fused.KERNEL,
     "proj_fused": proj_fused.KERNEL,
     "block_fused": block_fused.KERNEL,
+    "stage_fused_save": stage_fused.KERNEL_SAVE,
+    "stage_fused_bwd": stage_fused.KERNEL_BWD,
+    "proj_fused_save": proj_fused.KERNEL_SAVE,
+    "proj_fused_bwd": proj_fused.KERNEL_BWD,
+    "block_fused_save": block_fused.KERNEL_SAVE,
+    "block_fused_bwd": block_fused.KERNEL_BWD,
 }
 
 

@@ -8,7 +8,8 @@ changed source rebuilds and an unchanged one is reused. The build runs at
 the first launch of a kernel, or for all sources at once (one `nvcc` process
 each, in parallel) through `build()`.
 
-A C launcher takes device pointers and ints, then the CUDA stream, and
+A C launcher takes device pointers (None for an optional output) and ints,
+then the CUDA stream, and
 returns `cudaGetLastError()` after its launches; `Kernel.launch` raises on
 anything but 0 and counts successful calls in `Kernel.launches`.
 """
@@ -34,7 +35,10 @@ NVCC_FLAGS = (
 )
 
 # the kernel sources, one shared library each
-SOURCES = ("stem_fused", "block_fused", "proj_fused", "stage_fused")
+SOURCES = (
+    "stem_fused", "block_fused", "proj_fused", "stage_fused",
+    "block_fused_bwd", "proj_fused_bwd", "stage_fused_bwd",
+)
 
 
 def _nvcc() -> str:
@@ -133,4 +137,5 @@ class Kernel:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_int64
 

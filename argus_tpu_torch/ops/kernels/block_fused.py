@@ -1,20 +1,30 @@
-"""Identity bottleneck block forward on folded frozen-BN weights (NHWC).
+"""Identity bottleneck block on folded frozen-BN weights (NHWC): forward,
+saving forward and one-pass backward.
 
-Port of `argus_tpu/ops/pallas/block_fused.py` (`fused_bottleneck_block`,
-no-save forward, and `fold_bottleneck_params`):
+Port of `argus_tpu/ops/pallas/block_fused.py` (`fused_bottleneck_block`
+through `_block_saved`, and `fold_bottleneck_params`):
 
     h1  = bf16(relu(x @ w1 + b1))            1x1, CIN -> F
     h2  = bf16(relu(conv3x3(h1) + b2))       pad 1
     out = bf16(relu(h2 @ w3 + b3 + x))       identity residual
 
 with every sum in f32 and one rounding to the activation dtype after each
-bias + relu, as the TPU kernel rounds. On a CUDA tensor `bottleneck_block`
-launches `csrc/block_fused.cu`; on a CPU tensor it runs the plain PyTorch
-version `bottleneck_block_plain`, which the CPU tests hold against argus_tpu
-and `chip_smoke.py` holds the kernel against on the card.
+bias + relu, as the TPU kernel rounds. The backward from the saved h1/h2:
+
+    m3 = g * (out > 0)                       in g's dtype
+    m2 = bf16(m3 @ w3^T) * (h2 > 0)          dw3 = h2^T m3
+    m1 = bf16(conv3x3^T(m2)) * (h1 > 0)      dw2[ky, kx] = shift(h1)^T m2
+    dx = bf16(m1 @ w1^T + m3)                dw1 = x^T m1     (dw in f32)
+
+Each function has three parts: the plain PyTorch version (`*_plain`), which
+the CPU tests hold against argus_tpu and `chip_smoke.py` holds the kernel
+against on the card; the wrapper, which launches the CUDA kernel on a CUDA
+tensor (`csrc/block_fused.cu`, `csrc/block_fused_bwd.cu`) and runs the plain
+version on a CPU tensor; and `block_saved`, the `torch.autograd.Function`
+that ties the saving forward to the backward.
 
 Also home of the helpers the other block kernels share: the plain conv
-pieces and the wrapper argument checks.
+pieces, the wrapper argument checks and the weight-gradient workspace size.
 """
 
 from __future__ import annotations
@@ -22,9 +32,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from argus_tpu_torch.ops.kernels._build import I, P, Kernel
+from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
 
 KERNEL = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
+# the training forward is the same launcher with the buffers kept; its own
+# handle counts its launches apart
+KERNEL_SAVE = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
+KERNEL_BWD = Kernel("block_fused_bwd", "argus_block_bwd", [P] * 15 + [L] + [I] * 5 + [P])
 
 
 # ───────────────────────────── plain pieces ─────────────────────────────
@@ -45,9 +59,58 @@ def bias_relu(acc: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
     return torch.relu(acc + b.float().reshape(-1)).to(dtype)
 
 
+def conv3x3_grads_f32(h1: torch.Tensor, m2: torch.Tensor, w: torch.Tensor, stride: int):
+    """The 3x3/pad-1 conv's gradients in f32 for the output gradient m2 (NHWC):
+    (dh1 (N, H, W, F), dw (3, 3, F, F) HWIO). dh1[y, x] sums m2[(y+1-ky)/s,
+    (x+1-kx)/s] @ w[ky, kx]^T over the taps that land exactly."""
+    h = h1.float().permute(0, 3, 1, 2)
+    g = m2.float().permute(0, 3, 1, 2)
+    wt = w.float().permute(3, 2, 0, 1)
+    dh = torch.nn.grad.conv2d_input(h.shape, wt, g, stride=stride, padding=1)
+    dw = torch.nn.grad.conv2d_weight(h, wt.shape, g, stride=stride, padding=1)
+    return dh.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)
+
+
+def wgrad_f32(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a^T m over every pixel, in f32: (..., C), (..., COUT) -> (C, COUT)."""
+    return a.reshape(-1, a.shape[-1]).float().t() @ m.reshape(-1, m.shape[-1]).float()
+
+
+def relu_mask(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """v * (ref > 0) in v's dtype: the backward's relu masks."""
+    return v * (ref > 0)
+
+
+# ───────────────────── weight-gradient workspace (csrc/wgrad.cuh) ─────────────────────
+
+_WG_TILE, _WG_TARGET_BLOCKS, _WG_MIN_ROWS = 64, 4 * 132, 2048
+
+
+def wgrad_workspace(*problems) -> int:
+    """f32 elements of partials the weight-gradient launches of one backward
+    need, for problems (rows, C, COUT, taps): the split rule of
+    `wgrad_splits` in csrc/wgrad.cuh (the launcher takes fewer splits when
+    the workspace is short, so the two cannot overrun each other)."""
+    need = 0
+    for rows, c, cout, taps in problems:
+        tiles = taps * -(-c // _WG_TILE) * -(-cout // _WG_TILE)
+        splits = max(1, min(-(-_WG_TARGET_BLOCKS // tiles), -(-rows // _WG_MIN_ROWS)))
+        if splits > 1:
+            need = max(need, splits * taps * c * cout)
+    return need
+
+
+def identity_wgrad_problems(n, h, w, cin, f):
+    rows = n * h * w
+    return [(rows, f, cin, 1), (rows, f, f, 9), (rows, cin, f, 1)]
+
+
 def fold_affine(k: torch.Tensor, s, b, m, v, eps: float, dtype):
     """Frozen BN after a conv folded into it: (k * c) in `dtype`, b - m*c in f32
-    as a (1, COUT) row, with c = s * rsqrt(v + eps) (argus_tpu's f32 fold)."""
+    as a (1, COUT) row, with c = s * rsqrt(v + eps) (argus_tpu's f32 fold).
+    The BN buffers are frozen: a gradient reaches k (dk = dw * c), never
+    s, b, m or v."""
+    s, b, m, v = (t.detach() for t in (s, b, m, v))
     c = s.float() * torch.rsqrt(v.float() + eps)
     w = (k.float() * c).to(dtype).contiguous()
     return w, (b.float() - m.float() * c).reshape(1, -1).contiguous()
@@ -108,11 +171,30 @@ def bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3):
     return torch.relu(matmul_f32(h2, w3) + b3.float().reshape(-1) + x.float()).to(dt)
 
 
-def bottleneck_block(x, w1, b1, w2, b2, w3, b3):
-    """Identity bottleneck forward: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if not check_device(x):
-        return bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3)
+def bottleneck_block_save_plain(x, w1, b1, w2, b2, w3, b3):
+    """The saving forward in plain PyTorch: (out, h1, h2)."""
+    dt = x.dtype
+    h1 = bias_relu(matmul_f32(x, w1), b1, dt)
+    h2 = bias_relu(conv3x3_f32(h1, w2, 1), b2, dt)
+    out = torch.relu(matmul_f32(h2, w3) + b3.float().reshape(-1) + x.float()).to(dt)
+    return out, h1, h2
+
+
+def block_bwd_plain(x, g, out, h1, h2, w1, w2, w3, need_dx=True):
+    """The one-pass backward in plain PyTorch, with the TPU kernel's rounding
+    points: (dx in x's dtype or None, dw1, dw2, dw3 in f32)."""
+    dt = x.dtype
+    m3 = relu_mask(g, out)
+    m2 = relu_mask((m3.float() @ w3.float().t()).to(dt), h2)
+    dw3 = wgrad_f32(h2, m3)
+    dh1, dw2 = conv3x3_grads_f32(h1, m2, w2, 1)
+    m1 = relu_mask(dh1.to(dt), h1)
+    dw1 = wgrad_f32(x, m1)
+    dx = (m1.float() @ w1.float().t() + m3.float()).to(dt) if need_dx else None
+    return dx, dw1, dw2, dw3
+
+
+def _check_block(x, w1, w2, w3, biases=None):
     n, h, w, cin = x.shape
     f = w1.shape[1]
     check_channels(CIN=cin, F=f)
@@ -120,21 +202,130 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3):
     check_cuda("x", x, bf)
     for name, t, shape in (("w1", w1, (cin, f)), ("w2", w2, (3, 3, f, f)), ("w3", w3, (f, cin))):
         check_cuda(name, t, bf, shape)
-    for name, t, c in (("b1", b1, f), ("b2", b2, f), ("b3", b3, cin)):
+    for name, t, c in zip(("b1", "b2", "b3"), biases or (), (f, f, cin)):
         check_cuda(name, t, torch.float32, (1, c))
-    h1 = torch.empty((n, h, w, f), dtype=bf, device=x.device)
+    return n, h, w, cin, f
+
+
+def _forward(kernel, x, w1, b1, w2, b2, w3, b3):
+    n, h, w, cin, f = _check_block(x, w1, w2, w3, (b1, b2, b3))
+    h1 = torch.empty((n, h, w, f), dtype=torch.bfloat16, device=x.device)
     h2 = torch.empty_like(h1)
     out = torch.empty_like(x)
-    KERNEL.launch(x, h1, h2, out, w1, b1, w2, b2, w3, b3, n, h, w, cin, f)
-    return out
+    kernel.launch(x, h1, h2, out, w1, b1, w2, b2, w3, b3, n, h, w, cin, f)
+    return out, h1, h2
+
+
+def bottleneck_block(x, w1, b1, w2, b2, w3, b3):
+    """Identity bottleneck forward: the CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if not check_device(x):
+        return bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3)
+    return _forward(KERNEL, x, w1, b1, w2, b2, w3, b3)[0]
+
+
+def bottleneck_block_save(x, w1, b1, w2, b2, w3, b3):
+    """The training forward, (out, h1, h2): the CUDA kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if not check_device(x):
+        return bottleneck_block_save_plain(x, w1, b1, w2, b2, w3, b3)
+    return _forward(KERNEL_SAVE, x, w1, b1, w2, b2, w3, b3)
+
+
+def dgrad_w2(w2: torch.Tensor, stride: int) -> torch.Tensor:
+    """The 3x3's data-gradient taps (9, F, F) as csrc/conv_bwd.cuh takes them.
+    Stride 1: the forward conv's flipped, transposed kernel, w2[2-ky, 2-kx]^T.
+    Stride 2: per output parity class (0,0), (0,1), (1,0), (1,1) the taps
+    that land on it, an even coordinate tap 1, an odd one taps 2 then 0
+    (source offsets 0 and +1): 1 + 2 + 2 + 4 taps, each w2[ky, kx]^T."""
+    f = w2.shape[-1]
+    if stride == 1:
+        return w2.flip(0, 1).transpose(2, 3).reshape(9, f, f).contiguous()
+    taps = ([1], [2, 0])
+    parts = [w2[taps[py]][:, taps[px]].transpose(2, 3).reshape(-1, f, f)
+             for py in (0, 1) for px in (0, 1)]
+    return torch.cat(parts).contiguous()
+
+
+def transposed_weights(w1, w2, w3):
+    """The data gradients' operands: w1^T, the 3x3's stride-1 taps, w3^T."""
+    return w1.t().contiguous(), dgrad_w2(w2, 1), w3.t().contiguous()
+
+
+def block_bwd(x, g, out, h1, h2, w1, w2, w3, need_dx=True):
+    """The one-pass backward from the saved h1/h2: (dx or None, dw1, dw2, dw3
+    in f32). The CUDA kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if not check_device(x):
+        return block_bwd_plain(x, g, out, h1, h2, w1, w2, w3, need_dx)
+    n, h, w, cin, f = _check_block(x, w1, w2, w3)
+    bf = torch.bfloat16
+    for name, t, c in (("g", g, cin), ("out", out, cin), ("h1", h1, f), ("h2", h2, f)):
+        check_cuda(name, t, bf, (n, h, w, c))
+    dev = x.device
+    m1 = torch.empty_like(h1)
+    m2 = torch.empty_like(h2)
+    dx = torch.empty_like(x) if need_dx else None
+    dw1 = torch.empty((cin, f), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((3, 3, f, f), dtype=torch.float32, device=dev)
+    dw3 = torch.empty((f, cin), dtype=torch.float32, device=dev)
+    ws_elems = wgrad_workspace(*identity_wgrad_problems(n, h, w, cin, f))
+    ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=dev)
+    KERNEL_BWD.launch(
+        x, g, out, h1, h2, *transposed_weights(w1, w2, w3), dx, m1, m2, dw1, dw2, dw3,
+        ws, ws_elems, n, h, w, cin, f,
+    )
+    return dx, dw1, dw2, dw3
+
+
+def zero_grad_of(needed: bool, t: torch.Tensor):
+    """A frozen input's cotangent: zeros where autograd asks for one."""
+    return torch.zeros_like(t) if needed else None
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd records through these inputs: the saving forward
+    then runs; otherwise the no-save forward (argus_tpu's primal)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _BlockSaved(torch.autograd.Function):
+    """argus_tpu's `_block_saved` custom VJP: the saving forward, then the
+    one-pass backward; the bias cotangents are zero (frozen BN) and each dw
+    is cast to its weight's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3):
+        out, h1, h2 = bottleneck_block_save(x, w1, b1, w2, b2, w3, b3)
+        ctx.save_for_backward(x, out, h1, h2, w1, w2, w3)
+        ctx.biases = (b1, b2, b3)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, h1, h2, w1, w2, w3 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dw1, dw2, dw3 = block_bwd(x, g.contiguous(), out, h1, h2, w1, w2, w3, need[0])
+        db1, db2, db3 = (zero_grad_of(need[i], b) for i, b in zip((2, 4, 6), ctx.biases))
+        return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dw3.to(w3.dtype), db3
+
+
+def block_saved(x, w1, b1, w2, b2, w3, b3):
+    """The identity block as autograd sees it: the no-save forward when no
+    input needs a gradient, else the saving forward with the kernel
+    backward."""
+    if needs_grad(x, w1, b1, w2, b2, w3, b3):
+        return _BlockSaved.apply(x, w1, b1, w2, b2, w3, b3)
+    return bottleneck_block(x, w1, b1, w2, b2, w3, b3)
 
 
 def fused_bottleneck_block(
     x, k1, s1, bi1, m1, v1, k2, s2, bi2, m2, v2, k3, s3, bi3, m3, v3, *, eps: float = 1e-5
 ):
     """argus_tpu's `fused_bottleneck_block` signature: HWIO kernels and raw
-    frozen-BN buffers, folded here in f32, then the block forward."""
+    frozen-BN buffers, folded here in f32 (gradients flow to x and the three
+    kernels; the BN buffers get none), then the block."""
     folded = fold_bottleneck_params(
         x.dtype, k1, s1, bi1, m1, v1, k2, s2, bi2, m2, v2, k3, s3, bi3, m3, v3, eps=eps
     )
-    return bottleneck_block(x, *folded)
+    return block_saved(x, *folded)

@@ -1,15 +1,19 @@
-"""Whole-stage forward chain on folded frozen-BN weights (NHWC): an optional
-projection block, then identity blocks.
+"""Whole-stage chain on folded frozen-BN weights (NHWC): an optional
+projection block, then identity blocks; forward, saving forward and
+backward.
 
-Port of `argus_tpu/ops/pallas/stage_fused.py` `fused_stage` (no-save
-forward; the TPU runs stage 0 through `_chain_fwd_packed`). The chain is
-the composition of the projection and identity block forwards, with the same
-rounding points; the TPU's chain cap and pair-packed layout are Mosaic
-constraints and are not ported.
+Port of `argus_tpu/ops/pallas/stage_fused.py` `fused_stage` through
+`_stage_chain` (the TPU runs the no-save stage-0 forward through
+`_chain_fwd_packed`, the training forward through `_chain_fwd_pallas(save=
+True)` and the backward through `_chain_bwd_pallas`). The chain is the
+composition of the projection and identity blocks, with the same rounding
+points: the backward walks the blocks in reverse, each block's dx rounded to
+the activation dtype as the next block's cotangent. The TPU's chain cap and
+pair-packed layout are Mosaic constraints and are not ported.
 
-On a CUDA tensor `fused_stage` launches `csrc/stage_fused.cu`, which runs the
-whole chain from one C call; on a CPU tensor it runs the plain version
-`stage_plain`.
+On a CUDA tensor the wrappers launch `csrc/stage_fused.cu` (forwards) and
+`csrc/stage_fused_bwd.cu`, each running the whole chain from one C call; on
+a CPU tensor they run the plain versions.
 """
 
 from __future__ import annotations
@@ -19,16 +23,30 @@ from typing import Optional, Sequence
 
 import torch
 
-from argus_tpu_torch.ops.kernels._build import I, P, Kernel
+from argus_tpu_torch.ops.kernels import block_fused, proj_fused
+from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
 from argus_tpu_torch.ops.kernels.block_fused import (
+    block_bwd_plain,
     bottleneck_block_plain,
+    bottleneck_block_save_plain,
     check_channels,
     check_cuda,
     check_device,
+    identity_wgrad_problems,
+    needs_grad,
+    wgrad_workspace,
+    zero_grad_of,
 )
-from argus_tpu_torch.ops.kernels.proj_fused import projection_block_plain
+from argus_tpu_torch.ops.kernels.proj_fused import (
+    proj_bwd_plain,
+    projection_block_plain,
+    projection_block_save_plain,
+    projection_wgrad_problems,
+)
 
 KERNEL = Kernel("stage_fused", "argus_stage_fwd", [P] * 8 + [I] * 8 + [P])
+KERNEL_SAVE = Kernel("stage_fused", "argus_stage_fwd_save", [P] * 7 + [I] * 8 + [P])
+KERNEL_BWD = Kernel("stage_fused_bwd", "argus_stage_bwd", [P] * 16 + [L] + [I] * 8 + [P])
 
 
 def stage_plain(x, proj_folded, id_folded, stride):
@@ -41,25 +59,47 @@ def stage_plain(x, proj_folded, id_folded, stride):
     return cur
 
 
+def stage_save_plain(x, proj_folded, id_folded, stride):
+    """The saving chain in plain PyTorch: (out, bnds, h1s, h2s) with bnds
+    every block's output but the last's."""
+    cur, outs, h1s, h2s = x, [], [], []
+    if proj_folded is not None:
+        cur, h1, h2 = projection_block_save_plain(cur, *proj_folded, stride)
+        outs.append(cur), h1s.append(h1), h2s.append(h2)
+    for idw in id_folded:
+        cur, h1, h2 = bottleneck_block_save_plain(cur, *idw)
+        outs.append(cur), h1s.append(h1), h2s.append(h2)
+    return cur, outs[:-1], h1s, h2s
+
+
+def stage_bwd_plain(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx=True):
+    """The chain backward in plain PyTorch: the block backwards in reverse.
+    proj_w is (w1, w2, w3, wsc) or None, id_w [(w1, w2, w3), ...]. Returns
+    (dx or None, proj dws (dw1, dw2, dw3, dwsc) or None, [(dw1, dw2, dw3)])."""
+    has_proj = proj_w is not None
+    outs = list(bnds) + [out]
+    id_dws = [None] * len(id_w)
+    for j in reversed(range(len(id_w))):
+        b = j + has_proj
+        x_b = x if b == 0 else outs[b - 1]
+        need = need_dx or b > 0
+        g, *dws = block_bwd_plain(x_b, g, outs[b], h1s[b], h2s[b], *id_w[j], need_dx=need)
+        id_dws[j] = tuple(dws)
+    proj_dws = None
+    if has_proj:
+        g, *dws = proj_bwd_plain(x, g, outs[0], h1s[0], h2s[0], *proj_w, stride, need_dx)
+        proj_dws = tuple(dws)
+    return g, proj_dws, id_dws
+
+
 def _check_weights(ws, shapes) -> None:
     for i, (t, shape) in enumerate(zip(ws, shapes)):
         dtype = torch.bfloat16 if i % 2 == 0 else torch.float32
         check_cuda(f"weight {i}", t, dtype, shape)
 
 
-def fused_stage(
-    x: torch.Tensor,
-    proj_folded: Optional[Sequence[torch.Tensor]],
-    id_folded: Sequence[Sequence[torch.Tensor]],
-    stride: int = 2,
-) -> torch.Tensor:
-    """Run a stage: `proj_folded` (w1, b1, w2, b2, w3, b3, wsc, bsc) or None,
-    then each identity block of `id_folded` (w1, b1, w2, b2, w3, b3)."""
-    ids = [tuple(w) for w in id_folded]
-    if proj_folded is None and not ids:
-        raise ValueError("a stage needs at least one block")
-    if not check_device(x):
-        return stage_plain(x, proj_folded, ids, stride)
+def _geometry(x, proj_folded, ids, stride):
+    """(n, h, w, cin, f, cout, s) of a chain, its weights checked."""
     n, h, w, cin = x.shape
     s = stride if proj_folded is not None else 1
     if s not in (1, 2) or h % s or w % s:
@@ -75,7 +115,30 @@ def fused_stage(
         )
     for idw in ids:
         _check_weights(idw, [(cout, f), (1, f), (3, 3, f, f), (1, f), (f, cout), (1, cout)])
+    return n, h, w, cin, f, cout, s
 
+
+def _ptrs(ts):
+    """A host array of device pointers (None for a missing one); the caller
+    keeps it alive until the launcher returns."""
+    ptrs = [0 if t is None else t.data_ptr() for t in ts]
+    return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+
+
+def fused_stage(
+    x: torch.Tensor,
+    proj_folded: Optional[Sequence[torch.Tensor]],
+    id_folded: Sequence[Sequence[torch.Tensor]],
+    stride: int = 2,
+) -> torch.Tensor:
+    """Run a stage: `proj_folded` (w1, b1, w2, b2, w3, b3, wsc, bsc) or None,
+    then each identity block of `id_folded` (w1, b1, w2, b2, w3, b3)."""
+    ids = [tuple(w) for w in id_folded]
+    if proj_folded is None and not ids:
+        raise ValueError("a stage needs at least one block")
+    if not check_device(x):
+        return stage_plain(x, proj_folded, ids, stride)
+    n, h, w, cin, f, cout, s = _geometry(x, proj_folded, ids, stride)
     ho, wo = h // s, w // s
     bf, dev = torch.bfloat16, x.device
     h1 = torch.empty((n, h, w, f), dtype=bf, device=dev)
@@ -97,3 +160,140 @@ def fused_stage(
         ctypes.addressof(id_arr), len(ids), n, h, w, cin, f, cout, s,
     )
     return out
+
+
+def fused_stage_save(x, proj_folded, id_folded, stride=2):
+    """The training chain: (out, bnds, h1s, h2s), every block's output (the
+    last is `out`), h1 and h2 kept for the backward. The CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    ids = [tuple(w) for w in id_folded]
+    if proj_folded is None and not ids:
+        raise ValueError("a stage needs at least one block")
+    if not check_device(x):
+        return stage_save_plain(x, proj_folded, ids, stride)
+    n, h, w, cin, f, cout, s = _geometry(x, proj_folded, ids, stride)
+    ho, wo = h // s, w // s
+    bf, dev = torch.bfloat16, x.device
+    has_proj = proj_folded is not None
+    nblocks = has_proj + len(ids)
+    bnds = [torch.empty((n, ho, wo, cout), dtype=bf, device=dev) for _ in range(nblocks - 1)]
+    out = torch.empty((n, ho, wo, cout), dtype=bf, device=dev)
+    h1s = [torch.empty((n, h, w, f) if has_proj and b == 0 else (n, ho, wo, f), dtype=bf, device=dev)
+           for b in range(nblocks)]
+    h2s = [torch.empty((n, ho, wo, f), dtype=bf, device=dev) for _ in range(nblocks)]
+    arrs = [_ptrs(bnds), _ptrs(h1s), _ptrs(h2s), _ptrs(proj_folded) if has_proj else None,
+            _ptrs([t for idw in ids for t in idw])]
+    KERNEL_SAVE.launch(
+        x, out, *[None if a is None else ctypes.addressof(a) for a in arrs],
+        len(ids), n, h, w, cin, f, cout, s,
+    )
+    return out, bnds, h1s, h2s
+
+
+def stage_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride=2, need_dx=True):
+    """The chain backward from the saved residuals: (dx or None, proj dws
+    (dw1, dw2, dw3, dwsc) or None, [(dw1, dw2, dw3), ...]), dw in f32.
+    proj_w is (w1, w2, w3, wsc) or None, id_w [(w1, w2, w3), ...]. The CUDA
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    id_w = [tuple(w) for w in id_w]
+    if not check_device(x):
+        return stage_bwd_plain(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx)
+    has_proj = proj_w is not None
+    n, h, w, cin = x.shape
+    s = stride if has_proj else 1
+    f = (proj_w[0] if has_proj else id_w[0][0]).shape[1]
+    cout = proj_w[2].shape[1] if has_proj else cin
+    ho, wo = h // s, w // s
+    check_channels(CIN=cin, F=f, COUT=cout)
+    bf, dev = torch.bfloat16, x.device
+    check_cuda("x", x, bf)
+    for name, t in [("g", g), ("out", out)] + [(f"bnd {b}", t) for b, t in enumerate(bnds)]:
+        check_cuda(name, t, bf, (n, ho, wo, cout))
+    for b, (t1, t2) in enumerate(zip(h1s, h2s)):
+        check_cuda(f"h1 {b}", t1, bf, (n, h, w, f) if has_proj and b == 0 else (n, ho, wo, f))
+        check_cuda(f"h2 {b}", t2, bf, (n, ho, wo, f))
+    if has_proj:
+        for name, t, shape in zip(("w1", "w2", "w3", "wsc"), proj_w,
+                                  ((cin, f), (3, 3, f, f), (f, cout), (cin, cout))):
+            check_cuda(f"projection {name}", t, bf, shape)
+    for j, ws_ in enumerate(id_w):
+        for name, t, shape in zip(("w1", "w2", "w3"), ws_, ((cout, f), (3, 3, f, f), (f, cout))):
+            check_cuda(f"identity {j} {name}", t, bf, shape)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    problems = identity_wgrad_problems(n, ho, wo, cout, f)
+    proj_dws, proj_t = None, []
+    if has_proj:
+        proj_dws = (torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32),
+                    torch.empty((f, cout), **f32), torch.empty((cin, cout), **f32))
+        proj_t = proj_fused.transposed_weights(*proj_w, s)
+        problems += projection_wgrad_problems(n, h, w, cin, f, cout, s)
+    id_dws = [(torch.empty((cout, f), **f32), torch.empty((3, 3, f, f), **f32),
+               torch.empty((f, cout), **f32)) for _ in id_w]
+    id_t = [t for ws_ in id_w for t in block_fused.transposed_weights(*ws_)]
+    ws_elems = wgrad_workspace(*problems)
+    ws = torch.empty(max(ws_elems, 1), **f32)
+    m1 = torch.empty((n, h, w, f), dtype=bf, device=dev)
+    m2 = torch.empty((n, ho, wo, f), dtype=bf, device=dev)
+    n_tmp = min(len(id_w), 2) if has_proj else min(len(id_w) - 1, 2)
+    gtmp = [torch.empty_like(out) for _ in range(n_tmp)]
+    gtmp += [m2] * (2 - len(gtmp))  # unused slots: any valid pointer
+    dx = torch.empty_like(x) if need_dx else None
+    arrs = [_ptrs(bnds), _ptrs(h1s), _ptrs(h2s), _ptrs(proj_t) if has_proj else None, _ptrs(id_t),
+            _ptrs(proj_dws) if has_proj else None, _ptrs([t for d in id_dws for t in d])]
+    KERNEL_BWD.launch(
+        x, g, out, *[None if a is None else ctypes.addressof(a) for a in arrs],
+        dx, m1, m2, gtmp[0], gtmp[1], ws, ws_elems, len(id_w), n, h, w, cin, f, cout, s,
+    )
+    return dx, proj_dws, id_dws
+
+
+class _StageChain(torch.autograd.Function):
+    """argus_tpu's `_stage_chain` custom VJP: the saving chain forward, then
+    the chain backward; per-block weight gradients in the weights' dtype,
+    zero bias cotangents. Inputs: x, stride, has_proj, then the flat folded
+    weights (the projection's 8, then 6 per identity block)."""
+
+    @staticmethod
+    def forward(ctx, x, stride, has_proj, *flat):
+        proj = tuple(flat[:8]) if has_proj else None
+        rest = flat[8:] if has_proj else flat
+        ids = [tuple(rest[i:i + 6]) for i in range(0, len(rest), 6)]
+        out, bnds, h1s, h2s = fused_stage_save(x, proj, ids, stride)
+        ctx.nb, ctx.stride, ctx.has_proj = len(bnds), stride, has_proj
+        ctx.biases = flat[1::2]
+        # weights the backward reads: every block's w1, w2, w3 (and wsc)
+        ctx.save_for_backward(x, out, *bnds, *h1s, *h2s, *flat[0::2])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x, out = saved[:2]
+        nb, nblk = ctx.nb, ctx.nb + 1
+        bnds = saved[2:2 + nb]
+        h1s = saved[2 + nb:2 + nb + nblk]
+        h2s = saved[2 + nb + nblk:2 + nb + 2 * nblk]
+        ws = list(saved[2 + nb + 2 * nblk:])
+        proj_w = tuple(ws[:4]) if ctx.has_proj else None
+        rest = ws[4:] if ctx.has_proj else ws
+        id_w = [tuple(rest[i:i + 3]) for i in range(0, len(rest), 3)]
+        need = ctx.needs_input_grad
+        dx, proj_dws, id_dws = stage_bwd(
+            x, g.contiguous(), out, bnds, h1s, h2s, proj_w, id_w, ctx.stride, need[0]
+        )
+        dws = list(proj_dws or ()) + [d for ds in id_dws for d in ds]
+        grads = []  # weights at even slots, biases at odd
+        for j, (dw, w, b) in enumerate(zip(dws, ws, ctx.biases)):
+            grads += [dw.to(w.dtype), zero_grad_of(need[4 + 2 * j], b)]
+        return (dx, None, None, *grads)
+
+
+def stage_chain(x, proj_folded, id_folded, stride=2):
+    """The chain as autograd sees it: the no-save forward when no input needs
+    a gradient, else the saving chain with the kernel backward."""
+    ids = [tuple(w) for w in id_folded]
+    flat = list(proj_folded or ()) + [t for idw in ids for t in idw]
+    if needs_grad(x, *flat):
+        return _StageChain.apply(x, stride, proj_folded is not None, *flat)
+    return fused_stage(x, proj_folded, ids, stride)

@@ -8,7 +8,7 @@ pool equals torch's -inf padding because relu output is >= 0.
 
 On a CUDA tensor `stem_pool` launches `csrc/stem_fused.cu` (conv, bias,
 relu and pool in one launch); on a CPU tensor it runs the plain version
-`stem_pool_plain`.
+`stem_pool_plain`. The training step runs it frozen (forward only).
 """
 
 from __future__ import annotations
@@ -17,7 +17,12 @@ import torch
 import torch.nn.functional as F
 
 from argus_tpu_torch.ops.kernels._build import I, P, Kernel
-from argus_tpu_torch.ops.kernels.block_fused import check_cuda, check_device, fold_affine
+from argus_tpu_torch.ops.kernels.block_fused import (
+    check_cuda,
+    check_device,
+    fold_affine,
+    needs_grad,
+)
 
 KERNEL = Kernel("stem_fused", "argus_stem_fwd", [P] * 4 + [I] * 3 + [P])
 
@@ -38,9 +43,15 @@ def stem_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
 
 def stem_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(N, H, W, 3) image -> (N, H/4, W/4, 64): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor, the plain version on a CPU tensor. The kernel has no backward
+    yet: on the card it raises where autograd would need one."""
     if not check_device(x):
         return stem_pool_plain(x, w, b)
+    if needs_grad(x, w, b):
+        raise NotImplementedError(
+            "the fused stem's backward kernel is not ported yet (ROADMAP B6): "
+            "freeze the stem (stem_frozen) or run it without gradients"
+        )
     n, h, wd, c = x.shape
     if c != 3 or h % 4 or wd % 4:
         raise ValueError(f"stem kernel takes (N, H, W, 3) with H, W % 4 == 0, got {tuple(x.shape)}")

@@ -1,0 +1,319 @@
+"""Training step of the port: one clipped-Adam step of the NCameraCNN pose
+regressor on a batch of uint8 frames, in PyTorch on the card.
+
+Port of `argus_tpu/train.py` (`TrainConfig`, `geometric_loss_fn`,
+`make_optimizer`, `TrainState`, `create_train_state`, `make_train_step`,
+`checkpoint_meta`) for the frozen-BN fine-tune step that argus_tpu's flagship
+configuration runs: bf16 (`amp`), BN with running statistics and a frozen
+affine, any frozen stem and stages, full backprop through the rest, the fused
+kernels of `ops.kernels` (with their backward kernels) on the card. The step
+is
+
+    images = u8_to_f32(batch["images"], bf16 if amp else f32)
+    loss   = sum(geometric_loss_fn(model(images), poses) * mask) / max(sum(mask), 1)
+    grads  = d loss / d params                (zero for frozen parameters)
+    params += -lr * adam(clip_by_global_norm(grads, max_grad_norm))
+
+with optax's formulas for the clip and for Adam (b1 0.9, b2 0.999, eps 1e-8
+outside the square root, both moments bias-corrected), the learning rate
+applied outside the optimizer so a schedule can change it.
+
+Configurations not ported yet raise `NotImplementedError` naming their
+ROADMAP item: the augmentation stack (`use_augmentation`, A4 and kernel B1),
+gradient accumulation (A5), a device mesh or several cards (A7), the keypoint
+family (A8), and exact or trainable-affine BN (A3). The entry points run on
+CUDA unless the caller passes `device="cpu"`, and raise without a card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+from argus_tpu_torch import resolve_device
+from argus_tpu_torch.geom import se3_exp, se3_inverse, se3_log, se3_multiply
+from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
+from argus_tpu_torch.models.resnet import BasicBlock, BottleneckBlock
+from argus_tpu_torch.ops.image import u8_to_f32
+
+ROOT = str(Path(__file__).resolve().parents[1])
+
+
+# ───────────────────────────── config ─────────────────────────────
+
+
+@dataclass
+class TrainConfig:
+    """argus_tpu's `TrainConfig`: the same field names and defaults, so a
+    configuration moves between the packages unchanged, except that the two
+    sub-configurations of modules not ported yet (`keypoint_config`,
+    `augmentation_config`) default to None, and construction creates no
+    directory (argus_tpu makes `save_dir` at once). See argus_tpu's docstring
+    for what each field means; the step here reads `model_config`,
+    `model_type`, `amp`, `max_grad_norm`, `learning_rate`,
+    `use_augmentation`, `grad_accum_steps` and the multi-card fields."""
+
+    dataset_config: Optional[Any] = None
+    model_config: NCameraCNNConfig = field(default_factory=NCameraCNNConfig)
+    model_type: str = "pose_cnn"
+    keypoint_config: Optional[Any] = None
+    compile_model: bool = True
+
+    batch_size: int = 32
+    learning_rate: float = 1e-4
+    n_epochs: int = 100
+    max_grad_norm: float = 1.0
+    random_seed: int = 42
+
+    multigpu: bool = False
+    num_chips: Optional[int] = None
+    num_model_shards: int = 1
+    amp: bool = False
+    num_workers: int = field(default_factory=lambda: min(16, max(1, os.cpu_count() or 1)))
+    grad_accum_steps: int = 1
+    device_resident_mb: float = 2048.0
+
+    val_epochs: int = 1
+    print_epochs: int = 1
+    save_epochs: int = 5
+    save_dir: str = os.path.join(ROOT, "outputs", "models")
+    async_checkpoint: bool = True
+
+    augmentation_config: Optional[Any] = None
+    use_augmentation: bool = True
+    val_spaghetti: bool = True
+
+    wandb_project: str = "argus-estimator"
+    wandb_log: bool = True
+    resume_from: Optional[str] = None
+
+
+def check_config(cfg: TrainConfig, mesh=None) -> None:
+    """Raise `NotImplementedError`, naming the ROADMAP item, for what the
+    port's training step does not run yet."""
+    if getattr(cfg, "model_type", "pose_cnn") == "keypoint":
+        raise NotImplementedError("the keypoint model family is not ported yet (ROADMAP A8)")
+    if cfg.use_augmentation:
+        raise NotImplementedError(
+            "the augmentation stack and its fused kernel are not ported yet (ROADMAP A4, B1): "
+            "set use_augmentation=False"
+        )
+    if cfg.grad_accum_steps > 1:
+        raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP A5)")
+    if mesh is not None or cfg.multigpu or (cfg.num_chips or 1) > 1 or cfg.num_model_shards > 1:
+        raise NotImplementedError("data or tensor parallelism over several cards is not ported yet (ROADMAP A7)")
+    m = cfg.model_config
+    if not (m.bn_frozen and m.bn_frozen_affine):
+        raise NotImplementedError(
+            "training with exact (batch-statistics) BatchNorm or a trainable BN affine is not "
+            "ported yet (ROADMAP A3): set bn_frozen and bn_frozen_affine"
+        )
+
+
+# ───────────────────────────── loss ─────────────────────────────
+
+
+def geometric_loss_fn(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Geodesic SE(3) loss || Log(Exp(pred) . target^-1) ||^2 per sample, in
+    f32: pred (..., 6) se(3) vectors, target (..., 7) poses (xyzw)."""
+    err = se3_log(se3_multiply(se3_exp(pred.float()), se3_inverse(target.float())))
+    return (err**2).sum(-1)
+
+
+# ───────────────────────────── optimizer ─────────────────────────────
+
+
+@dataclass
+class AdamState:
+    """optax `ScaleByAdamState`: the step count and both moments, keyed by
+    parameter name (`models.jax_import` converts it to and from optax's)."""
+
+    count: torch.Tensor  # int32 scalar
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+class Optimizer:
+    """`optax.chain(clip_by_global_norm(max_grad_norm), scale_by_adam())`:
+
+        g    = g if |g| < max_grad_norm else g / (|g| / max_grad_norm)
+        mu   = (1 - b1) g + b1 mu;   nu = (1 - b2) g^2 + b2 nu;   count += 1
+        step = (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) + eps)
+
+    with |g| the global norm over every leaf. Not `clip_grad_norm_`, which
+    adds 1e-6 to the norm. The learning rate is applied by the caller."""
+
+    def __init__(self, max_grad_norm: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.max_grad_norm = max_grad_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
+        zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}  # noqa: E731
+        dev = next(iter(params.values())).device
+        return AdamState(torch.zeros((), dtype=torch.int32, device=dev), zeros(), zeros())
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: AdamState) -> Dict[str, torch.Tensor]:
+        """The Adam step of each leaf for `grads`; advances `state` in place
+        (count and moments)."""
+        names = list(state.mu)
+        g = [grads[k].float() for k in names]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        div = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), norm / self.max_grad_norm)
+        g = torch._foreach_div(g, div)
+        mu = [state.mu[k] for k in names]
+        nu = [state.nu[k] for k in names]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        state.count += 1
+        count = state.count.float()
+        one = torch.ones((), device=count.device)
+        bc1 = one - torch.pow(torch.full_like(one, self.b1), count)
+        bc2 = one - torch.pow(torch.full_like(one, self.b2), count)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        return dict(zip(names, torch._foreach_div(torch._foreach_div(mu, bc1), den)))
+
+
+def make_optimizer(max_grad_norm: float) -> Optimizer:
+    """clip-then-Adam, the reference's order (unscale -> clip -> step)."""
+    return Optimizer(max_grad_norm)
+
+
+# ───────────────────────────── train state ─────────────────────────────
+
+
+@dataclass
+class TrainState:
+    """argus_tpu's `TrainState`. `params` and `batch_stats` are the model's
+    own parameters and BN buffers (by state_dict name), so a step updates
+    the model in place."""
+
+    step: torch.Tensor  # int32 scalar
+    params: Dict[str, torch.nn.Parameter]
+    batch_stats: Dict[str, torch.Tensor]
+    opt_state: AdamState
+    lr: torch.Tensor  # f32 scalar, the current learning rate
+
+
+def _resolved_model_config(cfg: TrainConfig):
+    """(model_type, model config with the amp dtype override applied)."""
+    model_type = getattr(cfg, "model_type", "pose_cnn")
+    if model_type == "keypoint":
+        raise NotImplementedError("the keypoint model family is not ported yet (ROADMAP A8)")
+    mcfg = cfg.model_config
+    if cfg.amp and mcfg.dtype != "bfloat16":
+        mcfg = dataclasses.replace(mcfg, dtype="bfloat16")
+    return model_type, mcfg
+
+
+def checkpoint_meta(cfg: TrainConfig, hw: Optional[tuple] = None) -> dict:
+    """Model metadata stored inside checkpoints (format 2): the family, the
+    config that trained (amp override applied) and the training crop: `hw`,
+    else the dataset config's crop, else (256, 256)."""
+    model_type, mcfg = _resolved_model_config(cfg)
+    ds = getattr(cfg, "dataset_config", None)
+    crop = list(hw or (getattr(ds, "center_crop", None) if ds is not None else None) or (256, 256))
+    return {"model_type": model_type, "model_config": dataclasses.asdict(mcfg), "center_crop": crop}
+
+
+def build_model(cfg: TrainConfig):
+    """The configured model with the amp dtype override, and its camera count."""
+    _, mcfg = _resolved_model_config(cfg)
+    return NCameraCNN(mcfg), mcfg.n_cams
+
+
+def _init_(model: NCameraCNN) -> None:
+    """flax's initialisers where they matter: the last BN scale of each
+    residual block at zero (`models/resnet.py:301`), dense layers
+    lecun-normal with zero bias."""
+    for mod in model.modules():
+        if isinstance(mod, BottleneckBlock):
+            mod.BatchNorm_2.weight.data.zero_()
+        elif isinstance(mod, BasicBlock):
+            mod.BatchNorm_1.weight.data.zero_()
+        elif isinstance(mod, torch.nn.Linear):
+            torch.nn.init.normal_(mod.weight, 0.0, mod.weight.shape[1] ** -0.5)
+            torch.nn.init.zeros_(mod.bias)
+
+
+def create_train_state(cfg: TrainConfig, seed: int = 0, sample_hw: tuple = (256, 256), device=None):
+    """Initialise the model from `seed` and the optimizer state. Returns
+    (model, state). `sample_hw` is argus_tpu's init resolution; the port's
+    modules need no sample input to initialise."""
+    del sample_hw
+    device = resolve_device(device)
+    check_config(cfg)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model, _ = build_model(cfg)
+        _init_(model)
+    model = model.to(device)
+    params = dict(model.named_parameters())
+    state = TrainState(
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        params=params,
+        batch_stats=dict(model.named_buffers()),
+        opt_state=make_optimizer(cfg.max_grad_norm).init(params),
+        lr=torch.tensor(cfg.learning_rate, dtype=torch.float32, device=device),
+    )
+    return model, state
+
+
+# ───────────────────────────── step ─────────────────────────────
+
+
+def make_train_step(model: NCameraCNN, cfg: TrainConfig, base_seed: int = 0, mesh=None, hw=None,
+                    device=None):
+    """Build the train step `step(state, batch) -> (state, loss)` for
+    `grad_accum_steps == 1`. `batch` holds "images" (B, H, W, 3 * n_cams)
+    uint8, "cube_pose" (B, 7) and "mask" (B,) (tensors or numpy arrays; the
+    step moves them to the model's device). The update is in place: the
+    model's parameters, the Adam moments and the step count change under the
+    caller's `state`, which is also returned; nothing is donated or copied.
+    `base_seed` seeds the augmentation stream of argus_tpu, which this step
+    does not run (`use_augmentation=False`)."""
+    del base_seed, hw
+    check_config(cfg, mesh)
+    device = resolve_device(device)
+    on = next(model.parameters()).device
+    if on != device and not (device.index is None and on.type == device.type):
+        raise ValueError(f"the model lives on {on}; make_train_step runs on {device}")
+    opt = make_optimizer(cfg.max_grad_norm)
+
+    def train_step(state: TrainState, batch: dict):
+        loss, grads = loss_and_grads(model, cfg, state.params, batch)
+        updates = opt.update(grads, state.opt_state)
+        names = list(state.params)
+        with torch.no_grad():
+            torch._foreach_add_([state.params[k] for k in names],
+                                torch._foreach_mul([updates[k] for k in names], -state.lr))
+            state.step += 1
+        return state, loss
+
+    return train_step
+
+
+def loss_and_grads(model: NCameraCNN, cfg: TrainConfig, params: Dict[str, torch.Tensor], batch: dict):
+    """The step's masked-mean loss on `batch` and its gradient w.r.t. each of
+    `params` (zeros where no gradient reaches, as for frozen parameters):
+    (loss, {name: grad})."""
+    on = next(iter(params.values())).device
+    feed_dtype = torch.bfloat16 if cfg.amp else torch.float32
+    images = u8_to_f32(torch.as_tensor(batch["images"]).to(on), feed_dtype)
+    poses = torch.as_tensor(batch["cube_pose"]).to(on, torch.float32)
+    mask = torch.as_tensor(batch["mask"]).to(on, torch.float32)
+    losses = geometric_loss_fn(model(images, train=True), poses)
+    loss = (losses * mask).sum() / mask.sum().clamp(min=1.0)
+    names = list(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+    grads = {k: torch.zeros_like(params[k]) if gk is None else gk for k, gk in zip(names, grads)}
+    return loss.detach(), grads

@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure (nothing is caught and ignored):
 
-1. build every CUDA kernel of the serving path from `argus_tpu_torch/csrc/`
-   (one nvcc per source, in parallel) and print the seconds and ptxas'
-   register/spill report;
+1. build every CUDA kernel of the serving and training paths from
+   `argus_tpu_torch/csrc/` (one nvcc per source, in parallel) and print the
+   seconds and ptxas' register/spill report;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -22,7 +22,30 @@ Phases, each fatal on failure (nothing is caught and ignored):
    `predict` must be 1 stem / 1 stage / 3 projection / 10 identity, and the
    poses must match `Estimator(ckpt, batch_size=8, device="cpu")` on the first
    8 rows within atol 0.05 (bf16 on both sides);
-4. the `kernels` JSON line, the card's name and power limit, and the result
+4. the training kernels at the shapes of the flagship train step (batch 256
+   rows, N = 512 camera images, 256x256): each saving forward (out, h1, h2)
+   and each one-pass backward (dx and every dw) of the stage-0 chain, the
+   three projection blocks and the three identity-block geometries against
+   its plain version, same tolerance; `library_ms` of a saving forward is the
+   cuDNN composition's forward, of a backward its autograd backward (timed
+   with retain_graph);
+5. the flagship train step through `argus_tpu_torch.train` (ResNet-50
+   NCameraCNN at full width, 2 cameras, 1024-d features, bf16, frozen BN with
+   frozen affine, frozen stem, full backprop through stages 0-3, no
+   augmentation, clip(1.0) + Adam, batch 256 of seeded uint8 frames and
+   non-identity poses, random weights with BN scales randomised): first the
+   fused loss and gradients against the same model with every fuse flag off
+   (cuDNN convs and frozen BN through autograd) on the first 8 rows, loss
+   within 1e-2 relative and each parameter's gradient within 0.1 relative
+   (2-norm; 0.05 in the median over parameters): the two bf16 paths round at
+   different points (the unfused one rounds each conv output before a bf16
+   BN, the fused one once after the folded bias) and the roundings accumulate
+   through 50 layers each way (measured on the H100: 1.9e-3 and 0.025 /
+   0.017); then a warm-up step and 6
+   timed steps with finite losses, launches per step 1 stem / 1 + 1 chain /
+   3 + 3 projection / 10 + 10 identity, ms per step (CUDA events and host
+   clock), camera-images/s and peak memory;
+6. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -49,13 +72,29 @@ PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 BF = 2  # bytes per bf16
 
+TRAIN_LOSS_RTOL = 1e-2  # fused vs unfused bf16 step, loss
+GRAD_RTOL, GRAD_RTOL_MEDIAN = 0.1, 0.05  # fused vs unfused bf16 step, per-leaf gradients
+TRAIN_STEPS = 6
+
 REPLACES = {
     "stem_fused": "argus_tpu/ops/pallas/stem_fused.py:244",
     "stage_fused": "argus_tpu/ops/pallas/stage_fused.py:527",
     "proj_fused": "argus_tpu/ops/pallas/proj_fused.py:205",
     "block_fused": "argus_tpu/ops/pallas/block_fused.py:270",
+    "stage_fused_save": "argus_tpu/ops/pallas/stage_fused.py:364",
+    "stage_fused_bwd": "argus_tpu/ops/pallas/stage_fused.py:586",
+    "proj_fused_save": "argus_tpu/ops/pallas/proj_fused.py:205",
+    "proj_fused_bwd": "argus_tpu/ops/pallas/proj_fused.py:363",
+    "block_fused_save": "argus_tpu/ops/pallas/block_fused.py:314",
+    "block_fused_bwd": "argus_tpu/ops/pallas/block_fused.py:394",
 }
-EXPECTED_LAUNCHES = {"stem_fused": 1, "stage_fused": 1, "proj_fused": 3, "block_fused": 10}
+SOURCES = {name: f"argus_tpu_torch/csrc/{name.replace('_save', '')}.cu" for name in REPLACES}
+_NONE = {name: 0 for name in REPLACES}
+EXPECTED_LAUNCHES = {**_NONE, "stem_fused": 1, "stage_fused": 1, "proj_fused": 3, "block_fused": 10}
+EXPECTED_TRAIN_LAUNCHES = {
+    **_NONE, "stem_fused": 1, "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3,
+    "proj_fused_bwd": 3, "block_fused_save": 10, "block_fused_bwd": 10,
+}
 
 
 def gpu_line() -> str:
@@ -178,11 +217,41 @@ def _round_trip_bytes(n, h, w, f, s):
 
 
 def _compare(name, got, want) -> float:
+    if isinstance(want, (tuple, list)):  # several outputs: each held to the tolerance
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} outputs, plain version {len(want)}")
+        return max(_compare(f"{name}[{i}]", a, b) for i, (a, b) in enumerate(zip(got, want)))
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     if not (err <= TOL_REL * ref + TOL_ABS) or not got.isfinite().all():
         raise AssertionError(f"{name}: max |kernel - plain| = {err} > {TOL_REL} * {ref} + {TOL_ABS}")
     return err
+
+
+def _recorder(results: dict):
+    def record(name, cases):
+        """cases: [(label, count per predict or step, kernel fn, plain fn, library
+        fn, flops, bytes, device kernels per call (at most: a weight gradient's
+        partial sums are one more where it splits), bytes of intermediates
+        written to device memory and
+        read back (a saving forward's h1/h2 are outputs, only their reads
+        count; a backward's m1/m2 and the chain's cotangents both ways))]"""
+        entry = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+        for label, count, kern, plain, lib, flops, nb, gemms, extra in cases:
+            err = _compare(f"{name} {label}", kern(), plain())
+            ms, pms, lms = cuda_ms(kern, 5), cuda_ms(plain, 2), cuda_ms(lib, 5)
+            b, by = bound_ms(flops, nb)
+            say(f"{name} {label} x{count}: max_abs_err {err:.4g}, kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+                f"library {lms:.3f} ms, bound {b:.3f} ms ({by}), {flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{gemms} device kernels per call, intermediates {extra / 1e9:.2f} GB written and read back")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("flops", flops), ("bytes", nb)):
+                entry[k] += count * v
+        results[name] = entry
+
+    return record
 
 
 def kernel_phase() -> dict:
@@ -201,21 +270,7 @@ def kernel_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     results = {}
 
-    def record(name, cases):
-        """cases: [(label, count per predict, kernel fn, plain fn, library fn, flops,
-        bytes, device kernels per call, intermediate round-trip bytes)]"""
-        entry = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
-        for label, count, kern, plain, lib, flops, nb, gemms, extra in cases:
-            err = _compare(f"{name} {label}", kern(), plain())
-            ms, pms, lms = cuda_ms(kern, 5), cuda_ms(plain, 2), cuda_ms(lib, 5)
-            b, by = bound_ms(flops, nb)
-            say(f"{name} {label} x{count}: max_abs_err {err:.4g}, kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-                f"library {lms:.3f} ms, bound {b:.3f} ms ({by}), {flops / ms / 1e9:.1f} TFLOP/s, "
-                f"{gemms} device kernels per call, intermediates {extra / 1e9:.2f} GB written and read back")
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("flops", flops), ("bytes", nb)):
-                entry[k] += count * v
-        results[name] = entry
+    record = _recorder(results)
 
     # stem: (N, 256, 256, 3) -> (N, 64, 64, 64)
     x = torch.rand(N_IMG, HW, HW, 3, generator=g, device="cuda").to(torch.bfloat16)
@@ -393,6 +448,270 @@ def end_to_end_phase(tmpdir: str) -> tuple:
     return launches, ms
 
 
+# ─────────────────────── phase 4: training kernels ───────────────────────
+
+
+def _lib_bwd(fn, args, g):
+    """The autograd backward of the cuDNN composition `fn(*args)` for the
+    output gradient g, w.r.t. the bf16 arguments (x and the weights; the f32
+    biases are constants), re-run on one recorded graph (retain_graph)."""
+    import torch
+
+    args = [t.detach().requires_grad_(t.dtype == torch.bfloat16) for t in args]
+    out = fn(*args)
+    leaves = [t for t in args if t.requires_grad]
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def _flat(res):
+    """(dx, dws...) or the chain's (dx, proj dws, [id dws]) as one list."""
+    dx, *rest = res
+    out = [dx]
+    for r in rest:
+        if isinstance(r, (tuple, list)) and r and isinstance(r[0], (tuple, list)):
+            out += [t for ds in r for t in ds]
+        elif isinstance(r, (tuple, list)):
+            out += list(r)
+        else:
+            out.append(r)
+    return out
+
+
+def train_kernel_phase() -> dict:
+    """Each saving forward and one-pass backward at the shapes of the flagship
+    train step, against its plain version; times per step (3 projection
+    blocks, 3 + 5 + 2 identity blocks). A backward's FLOPs are twice the
+    forward's (a data and a weight gradient per conv); its bytes count x, g,
+    out, h1, h2 and the weights read once, dx and the f32 dw written once."""
+    import torch
+
+    from argus_tpu_torch.ops.kernels import block_fused, proj_fused, stage_fused
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    results = {}
+    record = _recorder(results)
+
+    def grad_like(t):
+        return torch.randn(t.shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def dw_bytes(*ws):
+        return sum(t.numel() * 4 for t in ws)
+
+    # stage-0 chain: (N, 64, 64, 64) -> (N, 64, 64, 256), projection + 2 identity blocks
+    x0 = torch.rand(N_IMG, 64, 64, 64, generator=g, device="cuda").to(torch.bfloat16)
+    p0 = _proj_weights(g, 64, 64, 256)
+    ids0 = [_id_weights(g, 256, 64) for _ in range(2)]
+    wts0 = [t for t in p0] + [t for w in ids0 for t in w]
+    flops0 = _block_flops(N_IMG, 64, 64, 64, 64, 256, 1, True) + 2 * _block_flops(
+        N_IMG, 64, 64, 256, 64, 256, 1, False)
+    out, bnds, h1s, h2s = stage_fused.fused_stage_save(x0, p0, ids0, 1)
+    saved_bytes = nbytes(out, *bnds, *h1s, *h2s)
+
+    def lib_stage(x, *w):
+        y = _lib_block(x, *w[:8])
+        for j in range(2):
+            y = _lib_block(y, *w[8 + 6 * j: 14 + 6 * j])
+        return y
+
+    record("stage_fused_save", [(
+        f"{tuple(x0.shape)} F=64", 1, lambda: stage_fused.fused_stage_save(x0, p0, ids0, 1),
+        lambda: stage_fused.stage_save_plain(x0, p0, ids0, 1), lambda: lib_stage(x0, *wts0),
+        flops0, nbytes(x0, *wts0) + saved_bytes, 9,
+        nbytes(*h1s, *h2s, *bnds),
+    )])
+    g0 = grad_like(out)
+    pw0 = (p0[0], p0[2], p0[4], p0[6])
+    iw0 = [(w[0], w[2], w[4]) for w in ids0]
+    bwd_args = (x0, g0, out, bnds, h1s, h2s, pw0, iw0, 1)
+    dws0 = [t for t in pw0] + [t for w in iw0 for t in w]
+    record("stage_fused_bwd", [(
+        f"{tuple(x0.shape)} F=64", 1, lambda: _flat(stage_fused.stage_bwd(*bwd_args)),
+        lambda: _flat(stage_fused.stage_bwd_plain(*bwd_args)), _lib_bwd(lib_stage, [x0, *wts0], g0),
+        2 * flops0, nbytes(x0, g0, out, *bnds, *h1s, *h2s, *dws0) + nbytes(x0) + dw_bytes(*dws0),
+        2 * 9 + 11, 3 * _round_trip_bytes(N_IMG, 64, 64, 64, 1) + 2 * 2 * nbytes(g0),
+    )])
+    del x0, out, bnds, h1s, h2s, g0, bwd_args
+    torch.cuda.empty_cache()
+
+    proj_save, proj_bwd, id_save, id_bwd = [], [], [], []
+    for i, (h, cin, f, n_id) in enumerate([(64, 256, 128, 3), (32, 512, 256, 5), (16, 1024, 512, 2)]):
+        cout, ho = 4 * f, h // 2
+        xp = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        pw = _proj_weights(g, cin, f, cout)
+        fl = _block_flops(N_IMG, h, h, cin, f, cout, 2, True)
+        saved = proj_fused.projection_block_save(xp, *pw, 2)
+        label = f"stage{i + 1} {tuple(xp.shape)} F={f}"
+        proj_save.append((
+            label, 1, lambda xp=xp, pw=pw: proj_fused.projection_block_save(xp, *pw, 2),
+            lambda xp=xp, pw=pw: proj_fused.projection_block_save_plain(xp, *pw, 2),
+            lambda xp=xp, pw=pw: _lib_block(xp, *pw[:6], pw[6], pw[7], stride=2),
+            fl, nbytes(xp, *pw, *saved), 3, _round_trip_bytes(N_IMG, h, h, f, 2) // 2,
+        ))
+        gp = grad_like(saved[0])
+        args = (xp, gp, *saved, pw[0], pw[2], pw[4], pw[6], 2)
+        proj_bwd.append((
+            label, 1, lambda args=args: proj_fused.proj_bwd(*args),
+            lambda args=args: proj_fused.proj_bwd_plain(*args),
+            _lib_bwd(lambda x, *w: _lib_block(x, *w[:6], w[6], w[7], stride=2), [xp, *pw], gp),
+            2 * fl, nbytes(xp, gp, *saved, pw[0], pw[2], pw[4], pw[6]) + nbytes(xp)
+            + dw_bytes(pw[0], pw[2], pw[4], pw[6]), 17, _round_trip_bytes(N_IMG, h, h, f, 2),
+        ))
+        xi = torch.rand(N_IMG, ho, ho, cout, generator=g, device="cuda").to(torch.bfloat16)
+        iw = _id_weights(g, cout, f)
+        fl = _block_flops(N_IMG, ho, ho, cout, f, cout, 1, False)
+        saved = block_fused.bottleneck_block_save(xi, *iw)
+        label = f"stage{i + 1} {tuple(xi.shape)} F={f}"
+        id_save.append((
+            label, n_id, lambda xi=xi, iw=iw: block_fused.bottleneck_block_save(xi, *iw),
+            lambda xi=xi, iw=iw: block_fused.bottleneck_block_save_plain(xi, *iw),
+            lambda xi=xi, iw=iw: _lib_block(xi, *iw), fl, nbytes(xi, *iw, *saved), 3,
+            _round_trip_bytes(N_IMG, ho, ho, f, 1) // 2,
+        ))
+        gi = grad_like(saved[0])
+        args = (xi, gi, *saved, iw[0], iw[2], iw[4])
+        id_bwd.append((
+            label, n_id, lambda args=args: block_fused.block_bwd(*args),
+            lambda args=args: block_fused.block_bwd_plain(*args),
+            _lib_bwd(_lib_block, [xi, *iw], gi),
+            2 * fl, nbytes(xi, gi, *saved, iw[0], iw[2], iw[4]) + nbytes(xi)
+            + dw_bytes(iw[0], iw[2], iw[4]), 9, _round_trip_bytes(N_IMG, ho, ho, f, 1),
+        ))
+    record("proj_fused_save", proj_save)
+    record("proj_fused_bwd", proj_bwd)
+    record("block_fused_save", id_save)
+    record("block_fused_bwd", id_bwd)
+    del proj_save, proj_bwd, id_save, id_bwd
+    torch.cuda.empty_cache()
+    return results
+
+
+# ─────────────────────── phase 5: the train step ───────────────────────
+
+
+def _grad_errors(got: dict, want: dict):
+    """Per-parameter relative 2-norm errors; a parameter whose reference
+    gradient is zero must get a zero gradient."""
+    import torch
+
+    errs = {}
+    for k, w in want.items():
+        if torch.count_nonzero(w) == 0:
+            if torch.count_nonzero(got[k]) != 0:
+                raise AssertionError(f"fused step gives {k} a gradient where the unfused gives none")
+            continue
+        errs[k] = ((got[k].float() - w.float()).norm() / w.float().norm()).item()
+    return errs
+
+
+FUSE_ON = dict(fuse_block="on", fuse_proj="on", fuse_stem="on", fuse_stage="on")
+
+
+def flagship_train_setup():
+    """(cfg, model, state, batch) of the flagship train step on the card:
+    ResNet-50 NCameraCNN at full width (2 cameras, 1024-d features), bf16,
+    frozen BN + affine, frozen stem, full backprop, no augmentation, clip(1.0)
+    + Adam at lr 1e-4; random weights from seed 0 with BN randomised; a batch
+    of 256 seeded uint8 frame pairs with non-identity poses, on the card."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig, create_train_state
+
+    mcfg = NCameraCNNConfig(
+        n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True, bn_frozen_affine=True,
+        stem_frozen=True, frozen_stages=0, **FUSE_ON,
+    )
+    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=False, batch_size=N_ROWS,
+                      learning_rate=1e-4, max_grad_norm=1.0)
+    model, state = create_train_state(cfg, seed=0)
+    _randomize_(model, seed=0)  # in place: the state holds the same parameters
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    axis = rng.normal(size=(N_ROWS, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    angle = rng.uniform(0.0, 1.0, (N_ROWS, 1))
+    poses = np.concatenate([rng.normal(0, 0.3, (N_ROWS, 3)), axis * np.sin(angle / 2), np.cos(angle / 2)], 1)
+    batch = {
+        "images": torch.randint(0, 256, (N_ROWS, HW, HW, 6), generator=g, device="cuda", dtype=torch.uint8),
+        "cube_pose": torch.from_numpy(poses.astype(np.float32)).cuda(),
+        "mask": torch.ones(N_ROWS, device="cuda"),
+    }
+    return cfg, model, state, batch
+
+
+def train_phase() -> tuple:
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.models import NCameraCNN
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.train import loss_and_grads, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup()
+    mcfg = cfg.model_config
+
+    # the fused step against the unfused one (cuDNN convs, frozen BN through autograd)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    head = {k: v[:8] for k, v in batch.items()}
+    off = dataclasses.replace(mcfg, **{k: "off" for k in FUSE_ON})
+    ref = NCameraCNN(dataclasses.replace(off, dtype="bfloat16")).cuda()
+    ref.load_state_dict(model.state_dict())
+    cfg_off = dataclasses.replace(cfg, model_config=off)
+    loss_f, grads_f = loss_and_grads(model, cfg, state.params, head)
+    loss_r, grads_r = loss_and_grads(ref, cfg_off, dict(ref.named_parameters()), head)
+    errs = _grad_errors(grads_f, grads_r)
+    worst = max(errs, key=errs.get)
+    median = sorted(errs.values())[len(errs) // 2]
+    loss_err = abs(loss_f.item() - loss_r.item()) / abs(loss_r.item())
+    say(f"train: fused vs unfused (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}) on the first 8 rows: loss "
+        f"{loss_f.item():.6f} vs {loss_r.item():.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); "
+        f"gradients of {len(errs)} parameters: max rel {errs[worst]:.3g} ({worst}), median {median:.3g} "
+        f"(tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and errs[worst] <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
+        raise AssertionError("the fused train step disagrees with the unfused one")
+    del ref, grads_f, grads_r, head
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, cfg)
+    t0 = time.perf_counter()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    say(f"train: warm-up step {time.perf_counter() - t0:.2f} s, loss {loss.item():.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    ev_ms, host_ms, losses, launches = [], [], [], None
+    for i in range(TRAIN_STEPS):
+        if i == 0:
+            kernels.reset_launch_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        state, loss = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(e0.elapsed_time(e1))
+        losses.append(loss.item())
+        if i == 0:
+            launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    say(f"train: launches in one step {launches}")
+    if launches != EXPECTED_TRAIN_LAUNCHES:
+        raise AssertionError(f"train launch counts {launches} != expected {EXPECTED_TRAIN_LAUNCHES}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite losses {losses}")
+    ms = float(np.mean(ev_ms))
+    say(f"train: losses per step {[round(v, 6) for v in losses]}")
+    say(f"train: {TRAIN_STEPS} steps of batch {N_ROWS} rows ({N_IMG} camera images, {HW}x{HW}, bf16, "
+        f"frozen BN + stem, full backprop, no augmentation): {ms:.2f} ms/step by CUDA events "
+        f"(per step {[round(v, 2) for v in ev_ms]}), {float(np.mean(host_ms)):.2f} ms/step by host clock, "
+        f"{N_IMG / ms * 1e3:.1f} camera-images/s; peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    return launches, ms
+
+
 def main() -> int:
     global GPU
     import torch
@@ -411,13 +730,21 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         launches, _ = end_to_end_phase(tmpdir)
+    measured.update(train_kernel_phase())
+    train_launches, step_ms = train_phase()
+    kernel_ms = sum(m["ms"] for name, m in measured.items() if train_launches[name])
+    say(f"train breakdown: fused kernels {kernel_ms:.2f} ms of the {step_ms:.2f} ms step (phase-2/4 kernel "
+        f"times at these shapes: " + ", ".join(
+            f"{name} {m['ms']:.2f}" for name, m in measured.items() if train_launches[name])
+        + f"); the other {step_ms - kernel_ms:.2f} ms: the u8 feed, mean pool, head, loss, BN folds, "
+        f"weight transposes, optimizer and launch gaps")
 
     rows = []
     for name, m in measured.items():
         b, by = bound_ms(m["flops"], m["bytes"])
         rows.append({
-            "name": name, "route": "cuda", "source": f"argus_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name] or train_launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })

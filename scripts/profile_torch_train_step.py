@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Profile the port's flagship train step on one NVIDIA GPU with
+`torch.profiler`: device time by CUDA kernel and the device's busy and idle
+share over a window of steps.
+
+    python3 scripts/profile_torch_train_step.py [--steps 3] [--out chiprun_out/profile_train_step.txt]
+
+The step is `chip_smoke.flagship_train_setup`'s (ResNet-50 NCameraCNN at full
+width, batch 256 two-camera 256x256 uint8 rows, bf16, frozen BN and stem,
+full backprop, no augmentation). After a warm-up step, `--steps` steps run
+under the profiler; busy time is the sum of the device-side events' time
+(kernels, copies, memsets; one stream, so they do not overlap), the window
+is the host clock from the first step's start to a synchronise after the
+last, and idle is the rest of the window.
+Prints a summary and writes the kernel table to `--out`. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_train_step: no CUDA device", file=sys.stderr)
+        return 2
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "profile_train_step.txt"))
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from argus_tpu_torch.train import make_train_step
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    chip_smoke.GPU = chip_smoke.gpu_line()
+    cfg, model, state, batch = chip_smoke.flagship_train_setup()
+    step = make_train_step(model, cfg)
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    # device-side events only (kernels, copies, memsets); the host ops that
+    # launched them carry the same time again
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us / args.steps / 1e3, e.count // args.steps, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    step_ms = window_ms / args.steps
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(f"{chip_smoke.GPU}\n{args.steps} steps, {step_ms:.2f} ms/step (host clock), "
+                f"device busy {busy_ms:.2f} ms/step\n")
+        for ms, n, key in rows:
+            f.write(f"{ms:10.3f} ms/step  {n:6d} per step  {key[:160]}\n")
+    chip_smoke.say(f"profile: {args.steps} profiled steps, {step_ms:.2f} ms/step by host clock, device busy "
+                   f"{busy_ms:.2f} ms/step = {100 * busy_ms / step_ms:.1f}% (idle {100 - 100 * busy_ms / step_ms:.1f}%)")
+    for ms, n, key in rows[:12]:
+        chip_smoke.say(f"profile:   {ms:9.3f} ms/step  {n:5d} per step  {key[:90]}")
+    chip_smoke.say(f"profile: full table in {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

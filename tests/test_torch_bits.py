@@ -180,3 +180,80 @@ def test_se3_exp_matches_argus_tpu():
         np.asarray(jgeom.quat_multiply(jnp.asarray(q.numpy()), jnp.asarray(p.numpy()))),
         atol=1e-6,
     )
+
+
+def _poses(rng, n):
+    """Random SE(3) 7-vectors with rotation angles spread over [0, pi],
+    including exact identities, angles near 0 (the Taylor branches) and near
+    pi (where the inverse Jacobian's 1 + cos t and sin t both vanish)."""
+    axis = rng.normal(size=(n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    angle = rng.uniform(0, np.pi, n)
+    angle[:4] = 0.0
+    angle[4:8] = rng.uniform(1e-5, 5e-4, 4)
+    angle[8:12] = np.pi - rng.uniform(1e-4, 1e-2, 4)
+    q = np.concatenate([axis * np.sin(angle / 2)[:, None], np.cos(angle / 2)[:, None]], axis=1)
+    q[12:14] *= -1.0  # w < 0: the same rotation the long way round
+    t = rng.normal(0, 0.5, (n, 3))
+    return np.concatenate([t, q], axis=1).astype(np.float32)
+
+
+def test_se3_group_ops_match_argus_tpu():
+    """Values in f32: Log, compose, inverse (atol 2e-5 near pi, where Log's
+    2 atan2(n, w) / n loses digits on both sides alike)."""
+    rng = np.random.default_rng(5)
+    a, b = _poses(rng, 48), _poses(rng, 48)
+    for tfn, jfn, args in (
+        (geom.se3_log, jgeom.se3_log, (a,)),
+        (geom.se3_multiply, jgeom.se3_multiply, (a, b)),
+        (geom.se3_inverse, jgeom.se3_inverse, (a,)),
+        (geom.so3_log, jgeom.so3_log, (a[:, 3:],)),
+    ):
+        want = np.asarray(jfn(*map(jnp.asarray, args)))
+        got = tfn(*map(torch.from_numpy, args)).numpy()
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
+    # Log inverts Exp away from the cut at pi
+    tau = rng.normal(0, 0.8, (32, 6)).astype(np.float32)
+    back = geom.se3_log(geom.se3_exp(torch.from_numpy(tau))).numpy()
+    np.testing.assert_allclose(back, tau, atol=2e-5)
+
+
+def test_geometric_loss_values_and_gradients_match_argus_tpu():
+    """The loss and its gradient w.r.t. the prediction, including predictions
+    at exactly zero rotation and targets at identity, near 0 and near pi:
+    finite everywhere (the guarded `where` branches) and equal to JAX's."""
+    from argus_tpu.train import geometric_loss_fn as jloss
+    from argus_tpu_torch.train import geometric_loss_fn
+
+    rng = np.random.default_rng(6)
+    target = _poses(rng, 32)
+    pred = rng.normal(0, 0.5, (32, 6)).astype(np.float32)
+    pred[:6, 3:] = 0.0  # zero rotation: so3_exp's and the Jacobians' small branches
+    pred[6:10, 3:] *= 1e-4
+    want, jgrad = jax.value_and_grad(lambda p: jnp.sum(jloss(p, jnp.asarray(target))))(jnp.asarray(pred))
+    tp_ = torch.from_numpy(pred).requires_grad_()
+    got = geometric_loss_fn(tp_, torch.from_numpy(target))
+    assert got.dtype == torch.float32 and got.shape == (32,)
+    (tgrad,) = torch.autograd.grad(got.sum(), tp_)
+    assert torch.isfinite(tgrad).all()
+    np.testing.assert_allclose(got.sum().item(), float(want), rtol=1e-5)
+    np.testing.assert_allclose(
+        got.detach().numpy(), np.asarray(jloss(jnp.asarray(pred), jnp.asarray(target))), rtol=1e-4, atol=1e-5
+    )
+    np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), rtol=1e-3, atol=1e-4)
+    # a bf16 prediction is lifted to f32 first, as argus_tpu does
+    assert geometric_loss_fn(tp_.detach().to(torch.bfloat16), torch.from_numpy(target)).dtype == torch.float32
+
+
+def test_u8_to_f32_matches_argus_tpu():
+    """The cast then the multiply by 1/255 rounded to the dtype: in bf16 a
+    bf16 multiply, bit for bit."""
+    from argus_tpu.ops.image import u8_to_f32 as ju8
+    from argus_tpu_torch.ops.image import u8_to_f32
+
+    u8 = np.arange(256, dtype=np.uint8).reshape(1, 16, 16, 1)
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        want = np.asarray(ju8(jnp.asarray(u8), jdt).astype(jnp.float32))
+        got = u8_to_f32(torch.from_numpy(u8), tdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(got.float().numpy(), want)

@@ -1,16 +1,22 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the forwards, the saving forwards and the one-pass backwards, and the fused
+training step against its CPU run.
 
 These need an NVIDIA Hopper GPU and nvcc: they carry the `cuda` marker and
 skip elsewhere. Run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -q``. `chip_smoke.py` makes the
 same comparison at the full serving shapes.
 
-Tolerance (bf16 outputs): max |kernel - plain| <= 2e-2 * max |plain| + 1e-2;
-both sides round once to bf16 from f32 sums taken in different orders.
+Tolerance (bf16 outputs and f32 weight gradients): max |kernel - plain| <=
+2e-2 * max |plain| + 1e-2; both sides sum the same bf16 operands in f32 in
+different orders, and round the bf16 outputs (and the m1/m2 masks of the
+backward) once.
 """
 
 import pytest
 import torch
+
+import numpy as np
 
 from argus_tpu_torch.ops import kernels
 from argus_tpu_torch.ops.kernels import block_fused as tb
@@ -97,4 +103,128 @@ def test_wrappers_check_arguments(dev):
         tb.bottleneck_block(x, *ws)
     with pytest.raises(ValueError):
         tb.bottleneck_block(x.to(torch.bfloat16)[..., :60], *ws)
-    assert set(kernels.KERNELS) == {"stem_fused", "stage_fused", "proj_fused", "block_fused"}
+    assert set(kernels.KERNELS) == {
+        "stem_fused", "stage_fused", "proj_fused", "block_fused",
+        "stage_fused_save", "stage_fused_bwd", "proj_fused_save", "proj_fused_bwd",
+        "block_fused_save", "block_fused_bwd",
+    }
+
+
+def _grad(g, shape, dev):
+    return torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+
+
+def _all_close(got, want):
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape, a.dtype, b.dtype)
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-2 * b.float().abs().max().item() + 1e-2, err
+
+
+@pytest.mark.parametrize("n,h,w,cin,f", [(2, 9, 7, 64, 16), (2, 48, 48, 64, 16), (1, 8, 8, 256, 64)])
+def test_identity_block_save_and_backward_kernels(dev, n, h, w, cin, f):
+    """(2, 48, 48) has 4608 rows: the weight gradients split and sum partials."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
+    ws = _id(g, cin, f, dev)
+    saved = tb.bottleneck_block_save(x, *ws)
+    _all_close(saved, tb.bottleneck_block_save_plain(x, *ws))
+    out, h1, h2 = saved
+    gr = _grad(g, out.shape, dev)
+    args = (x, gr, out, h1, h2, ws[0], ws[2], ws[4])
+    before = tb.KERNEL_BWD.launches
+    _all_close(tb.block_bwd(*args), tb.block_bwd_plain(*args))
+    assert tb.KERNEL_BWD.launches == before + 1
+    got = tb.block_bwd(*args, need_dx=False)
+    assert got[0] is None
+    _all_close(got[1:], tb.block_bwd_plain(*args)[1:])
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_projection_block_save_and_backward_kernels(dev, stride):
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand(2, 10, 6, 64, generator=g).to(dev, torch.bfloat16)
+    ws = _proj(g, 64, 32, 128, dev)
+    saved = tp.projection_block_save(x, *ws, stride)
+    _all_close(saved, tp.projection_block_save_plain(x, *ws, stride))
+    out, h1, h2 = saved
+    args = (x, _grad(g, out.shape, dev), out, h1, h2, ws[0], ws[2], ws[4], ws[6], stride)
+    _all_close(tp.proj_bwd(*args), tp.proj_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("with_proj,stride", [(True, 1), (True, 2), (False, 1)])
+def test_stage_save_and_backward_kernels(dev, with_proj, stride):
+    g = torch.Generator().manual_seed(7)
+    cin = 64 if with_proj else 256
+    x = torch.rand(2, 8, 8, cin, generator=g).to(dev, torch.bfloat16)
+    proj = _proj(g, cin, 64, 256, dev) if with_proj else None
+    ids = [_id(g, 256, 64, dev) for _ in range(2)]
+    out, bnds, h1s, h2s = tst.fused_stage_save(x, proj, ids, stride)
+    p_out, p_bnds, p_h1s, p_h2s = tst.stage_save_plain(x, proj, ids, stride)
+    _all_close([out, *bnds, *h1s, *h2s], [p_out, *p_bnds, *p_h1s, *p_h2s])
+    pw = (proj[0], proj[2], proj[4], proj[6]) if with_proj else None
+    iw = [(w[0], w[2], w[4]) for w in ids]
+    args = (x, _grad(g, out.shape, dev), out, bnds, h1s, h2s, pw, iw, stride)
+    dx, pd, idd = tst.stage_bwd(*args)
+    rdx, rpd, ridd = tst.stage_bwd_plain(*args)
+    _all_close([dx, *(pd or ()), *[d for ds in idd for d in ds]],
+               [rdx, *(rpd or ()), *[d for ds in ridd for d in ds]])
+
+
+def test_block_function_gradients_match_plain(dev):
+    """autograd through the kernel Function on the card against the same
+    Function on a CPU copy (its plain versions)."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.rand(2, 8, 8, 64, generator=g).to(torch.bfloat16)
+    ws = [t.cpu() for t in _id(g, 64, 16, dev)]
+    gr = torch.randn(2, 8, 8, 64, generator=g).to(torch.bfloat16)
+    grads = []
+    for d in ("cpu", dev):
+        xs = x.to(d).requires_grad_()
+        wd = [t.to(d).requires_grad_(i % 2 == 0) for i, t in enumerate(ws)]
+        out = tb.block_saved(xs, *wd)
+        grads.append([t.cpu() for t in torch.autograd.grad(out, [xs, wd[0], wd[2], wd[4]], gr.to(d))])
+    _all_close(grads[1], grads[0])
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """A ResNet-50 train step (bf16, frozen BN and stem, fused) on the card
+    and on the CPU from the same state: losses within bf16 tolerance, and
+    the launch counts of the training path (the no-save forwards stay
+    unused)."""
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+
+    mcfg = NCameraCNNConfig(
+        n_cams=2, backbone="resnet50", resnet_output_dim=32, bn_frozen=True,
+        bn_frozen_affine=True, stem_frozen=True, fuse_block="on", fuse_proj="on",
+        fuse_stem="on", fuse_stage="on",
+    )
+    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=False, learning_rate=1e-3)
+    rng = np.random.default_rng(0)
+    batch = {
+        "images": rng.integers(0, 256, (2, 64, 64, 6), dtype=np.uint8),
+        "cube_pose": np.tile(np.array([0.1, 0, 0.2, 0, 0, 0.6, 0.8], np.float32), (2, 1)),
+        "mask": np.ones(2, np.float32),
+    }
+    losses = {}
+    for d in ("cpu", "cuda"):
+        model, state = create_train_state(cfg, seed=0, device=d)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("BatchNorm_2.weight"):
+                    p.fill_(0.2)
+        kernels.reset_launch_counts()
+        step = make_train_step(model, cfg, device=d)
+        state, loss = step(state, batch)
+        losses[d] = float(loss)
+        counts = kernels.launch_counts()
+    assert counts == {
+        "stem_fused": 1, "stage_fused": 0, "proj_fused": 0, "block_fused": 0,
+        "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3, "proj_fused_bwd": 3,
+        "block_fused_save": 10, "block_fused_bwd": 10,
+    }, counts
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses

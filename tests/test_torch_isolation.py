@@ -76,3 +76,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
     save_checkpoint(path, {"params": {}, "batch_stats": {}})
     with pytest.raises(RuntimeError, match="CUDA"):
         Estimator(path)
+
+
+def test_train_imports_without_jax():
+    """The training module stands alone like the rest of the package."""
+    code = _BLOCKED_IMPORT.replace(
+        'print("imported", len(names), "modules")',
+        'import argus_tpu_torch.train as t; assert callable(t.make_train_step); '
+        'print("imported", len(names), "modules")',
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+
+    cfg = TrainConfig(
+        model_config=NCameraCNNConfig(backbone="resnet18", resnet_output_dim=8, bn_frozen=True,
+                                      bn_frozen_affine=True),
+        use_augmentation=False,
+    )
+    model, _ = create_train_state(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(model, cfg)
