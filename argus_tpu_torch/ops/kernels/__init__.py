@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the port, one module per argus_tpu Pallas
-kernel family (forward, saving forward, backward), each with its plain
+kernel family (forward, saving forward, backward; the augmentation's
+whole-stack and blur kernels), each with its plain
 PyTorch version beside it (see `_build` for how the CUDA sources are
 compiled and bound).
 
@@ -9,7 +10,7 @@ counts the wrapper's successful launches.
 
 from __future__ import annotations
 
-from argus_tpu_torch.ops.kernels import block_fused, proj_fused, stage_fused, stem_fused
+from argus_tpu_torch.ops.kernels import augment_fused, block_fused, blur, proj_fused, stage_fused, stem_fused
 
 KERNELS = {
     "stem_fused": stem_fused.KERNEL,
@@ -22,6 +23,8 @@ KERNELS = {
     "proj_fused_bwd": proj_fused.KERNEL_BWD,
     "block_fused_save": block_fused.KERNEL_SAVE,
     "block_fused_bwd": block_fused.KERNEL_BWD,
+    "augment_fused": augment_fused.KERNEL,
+    "blur": blur.KERNEL,
 }
 
 

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 # the kernel sources, one shared library each
 SOURCES = (
     "stem_fused", "block_fused", "proj_fused", "stage_fused",
-    "block_fused_bwd", "proj_fused_bwd", "stage_fused_bwd",
+    "block_fused_bwd", "proj_fused_bwd", "stage_fused_bwd", "blur", "augment_fused",
 )
 
 

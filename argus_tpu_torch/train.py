@@ -10,6 +10,7 @@ kernels of `ops.kernels` (with their backward kernels) on the card. The step
 is
 
     images = u8_to_f32(batch["images"], bf16 if amp else f32)
+    images = apply_augmentation(augmentation_config, fold_in(base_seed, step), images)
     loss   = sum(geometric_loss_fn(model(images), poses) * mask) / max(sum(mask), 1)
     grads  = d loss / d params                (zero for frozen parameters)
     params += -lr * adam(clip_by_global_norm(grads, max_grad_norm))
@@ -18,8 +19,9 @@ with optax's formulas for the clip and for Adam (b1 0.9, b2 0.999, eps 1e-8
 outside the square root, both moments bias-corrected), the learning rate
 applied outside the optimizer so a schedule can change it.
 
-Configurations not ported yet raise `NotImplementedError` naming their
-ROADMAP item: the augmentation stack (`use_augmentation`, A4 and kernel B1),
+The augmentation (`use_augmentation`, argus_tpu's default) runs in the feed
+dtype through `ops.augment` (the fused kernel on the card). Configurations
+not ported yet raise `NotImplementedError` naming their ROADMAP item:
 gradient accumulation (A5), a device mesh or several cards (A7), the keypoint
 family (A8), and exact or trainable-affine BN (A3). The entry points run on
 CUDA unless the caller passes `device="cpu"`, and raise without a card.
@@ -39,6 +41,8 @@ from argus_tpu_torch import resolve_device
 from argus_tpu_torch.geom import se3_exp, se3_inverse, se3_log, se3_multiply
 from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
 from argus_tpu_torch.models.resnet import BasicBlock, BottleneckBlock
+from argus_tpu_torch.ops import augment
+from argus_tpu_torch.ops.augment import AugmentationConfig
 from argus_tpu_torch.ops.image import u8_to_f32
 
 ROOT = str(Path(__file__).resolve().parents[1])
@@ -50,11 +54,10 @@ ROOT = str(Path(__file__).resolve().parents[1])
 @dataclass
 class TrainConfig:
     """argus_tpu's `TrainConfig`: the same field names and defaults, so a
-    configuration moves between the packages unchanged, except that the two
-    sub-configurations of modules not ported yet (`keypoint_config`,
-    `augmentation_config`) default to None, and construction creates no
-    directory (argus_tpu makes `save_dir` at once). See argus_tpu's docstring
-    for what each field means; the step here reads `model_config`,
+    configuration moves between the packages unchanged, except that the
+    keypoint family's sub-configuration (not ported yet) defaults to None,
+    and construction creates no directory (argus_tpu makes `save_dir` at
+    once). See argus_tpu's docstring for what each field means; the step here reads `model_config`,
     `model_type`, `amp`, `max_grad_norm`, `learning_rate`,
     `use_augmentation`, `grad_accum_steps` and the multi-card fields."""
 
@@ -84,7 +87,7 @@ class TrainConfig:
     save_dir: str = os.path.join(ROOT, "outputs", "models")
     async_checkpoint: bool = True
 
-    augmentation_config: Optional[Any] = None
+    augmentation_config: AugmentationConfig = field(default_factory=AugmentationConfig)
     use_augmentation: bool = True
     val_spaghetti: bool = True
 
@@ -98,11 +101,6 @@ def check_config(cfg: TrainConfig, mesh=None) -> None:
     port's training step does not run yet."""
     if getattr(cfg, "model_type", "pose_cnn") == "keypoint":
         raise NotImplementedError("the keypoint model family is not ported yet (ROADMAP A8)")
-    if cfg.use_augmentation:
-        raise NotImplementedError(
-            "the augmentation stack and its fused kernel are not ported yet (ROADMAP A4, B1): "
-            "set use_augmentation=False"
-        )
     if cfg.grad_accum_steps > 1:
         raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP A5)")
     if mesh is not None or cfg.multigpu or (cfg.num_chips or 1) > 1 or cfg.num_model_shards > 1:
@@ -195,9 +193,11 @@ def make_optimizer(max_grad_norm: float) -> Optimizer:
 class TrainState:
     """argus_tpu's `TrainState`. `params` and `batch_stats` are the model's
     own parameters and BN buffers (by state_dict name), so a step updates
-    the model in place."""
+    the model in place. `step`, the count of steps taken, lives on the host
+    (argus_tpu keeps it on the device): the step seeds its augmentation from
+    it without reading the device back, and a resumed run sets it."""
 
-    step: torch.Tensor  # int32 scalar
+    step: int
     params: Dict[str, torch.nn.Parameter]
     batch_stats: Dict[str, torch.Tensor]
     opt_state: AdamState
@@ -259,7 +259,7 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, sample_hw: tuple = (256,
     model = model.to(device)
     params = dict(model.named_parameters())
     state = TrainState(
-        step=torch.zeros((), dtype=torch.int32, device=device),
+        step=0,
         params=params,
         batch_stats=dict(model.named_buffers()),
         opt_state=make_optimizer(cfg.max_grad_norm).init(params),
@@ -279,9 +279,12 @@ def make_train_step(model: NCameraCNN, cfg: TrainConfig, base_seed: int = 0, mes
     step moves them to the model's device). The update is in place: the
     model's parameters, the Adam moments and the step count change under the
     caller's `state`, which is also returned; nothing is donated or copied.
-    `base_seed` seeds the augmentation stream of argus_tpu, which this step
-    does not run (`use_augmentation=False`)."""
-    del base_seed, hw
+    With `use_augmentation` the fed images are augmented with the key
+    `fold_in(base_seed, state.step)` (argus_tpu: `fold_in(PRNGKey(
+    base_seed), state.step)`). Sampling the parameters is ~100 small ops of
+    host time, so a step samples the next step's (same batch shape) once it
+    has queued its own work, while the device runs it."""
+    del hw
     check_config(cfg, mesh)
     device = resolve_device(device)
     on = next(model.parameters()).device
@@ -289,26 +292,54 @@ def make_train_step(model: NCameraCNN, cfg: TrainConfig, base_seed: int = 0, mes
         raise ValueError(f"the model lives on {on}; make_train_step runs on {device}")
     opt = make_optimizer(cfg.max_grad_norm)
 
+    n_cams = model.cfg.n_cams
+    aug = cfg.augmentation_config
+    ahead = {}  # (step, images' shape and dtype) -> that step's parameters, sampled a step early
+
+    def sample(step: int, images: torch.Tensor):
+        B, H, W, _ = images.shape
+        key = augment.fold_in(base_seed, step)
+        return augment.sample_params(aug, key, B, n_cams, H, W, images.device, images.dtype)
+
     def train_step(state: TrainState, batch: dict):
-        loss, grads = loss_and_grads(model, cfg, state.params, batch)
+        images = feed_images(cfg, batch["images"], on)
+        if cfg.use_augmentation:
+            like = (tuple(images.shape), images.dtype)
+            drawn = ahead.pop((state.step, *like), None) or sample(state.step, images)
+            images = augment.apply_params(aug, drawn, images, n_cams)
+        loss, grads = _loss_and_grads_on(model, state.params, images, batch)
         updates = opt.update(grads, state.opt_state)
         names = list(state.params)
         with torch.no_grad():
             torch._foreach_add_([state.params[k] for k in names],
                                 torch._foreach_mul([updates[k] for k in names], -state.lr))
-            state.step += 1
+        state.step += 1
+        if cfg.use_augmentation:
+            ahead.clear()
+            ahead[(state.step, *like)] = sample(state.step, images)
         return state, loss
 
     return train_step
 
 
+def feed_images(cfg: TrainConfig, images, device) -> torch.Tensor:
+    """Frames on `device` in the feed dtype (bf16 under amp), times 1/255:
+    argus_tpu's `u8_to_f32`, whatever the frames' dtype."""
+    return u8_to_f32(torch.as_tensor(images).to(device), torch.bfloat16 if cfg.amp else torch.float32)
+
+
 def loss_and_grads(model: NCameraCNN, cfg: TrainConfig, params: Dict[str, torch.Tensor], batch: dict):
-    """The step's masked-mean loss on `batch` and its gradient w.r.t. each of
-    `params` (zeros where no gradient reaches, as for frozen parameters):
+    """The step's masked-mean loss on `batch` (uint8 frames, fed as the step
+    feeds them, not augmented) and its gradient w.r.t. each of `params`
+    (zeros where no gradient reaches, as for frozen parameters):
     (loss, {name: grad})."""
     on = next(iter(params.values())).device
-    feed_dtype = torch.bfloat16 if cfg.amp else torch.float32
-    images = u8_to_f32(torch.as_tensor(batch["images"]).to(on), feed_dtype)
+    return _loss_and_grads_on(model, params, feed_images(cfg, batch["images"], on), batch)
+
+
+def _loss_and_grads_on(model: NCameraCNN, params: Dict[str, torch.Tensor], images: torch.Tensor, batch: dict):
+    """`loss_and_grads` on images already fed (and augmented)."""
+    on = images.device
     poses = torch.as_tensor(batch["cube_pose"]).to(on, torch.float32)
     mask = torch.as_tensor(batch["mask"]).to(on, torch.float32)
     losses = geometric_loss_fn(model(images, train=True), poses)

@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure (nothing is caught and ignored):
 
-1. build every CUDA kernel of the serving and training paths from
-   `argus_tpu_torch/csrc/` (one nvcc per source, in parallel) and print the
-   seconds and ptxas' register/spill report;
+1. build every CUDA kernel of the serving, training and augmentation paths
+   from `argus_tpu_torch/csrc/` (9 sources, one nvcc each, in parallel) and
+   print the seconds and ptxas' register/spill report;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -29,24 +29,47 @@ Phases, each fatal on failure (nothing is caught and ignored):
    its plain version, same tolerance; `library_ms` of a saving forward is the
    cuDNN composition's forward, of a backward its autograd backward (timed
    with retain_graph);
-5. the flagship train step through `argus_tpu_torch.train` (ResNet-50
+5. the augmentation kernels at the flagship step's shapes (N = 512 camera
+   images, 256x256, parameters from the port's samplers): the whole-stack
+   kernel against its plain version in bf16 at each of the 4 hue positions
+   (forced orders) with 10 arcs and with none, and in f32; the blur kernel
+   in bf16 and f32; max |kernel - plain| <= 1.6e-2 and mean <= 1e-3 in bf16
+   (both round every op to bf16 at the same points; the contrast's luma mean
+   and the hue's divisions differ by an f32 ulp, which can move a bf16
+   rounding by one ulp, 2^-8 in [0.5, 1)), <= 1e-5 in f32. Then the two
+   paths through `apply_augmentation` on one bf16 batch, launches counted:
+   the fused path 1 `augment_fused`, the per-op path 1 `blur`; and the fused
+   path against the per-op path on the same parameters, in f32 and bf16,
+   interior only (4 px margin: the per-op path reflects at the border, the
+   kernels clamp); mean |diff| <= 1e-3 (f32) and 2e-3 (bf16), and at most
+   1e-5 (f32) and 1e-3 (bf16) of the elements more than 2e-2 apart: where
+   the plasma threshold falls on the other side of a pixel (the per-op path
+   upsamples with a matrix product, the kernel in a fixed order of separate
+   roundings) and, in bf16, where the per-op hue, computed in bf16, lands a
+   few ulps from the kernel's f32 hue. Times: kernel, plain, and for the
+   blur the yardstick `library_ms` (`F.pad(replicate)` and grouped
+   `F.conv2d`); the stack has no single PyTorch call (null);
+6. the flagship train step through `argus_tpu_torch.train` (ResNet-50
    NCameraCNN at full width, 2 cameras, 1024-d features, bf16, frozen BN with
-   frozen affine, frozen stem, full backprop through stages 0-3, no
-   augmentation, clip(1.0) + Adam, batch 256 of seeded uint8 frames and
-   non-identity poses, random weights with BN scales randomised): first the
-   fused loss and gradients against the same model with every fuse flag off
-   (cuDNN convs and frozen BN through autograd) on the first 8 rows, loss
-   within 1e-2 relative and each parameter's gradient within 0.1 relative
-   (2-norm; 0.05 in the median over parameters): the two bf16 paths round at
-   different points (the unfused one rounds each conv output before a bf16
-   BN, the fused one once after the folded bias) and the roundings accumulate
-   through 50 layers each way (measured on the H100: 1.9e-3 and 0.025 /
-   0.017); then a warm-up step and 6
-   timed steps with finite losses, launches per step 1 stem / 1 + 1 chain /
-   3 + 3 projection / 10 + 10 identity, ms per step (CUDA events and host
-   clock), camera-images/s and peak memory;
-6. the `kernels` JSON line, the card's name and power limit, and the result
-   line `{"ok": true, "device": {...}}` last.
+   frozen affine, frozen stem, full backprop through stages 0-3, argus_tpu's
+   default augmentation, clip(1.0) + Adam, batch 256 of seeded uint8 frames
+   and non-identity poses, random weights with BN scales randomised): first
+   the fused loss and gradients against the same model with every fuse flag
+   off (cuDNN convs and frozen BN through autograd) on the first 8 rows of
+   one augmented batch, loss within 1e-2 relative and each parameter's
+   gradient within 0.1 relative (2-norm; 0.05 in the median over
+   parameters): the two bf16 paths round at different points (the unfused
+   one rounds each conv output before a bf16 BN, the fused one once after
+   the folded bias) and the roundings accumulate through 50 layers each way
+   (measured on the H100: 1.9e-3 and 0.025 / 0.017); then a warm-up step
+   and 6 timed steps with finite losses, launches per step 1 augment / 1
+   stem / 1 + 1 chain / 3 + 3 projection / 10 + 10 identity, ms per step
+   (CUDA events and host clock), camera-images/s and peak memory; then the
+   same for the step without augmentation, beside it;
+7. the `kernels` JSON line, the card's name and power limit, and the result
+   line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
+   peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
+   67 TFLOP/s (f32 on the CUDA cores) for the augmentation kernels.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it. Imports nothing of JAX or argus_tpu.
@@ -69,12 +92,15 @@ HW = 256
 TOL_REL, TOL_ABS = 2e-2, 1e-2  # kernel vs plain, bf16 outputs
 POSE_ATOL = 0.05  # GPU bf16 serving vs CPU bf16 serving
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_F32 = 67e12  # H100 SXM f32 on the CUDA cores (NVIDIA's data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 BF = 2  # bytes per bf16
 
 TRAIN_LOSS_RTOL = 1e-2  # fused vs unfused bf16 step, loss
 GRAD_RTOL, GRAD_RTOL_MEDIAN = 0.1, 0.05  # fused vs unfused bf16 step, per-leaf gradients
 TRAIN_STEPS = 6
+AUG_TOL = {"bf16": (1.6e-2, 1e-3), "f32": (1e-5, 1e-5)}  # augmentation kernel vs plain: max, mean
+PATHS_TOL = {"f32": (1e-3, 1e-5), "bf16": (2e-3, 1e-3)}  # fused vs per-op path: mean, share beyond 2e-2
 
 REPLACES = {
     "stem_fused": "argus_tpu/ops/pallas/stem_fused.py:244",
@@ -87,12 +113,14 @@ REPLACES = {
     "proj_fused_bwd": "argus_tpu/ops/pallas/proj_fused.py:363",
     "block_fused_save": "argus_tpu/ops/pallas/block_fused.py:314",
     "block_fused_bwd": "argus_tpu/ops/pallas/block_fused.py:394",
+    "augment_fused": "argus_tpu/ops/pallas/augment_fused.py:278",
+    "blur": "argus_tpu/ops/pallas/blur.py:81",
 }
 SOURCES = {name: f"argus_tpu_torch/csrc/{name.replace('_save', '')}.cu" for name in REPLACES}
 _NONE = {name: 0 for name in REPLACES}
 EXPECTED_LAUNCHES = {**_NONE, "stem_fused": 1, "stage_fused": 1, "proj_fused": 3, "block_fused": 10}
 EXPECTED_TRAIN_LAUNCHES = {
-    **_NONE, "stem_fused": 1, "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3,
+    **_NONE, "augment_fused": 1, "stem_fused": 1, "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3,
     "proj_fused_bwd": 3, "block_fused_save": 10, "block_fused_bwd": 10,
 }
 
@@ -127,8 +155,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -585,7 +613,189 @@ def train_kernel_phase() -> dict:
     return results
 
 
-# ─────────────────────── phase 5: the train step ───────────────────────
+# ─────────────────────── phase 5: augmentation ───────────────────────
+
+
+# The augmentation kernels' bounds count the f32 operations the function
+# needs, each op (product, sum, comparison, min, max) one operation; the
+# peak counts a fused multiply-add as two, so these bounds are if anything
+# low. Per channel element of the blur: 5 + 5 + 9 taps (a product each, one
+# sum fewer), and two gates of 3 (two products and a sum).
+BLUR_OPS = 41
+# Per pixel of the stack, beside the arcs and the upsample (`aug_ops`): the
+# gains 9 (a product and a clip of 2 per channel); the jiggle ops by their
+# own terms: brightness 9 (a product and a clip a channel), contrast 12 (a
+# product, a sum and a clip a channel) and 6 for its luma sum, saturation 20
+# (luma 5; two products, a sum and a clip a channel), hue 45; the blurs 3 x
+# BLUR_OPS; the field's min and max 2; its normalisation, threshold and
+# shade 7 (a difference, a quotient, a comparison, a product, a sum, a clip).
+AUG_PIXEL_OPS = 9 + (9 + 12 + 6 + 20 + 45) + 3 * BLUR_OPS + 2 + 7
+
+
+def arc_ops(arcs, H: int, W: int) -> int:
+    """Operations of the arc test on this run's arcs (N, n_arcs, 10): per
+    pixel and arc while the pixel is on no earlier arc, 9 for the ring test
+    (two offsets, two scalings, the squared radius, two comparisons), and 11
+    more where it is on the ring (two cross products, their signs, the sweep
+    test)."""
+    import torch
+
+    yy = torch.arange(H, dtype=torch.float32, device=arcs.device)[:, None]
+    xx = torch.arange(W, dtype=torch.float32, device=arcs.device)[None, :]
+    done = torch.zeros((arcs.shape[0], H, W), dtype=torch.bool, device=arcs.device)
+    ops = 0
+    for i in range(arcs.shape[1]):
+        cx, cy, irx, iry, hws, ux, uy, vx, vy, wide = (arcs[:, i, k, None, None] for k in range(10))
+        dx, dy = (xx - cx) * irx, (yy - cy) * iry
+        rho2 = dx * dx + dy * dy
+        lo = torch.clamp(1.0 - hws, min=0.0)
+        ring = ~done & (rho2 > lo * lo) & (rho2 < (1.0 + hws) * (1.0 + hws))
+        ops += 9 * int((~done).sum()) + 11 * int(ring.sum())
+        pos_u, pos_v = (ux * dy - uy * dx) >= 0, (dx * vy - dy * vx) >= 0
+        done |= ring & ((pos_u & pos_v) | ((wide > 0.5) & (pos_u | pos_v)))
+    return ops
+
+
+def aug_ops(field, mh, mwt, packed, n_arcs: int) -> int:
+    """f32 operations the whole stack needs on this run's operands:
+    AUG_PIXEL_OPS a pixel, the arcs (`arc_ops`), and the bilinear upsample
+    mh @ field @ mwt over the nonzero entries of mh's rows and mwt's columns
+    (two at most: a product each, one sum fewer)."""
+    n, H, W, S = field.shape[0], mh.shape[0], mwt.shape[1], field.shape[-1]
+    taps = lambda nz: int((2 * nz - 1).clamp(min=0).sum())  # noqa: E731
+    upsample = n * (S * taps((mh != 0).sum(1)) + H * taps((mwt != 0).sum(0)))
+    arcs = packed[:, :10 * n_arcs].reshape(n, n_arcs, 10)
+    return n * H * W * AUG_PIXEL_OPS + upsample + arc_ops(arcs, H, W)
+
+
+def _aug_compare(label: str, got, want, dt: str) -> float:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
+    err = (got.float() - want.float()).abs()
+    mx, mean = err.max().item(), err.mean().item()
+    tol_max, tol_mean = AUG_TOL[dt]
+    say(f"{label}: max |kernel - plain| {mx:.4g} (tol {tol_max}), mean {mean:.3g} (tol {tol_mean})")
+    if not (mx <= tol_max and mean <= tol_mean) or not got.isfinite().all():
+        raise AssertionError(f"{label}: kernel disagrees with its plain version")
+    return mx
+
+
+def _nhwc(per_cam):
+    n = per_cam.shape[0] // 2
+    return per_cam.reshape(n, 2, 3, HW, HW).permute(0, 3, 4, 1, 2).reshape(n, HW, HW, 6).contiguous()
+
+
+def augment_phase() -> tuple:
+    """The two augmentation kernels against their plain versions, the two
+    paths' launches, and the fused path against the per-op path. Returns
+    (measured entries, launches of each path's run)."""
+    import torch
+    import torch.nn.functional as F
+
+    from argus_tpu_torch.ops import augment as TA
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.ops.kernels import augment_fused as kaf
+    from argus_tpu_torch.ops.kernels import blur as kb
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cfg = TA.AugmentationConfig()
+    x = {"f32": torch.rand(N_IMG, 3, HW, HW, generator=g, device="cuda")}
+    x["bf16"] = x["f32"].to(torch.bfloat16)
+    params = {dt: TA.sample_params(cfg, 11, N_ROWS, 2, HW, HW, "cuda", x[dt].dtype) for dt in x}
+    results = {}
+
+    def fused_case(dt, n_arcs, order=None):
+        p = params[dt] if n_arcs else dataclasses.replace(params[dt], arcs=None)
+        args = list(TA.pack_fused(p, N_IMG, HW, HW, n_arcs, "cuda"))
+        if order is not None:
+            args[4] = torch.tensor([order], dtype=torch.int32, device="cuda")
+        return (lambda: kaf.fused_augment(x[dt], *args, n_arcs),
+                lambda: kaf.fused_augment_plain(x[dt], *args, n_arcs), args)
+
+    worst = 0.0
+    for hue_pos in range(4):
+        order = [1, 0, 2]
+        order.insert(hue_pos, 3)
+        for n_arcs in (10, 0):
+            kern, plain, _ = fused_case("bf16", n_arcs, order)
+            worst = max(worst, _aug_compare(f"augment_fused bf16 order {order} {n_arcs} arcs", kern(), plain(),
+                                            "bf16"))
+    kern, plain, _ = fused_case("f32", 10)
+    worst = max(worst, _aug_compare(f"augment_fused f32 order {params['f32'].order.tolist()} 10 arcs", kern(),
+                                    plain(), "f32"))
+    kern, plain, args = fused_case("bf16", 10)  # the train step's case
+    flops = aug_ops(*args[:4], 10)
+    nb = 2 * nbytes(x["bf16"]) + nbytes(*args)
+    ms, pms = cuda_ms(kern, 10), cuda_ms(plain, 2)
+    b, by = bound_ms(flops, nb, PEAK_F32)
+    say(f"augment_fused {tuple(x['bf16'].shape)} bf16 x1: kernel {ms:.3f} ms, plain {pms:.3f} ms, no library "
+        f"call, bound {b:.3f} ms ({by}, f32 CUDA-core peak), {flops / ms / 1e9:.1f} TFLOP/s f32, "
+        f"{nb / ms / 1e6:.0f} GB/s")
+    results["augment_fused"] = dict(max_abs_err=worst, ms=ms, plain_ms=pms, library_ms=None, flops=flops,
+                                    bytes=nb, peak=PEAK_F32)
+
+    def blur_args(dt):
+        (gw, gg), (mk, mg) = params[dt].gauss, params[dt].motion
+        return x[dt], gw, mk, torch.stack([gg, mg], 1)
+
+    worst = max(_aug_compare(f"blur {dt}", kb.fused_random_blur(*blur_args(dt)),
+                             kb.fused_random_blur_plain(*blur_args(dt)), dt) for dt in ("bf16", "f32"))
+    xb, gw, mk, gates = blur_args("bf16")
+    c = N_IMG * 3
+    wv = gw.repeat_interleave(3, 0).to(xb.dtype)
+    wm = mk.repeat_interleave(3, 0).to(xb.dtype)[:, None]
+    gg, mg = (gates[:, k].to(xb.dtype).repeat_interleave(3)[None, :, None, None] for k in range(2))
+
+    def lib_blur():
+        xx = xb.reshape(1, c, HW, HW)
+        g1 = F.conv2d(F.pad(xx, (0, 0, 2, 2), mode="replicate"), wv[:, None, :, None], groups=c)
+        g1 = F.conv2d(F.pad(g1, (2, 2, 0, 0), mode="replicate"), wv[:, None, None, :], groups=c)
+        g2 = gg * g1 + (1 - gg) * xx
+        m = F.conv2d(F.pad(g2, (1, 1, 1, 1), mode="replicate"), wm, groups=c)
+        return (mg * m + (1 - mg) * g2).reshape(xb.shape)
+
+    lib_err = (lib_blur().float() - kb.fused_random_blur_plain(xb, gw, mk, gates).float()).abs().max().item()
+    ms = cuda_ms(lambda: kb.fused_random_blur(xb, gw, mk, gates), 10)
+    pms = cuda_ms(lambda: kb.fused_random_blur_plain(xb, gw, mk, gates), 2)
+    lms = cuda_ms(lib_blur, 5)
+    flops, nb = BLUR_OPS * xb.numel(), 2 * nbytes(xb) + nbytes(gw, mk, gates)
+    b, by = bound_ms(flops, nb, PEAK_F32)
+    say(f"blur {tuple(xb.shape)} bf16 x1: kernel {ms:.3f} ms, plain {pms:.3f} ms, library (replicate pad + grouped "
+        f"conv2d, max |library - plain| {lib_err:.3g}) {lms:.3f} ms, bound {b:.3f} ms ({by}), "
+        f"{nb / ms / 1e6:.0f} GB/s")
+    results["blur"] = dict(max_abs_err=worst, ms=ms, plain_ms=pms, library_ms=lms, flops=flops, bytes=nb,
+                           peak=PEAK_F32)
+
+    # the two paths through the entry point: launches, then fused vs per-op on the interior
+    path_launches = {}
+    outs = {}
+    for dt in ("bf16", "f32"):
+        nhwc = _nhwc(x[dt])
+        for name, c_ in (("fused", cfg), ("per-op", dataclasses.replace(cfg, pallas_fused=False))):
+            kernels.reset_launch_counts()
+            outs[name] = TA.apply_augmentation(c_, 11, nhwc)
+            torch.cuda.synchronize()
+            if dt == "bf16":
+                path_launches[name] = kernels.launch_counts()
+        want = {"fused": {**_NONE, "augment_fused": 1}, "per-op": {**_NONE, "blur": 1}}
+        if dt == "bf16" and path_launches != want:
+            raise AssertionError(f"augmentation launches {path_launches} != expected {want}")
+        d = (outs["fused"].float() - outs["per-op"].float())[:, 4:-4, 4:-4].abs()
+        mean, far = d.mean().item(), (d > 2e-2).float().mean().item()
+        ok = all(bool(((o >= 0) & (o <= 1)).all()) and o.shape == nhwc.shape and o.dtype == nhwc.dtype
+                 for o in outs.values())
+        say(f"augmentation paths {dt}: launches fused {path_launches['fused']['augment_fused']} augment_fused, "
+            f"per-op {path_launches['per-op']['blur']} blur; fused vs per-op interior: mean |diff| {mean:.3g} "
+            f"(tol {PATHS_TOL[dt][0]}), share beyond 2e-2 {far:.3g} (tol {PATHS_TOL[dt][1]}), max "
+            f"{d.max().item():.3g}; outputs in [0, 1]: {ok}")
+        if not (ok and mean <= PATHS_TOL[dt][0] and far <= PATHS_TOL[dt][1]):
+            raise AssertionError(f"the fused augmentation path disagrees with the per-op path ({dt})")
+    del x, params, outs
+    torch.cuda.empty_cache()
+    return results, path_launches
+
+
+# ─────────────────────── phase 6: the train step ───────────────────────
 
 
 def _grad_errors(got: dict, want: dict):
@@ -609,21 +819,23 @@ FUSE_ON = dict(fuse_block="on", fuse_proj="on", fuse_stem="on", fuse_stage="on")
 def flagship_train_setup():
     """(cfg, model, state, batch) of the flagship train step on the card:
     ResNet-50 NCameraCNN at full width (2 cameras, 1024-d features), bf16,
-    frozen BN + affine, frozen stem, full backprop, no augmentation, clip(1.0)
-    + Adam at lr 1e-4; random weights from seed 0 with BN randomised; a batch
+    frozen BN + affine, frozen stem, full backprop, argus_tpu's default
+    augmentation, clip(1.0) + Adam at lr 1e-4; random weights from seed 0 with BN randomised; a batch
     of 256 seeded uint8 frame pairs with non-identity poses, on the card."""
     import numpy as np
     import torch
 
     from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.ops.augment import AugmentationConfig
     from argus_tpu_torch.train import TrainConfig, create_train_state
 
     mcfg = NCameraCNNConfig(
         n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True, bn_frozen_affine=True,
         stem_frozen=True, frozen_stages=0, **FUSE_ON,
     )
-    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=False, batch_size=N_ROWS,
-                      learning_rate=1e-4, max_grad_norm=1.0)
+    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=True,
+                      augmentation_config=AugmentationConfig(), batch_size=N_ROWS, learning_rate=1e-4,
+                      max_grad_norm=1.0)
     model, state = create_train_state(cfg, seed=0)
     _randomize_(model, seed=0)  # in place: the state holds the same parameters
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -641,26 +853,26 @@ def flagship_train_setup():
 
 
 def train_phase() -> tuple:
-    import numpy as np
     import torch
 
     from argus_tpu_torch.models import NCameraCNN
-    from argus_tpu_torch.ops import kernels
-    from argus_tpu_torch.train import loss_and_grads, make_train_step
+    from argus_tpu_torch.ops.augment import apply_augmentation
+    from argus_tpu_torch.train import _loss_and_grads_on, feed_images, make_train_step
 
     cfg, model, state, batch = flagship_train_setup()
     mcfg = cfg.model_config
 
-    # the fused step against the unfused one (cuDNN convs, frozen BN through autograd)
+    # the fused step against the unfused one (cuDNN convs, frozen BN through
+    # autograd), both on one augmented batch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     head = {k: v[:8] for k, v in batch.items()}
+    images = apply_augmentation(cfg.augmentation_config, 99, feed_images(cfg, head["images"], "cuda"))
     off = dataclasses.replace(mcfg, **{k: "off" for k in FUSE_ON})
     ref = NCameraCNN(dataclasses.replace(off, dtype="bfloat16")).cuda()
     ref.load_state_dict(model.state_dict())
-    cfg_off = dataclasses.replace(cfg, model_config=off)
-    loss_f, grads_f = loss_and_grads(model, cfg, state.params, head)
-    loss_r, grads_r = loss_and_grads(ref, cfg_off, dict(ref.named_parameters()), head)
+    loss_f, grads_f = _loss_and_grads_on(model, state.params, images, head)
+    loss_r, grads_r = _loss_and_grads_on(ref, dict(ref.named_parameters()), images, head)
     errs = _grad_errors(grads_f, grads_r)
     worst = max(errs, key=errs.get)
     median = sorted(errs.values())[len(errs) // 2]
@@ -672,14 +884,33 @@ def train_phase() -> tuple:
         f"(tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN})")
     if not (loss_err <= TRAIN_LOSS_RTOL and errs[worst] <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
         raise AssertionError("the fused train step disagrees with the unfused one")
-    del ref, grads_f, grads_r, head
+    del ref, grads_f, grads_r, head, images
     torch.cuda.empty_cache()
 
-    step = make_train_step(model, cfg)
+    runs = {}
+    for aug in (True, False):
+        c = dataclasses.replace(cfg, use_augmentation=aug)
+        runs[aug] = _time_steps(make_train_step(model, c), state, batch, "with" if aug else "without")
+        state = runs[aug][2]
+        want = EXPECTED_TRAIN_LAUNCHES if aug else {**EXPECTED_TRAIN_LAUNCHES, "augment_fused": 0}
+        if runs[aug][0] != want:
+            raise AssertionError(f"train launch counts {runs[aug][0]} != expected {want}")
+    say(f"train: augmentation costs {runs[True][1] - runs[False][1]:.2f} ms of the {runs[True][1]:.2f} ms step")
+    return runs[True][0], runs[True][1]
+
+
+def _time_steps(step, state, batch, aug: str):
+    """A warm-up step, then TRAIN_STEPS timed ones: (launches in the first,
+    mean ms by CUDA events, state)."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.ops import kernels
+
     t0 = time.perf_counter()
     state, loss = step(state, batch)
     torch.cuda.synchronize()
-    say(f"train: warm-up step {time.perf_counter() - t0:.2f} s, loss {loss.item():.6f}")
+    say(f"train {aug} augmentation: warm-up step {time.perf_counter() - t0:.2f} s, loss {loss.item():.6f}")
     torch.cuda.reset_peak_memory_stats()
     ev_ms, host_ms, losses, launches = [], [], [], None
     for i in range(TRAIN_STEPS):
@@ -697,19 +928,17 @@ def train_phase() -> tuple:
         if i == 0:
             launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    say(f"train: launches in one step {launches}")
-    if launches != EXPECTED_TRAIN_LAUNCHES:
-        raise AssertionError(f"train launch counts {launches} != expected {EXPECTED_TRAIN_LAUNCHES}")
+    say(f"train {aug} augmentation: launches in one step {launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
     ms = float(np.mean(ev_ms))
-    say(f"train: losses per step {[round(v, 6) for v in losses]}")
-    say(f"train: {TRAIN_STEPS} steps of batch {N_ROWS} rows ({N_IMG} camera images, {HW}x{HW}, bf16, "
-        f"frozen BN + stem, full backprop, no augmentation): {ms:.2f} ms/step by CUDA events "
-        f"(per step {[round(v, 2) for v in ev_ms]}), {float(np.mean(host_ms)):.2f} ms/step by host clock, "
+    say(f"train {aug} augmentation: losses per step {[round(v, 6) for v in losses]}")
+    say(f"train {aug} augmentation: {TRAIN_STEPS} steps of batch {N_ROWS} rows ({N_IMG} camera images, {HW}x{HW}, "
+        f"bf16, frozen BN + stem, full backprop): {ms:.2f} ms/step by CUDA events (per step "
+        f"{[round(v, 2) for v in ev_ms]}), {float(np.mean(host_ms)):.2f} ms/step by host clock, "
         f"{N_IMG / ms * 1e3:.1f} camera-images/s; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
-    return launches, ms
+    return launches, ms, state
 
 
 def main() -> int:
@@ -731,20 +960,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         launches, _ = end_to_end_phase(tmpdir)
     measured.update(train_kernel_phase())
+    aug_measured, aug_launches = augment_phase()
+    measured.update(aug_measured)
     train_launches, step_ms = train_phase()
     kernel_ms = sum(m["ms"] for name, m in measured.items() if train_launches[name])
     say(f"train breakdown: fused kernels {kernel_ms:.2f} ms of the {step_ms:.2f} ms step (phase-2/4 kernel "
         f"times at these shapes: " + ", ".join(
             f"{name} {m['ms']:.2f}" for name, m in measured.items() if train_launches[name])
-        + f"); the other {step_ms - kernel_ms:.2f} ms: the u8 feed, mean pool, head, loss, BN folds, "
-        f"weight transposes, optimizer and launch gaps")
+        + f"); the other {step_ms - kernel_ms:.2f} ms: the u8 feed, augmentation sampling and layout "
+        f"transposes, mean pool, head, loss, BN folds, weight transposes, optimizer and launch gaps")
 
     rows = []
     for name, m in measured.items():
-        b, by = bound_ms(m["flops"], m["bytes"])
+        b, by = bound_ms(m["flops"], m["bytes"], m.get("peak", PEAK_FLOPS))
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name] or train_launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name] or train_launches[name] or aug_launches["per-op"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })

@@ -7,7 +7,7 @@ share over a window of steps.
 
 The step is `chip_smoke.flagship_train_setup`'s (ResNet-50 NCameraCNN at full
 width, batch 256 two-camera 256x256 uint8 rows, bf16, frozen BN and stem,
-full backprop, no augmentation). After a warm-up step, `--steps` steps run
+full backprop, argus_tpu's default augmentation). After a warm-up step, `--steps` steps run
 under the profiler; busy time is the sum of the device-side events' time
 (kernels, copies, memsets; one stream, so they do not overlap), the window
 is the host clock from the first step's start to a synchronise after the
@@ -74,7 +74,7 @@ def main() -> int:
             f.write(f"{ms:10.3f} ms/step  {n:6d} per step  {key[:160]}\n")
     chip_smoke.say(f"profile: {args.steps} profiled steps, {step_ms:.2f} ms/step by host clock, device busy "
                    f"{busy_ms:.2f} ms/step = {100 * busy_ms / step_ms:.1f}% (idle {100 - 100 * busy_ms / step_ms:.1f}%)")
-    for ms, n, key in rows[:12]:
+    for ms, n, key in rows[:20]:
         chip_smoke.say(f"profile:   {ms:9.3f} ms/step  {n:5d} per step  {key[:90]}")
     chip_smoke.say(f"profile: full table in {args.out}")
     return 0

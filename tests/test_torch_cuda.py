@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the forwards, the saving forwards and the one-pass backwards, and the fused
-training step against its CPU run.
+the forwards, the saving forwards and the one-pass backwards, the two
+augmentation kernels, and the fused training step against its CPU run.
 
 These need an NVIDIA Hopper GPU and nvcc: they carry the `cuda` marker and
 skip elsewhere. Run them on the card with
@@ -10,7 +10,10 @@ same comparison at the full serving shapes.
 Tolerance (bf16 outputs and f32 weight gradients): max |kernel - plain| <=
 2e-2 * max |plain| + 1e-2; both sides sum the same bf16 operands in f32 in
 different orders, and round the bf16 outputs (and the m1/m2 masks of the
-backward) once.
+backward) once. The augmentation kernels round every op as their plain
+versions do: the blur is held bit-exact, the whole stack to one bf16 rounding
+step (1.6e-2, the contrast mean and the hue's divisions differ by an f32 ulp)
+and 1e-5 in f32.
 """
 
 import pytest
@@ -19,7 +22,10 @@ import torch
 import numpy as np
 
 from argus_tpu_torch.ops import kernels
+from argus_tpu_torch.ops import augment as TA
+from argus_tpu_torch.ops.kernels import augment_fused as taf
 from argus_tpu_torch.ops.kernels import block_fused as tb
+from argus_tpu_torch.ops.kernels import blur as tbl
 from argus_tpu_torch.ops.kernels import proj_fused as tp
 from argus_tpu_torch.ops.kernels import stage_fused as tst
 from argus_tpu_torch.ops.kernels import stem_fused as ts
@@ -106,7 +112,7 @@ def test_wrappers_check_arguments(dev):
     assert set(kernels.KERNELS) == {
         "stem_fused", "stage_fused", "proj_fused", "block_fused",
         "stage_fused_save", "stage_fused_bwd", "proj_fused_save", "proj_fused_bwd",
-        "block_fused_save", "block_fused_bwd",
+        "block_fused_save", "block_fused_bwd", "augment_fused", "blur",
     }
 
 
@@ -225,6 +231,68 @@ def test_train_step_on_card_matches_cpu(dev):
     assert counts == {
         "stem_fused": 1, "stage_fused": 0, "proj_fused": 0, "block_fused": 0,
         "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3, "proj_fused_bwd": 3,
-        "block_fused_save": 10, "block_fused_bwd": 10,
+        "block_fused_save": 10, "block_fused_bwd": 10, "augment_fused": 0, "blur": 0,
     }, counts
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
+
+
+# ragged shapes: tiles and image edges that do not fall on the 32-pixel grid
+AUG_SHAPES = [(3, 40, 72), (2, 256, 256), (2, 17, 33)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,h,w", AUG_SHAPES)
+def test_blur_kernel(dev, dtype, n, h, w):
+    g = torch.Generator().manual_seed(9)
+    x = torch.rand(n, 3, h, w, generator=g).to(dev, dtype)
+    gw, _ = TA._gaussian_taps(TA.generator(1, "cpu"), n)
+    mk, _ = TA._motion_kernel(TA.generator(2, "cpu"), n)
+    gates = torch.tensor([[1, 1], [0, 1], [1, 0]][:n], dtype=torch.bool)
+    args = (x, gw.to(dev), mk.to(dev), gates.to(dev))
+    before = tbl.KERNEL.launches
+    got = tbl.fused_random_blur(*args)
+    assert tbl.KERNEL.launches == before + 1
+    assert torch.equal(got, tbl.fused_random_blur_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,h,w", AUG_SHAPES)
+def test_augment_fused_kernel(dev, dtype, n, h, w):
+    x = torch.rand(n, 3, h, w, generator=torch.Generator().manual_seed(10)).to(dev, dtype)
+    p = TA.sample_params(TA.AugmentationConfig(), 3, n, 1, h, w, dev, dtype)
+    for n_arcs, order in ((10, [3, 0, 1, 2]), (0, [2, 1, 3, 0]), (10, [0, 2, 1, 3])):
+        q = p if n_arcs else TA.AugmentParams(**{**vars(p), "arcs": None})
+        field, mh, mwt, packed, _ = TA.pack_fused(q, n, h, w, n_arcs, dev)
+        order = torch.tensor([order], dtype=torch.int32, device=dev)
+        args = (x, field, mh, mwt, packed, order, n_arcs)
+        got, want = taf.fused_augment(*args), taf.fused_augment_plain(*args)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err = (got.float() - want.float()).abs()
+        tol = 1.6e-2 if dtype == torch.bfloat16 else 1e-5
+        assert err.max() <= tol and err.mean() <= 1e-3, (n_arcs, err.max().item(), err.mean().item())
+
+
+def test_augmented_train_step_launches_the_fused_kernel(dev):
+    """use_augmentation=True on the card: one augment_fused launch per step,
+    no blur launch, and no kernel's count disturbed otherwise."""
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+
+    mcfg = NCameraCNNConfig(n_cams=2, backbone="resnet50", resnet_output_dim=32, bn_frozen=True,
+                            bn_frozen_affine=True, stem_frozen=True)
+    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=True, learning_rate=1e-3)
+    rng = np.random.default_rng(1)
+    batch = {
+        "images": rng.integers(0, 256, (2, 64, 64, 6), dtype=np.uint8),
+        "cube_pose": np.tile(np.array([0.1, 0, 0.2, 0, 0, 0.6, 0.8], np.float32), (2, 1)),
+        "mask": np.ones(2, np.float32),
+    }
+    model, state = create_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(model, cfg, device="cuda")
+    for i in range(2):
+        kernels.reset_launch_counts()
+        state, loss = step(state, batch)
+        counts = kernels.launch_counts()
+        assert counts["augment_fused"] == 1 and counts["blur"] == 0 and counts["stem_fused"] == 1, counts
+        assert torch.isfinite(loss)
+    assert state.step == 2 and int(state.opt_state.count) == 2

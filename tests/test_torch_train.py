@@ -4,10 +4,13 @@ One and two steps of the port's `make_train_step` on the CPU against
 `argus_tpu.train.make_train_step_body` with the fused kernels in Pallas
 interpret mode, from one state: ResNet-50 NCameraCNN (output dim 32), 64x64,
 two rows of which one is masked, frozen BN and stem, full backprop, every
-fuse flag on, no augmentation, BN buffers and scales randomised (with the
-zero-initialised BatchNorm_2 scales a broken backward would hide behind zero
-gradients) and non-identity targets. Loss, Adam moments (the clipped
-gradients) and params are compared leaf by leaf, in f32 and bf16 (`amp`).
+fuse flag on, BN buffers and scales randomised (with the zero-initialised
+BatchNorm_2 scales a broken backward would hide behind zero gradients) and
+non-identity targets. Loss, Adam moments (the clipped gradients) and params
+are compared leaf by leaf, in f32 and bf16 (`amp`) without augmentation,
+and for one bf16 step with argus_tpu's default augmentation (the per-op
+path with the blur kernel on the CPU, both sides; the port's sampler
+returns argus_tpu's parameters for `fold_in(PRNGKey(0), 0)`).
 Also: the optimizer against optax, the Adam-state bridge, and the entry
 points' refusals.
 
@@ -42,6 +45,7 @@ import torch
 
 from argus_tpu.models import NCameraCNN as JaxNCameraCNN
 from argus_tpu.models import NCameraCNNConfig as JaxConfig
+from argus_tpu.ops.augment import AugmentationConfig as JaxAugmentationConfig
 from argus_tpu.ops.pallas import block_fused as jb
 from argus_tpu.ops.pallas import proj_fused as jp
 from argus_tpu.ops.pallas import stage_fused as jst
@@ -50,6 +54,7 @@ from argus_tpu.train import TrainConfig as JaxTrainConfig
 from argus_tpu.train import TrainState as JaxTrainState
 from argus_tpu.train import make_optimizer as jax_make_optimizer
 from argus_tpu.train import make_train_step_body
+from argus_tpu_torch.ops import augment as TA
 from argus_tpu_torch.models import NCameraCNNConfig
 from argus_tpu_torch.models.jax_import import (
     adam_moments_from_optax,
@@ -113,8 +118,8 @@ def _batch():
     }
 
 
-def _port(amp):
-    cfg = TrainConfig(model_config=NCameraCNNConfig(**MODEL), amp=amp, use_augmentation=False,
+def _port(amp, aug=False):
+    cfg = TrainConfig(model_config=NCameraCNNConfig(**MODEL), amp=amp, use_augmentation=aug,
                       learning_rate=LR)
     model, state = create_train_state(cfg, seed=0, device="cpu")
     _randomize_(model, seed=1)
@@ -135,13 +140,13 @@ def reference(tmp_path_factory):
     dtype, from the port's initial state converted; computed once."""
     cache = {}
 
-    def run(amp):
-        if amp in cache:
-            return cache[amp]
-        cfg, model, _ = _port(amp)
+    def run(amp, aug=False):
+        if (amp, aug) in cache:
+            return cache[amp, aug]
+        cfg, model, _ = _port(amp, aug)
         params, stats = variables_from_state_dict(model.state_dict())
         jcfg = JaxTrainConfig(
-            model_config=JaxConfig(**MODEL), amp=amp, use_augmentation=False, learning_rate=LR,
+            model_config=JaxConfig(**MODEL), amp=amp, use_augmentation=aug, learning_rate=LR,
             wandb_log=False, save_dir=str(tmp_path_factory.mktemp("save")),
         )
         jmodel = JaxNCameraCNN(dataclasses.replace(JaxConfig(**MODEL), dtype="bfloat16" if amp else "float32"))
@@ -156,7 +161,7 @@ def reference(tmp_path_factory):
         with pytest.MonkeyPatch.context() as mp:
             _pallas_everywhere(mp)
             step = jax.jit(make_train_step_body(jmodel, jcfg, 0))
-            for _ in range(2):
+            for _ in range(1 if aug else 2):
                 state, loss = step(state, batch)
                 adam = state.opt_state[1]
                 out.append((
@@ -164,7 +169,7 @@ def reference(tmp_path_factory):
                     adam_moments_from_optax(adam.count, jax.device_get(adam.mu), jax.device_get(adam.nu)),
                     state_dict_from_variables(jax.device_get(state.params), {}),
                 ))
-        cache[amp] = out
+        cache[amp, aug] = out
         return out
 
     return run
@@ -190,10 +195,18 @@ def _check_leaves(got: dict, want: dict, tol, what, base=None):
     assert median <= tol[1], f"{what}: median relative error {median} > {tol[1]}"
 
 
-@pytest.mark.parametrize("amp", [False, True], ids=["f32", "bf16"])
-def test_train_step_matches_argus_tpu(reference, amp):
-    want = reference(amp)
-    cfg, model, state = _port(amp)
+@pytest.mark.parametrize("amp,aug", [(False, False), (True, False), (True, True)],
+                         ids=["f32", "bf16", "bf16-augmented"])
+def test_train_step_matches_argus_tpu(reference, monkeypatch, amp, aug):
+    want = reference(amp, aug)
+    cfg, model, state = _port(amp, aug)
+    if aug:
+        from test_torch_augment import jax_params
+
+        p = jax_params(JaxAugmentationConfig(), jax.random.fold_in(jax.random.PRNGKey(0), 0), 2, 2, 64, 64,
+                       jnp.bfloat16)
+        calls = []
+        monkeypatch.setattr(TA, "sample_params", lambda *a, **k: calls.append(a) or p)
     p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     step = make_train_step(model, cfg, device="cpu")
     tol = TOL[amp]
@@ -204,10 +217,43 @@ def test_train_step_matches_argus_tpu(reference, amp):
         _check_leaves(state.opt_state.mu, w_mu, tol["moments"][i], f"step {i + 1} mu")
         _check_leaves(state.opt_state.nu, w_nu, tol["moments"][i], f"step {i + 1} nu")
         _check_leaves(model.state_dict(), w_params, tol["update"][i], f"step {i + 1} update", p0)
+    if aug:  # the port sampled for step 0's key (and, ahead, step 1's) and took argus_tpu's parameters
+        assert [a[1:4] for a in calls] == [(TA.fold_in(0, 0), 2, 2), (TA.fold_in(0, 1), 2, 2)]
+        assert state.step == 1
     # the frozen parts got no gradient: BN affine and the stem
     for k, v in state.opt_state.mu.items():
         if ".BatchNorm" in k or "norm_" in k or "conv_init" in k:
             assert torch.count_nonzero(v) == 0, k
+
+
+def test_resumed_state_continues_the_augmentation_stream(monkeypatch):
+    """The step augments with the key fold_in(base_seed, state.step): a state
+    resumed at step 2 (its step set, as a restore sets it) applies the same
+    parameters as an uninterrupted run does at steps 2 and 3."""
+    applied = []
+    apply_params = TA.apply_params
+    monkeypatch.setattr(TA, "apply_params", lambda c, p, x, n: applied.append(p) or apply_params(c, p, x, n))
+
+    def run(start, n_steps):
+        cfg, model, state = _port(False, aug=True)
+        state.step = start
+        step = make_train_step(model, cfg, base_seed=3, device="cpu")
+        for _ in range(n_steps):
+            state, loss = step(state, _batch())
+            assert torch.isfinite(loss)
+        assert state.step == start + n_steps
+        out = [(p.jiggle, p.arcs, p.plasma[0]) for p in applied]
+        applied.clear()
+        return out, cfg
+
+    whole, cfg = run(0, 4)
+    resumed, _ = run(2, 2)
+    for got, want in zip(resumed, whole[2:], strict=True):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(whole[2][0], whole[3][0])
+    first = TA.sample_params(cfg.augmentation_config, TA.fold_in(3, 0), 2, 2, 64, 64, "cpu", torch.float32)
+    assert torch.equal(whole[0][0], first.jiggle) and torch.equal(whole[0][1], first.arcs)
 
 
 def test_optimizer_matches_optax():
@@ -261,7 +307,6 @@ def test_adam_state_bridge_round_trip():
 def test_unported_configurations_raise():
     model_cfg = NCameraCNNConfig(**MODEL)
     cases = [
-        (dict(use_augmentation=True), "A4"),
         (dict(use_augmentation=False, grad_accum_steps=2), "A5"),
         (dict(use_augmentation=False, multigpu=True), "A7"),
         (dict(use_augmentation=False, model_type="keypoint"), "A8"),
