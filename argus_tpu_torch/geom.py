@@ -1,7 +1,9 @@
 """SE(3) / so(3) / quaternion math for serving and the training loss, in
 PyTorch.
 
-Port of `argus_tpu/geom.py` (the group operations, Exp and Log), with the same conventions
+Port of `argus_tpu/geom.py` (the group operations, Exp and Log, the
+rotation-matrix-to-quaternion map and the Unity-to-MuJoCo pose converter),
+with the same conventions
 (pypose's): quaternions are xyzw (scalar last), SE(3) elements are 7-vectors
 ``[tx, ty, tz, qx, qy, qz, qw]``, se(3) tangents are ``[rho(3), phi(3)]``, and
 ``se3_exp`` is the full exponential ``t = J_l(phi) @ rho``, ``q = so3_exp(phi)``.
@@ -169,3 +171,49 @@ def xyzxyzw_to_xyzwxyz_SE3(pose):
     if isinstance(pose, torch.Tensor):
         return torch.cat([pose[..., :3], pose[..., -1:], pose[..., -4:-1]], dim=-1)
     return np.concatenate([pose[..., :3], pose[..., -1:], pose[..., -4:-1]], axis=-1)
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices -> xyzw unit quaternions, w >= 0
+    (branchless Shepperd, argus_tpu's `matrix_to_quat`): all four candidate
+    quaternions, one per dominant diagonal or trace case, and the one with
+    the largest 4 q_k^2 picked with `torch.where`."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+
+    def half_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=1e-12)) / 2.0
+
+    w_w = half_sqrt(qw2)
+    cand_w = torch.stack([(m21 - m12) / (4 * w_w), (m02 - m20) / (4 * w_w), (m10 - m01) / (4 * w_w), w_w], -1)
+    x_x = half_sqrt(qx2)
+    cand_x = torch.stack([x_x, (m01 + m10) / (4 * x_x), (m02 + m20) / (4 * x_x), (m21 - m12) / (4 * x_x)], -1)
+    y_y = half_sqrt(qy2)
+    cand_y = torch.stack([(m01 + m10) / (4 * y_y), y_y, (m12 + m21) / (4 * y_y), (m02 - m20) / (4 * y_y)], -1)
+    z_z = half_sqrt(qz2)
+    cand_z = torch.stack([(m02 + m20) / (4 * z_z), (m12 + m21) / (4 * z_z), z_z, (m10 - m01) / (4 * z_z)], -1)
+    best = torch.argmax(torch.stack([qx2, qy2, qz2, qw2], -1), dim=-1)[..., None]
+    q = torch.where(best == 3, cand_w, torch.where(best == 0, cand_x, torch.where(best == 1, cand_y, cand_z)))
+    return quat_canonical(quat_normalize(q))
+
+
+def convert_pose_unity_to_mjpc(pose_unity: np.ndarray) -> np.ndarray:
+    """Unity pose (..., 7) xyzw -> MuJoCo pose (..., 7) wxyz, in numpy:
+    the axis remap of the translation, and the quaternion's matching remap
+    with the angle's sign flipped (left- to right-handed), w >= 0."""
+    R_u2m = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    trans_mjpc = (R_u2m @ pose_unity[..., :3, None]).squeeze(-1)
+    q_xyzw = pose_unity[..., 3:]
+    q_wxyz = np.concatenate([q_xyzw[..., -1:], q_xyzw[..., :-1]], axis=-1)
+    quat_mjpc = np.concatenate(
+        [-q_wxyz[..., 0:1], q_wxyz[..., 3:4], -q_wxyz[..., 1:2], q_wxyz[..., 2:3]], axis=-1
+    )
+    neg_w = quat_mjpc[..., 0] < 0
+    quat_mjpc[neg_w] = -quat_mjpc[neg_w]
+    return np.concatenate([trans_mjpc, quat_mjpc], axis=-1)

@@ -1,20 +1,18 @@
-"""Model zoo of the port: ResNet backbones and the NCameraCNN pose regressor.
+"""Model zoo of the port: ResNet backbones and both pose-estimator
+families, the NCameraCNN pose regressor and the CubeKeypointNet corner
+detector (with its triangulation and Procrustes pose fit).
 
-`model_from_meta` rebuilds the model from the metadata a format-2 checkpoint
-carries, as `argus_tpu.models` does. The keypoint family is not ported yet.
+`model_from_meta` rebuilds either family from the metadata a format-2
+checkpoint carries, as `argus_tpu.models` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from argus_tpu_torch.models.keypoint_net import CubeKeypointNet, CubeKeypointNetConfig
 from argus_tpu_torch.models.pose_cnn import NCameraCNN, NCameraCNNConfig
 from argus_tpu_torch.models.resnet import ResNet, resnet18, resnet34, resnet50, resnet101
-
-_KEYPOINT_TODO = (
-    "the keypoint model family (CubeKeypointNet) is not ported yet: ROADMAP queue A "
-    "(keypoint family)"
-)
 
 
 def _coerce_config(cls, raw: dict):
@@ -37,23 +35,27 @@ def model_from_meta(meta: dict):
     """(model, config, model_type) from checkpoint metadata; an empty meta
     (legacy checkpoint) means the default NCameraCNN."""
     meta = meta or {}
-    model_type = meta.get("model_type", "pose_cnn")
-    if model_type == "keypoint":
-        raise NotImplementedError(_KEYPOINT_TODO)
-    cfg = _coerce_config(NCameraCNNConfig, meta.get("model_config", {}) or {})
+    raw = meta.get("model_config", {}) or {}
+    if meta.get("model_type", "pose_cnn") == "keypoint":
+        cfg = _coerce_config(CubeKeypointNetConfig, raw)
+        return CubeKeypointNet(cfg), cfg, "keypoint"
+    cfg = _coerce_config(NCameraCNNConfig, raw)
     return NCameraCNN(cfg), cfg, "pose_cnn"
 
 
 def resolve_model(meta: dict, model_config=None):
-    """(model, config, model_type), an explicit config overriding the meta."""
+    """(model, config, model_type), an explicit config overriding the meta;
+    its type selects the family."""
     if model_config is not None:
-        if not isinstance(model_config, NCameraCNNConfig):
-            raise NotImplementedError(_KEYPOINT_TODO)
+        if isinstance(model_config, CubeKeypointNetConfig):
+            return CubeKeypointNet(model_config), model_config, "keypoint"
         return NCameraCNN(model_config), model_config, "pose_cnn"
     return model_from_meta(meta)
 
 
 __all__ = [
+    "CubeKeypointNet",
+    "CubeKeypointNetConfig",
     "NCameraCNN",
     "NCameraCNNConfig",
     "ResNet",

@@ -14,7 +14,9 @@ stay f32 and are cast where they are used, as flax does. The `fuse_*` flags
 keep argus_tpu's names and values ("on" | "off" | "auto", where "auto" means
 on when the activation is a CUDA tensor). Under frozen BN (`bn_frozen` and
 `bn_frozen_affine`) with fusion on, the stem, stage chains, projection and
-identity bottlenecks run through the kernel functions of
+identity bottlenecks, and the identity BasicBlocks of ResNet-18/34 (stride
+1, cin == cout; the strided BasicBlocks stay unfused, as in argus_tpu) run
+through the kernel functions of
 `argus_tpu_torch.ops.kernels` on BN-folded weights (hand-written CUDA on the
 card, their plain versions on the CPU); otherwise each conv is `F.conv2d`
 followed by the frozen BatchNorm.
@@ -31,6 +33,9 @@ not ported yet raise `NotImplementedError`: exact train-mode BN or a
 trainable BN affine, and remat (ROADMAP A3); an unfrozen fused stem (its
 backward kernel, ROADMAP B6). The BN statistics strides and the stem
 gradient stride only act in those configurations.
+
+`forward(x, return_spatial=True)` returns the stride-32 feature map in f32
+instead of the pooled features, for the keypoint family's dense head.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from argus_tpu_torch.ops.kernels.basic_fused import basic_saved, fold_basic_params
 from argus_tpu_torch.ops.kernels.block_fused import block_saved, fold_bottleneck_params
 from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, proj_saved
 from argus_tpu_torch.ops.kernels.stage_fused import stage_chain
@@ -90,12 +96,14 @@ def _fold(conv: Conv, bn: BatchNorm):
 
 
 class BasicBlock(nn.Module):
-    """3x3 + 3x3 residual block (ResNet-18/34), unfused."""
+    """3x3 + 3x3 residual block (ResNet-18/34); an identity block (stride 1,
+    cin == filters) also runs fused on folded weights."""
 
     expansion = 1
 
     def __init__(self, cin: int, filters: int, strides: int, eps: float) -> None:
         super().__init__()
+        self.eps = eps
         self.Conv_0 = Conv(cin, filters, 3, strides, 1)
         self.BatchNorm_0 = BatchNorm(filters, eps)
         self.Conv_1 = Conv(filters, filters, 3, 1, 1)
@@ -110,6 +118,16 @@ class BasicBlock(nn.Module):
         y = self.BatchNorm_1(self.Conv_1(y))
         residual = x if self.is_identity else self.norm_proj(self.conv_proj(x))
         return torch.relu(y + residual)
+
+    def fold(self, dtype) -> tuple:
+        """Frozen-BN-folded weights of an identity block: the 4-tuple of the
+        BasicBlock kernel."""
+        return fold_basic_params(
+            dtype, *_fold(self.Conv_0, self.BatchNorm_0), *_fold(self.Conv_1, self.BatchNorm_1), eps=self.eps
+        )
+
+    def forward_fused(self, x: torch.Tensor, folded: tuple) -> torch.Tensor:
+        return basic_saved(x, *folded)
 
 
 class BottleneckBlock(nn.Module):
@@ -247,9 +265,12 @@ class ResNet(nn.Module):
         forward folds anew on every call, so it never trains against stale
         weights and the gradient reaches the conv kernels."""
         keys = [] if self.stem_space_to_depth else ["stem"]
-        if self.block_cls is BottleneckBlock:
-            keys += [f"stage{i}_block{j}" for i in range(len(self.stage_sizes))
-                     for j in range(self.stage_sizes[i])]
+        for i, count in enumerate(self.stage_sizes):
+            for j in range(count):
+                key = f"stage{i}_block{j}"
+                # bottlenecks fold every block; BasicBlocks only their identity ones
+                if self.block_cls is BottleneckBlock or getattr(self, key).is_identity:
+                    keys.append(key)
         self._folded = {k: self._fold_one(k) for k in keys}
 
     def _folded_weights(self, key: str) -> tuple:
@@ -268,7 +289,7 @@ class ResNet(nn.Module):
 
     # ─────────────── forward ───────────────
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, return_spatial: bool = False) -> torch.Tensor:
         if train:
             self._check_trainable()
         dt = self.dtype
@@ -283,10 +304,6 @@ class ResNet(nn.Module):
             and flag_on(self.fuse_stem, x)
         )
         fuse_blk = self.frozen and flag_on(self.fuse_block, x)
-        if fuse_blk and not bottleneck:
-            raise NotImplementedError(
-                "fused BasicBlock: the basic_fused kernel is not ported yet (ROADMAP queue B)"
-            )
         fuse_prj = bottleneck and self.frozen and flag_on(self.fuse_proj, x)
         fuse_stg = fuse_blk and fuse_prj and flag_on(self.fuse_stage, x)
         # the stem is frozen under stem_frozen or any frozen_stages depth: its
@@ -315,6 +332,10 @@ class ResNet(nn.Module):
         for i in range(len(self.stage_sizes)):
             with torch.no_grad() if i < self.frozen_stages else contextlib.nullcontext():
                 x = self._stage(i, x, fuse_blk, fuse_prj, fuse_stg)
+
+        if return_spatial:
+            # the stride-32 feature map, for dense-prediction heads (keypoint family)
+            return x.float()
 
         # global average pool: f32 sum, result in the compute dtype (jnp.mean)
         x = x.float().mean(dim=(1, 2)).to(dt)

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, one module per argus_tpu Pallas
-kernel family (forward, saving forward, backward; the augmentation's
-whole-stack and blur kernels), each with its plain
+kernel family (forward, saving forward, backward; the bottleneck and the
+BasicBlock families; the augmentation's whole-stack and blur kernels), each
+with its plain
 PyTorch version beside it (see `_build` for how the CUDA sources are
 compiled and bound).
 
@@ -10,7 +11,15 @@ counts the wrapper's successful launches.
 
 from __future__ import annotations
 
-from argus_tpu_torch.ops.kernels import augment_fused, block_fused, blur, proj_fused, stage_fused, stem_fused
+from argus_tpu_torch.ops.kernels import (
+    augment_fused,
+    basic_fused,
+    block_fused,
+    blur,
+    proj_fused,
+    stage_fused,
+    stem_fused,
+)
 
 KERNELS = {
     "stem_fused": stem_fused.KERNEL,
@@ -25,6 +34,9 @@ KERNELS = {
     "block_fused_bwd": block_fused.KERNEL_BWD,
     "augment_fused": augment_fused.KERNEL,
     "blur": blur.KERNEL,
+    "basic_fused": basic_fused.KERNEL,
+    "basic_fused_save": basic_fused.KERNEL_SAVE,
+    "basic_fused_bwd": basic_fused.KERNEL_BWD,
 }
 
 

@@ -1,21 +1,25 @@
 """Serving: uint8 camera frames -> SE(3) cube poses, as a long-lived object.
 
-Port of `argus_tpu/serve.py` `Estimator` for the NCameraCNN family. The
+Port of `argus_tpu/serve.py` `Estimator` for both model families. The
 estimator reads the model family and config from a format-2 checkpoint's
 metadata (an explicit config overrides), picks the serving configuration by
 batch size, loads the weights through the weight bridge, folds every frozen
 BN affine into its conv once, and warms the model up. `predict` converts
-uint8 frames with ``u8.float() / 255.0``, runs the model and `se3_exp`, and
-returns (B, 7) xyzw poses (or MuJoCo wxyz order) as numpy.
+uint8 frames with ``u8.float() / 255.0``, runs the model, then `se3_exp`
+(NCameraCNN) or `fit_pose` through the nominal cameras at the serving
+resolution (CubeKeypointNet), and returns (B, 7) xyzw poses (or MuJoCo wxyz
+order) as numpy.
 
 From batch `SERVING_FUSED_MIN_BATCH` up, `throughput_tuned_config` switches a
 bottleneck backbone to bf16, frozen BN and every fused kernel: on the card,
 the stem, the stage-0 chain, the stage 1-3 projection blocks and the
-identity blocks run the hand-written CUDA kernels. Below it the f32 model
-runs with plain convolutions.
+identity blocks run the hand-written CUDA kernels. A BasicBlock backbone
+(the keypoint family's ResNet-18) takes bf16 and folded BN but keeps its
+convolutions unfused, as argus_tpu does. Below it the f32 model runs with
+plain convolutions.
 
-The export path (`export_estimator` / `ExportedEstimator`) and the keypoint
-family are not ported yet (ROADMAP queue A).
+The export path (`export_estimator` / `ExportedEstimator`) is not ported yet
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from argus_tpu_torch.checkpoint import load_checkpoint_with_meta
 from argus_tpu_torch.geom import se3_exp, xyzxyzw_to_xyzwxyz_SE3
 from argus_tpu_torch.models import resolve_model
 from argus_tpu_torch.models.jax_import import state_dict_from_variables
+from argus_tpu_torch.models.keypoint_net import fit_pose, nominal_camera_matrices
 from argus_tpu_torch.models.resnet import BACKBONE_BLOCKS, BottleneckBlock
 
 # fuse fields that both tuners switch, in one place
@@ -105,6 +110,8 @@ class Estimator:
             width = mw if width is None else width
         self.hw = (height, width)
         self.batch_size = batch_size
+        self.cam_P = (nominal_camera_matrices(height, width).to(self.device)
+                      if self.model_type == "keypoint" else None)
 
         reference = model.state_dict()
         sd = state_dict_from_variables(raw["params"], raw["batch_stats"], reference)
@@ -118,7 +125,11 @@ class Estimator:
     @torch.inference_mode()
     def _infer(self, images_u8: torch.Tensor) -> torch.Tensor:
         images = images_u8.to(self.device, non_blocking=True).float() / 255.0
-        return se3_exp(self.model(images))
+        pred = self.model(images)
+        if self.model_type == "keypoint":
+            uv, _ = pred
+            return fit_pose(self.cam_P, uv)
+        return se3_exp(pred)
 
     def predict(self, images: np.ndarray, wxyz: bool = False) -> np.ndarray:
         """Poses for a uint8 batch (B, H, W, 3 * n_cams): (B, 7), xyzw

@@ -1,5 +1,6 @@
-"""Training step of the port: one clipped-Adam step of the NCameraCNN pose
-regressor on a batch of uint8 frames, in PyTorch on the card.
+"""Training step of the port: one clipped-Adam step of either model family
+(the NCameraCNN pose regressor or the CubeKeypointNet corner detector) on a
+batch of uint8 frames, in PyTorch on the card.
 
 Port of `argus_tpu/train.py` (`TrainConfig`, `geometric_loss_fn`,
 `make_optimizer`, `TrainState`, `create_train_state`, `make_train_step`,
@@ -11,19 +12,23 @@ is
 
     images = u8_to_f32(batch["images"], bf16 if amp else f32)
     images = apply_augmentation(augmentation_config, fold_in(base_seed, step), images)
-    loss   = sum(geometric_loss_fn(model(images), poses) * mask) / max(sum(mask), 1)
+    loss   = sum(losses(model(images), poses) * mask) / max(sum(mask), 1)
     grads  = d loss / d params                (zero for frozen parameters)
     params += -lr * adam(clip_by_global_norm(grads, max_grad_norm))
 
 with optax's formulas for the clip and for Adam (b1 0.9, b2 0.999, eps 1e-8
 outside the square root, both moments bias-corrected), the learning rate
-applied outside the optimizer so a schedule can change it.
+applied outside the optimizer so a schedule can change it. `losses` is
+`geometric_loss_fn` for the pose regressor (`model_type="pose_cnn"`) and
+`keypoint_loss_fn(uv, poses, nominal_camera_matrices(*crop))` for the
+keypoint family (`model_type="keypoint"`, `keypoint_config`), with the crop
+the step's `hw`, else the dataset config's, else (256, 256).
 
 The augmentation (`use_augmentation`, argus_tpu's default) runs in the feed
 dtype through `ops.augment` (the fused kernel on the card). Configurations
 not ported yet raise `NotImplementedError` naming their ROADMAP item:
-gradient accumulation (A5), a device mesh or several cards (A7), the keypoint
-family (A8), and exact or trainable-affine BN (A3). The entry points run on
+gradient accumulation (A5), a device mesh or several cards (A7), and exact or
+trainable-affine BN (A3). The entry points run on
 CUDA unless the caller passes `device="cpu"`, and raise without a card.
 """
 
@@ -39,7 +44,13 @@ import torch
 
 from argus_tpu_torch import resolve_device
 from argus_tpu_torch.geom import se3_exp, se3_inverse, se3_log, se3_multiply
-from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
+from argus_tpu_torch.models import CubeKeypointNetConfig, NCameraCNNConfig, resolve_model
+from argus_tpu_torch.models.keypoint_net import (
+    HeadConv,
+    HeadLayerNorm,
+    keypoint_loss_fn,
+    nominal_camera_matrices,
+)
 from argus_tpu_torch.models.resnet import BasicBlock, BottleneckBlock
 from argus_tpu_torch.ops import augment
 from argus_tpu_torch.ops.augment import AugmentationConfig
@@ -54,17 +65,18 @@ ROOT = str(Path(__file__).resolve().parents[1])
 @dataclass
 class TrainConfig:
     """argus_tpu's `TrainConfig`: the same field names and defaults, so a
-    configuration moves between the packages unchanged, except that the
-    keypoint family's sub-configuration (not ported yet) defaults to None,
-    and construction creates no directory (argus_tpu makes `save_dir` at
-    once). See argus_tpu's docstring for what each field means; the step here reads `model_config`,
-    `model_type`, `amp`, `max_grad_norm`, `learning_rate`,
-    `use_augmentation`, `grad_accum_steps` and the multi-card fields."""
+    configuration moves between the packages unchanged, except that
+    construction creates no directory (argus_tpu makes `save_dir` at once).
+    See argus_tpu's docstring for what each field means; the step here reads
+    `model_type` and the family's config (`model_config` or
+    `keypoint_config`), `amp`, `max_grad_norm`, `learning_rate`,
+    `use_augmentation`, `grad_accum_steps`, the multi-card fields and, for
+    the keypoint family's cameras, the dataset config's `center_crop`."""
 
     dataset_config: Optional[Any] = None
     model_config: NCameraCNNConfig = field(default_factory=NCameraCNNConfig)
     model_type: str = "pose_cnn"
-    keypoint_config: Optional[Any] = None
+    keypoint_config: CubeKeypointNetConfig = field(default_factory=CubeKeypointNetConfig)
     compile_model: bool = True
 
     batch_size: int = 32
@@ -99,13 +111,11 @@ class TrainConfig:
 def check_config(cfg: TrainConfig, mesh=None) -> None:
     """Raise `NotImplementedError`, naming the ROADMAP item, for what the
     port's training step does not run yet."""
-    if getattr(cfg, "model_type", "pose_cnn") == "keypoint":
-        raise NotImplementedError("the keypoint model family is not ported yet (ROADMAP A8)")
     if cfg.grad_accum_steps > 1:
         raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP A5)")
     if mesh is not None or cfg.multigpu or (cfg.num_chips or 1) > 1 or cfg.num_model_shards > 1:
         raise NotImplementedError("data or tensor parallelism over several cards is not ported yet (ROADMAP A7)")
-    m = cfg.model_config
+    _, m = _resolved_model_config(cfg)
     if not (m.bn_frozen and m.bn_frozen_affine):
         raise NotImplementedError(
             "training with exact (batch-statistics) BatchNorm or a trainable BN affine is not "
@@ -121,6 +131,26 @@ def geometric_loss_fn(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     f32: pred (..., 6) se(3) vectors, target (..., 7) poses (xyzw)."""
     err = se3_log(se3_multiply(se3_exp(pred.float()), se3_inverse(target.float())))
     return (err**2).sum(-1)
+
+
+def make_loss_fn(cfg: TrainConfig, hw: Optional[tuple] = None):
+    """The per-sample loss `losses(model_output, poses) -> (B,)` of the
+    configured family: `geometric_loss_fn`, or for the keypoint family
+    `keypoint_loss_fn` through the nominal cameras at the training crop
+    (`training_crop`), as argus_tpu's `make_train_step_body` builds them."""
+    model_type, _ = _resolved_model_config(cfg)
+    if model_type != "keypoint":
+        return geometric_loss_fn
+    cam_P = nominal_camera_matrices(*training_crop(cfg, hw))
+    on_device = {}  # one upload per device, not one per step
+
+    def losses(pred, poses):
+        uv, _ = pred
+        if uv.device not in on_device:
+            on_device[uv.device] = cam_P.to(uv.device)
+        return keypoint_loss_fn(uv, poses, on_device[uv.device])
+
+    return losses
 
 
 # ───────────────────────────── optimizer ─────────────────────────────
@@ -207,41 +237,51 @@ class TrainState:
 def _resolved_model_config(cfg: TrainConfig):
     """(model_type, model config with the amp dtype override applied)."""
     model_type = getattr(cfg, "model_type", "pose_cnn")
-    if model_type == "keypoint":
-        raise NotImplementedError("the keypoint model family is not ported yet (ROADMAP A8)")
-    mcfg = cfg.model_config
+    mcfg = cfg.keypoint_config if model_type == "keypoint" else cfg.model_config
     if cfg.amp and mcfg.dtype != "bfloat16":
         mcfg = dataclasses.replace(mcfg, dtype="bfloat16")
     return model_type, mcfg
 
 
+def training_crop(cfg: TrainConfig, hw: Optional[tuple] = None) -> tuple:
+    """The training resolution: `hw`, else the dataset config's crop, else
+    (256, 256)."""
+    ds = getattr(cfg, "dataset_config", None)
+    return tuple(hw or (getattr(ds, "center_crop", None) if ds is not None else None) or (256, 256))
+
+
 def checkpoint_meta(cfg: TrainConfig, hw: Optional[tuple] = None) -> dict:
     """Model metadata stored inside checkpoints (format 2): the family, the
-    config that trained (amp override applied) and the training crop: `hw`,
-    else the dataset config's crop, else (256, 256)."""
+    config that trained (amp override applied) and the training crop."""
     model_type, mcfg = _resolved_model_config(cfg)
-    ds = getattr(cfg, "dataset_config", None)
-    crop = list(hw or (getattr(ds, "center_crop", None) if ds is not None else None) or (256, 256))
-    return {"model_type": model_type, "model_config": dataclasses.asdict(mcfg), "center_crop": crop}
+    return {"model_type": model_type, "model_config": dataclasses.asdict(mcfg),
+            "center_crop": list(training_crop(cfg, hw))}
 
 
 def build_model(cfg: TrainConfig):
-    """The configured model with the amp dtype override, and its camera count."""
+    """The configured model family with the amp dtype override, and its
+    camera count."""
     _, mcfg = _resolved_model_config(cfg)
-    return NCameraCNN(mcfg), mcfg.n_cams
+    model, _, _ = resolve_model({}, mcfg)
+    return model, mcfg.n_cams
 
 
-def _init_(model: NCameraCNN) -> None:
+def _init_(model: torch.nn.Module) -> None:
     """flax's initialisers where they matter: the last BN scale of each
-    residual block at zero (`models/resnet.py:301`), dense layers
-    lecun-normal with zero bias."""
+    residual block at zero (`models/resnet.py:120, 301`), dense layers and
+    the keypoint head's convs lecun-normal with zero bias, its LayerNorms
+    at scale one and bias zero."""
     for mod in model.modules():
         if isinstance(mod, BottleneckBlock):
             mod.BatchNorm_2.weight.data.zero_()
         elif isinstance(mod, BasicBlock):
             mod.BatchNorm_1.weight.data.zero_()
-        elif isinstance(mod, torch.nn.Linear):
-            torch.nn.init.normal_(mod.weight, 0.0, mod.weight.shape[1] ** -0.5)
+        elif isinstance(mod, (torch.nn.Linear, HeadConv)):
+            w = mod.weight
+            torch.nn.init.normal_(w, 0.0, w[0].numel() ** -0.5)
+            torch.nn.init.zeros_(mod.bias)
+        elif isinstance(mod, HeadLayerNorm):
+            torch.nn.init.ones_(mod.weight)
             torch.nn.init.zeros_(mod.bias)
 
 
@@ -271,7 +311,7 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, sample_hw: tuple = (256,
 # ───────────────────────────── step ─────────────────────────────
 
 
-def make_train_step(model: NCameraCNN, cfg: TrainConfig, base_seed: int = 0, mesh=None, hw=None,
+def make_train_step(model: torch.nn.Module, cfg: TrainConfig, base_seed: int = 0, mesh=None, hw=None,
                     device=None):
     """Build the train step `step(state, batch) -> (state, loss)` for
     `grad_accum_steps == 1`. `batch` holds "images" (B, H, W, 3 * n_cams)
@@ -283,14 +323,15 @@ def make_train_step(model: NCameraCNN, cfg: TrainConfig, base_seed: int = 0, mes
     `fold_in(base_seed, state.step)` (argus_tpu: `fold_in(PRNGKey(
     base_seed), state.step)`). Sampling the parameters is ~100 small ops of
     host time, so a step samples the next step's (same batch shape) once it
-    has queued its own work, while the device runs it."""
-    del hw
+    has queued its own work, while the device runs it. `hw`, the training
+    crop, places the keypoint family's cameras (`make_loss_fn`)."""
     check_config(cfg, mesh)
     device = resolve_device(device)
     on = next(model.parameters()).device
     if on != device and not (device.index is None and on.type == device.type):
         raise ValueError(f"the model lives on {on}; make_train_step runs on {device}")
     opt = make_optimizer(cfg.max_grad_norm)
+    losses = make_loss_fn(cfg, hw)
 
     n_cams = model.cfg.n_cams
     aug = cfg.augmentation_config
@@ -307,7 +348,7 @@ def make_train_step(model: NCameraCNN, cfg: TrainConfig, base_seed: int = 0, mes
             like = (tuple(images.shape), images.dtype)
             drawn = ahead.pop((state.step, *like), None) or sample(state.step, images)
             images = augment.apply_params(aug, drawn, images, n_cams)
-        loss, grads = _loss_and_grads_on(model, state.params, images, batch)
+        loss, grads = _loss_and_grads_on(model, state.params, images, batch, losses)
         updates = opt.update(grads, state.opt_state)
         names = list(state.params)
         with torch.no_grad():
@@ -328,21 +369,25 @@ def feed_images(cfg: TrainConfig, images, device) -> torch.Tensor:
     return u8_to_f32(torch.as_tensor(images).to(device), torch.bfloat16 if cfg.amp else torch.float32)
 
 
-def loss_and_grads(model: NCameraCNN, cfg: TrainConfig, params: Dict[str, torch.Tensor], batch: dict):
+def loss_and_grads(model: torch.nn.Module, cfg: TrainConfig, params: Dict[str, torch.Tensor], batch: dict,
+                   hw: Optional[tuple] = None):
     """The step's masked-mean loss on `batch` (uint8 frames, fed as the step
     feeds them, not augmented) and its gradient w.r.t. each of `params`
     (zeros where no gradient reaches, as for frozen parameters):
     (loss, {name: grad})."""
     on = next(iter(params.values())).device
-    return _loss_and_grads_on(model, params, feed_images(cfg, batch["images"], on), batch)
+    images = feed_images(cfg, batch["images"], on)
+    return _loss_and_grads_on(model, params, images, batch, make_loss_fn(cfg, hw))
 
 
-def _loss_and_grads_on(model: NCameraCNN, params: Dict[str, torch.Tensor], images: torch.Tensor, batch: dict):
-    """`loss_and_grads` on images already fed (and augmented)."""
+def _loss_and_grads_on(model: torch.nn.Module, params: Dict[str, torch.Tensor], images: torch.Tensor,
+                       batch: dict, loss_fn=geometric_loss_fn):
+    """`loss_and_grads` on images already fed (and augmented), with the
+    per-sample loss `loss_fn` (`make_loss_fn`)."""
     on = images.device
     poses = torch.as_tensor(batch["cube_pose"]).to(on, torch.float32)
     mask = torch.as_tensor(batch["mask"]).to(on, torch.float32)
-    losses = geometric_loss_fn(model(images, train=True), poses)
+    losses = loss_fn(model(images, train=True), poses)
     loss = (losses * mask).sum() / mask.sum().clamp(min=1.0)
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)

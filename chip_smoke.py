@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure (nothing is caught and ignored):
 
-1. build every CUDA kernel of the serving, training and augmentation paths
-   from `argus_tpu_torch/csrc/` (9 sources, one nvcc each, in parallel) and
-   print the seconds and ptxas' register/spill report;
+1. build every CUDA kernel of the serving, training, augmentation and
+   keypoint paths from `argus_tpu_torch/csrc/` (11 sources, one nvcc each,
+   in parallel) and print the seconds and ptxas' register/spill report;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -28,7 +28,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
    three projection blocks and the three identity-block geometries against
    its plain version, same tolerance; `library_ms` of a saving forward is the
    cuDNN composition's forward, of a backward its autograd backward (timed
-   with retain_graph);
+   with retain_graph); then the three BasicBlock kernels (no-save forward,
+   saving forward, one-pass backward) at the four geometries of ResNet-18's
+   identity blocks at N = 512 (C/H = 64/64, 128/32, 256/16, 512/8), same
+   tolerance and yardsticks;
 5. the augmentation kernels at the flagship step's shapes (N = 512 camera
    images, 256x256, parameters from the port's samplers): the whole-stack
    kernel against its plain version in bf16 at each of the 4 hue positions
@@ -66,7 +69,22 @@ Phases, each fatal on failure (nothing is caught and ignored):
    stem / 1 + 1 chain / 3 + 3 projection / 10 + 10 identity, ms per step
    (CUDA events and host clock), camera-images/s and peak memory; then the
    same for the step without augmentation, beside it;
-7. the `kernels` JSON line, the card's name and power limit, and the result
+7. the keypoint family (CubeKeypointNet at argus_tpu's default config:
+   2 cameras, 8 corners, resnet18, head_features 128, 32x32 heatmaps) with
+   `fuse_block`/`fuse_stem` "on", bf16, frozen BN + affine + stem, default
+   augmentation, clip(1.0) + Adam, batch 256 rows, random weights with
+   every BN and LayerNorm randomised: the fused loss and gradients on 8
+   augmented rows against the unfused (cuDNN) step, loss within 1e-2, and
+   both against the f32 step (bf16 gradients of this model sit 5-10% from
+   f32 on either path): the fused step within 1.25x the unfused step's
+   distance from f32 (max and median over parameters) and within 0.25 /
+   0.15 of the unfused step; the launches of an eval forward (1 stem / 5
+   `basic_fused`) and of a step (1 augment / 1 stem / 5 + 5 BasicBlock),
+   6 timed steps fused and 6 unfused in the same call; then keypoint
+   serving, `Estimator(ckpt, batch_size=256)` on a checkpoint of those
+   weights (unfused bf16, as argus_tpu serves BasicBlock backbones: no
+   kernel launch), poses within 0.05 of the CPU estimator on 8 rows;
+8. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the augmentation kernels.
@@ -99,6 +117,13 @@ BF = 2  # bytes per bf16
 TRAIN_LOSS_RTOL = 1e-2  # fused vs unfused bf16 step, loss
 GRAD_RTOL, GRAD_RTOL_MEDIAN = 0.1, 0.05  # fused vs unfused bf16 step, per-leaf gradients
 TRAIN_STEPS = 6
+# the keypoint step's gradients: bf16 against f32 differs by 5-10% per
+# parameter (2-norm) on either path (argus_tpu's own bf16 moments sit 0.17 /
+# 0.097 from its f32 ones, tests/test_torch_keypoint.py), so the fused step
+# is held to the f32 step no worse than the unfused cuDNN bf16 step is, with
+# KP_GRAD_SLACK, and to the unfused step within KP_GRAD_RTOL (max, median)
+KP_GRAD_SLACK = 1.25
+KP_GRAD_RTOL = (0.25, 0.15)
 AUG_TOL = {"bf16": (1.6e-2, 1e-3), "f32": (1e-5, 1e-5)}  # augmentation kernel vs plain: max, mean
 PATHS_TOL = {"f32": (1e-3, 1e-5), "bf16": (2e-3, 1e-3)}  # fused vs per-op path: mean, share beyond 2e-2
 
@@ -115,6 +140,9 @@ REPLACES = {
     "block_fused_bwd": "argus_tpu/ops/pallas/block_fused.py:394",
     "augment_fused": "argus_tpu/ops/pallas/augment_fused.py:278",
     "blur": "argus_tpu/ops/pallas/blur.py:81",
+    "basic_fused": "argus_tpu/ops/pallas/basic_fused.py:87",
+    "basic_fused_save": "argus_tpu/ops/pallas/basic_fused.py:87",
+    "basic_fused_bwd": "argus_tpu/ops/pallas/basic_fused.py:167",
 }
 SOURCES = {name: f"argus_tpu_torch/csrc/{name.replace('_save', '')}.cu" for name in REPLACES}
 _NONE = {name: 0 for name in REPLACES}
@@ -123,6 +151,13 @@ EXPECTED_TRAIN_LAUNCHES = {
     **_NONE, "augment_fused": 1, "stem_fused": 1, "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3,
     "proj_fused_bwd": 3, "block_fused_save": 10, "block_fused_bwd": 10,
 }
+# the keypoint family (resnet18, fused): per train step, and per eval forward
+EXPECTED_KP_LAUNCHES = {**_NONE, "augment_fused": 1, "stem_fused": 1, "basic_fused_save": 5, "basic_fused_bwd": 5}
+EXPECTED_KP_EVAL_LAUNCHES = {**_NONE, "stem_fused": 1, "basic_fused": 5}
+# ResNet-18's identity BasicBlocks at N = 512, 256x256 frames: (C, H = W,
+# blocks of that geometry in a forward: stage 0 blocks 0-1, stages 1-3 block 1)
+BASIC_GEOMETRIES = [(64, 64, 2), (128, 32, 1), (256, 16, 1), (512, 8, 1)]
+SHIFT_INVARIANT = "heatmap.bias"  # its gradient is zero up to rounding: the spatial softmax cancels it
 
 
 def gpu_line() -> str:
@@ -376,14 +411,18 @@ def kernel_phase() -> dict:
 # ─────────────────────────── phase 3: end to end ───────────────────────────
 
 
-def _randomize_(model, seed: int) -> None:
+def _randomize_(model, seed: int, last_bn: str = "BatchNorm_2", out_layer: str = "head_out") -> None:
     """Seeded random weights: lecun-normal convs and dense layers, BN scales,
-    biases, means and variances all randomised (the last BN of each block at
-    a smaller scale, so 16 residual blocks keep activations O(1)); the output
-    layer gets a gain of 8 so the se(3) outputs, and the pose comparison,
-    are O(1) rather than O(0.1)."""
+    biases, means and variances all randomised (`last_bn`, the last BN of
+    each residual block, at a smaller scale so the residual stack keeps
+    activations O(1): BatchNorm_2 of a bottleneck, BatchNorm_1 of a
+    BasicBlock), LayerNorm scales and biases randomised; the output layer
+    gets a gain of 8, so the se(3) outputs (and the pose comparison) are
+    O(1) rather than O(0.1), or the keypoint heatmaps peak at a few pixels
+    and the corners spread over the image."""
     import torch
 
+    from argus_tpu_torch.models.keypoint_net import HeadLayerNorm
     from argus_tpu_torch.ops.norm import BatchNorm
 
     g = torch.Generator().manual_seed(seed)
@@ -391,15 +430,19 @@ def _randomize_(model, seed: int) -> None:
         for name, mod in model.named_modules():
             if isinstance(mod, BatchNorm):
                 c = mod.weight.shape[0]
-                lo, hi = (0.1, 0.3) if name.endswith("BatchNorm_2") else (0.5, 1.5)
+                lo, hi = (0.1, 0.3) if name.endswith(last_bn) else (0.5, 1.5)
                 mod.weight.copy_(lo + (hi - lo) * torch.rand(c, generator=g))
                 mod.bias.copy_(0.1 * torch.randn(c, generator=g))
                 mod.running_mean.copy_(0.1 * torch.randn(c, generator=g))
                 mod.running_var.copy_(0.5 + torch.rand(c, generator=g))
+            elif isinstance(mod, HeadLayerNorm):
+                c = mod.weight.shape[0]
+                mod.weight.copy_(0.5 + torch.rand(c, generator=g))
+                mod.bias.copy_(0.1 * torch.randn(c, generator=g))
             elif hasattr(mod, "weight") and isinstance(mod.weight, torch.nn.Parameter):
                 w = mod.weight
                 fan_in = w[0].numel()
-                gain = 8.0 if name == "head_out" else 1.0
+                gain = 8.0 if name == out_layer else 1.0
                 w.copy_(gain * torch.randn(w.shape, generator=g) / fan_in**0.5)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.copy_(0.01 * torch.randn(mod.bias.shape, generator=g))
@@ -609,6 +652,63 @@ def train_kernel_phase() -> dict:
     record("block_fused_save", id_save)
     record("block_fused_bwd", id_bwd)
     del proj_save, proj_bwd, id_save, id_bwd
+    torch.cuda.empty_cache()
+    return results
+
+
+def _lib_basic(x, w1, b1, w2, b2):
+    """The identity BasicBlock as a cuDNN bf16 composition."""
+    import torch
+
+    dt = x.dtype
+    h1 = torch.relu(_lib_conv(x, w1, 1, 1) + b1.reshape(-1).to(dt))
+    return torch.relu(_lib_conv(h1, w2, 1, 1) + b2.reshape(-1).to(dt) + x)
+
+
+def basic_kernel_phase() -> dict:
+    """The three BasicBlock kernels (no-save forward, saving forward, one-pass
+    backward) at the four geometries of ResNet-18's identity blocks at N =
+    512, 256x256, against their plain versions; times per eval forward or
+    train step (2 blocks at stage 0, 1 at each of stages 1-3). Each conv is
+    N*H*W*9*C^2 MACs; the backward is four GEMMs of that size (a data and a
+    weight gradient per conv); its bytes count x, g, out, h1 and the weights
+    read once, dx and the f32 dw written once."""
+    import torch
+
+    from argus_tpu_torch.ops.kernels import basic_fused
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    record = _recorder(results)
+    fwd, save, bwd = [], [], []
+    for c, h, count in BASIC_GEOMETRIES:
+        x = torch.rand(N_IMG, h, h, c, generator=g, device="cuda").to(torch.bfloat16)
+        ws = (_w(g, 3, 3, c, c), _b(g, c), _w(g, 3, 3, c, c), _b(g, c))
+        conv = 2 * N_IMG * h * h * 9 * c * c
+        act = nbytes(x)
+        label = f"{tuple(x.shape)}"
+        fwd.append((
+            label, count, lambda x=x, ws=ws: basic_fused.basic_block(x, *ws),
+            lambda x=x, ws=ws: basic_fused.basic_fwd_plain(x, *ws, save=False),
+            lambda x=x, ws=ws: _lib_basic(x, *ws), 2 * conv, 2 * act + nbytes(*ws), 2, 2 * act,
+        ))
+        save.append((
+            label, count, lambda x=x, ws=ws: basic_fused.basic_block_save(x, *ws),
+            lambda x=x, ws=ws: basic_fused.basic_fwd_plain(x, *ws, save=True),
+            lambda x=x, ws=ws: _lib_basic(x, *ws), 2 * conv, 3 * act + nbytes(*ws), 2, act,
+        ))
+        out, h1 = basic_fused.basic_block_save(x, *ws)
+        gr = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+        args = (x, gr, out, h1, ws[0], ws[2])
+        bwd.append((
+            label, count, lambda args=args: basic_fused.basic_bwd(*args),
+            lambda args=args: basic_fused.basic_bwd_plain(*args), _lib_bwd(_lib_basic, [x, *ws], gr),
+            4 * conv, 5 * act + nbytes(ws[0], ws[2]) + 2 * 4 * ws[0].numel(), 6, 2 * act,
+        ))
+    record("basic_fused", fwd)
+    record("basic_fused_save", save)
+    record("basic_fused_bwd", bwd)
+    del fwd, save, bwd
     torch.cuda.empty_cache()
     return results
 
@@ -890,7 +990,8 @@ def train_phase() -> tuple:
     runs = {}
     for aug in (True, False):
         c = dataclasses.replace(cfg, use_augmentation=aug)
-        runs[aug] = _time_steps(make_train_step(model, c), state, batch, "with" if aug else "without")
+        runs[aug] = _time_steps(make_train_step(model, c), state, batch,
+                                f"{'with' if aug else 'without'} augmentation")
         state = runs[aug][2]
         want = EXPECTED_TRAIN_LAUNCHES if aug else {**EXPECTED_TRAIN_LAUNCHES, "augment_fused": 0}
         if runs[aug][0] != want:
@@ -899,7 +1000,7 @@ def train_phase() -> tuple:
     return runs[True][0], runs[True][1]
 
 
-def _time_steps(step, state, batch, aug: str):
+def _time_steps(step, state, batch, label: str):
     """A warm-up step, then TRAIN_STEPS timed ones: (launches in the first,
     mean ms by CUDA events, state)."""
     import numpy as np
@@ -910,7 +1011,7 @@ def _time_steps(step, state, batch, aug: str):
     t0 = time.perf_counter()
     state, loss = step(state, batch)
     torch.cuda.synchronize()
-    say(f"train {aug} augmentation: warm-up step {time.perf_counter() - t0:.2f} s, loss {loss.item():.6f}")
+    say(f"train {label}: warm-up step {time.perf_counter() - t0:.2f} s, loss {loss.item():.6f}")
     torch.cuda.reset_peak_memory_stats()
     ev_ms, host_ms, losses, launches = [], [], [], None
     for i in range(TRAIN_STEPS):
@@ -928,17 +1029,204 @@ def _time_steps(step, state, batch, aug: str):
         if i == 0:
             launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    say(f"train {aug} augmentation: launches in one step {launches}")
+    say(f"train {label}: launches in one step {launches}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
     ms = float(np.mean(ev_ms))
-    say(f"train {aug} augmentation: losses per step {[round(v, 6) for v in losses]}")
-    say(f"train {aug} augmentation: {TRAIN_STEPS} steps of batch {N_ROWS} rows ({N_IMG} camera images, {HW}x{HW}, "
+    say(f"train {label}: losses per step {[round(v, 6) for v in losses]}")
+    say(f"train {label}: {TRAIN_STEPS} steps of batch {N_ROWS} rows ({N_IMG} camera images, {HW}x{HW}, "
         f"bf16, frozen BN + stem, full backprop): {ms:.2f} ms/step by CUDA events (per step "
         f"{[round(v, 2) for v in ev_ms]}), {float(np.mean(host_ms)):.2f} ms/step by host clock, "
         f"{N_IMG / ms * 1e3:.1f} camera-images/s; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     return launches, ms, state
+
+
+# ─────────────────────── phase 8: the keypoint family ───────────────────────
+
+KP_FUSE = dict(fuse_block="on", fuse_stem="on")
+
+
+def keypoint_setup():
+    """(cfg, model, state, batch) of the keypoint train step on the card:
+    CubeKeypointNet at argus_tpu's default config (2 cameras, 8 corners,
+    resnet18, head_features 128, heatmap stride 8: 32x32 heatmaps), bf16
+    (amp), frozen BN + affine, frozen stem, the fused identity BasicBlocks
+    and stem, argus_tpu's default augmentation, clip(1.0) + Adam at lr 1e-4;
+    random weights from seed 0 with every BN and LayerNorm randomised; a
+    batch of 256 seeded uint8 frame pairs with cube poses in view of the
+    nominal cameras, non-identity rotations."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.models import CubeKeypointNetConfig
+    from argus_tpu_torch.ops.augment import AugmentationConfig
+    from argus_tpu_torch.train import TrainConfig, create_train_state
+
+    kcfg = CubeKeypointNetConfig(bn_frozen=True, bn_frozen_affine=True, stem_frozen=True, **KP_FUSE)
+    cfg = TrainConfig(model_type="keypoint", keypoint_config=kcfg, amp=True, use_augmentation=True,
+                      augmentation_config=AugmentationConfig(), batch_size=N_ROWS, learning_rate=1e-4,
+                      max_grad_norm=1.0)
+    model, state = create_train_state(cfg, seed=0)
+    _randomize_(model, seed=0, last_bn="BatchNorm_1", out_layer="heatmap")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rng = np.random.default_rng(6)
+    axis = rng.normal(size=(N_ROWS, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    angle = rng.uniform(0.2, 3.0, (N_ROWS, 1))
+    t = np.array([0.0, 0.0, 0.05]) + rng.normal(0, 0.02, (N_ROWS, 3))
+    poses = np.concatenate([t, axis * np.sin(angle / 2), np.cos(angle / 2)], 1)
+    batch = {
+        "images": torch.randint(0, 256, (N_ROWS, HW, HW, 6), generator=g, device="cuda", dtype=torch.uint8),
+        "cube_pose": torch.from_numpy(poses.astype(np.float32)).cuda(),
+        "mask": torch.ones(N_ROWS, device="cuda"),
+    }
+    return cfg, model, state, batch
+
+
+def keypoint_unfused_twin(cfg, model):
+    """(cfg, model, state) of the same keypoint step with the fuse flags off
+    (cuDNN convs, frozen BN through autograd), on `model`'s weights."""
+    from argus_tpu_torch.train import create_train_state
+
+    off = dataclasses.replace(cfg, keypoint_config=dataclasses.replace(
+        cfg.keypoint_config, **{k: "off" for k in KP_FUSE}))
+    ref, ref_state = create_train_state(off, seed=0)
+    ref.load_state_dict(model.state_dict())
+    return off, ref, ref_state
+
+
+def keypoint_phase(tmpdir: str) -> tuple:
+    """The keypoint family's path: the fused step against the unfused one,
+    the launches of a step and of an eval forward, 6 timed steps of each,
+    and keypoint serving at batch 256 against the CPU estimator. Returns
+    (launches per step, launches per eval forward, fused ms/step)."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.checkpoint import save_checkpoint
+    from argus_tpu_torch.models.jax_import import variables_from_state_dict
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.ops.augment import apply_augmentation
+    from argus_tpu_torch.serve import Estimator
+    from argus_tpu_torch.train import _loss_and_grads_on, create_train_state, feed_images, make_loss_fn, \
+        make_train_step
+
+    cfg, model, state, batch = keypoint_setup()
+    # the served weights: the random initial ones, which no training step
+    # (and no nondeterministic cuDNN weight gradient) has touched
+    served = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    off, ref, ref_state = keypoint_unfused_twin(cfg, model)
+
+    # the fused step against the unfused one (cuDNN convs, frozen BN through
+    # autograd) and both against the unfused f32 step, on one augmented batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    head = {k: v[:8] for k, v in batch.items()}
+    images = apply_augmentation(cfg.augmentation_config, 99, feed_images(cfg, head["images"], "cuda"))
+    losses = make_loss_fn(cfg)
+    f32, f32_state = create_train_state(dataclasses.replace(off, amp=False), seed=0)
+    f32.load_state_dict(model.state_dict())
+    runs = {}
+    for name, (m, st, im) in (("fused", (model, state, images)), ("unfused", (ref, ref_state, images)),
+                              ("f32", (f32, f32_state, images.float()))):
+        loss, grads = _loss_and_grads_on(m, st.params, im, head, losses)
+        runs[name] = (loss.item(), grads.pop(SHIFT_INVARIANT).abs().max().item(), grads)
+    del f32, f32_state
+
+    def spread(a, b):
+        errs = _grad_errors(runs[a][2], runs[b][2])
+        worst = max(errs, key=errs.get)
+        return errs[worst], sorted(errs.values())[len(errs) // 2], worst, len(errs)
+
+    (fu_max, fu_med, fu_worst, n), f_32, u_32 = spread("fused", "unfused"), spread("fused", "f32"), \
+        spread("unfused", "f32")
+    loss_err = abs(runs["fused"][0] - runs["unfused"][0]) / abs(runs["unfused"][0])
+    say(f"keypoint: on the first 8 rows of one augmented batch, loss fused {runs['fused'][0]:.6f}, unfused "
+        f"{runs['unfused'][0]:.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}), f32 {runs['f32'][0]:.6f}; "
+        f"gradients of {n} parameters, relative 2-norm (max, median): fused vs unfused {fu_max:.3g} ({fu_worst}), "
+        f"{fu_med:.3g} (tol {KP_GRAD_RTOL}); fused vs f32 {f_32[0]:.3g} ({f_32[2]}), {f_32[1]:.3g}; unfused vs "
+        f"f32 {u_32[0]:.3g} ({u_32[2]}), {u_32[1]:.3g} (the fused step's may be {KP_GRAD_SLACK}x these); "
+        f"{SHIFT_INVARIANT} (zero up to rounding) max |grad| fused {runs['fused'][1]:.3g}, unfused "
+        f"{runs['unfused'][1]:.3g}, f32 {runs['f32'][1]:.3g}")
+    if not (np.isfinite([r[0] for r in runs.values()]).all() and loss_err <= TRAIN_LOSS_RTOL
+            and fu_max <= KP_GRAD_RTOL[0] and fu_med <= KP_GRAD_RTOL[1]
+            and f_32[0] <= KP_GRAD_SLACK * u_32[0] and f_32[1] <= KP_GRAD_SLACK * u_32[1]):
+        raise AssertionError("the fused keypoint step disagrees with the unfused one")
+    del runs, head, images
+    torch.cuda.empty_cache()
+
+    # the eval forward: launches, and its time fused and unfused
+    fed = feed_images(cfg, batch["images"], "cuda")
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        uv, probs = model(fed)
+        eval_launches = kernels.launch_counts()
+        if eval_launches != EXPECTED_KP_EVAL_LAUNCHES:
+            raise AssertionError(f"keypoint eval launches {eval_launches} != expected {EXPECTED_KP_EVAL_LAUNCHES}")
+        if uv.shape != (N_ROWS, 2, 8, 2) or probs.shape != (N_IMG, HW // 8, HW // 8, 8) or not uv.isfinite().all():
+            raise AssertionError(f"bad keypoint output: {tuple(uv.shape)} {tuple(probs.shape)}")
+        ev_f, ev_r = cuda_ms(lambda: model(fed), 3), cuda_ms(lambda: ref(fed), 3)
+    say(f"keypoint eval forward ({N_IMG} camera images): launches {eval_launches}; fused {ev_f:.2f} ms, "
+        f"unfused (cuDNN) {ev_r:.2f} ms")
+    del fed, uv, probs
+
+    runs = {}
+    for name, (m, c, st) in (("fused", (model, cfg, state)), ("unfused", (ref, off, ref_state))):
+        runs[name] = _time_steps(make_train_step(m, c), st, batch, f"keypoint {name}")
+        torch.cuda.empty_cache()
+    if runs["fused"][0] != EXPECTED_KP_LAUNCHES:
+        raise AssertionError(f"keypoint train launch counts {runs['fused'][0]} != expected {EXPECTED_KP_LAUNCHES}")
+    want_off = {**_NONE, "augment_fused": 1}
+    if runs["unfused"][0] != want_off:
+        raise AssertionError(f"unfused keypoint launch counts {runs['unfused'][0]} != expected {want_off}")
+    say(f"keypoint train: fused {runs['fused'][1]:.2f} ms/step against unfused (cuDNN) {runs['unfused'][1]:.2f} "
+        f"ms/step in this call ({N_IMG / runs['fused'][1] * 1e3:.1f} against "
+        f"{N_IMG / runs['unfused'][1] * 1e3:.1f} camera-images/s)")
+    del ref, ref_state, runs["unfused"]
+    torch.cuda.empty_cache()
+
+    # serving: a keypoint checkpoint of the initial weights, batch 256 on the card
+    params, stats = variables_from_state_dict(served)
+    ckpt = os.path.join(tmpdir, "keypoint_random.ckpt")
+    meta = {"model_type": "keypoint", "model_config": dataclasses.asdict(cfg.keypoint_config),
+            "center_crop": [HW, HW]}
+    save_checkpoint(ckpt, {"params": params, "batch_stats": stats}, meta=meta)
+    del model, state, params, stats
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    est = Estimator(ckpt, batch_size=N_ROWS)
+    frames = np.random.default_rng(7).integers(0, 256, (N_ROWS, HW, HW, 6), dtype=np.uint8)
+    kernels.reset_launch_counts()
+    poses = est.predict(frames)
+    serve_launches = kernels.launch_counts()
+    if serve_launches != _NONE:  # BasicBlock backbones serve unfused, as in argus_tpu
+        raise AssertionError(f"keypoint serving launched kernels: {serve_launches}")
+    if poses.shape != (N_ROWS, 7) or not np.all(np.isfinite(poses)):
+        raise AssertionError(f"bad keypoint poses: shape {poses.shape}, finite {np.isfinite(poses).all()}")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        est.predict(frames)
+    ms = (time.perf_counter() - t1) / 3 * 1e3
+    ref_poses = Estimator(ckpt, batch_size=8, device="cpu").predict(frames[:8])
+    f32 = Estimator(ckpt, batch_size=1, device="cpu")  # f32, the latency configuration
+    f32_poses = np.concatenate([f32.predict(frames[i:i + 1]) for i in range(8)])
+
+    def pose_diff(a, b):  # (translation, quaternion up to sign) max abs differences
+        flip = np.where(np.sum(a[:, 3:] * b[:, 3:], -1, keepdims=True) < 0, -1.0, 1.0)
+        return float(np.abs(a[:, :3] - b[:, :3]).max()), float(np.abs(a[:, 3:] - flip * b[:, 3:]).max())
+
+    d_gpu, d_bf16 = pose_diff(poses[:8], ref_poses), pose_diff(ref_poses, f32_poses)
+    err = max(d_gpu)
+    say(f"keypoint serving: Estimator(batch_size={N_ROWS}) dtype={est.cfg.dtype}, fuse_block={est.cfg.fuse_block}, "
+        f"{ms:.2f} ms per predict ({N_ROWS / ms * 1e3:.1f} rows/s, host clock); GPU vs CPU (bf16) poses on the "
+        f"first 8 rows: max abs diff {err:.4g} (atol {POSE_ATOL}; translation {d_gpu[0]:.3g}, quaternion up to "
+        f"sign {d_gpu[1]:.3g}); the CPU's bf16 vs its f32 poses: translation {d_bf16[0]:.3g}, quaternion "
+        f"{d_bf16[1]:.3g}; {time.perf_counter() - t0:.1f} s with the CPU estimators")
+    if not err <= POSE_ATOL:
+        raise AssertionError(f"keypoint GPU poses differ from the CPU estimator by {err} > {POSE_ATOL}")
+    return runs["fused"][0], eval_launches, runs["fused"][1]
 
 
 def main() -> int:
@@ -960,6 +1248,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         launches, _ = end_to_end_phase(tmpdir)
     measured.update(train_kernel_phase())
+    measured.update(basic_kernel_phase())
     aug_measured, aug_launches = augment_phase()
     measured.update(aug_measured)
     train_launches, step_ms = train_phase()
@@ -969,13 +1258,23 @@ def main() -> int:
             f"{name} {m['ms']:.2f}" for name, m in measured.items() if train_launches[name])
         + f"); the other {step_ms - kernel_ms:.2f} ms: the u8 feed, augmentation sampling and layout "
         f"transposes, mean pool, head, loss, BN folds, weight transposes, optimizer and launch gaps")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        kp_launches, kp_eval_launches, kp_ms = keypoint_phase(tmpdir)
+    kp_kernel_ms = sum(m["ms"] for name, m in measured.items() if kp_launches[name])
+    say(f"keypoint train breakdown: fused kernels {kp_kernel_ms:.2f} ms of the {kp_ms:.2f} ms step (phase-2/4/5 "
+        f"kernel times at these shapes: " + ", ".join(
+            f"{name} {m['ms']:.2f}" for name, m in measured.items() if kp_launches[name])
+        + f"); the other {kp_ms - kp_kernel_ms:.2f} ms: the three strided BasicBlocks (cuDNN convs, frozen BN "
+        f"through autograd, both ways), the head (upsampling convs, LayerNorms, heatmap, softmax) both ways, "
+        f"the u8 feed, augmentation copies, loss, BN folds, weight transposes, optimizer and launch gaps")
 
     rows = []
     for name, m in measured.items():
         b, by = bound_ms(m["flops"], m["bytes"], m.get("peak", PEAK_FLOPS))
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name] or train_launches[name] or aug_launches["per-op"][name],
+            "launches": (launches[name] or train_launches[name] or aug_launches["per-op"][name]
+                         or kp_launches[name] or kp_eval_launches[name]),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })

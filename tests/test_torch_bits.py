@@ -129,21 +129,37 @@ def test_legacy_bare_state_loads(tmp_path):
     assert meta == {} and list(state) == ["params"]
 
 
-@pytest.mark.parametrize("backbone", ["resnet18", "resnet50"])
+@pytest.mark.parametrize("backbone", ["resnet18", "resnet50", "keypoint"])
 def test_weight_bridge_round_trip_exact(backbone):
     """argus_tpu variables -> the port's state_dict loads strictly into the
-    port's model, and converts back to the identical variable tree."""
-    cfg = dict(n_cams=2, backbone=backbone, resnet_output_dim=16)
-    _, variables = init_model(JaxConfig(**cfg), jax.random.PRNGKey(0), 32, 32)
+    port's model, and converts back to the identical variable tree. The
+    keypoint case is CubeKeypointNet (resnet18): the backbone without `fc`,
+    the head convs with biases, LayerNorm scale -> weight."""
+    if backbone == "keypoint":
+        from argus_tpu.models.keypoint_net import CubeKeypointNet as JaxKeypointNet
+        from argus_tpu.models.keypoint_net import CubeKeypointNetConfig as JaxKeypointConfig
+        from argus_tpu_torch.models import CubeKeypointNet, CubeKeypointNetConfig
+
+        jmodel = JaxKeypointNet(JaxKeypointConfig(head_features=16))
+        variables = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 6), jnp.float32))
+        model = CubeKeypointNet(CubeKeypointNetConfig(head_features=16))
+    else:
+        cfg = dict(n_cams=2, backbone=backbone, resnet_output_dim=16)
+        _, variables = init_model(JaxConfig(**cfg), jax.random.PRNGKey(0), 32, 32)
+        model = NCameraCNN(NCameraCNNConfig(**cfg))
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     stats = jax.tree_util.tree_map(np.asarray, variables["batch_stats"])
-    model = NCameraCNN(NCameraCNNConfig(**cfg))
     sd = state_dict_from_variables(params, stats, model.state_dict())
     model.load_state_dict(sd, strict=True)
     conv = params["backbone"]["stage1_block0"]["Conv_1"]["kernel"]
     np.testing.assert_array_equal(
         model.backbone.stage1_block0.Conv_1.weight.detach().numpy(), conv.transpose(3, 2, 0, 1)
     )
+    if backbone == "keypoint":
+        np.testing.assert_array_equal(model.up_norm1.weight.detach().numpy(), params["up_norm1"]["scale"])
+        np.testing.assert_array_equal(model.up0.bias.detach().numpy(), params["up0"]["bias"])
+        np.testing.assert_array_equal(model.heatmap.weight.detach().numpy(),
+                                      params["heatmap"]["kernel"].transpose(3, 2, 0, 1))
     p2, s2 = variables_from_state_dict(model.state_dict())
     _assert_tree_equal(params, p2)
     _assert_tree_equal(stats, s2)

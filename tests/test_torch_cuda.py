@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the forwards, the saving forwards and the one-pass backwards, the two
-augmentation kernels, and the fused training step against its CPU run.
+the forwards, the saving forwards and the one-pass backwards (bottleneck and
+BasicBlock), the two augmentation kernels, and the fused training steps of
+both model families against their CPU runs.
 
 These need an NVIDIA Hopper GPU and nvcc: they carry the `cuda` marker and
 skip elsewhere. Run them on the card with
@@ -24,6 +25,7 @@ import numpy as np
 from argus_tpu_torch.ops import kernels
 from argus_tpu_torch.ops import augment as TA
 from argus_tpu_torch.ops.kernels import augment_fused as taf
+from argus_tpu_torch.ops.kernels import basic_fused as tbf
 from argus_tpu_torch.ops.kernels import block_fused as tb
 from argus_tpu_torch.ops.kernels import blur as tbl
 from argus_tpu_torch.ops.kernels import proj_fused as tp
@@ -113,6 +115,7 @@ def test_wrappers_check_arguments(dev):
         "stem_fused", "stage_fused", "proj_fused", "block_fused",
         "stage_fused_save", "stage_fused_bwd", "proj_fused_save", "proj_fused_bwd",
         "block_fused_save", "block_fused_bwd", "augment_fused", "blur",
+        "basic_fused", "basic_fused_save", "basic_fused_bwd",
     }
 
 
@@ -232,8 +235,75 @@ def test_train_step_on_card_matches_cpu(dev):
         "stem_fused": 1, "stage_fused": 0, "proj_fused": 0, "block_fused": 0,
         "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3, "proj_fused_bwd": 3,
         "block_fused_save": 10, "block_fused_bwd": 10, "augment_fused": 0, "blur": 0,
+        "basic_fused": 0, "basic_fused_save": 0, "basic_fused_bwd": 0,
     }, counts
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
+
+
+def _basic(g, c, dev):
+    return _w(g, 3, 3, c, c, dev=dev), _b(g, c, dev), _w(g, 3, 3, c, c, dev=dev), _b(g, c, dev)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 9, 7, 64), (2, 48, 48, 64), (1, 8, 8, 256), (3, 5, 11, 128)])
+def test_basic_block_kernels(dev, n, h, w, c):
+    """The no-save and saving forwards and the one-pass backward of the
+    identity BasicBlock; ragged spatial sizes put image edges inside the
+    128-row GEMM tiles, and (2, 48, 48) has 4608 rows: the weight gradients
+    split and sum partials."""
+    g = torch.Generator().manual_seed(11)
+    x = torch.rand(n, h, w, c, generator=g).to(dev, torch.bfloat16)
+    ws = _basic(g, c, dev)
+    counts = [k.launches for k in (tbf.KERNEL, tbf.KERNEL_SAVE, tbf.KERNEL_BWD)]
+    _close(tbf.basic_block(x, *ws), tbf.basic_fwd_plain(x, *ws, save=False))
+    saved = tbf.basic_block_save(x, *ws)
+    _all_close(saved, tbf.basic_fwd_plain(x, *ws, save=True))
+    out, h1 = saved
+    args = (x, _grad(g, out.shape, dev), out, h1, ws[0], ws[2])
+    _all_close(tbf.basic_bwd(*args), tbf.basic_bwd_plain(*args))
+    assert [k.launches for k in (tbf.KERNEL, tbf.KERNEL_SAVE, tbf.KERNEL_BWD)] == [c_ + 1 for c_ in counts]
+    got = tbf.basic_bwd(*args, need_dx=False)
+    assert got[0] is None
+    _all_close(got[1:], tbf.basic_bwd_plain(*args)[1:])
+
+
+def test_keypoint_train_step_on_card_matches_cpu(dev):
+    """A keypoint train step (resnet18, bf16, frozen BN and stem,
+    fuse_block/fuse_stem on) on the card and on the CPU from the same state:
+    losses within bf16 tolerance; launches 1 stem / 5 saving forwards / 5
+    backwards of the BasicBlock kernel, and the eval forward 1 stem / 5
+    no-save forwards."""
+    from argus_tpu_torch.models import CubeKeypointNetConfig
+    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+
+    kcfg = CubeKeypointNetConfig(head_features=32, bn_frozen=True, bn_frozen_affine=True, stem_frozen=True,
+                                 fuse_block="on", fuse_stem="on")
+    cfg = TrainConfig(model_type="keypoint", keypoint_config=kcfg, amp=True, use_augmentation=False,
+                      learning_rate=1e-3)
+    rng = np.random.default_rng(2)
+    batch = {
+        "images": rng.integers(0, 256, (2, 64, 64, 6), dtype=np.uint8),
+        "cube_pose": np.tile(np.array([0.01, 0, 0.05, 0, 0, 0.6, 0.8], np.float32), (2, 1)),
+        "mask": np.ones(2, np.float32),
+    }
+    losses = {}
+    for d in ("cpu", "cuda"):
+        model, state = create_train_state(cfg, seed=0, device=d)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("BatchNorm_1.weight"):
+                    p.fill_(0.3)
+        kernels.reset_launch_counts()
+        state, loss = make_train_step(model, cfg, hw=(64, 64), device=d)(state, batch)
+        losses[d] = float(loss)
+        counts = kernels.launch_counts()
+    want = {name: 0 for name in kernels.KERNELS}
+    assert counts == {**want, "stem_fused": 1, "basic_fused_save": 5, "basic_fused_bwd": 5}, counts
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        uv, _ = model(torch.rand(2, 64, 64, 6, device="cuda"))
+    assert torch.isfinite(uv).all()
+    assert kernels.launch_counts() == {**want, "stem_fused": 1, "basic_fused": 5}
 
 
 # ragged shapes: tiles and image edges that do not fall on the 32-pixel grid

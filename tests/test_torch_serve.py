@@ -1,6 +1,7 @@
 """The serving slice end to end on the CPU: argus_tpu's Estimator against the
 port's, loading the same format-2 checkpoint (built with argus_tpu's
-create_train_state and checkpoint_meta, BN buffers and scales perturbed)."""
+create_train_state and checkpoint_meta, BN buffers and scales perturbed),
+for the NCameraCNN and the keypoint family."""
 
 import dataclasses
 
@@ -12,6 +13,7 @@ import torch
 
 from argus_tpu.checkpoint import load_checkpoint_with_meta, save_checkpoint
 from argus_tpu.models import NCameraCNNConfig as JaxConfig
+from argus_tpu.models.keypoint_net import CubeKeypointNetConfig as JaxKeypointConfig
 from argus_tpu.models import resolve_model as jax_resolve_model
 from argus_tpu.serve import Estimator as JaxEstimator
 from argus_tpu.serve import serving_tuned_config as jax_serving_tuned_config
@@ -136,13 +138,53 @@ def test_serving_tuned_config_matches_argus_tpu():
     assert latency_tuned_config(NCameraCNNConfig()).fuse_pointwise == "off"
 
 
-def test_keypoint_checkpoint_raises(tmp_path):
-    from argus_tpu_torch.checkpoint import save_checkpoint as port_save
+@pytest.fixture(scope="module")
+def keypoint_ckpt(tmp_path_factory):
+    """A keypoint checkpoint as argus_tpu writes it, with the meta of its
+    training (resnet18, head_features 32, trained at 64x64): the model's
+    variables from a jitted init, every BN and LayerNorm parameter
+    perturbed."""
+    from argus_tpu.train import build_model
 
-    path = str(tmp_path / "kp.ckpt")
-    port_save(path, {"params": {}, "batch_stats": {}}, meta={"model_type": "keypoint"})
-    with pytest.raises(NotImplementedError, match="queue A"):
-        Estimator(path, device="cpu")
+    cfg = TrainConfig(model_type="keypoint", keypoint_config=JaxKeypointConfig(head_features=32), wandb_log=False)
+    model, _ = build_model(cfg)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(1), jnp.zeros((1, HW, HW, 6), jnp.float32))
+    rng = np.random.default_rng(1)
+    tree = {"params": _perturbed(variables["params"], rng), "batch_stats": _perturbed(variables["batch_stats"], rng)}
+    path = str(tmp_path_factory.mktemp("serve") / "kp.ckpt")
+    save_checkpoint(path, tree, meta=checkpoint_meta(cfg, hw=(HW, HW)))
+    return path
+
+
+@pytest.mark.parametrize("batch_size", [1, 8])
+def test_keypoint_estimator_matches_argus_tpu(keypoint_ckpt, batch_size):
+    """The keypoint family served: heatmaps, soft-argmax, DLT through the
+    nominal cameras at the checkpoint's crop, Procrustes. Batch 1: f32,
+    plain convs on both sides; batch 8: bf16 and folded frozen BN, the
+    BasicBlock backbone unfused on both sides (argus_tpu's tuner).
+
+    Tolerance on poses (translation in metres, quaternions up to sign):
+    f32 1e-4 for both. bf16: translation 1e-3 (measured 6.7e-5), quaternion
+    0.1 (measured 0.038). The random weights put every corner near the image
+    centre, so the Procrustes rotation is ill-conditioned and amplifies the
+    corners' bf16 noise: argus_tpu's own bf16 poses sit up to 9.1e-5 and
+    0.074 from its f32 ones on these rows. The two sides round bf16 at the
+    same points; an f32 sum taken in another order lands one ulp apart now
+    and then."""
+    jax_est = JaxEstimator(keypoint_ckpt, batch_size=batch_size)
+    est = Estimator(keypoint_ckpt, batch_size=batch_size, device="cpu")
+    assert est.model_type == jax_est.model_type == "keypoint"
+    assert est.hw == jax_est.hw == (HW, HW)
+    assert est.cfg.dtype == ("bfloat16" if batch_size >= SERVING_FUSED_MIN_BATCH else "float32")
+    assert est.cfg.fuse_block == "off"
+    batch = _batch(batch_size, seed=4)
+    got, want = est.predict(batch), jax_est.predict(batch)
+    assert got.shape == (batch_size, 7) and np.all(np.isfinite(got))
+    atol_t, atol_q = (1e-4, 1e-4) if batch_size == 1 else (1e-3, 0.1)
+    np.testing.assert_allclose(got[:, :3], want[:, :3], atol=atol_t, rtol=0)
+    flip = np.where(np.sum(got[:, 3:] * want[:, 3:], -1, keepdims=True) < 0, -1.0, 1.0)
+    np.testing.assert_allclose(got[:, 3:], flip * want[:, 3:], atol=atol_q, rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(got[:, 3:], axis=-1), 1.0, atol=1e-5)
 
 
 def test_predict_rejects_bad_input(resnet50_ckpt):

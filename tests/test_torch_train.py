@@ -309,7 +309,6 @@ def test_unported_configurations_raise():
     cases = [
         (dict(use_augmentation=False, grad_accum_steps=2), "A5"),
         (dict(use_augmentation=False, multigpu=True), "A7"),
-        (dict(use_augmentation=False, model_type="keypoint"), "A8"),
         (dict(use_augmentation=False, model_config=dataclasses.replace(model_cfg, bn_frozen_affine=False)), "A3"),
         (dict(use_augmentation=False, model_config=dataclasses.replace(model_cfg, bn_frozen=False)), "A3"),
     ]
@@ -362,11 +361,17 @@ def test_fold_cache_is_not_used_with_gradients():
     assert backbone.stage1_block0.BatchNorm_0.weight.grad is None
 
 
-def test_checkpoint_meta_matches_argus_tpu(tmp_path):
+@pytest.mark.parametrize("family", ["pose_cnn", "keypoint"])
+def test_checkpoint_meta_matches_argus_tpu(tmp_path, family):
+    from argus_tpu.models.keypoint_net import CubeKeypointNetConfig as JaxKeypointConfig
     from argus_tpu.train import checkpoint_meta as jax_meta
+    from argus_tpu_torch.models import CubeKeypointNetConfig
 
-    kw = dict(amp=True, use_augmentation=False)
+    kw = dict(amp=True, use_augmentation=False, model_type=family)
     got = checkpoint_meta(TrainConfig(model_config=NCameraCNNConfig(**MODEL), **kw), hw=(64, 64))
     jcfg = JaxTrainConfig(model_config=JaxConfig(**MODEL), wandb_log=False, save_dir=str(tmp_path), **kw)
     want = jax_meta(jcfg, hw=(64, 64))
     assert got == want
+    # the keypoint family's default config is argus_tpu's
+    assert dataclasses.asdict(TrainConfig().keypoint_config) == dataclasses.asdict(JaxKeypointConfig())
+    assert dataclasses.asdict(CubeKeypointNetConfig()) == dataclasses.asdict(JaxKeypointConfig())
