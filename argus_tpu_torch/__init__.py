@@ -5,11 +5,12 @@ models on a CUDA card with hand-written sm_90a kernels in place of the Pallas
 TPU kernels. It imports torch, numpy and the standard library only: never
 jax, flax, msgpack or anything of `argus_tpu`.
 
-Covered so far: the batched serving path (`serve.Estimator`) and the
-frozen-BN train step without augmentation (`train.make_train_step`) of the
-NCameraCNN pose regressor, with ten CUDA kernels (`ops.kernels`): the
-forwards, saving forwards and one-pass backwards of the stem, stage chain,
-projection and identity blocks.
+Covered so far (ROADMAP.md lists what waits): batched serving of both
+model families (`serve.Estimator`), the train step of either family
+(`train.make_train_step`) in argus_tpu's BN modes (exact train-mode BN with
+BatchNorm's reduction kernels, frozen BN with a trained or frozen affine)
+with a trained or frozen stem, and the augmentation stack, with the CUDA
+kernels of `ops.kernels`.
 
 Entry points take `device=None`, meaning CUDA; they raise when no card is
 present, and run on the CPU only when the caller passes `device="cpu"`.

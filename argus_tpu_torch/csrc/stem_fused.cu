@@ -1,9 +1,14 @@
 // ResNet stem forward in one launch: conv7x7/s2/pad3 (3 -> 64 channels) on
 // folded frozen-BN weights, + f32 bias, relu, one rounding to bf16, then
-// maxpool 3x3/s2/pad1. NHWC bf16 in and out.
+// maxpool 3x3/s2/pad1. NHWC bf16 in and out. The saving variant (training
+// with the stem trained) also writes the conv + bias + relu output y
+// (N, H/2, W/2, 64) that the weight gradient (stem_fused_bwd.cu) reads.
 //
 // Replaces: argus_tpu/ops/pallas/stem_fused.py `_stem_fwd_pallas` (:244,
-// body `_stem_fwd_kernel` :174), the no-save stem forward of eval and serving.
+// body `_stem_fwd_kernel` :174), the no-save stem forward of eval and
+// serving, and `_stem_fwd_save_pallas` (:280, body `_stem_fwd_save_kernel`
+// :185), whose parity-packed yg (N, H/4, W/4, 256) holds the same values:
+// yg[n, u, v, (p*2 + q)*64 + c] = y[n, 2u + p, 2v + q, c].
 //
 // Bound on the H100: at 256x256 input the conv is ~2*147*64 FLOP per conv
 // pixel against 6 input bytes per conv pixel and 2 output bytes per pooled
@@ -20,7 +25,11 @@
 // touches device memory. Conv positions outside the image are stored as 0,
 // which is exact for the pool because relu output is >= 0
 // (stem_fused.py:24-28). The TPU's 4x4 space-to-depth feed and parity-packed
-// weights exist for the MXU and are not ported.
+// weights exist for the MXU and are not ported. Neighbouring tiles overlap
+// by one conv row and column (the window's first); the saving variant writes
+// a conv position only from the tile whose interior (local row and column
+// 1..16) holds it, so each position of y is written by exactly one block,
+// 16-byte vectors from the shared conv tile.
 
 #include "common.cuh"
 
@@ -51,6 +60,7 @@ struct StemArgs {
   const bf16* w;     // (147, 64): HWIO (7,7,3,64) flattened
   const float* b;    // (64,)
   bf16* out;         // (N, Hp, Wp, 64)
+  bf16* y;           // (N, Hc, Wc, 64) conv + bias + relu, or nullptr (no save)
   int N, H, W, Hc, Wc, Hp, Wp, tiles_y, tiles_x;
 };
 
@@ -152,6 +162,17 @@ __global__ void __launch_bounds__(kStemThreads) stem_kernel(const __grid_constan
   }
   __syncthreads();
 
+  if (p.y != nullptr) {  // this tile's own conv positions: local rows and columns 1..2 TP
+    for (int i = tid; i < 2 * kTP * 2 * kTP * (kCOUT / 8); i += kStemThreads) {
+      const int v = i % (kCOUT / 8), pos = i / (kCOUT / 8);
+      const int ly = 1 + pos / (2 * kTP), lx = 1 + pos % (2 * kTP);
+      const int cy = cy0 + ly, cx = cx0 + lx;
+      if (cy >= p.Hc || cx >= p.Wc) continue;
+      *reinterpret_cast<uint4*>(&p.y[((static_cast<int64_t>(n) * p.Hc + cy) * p.Wc + cx) * kCOUT + v * 8]) =
+          *reinterpret_cast<const uint4*>(&sY[(ly * kCT + lx) * kLdY + v * 8]);
+    }
+  }
+
   // maxpool 3x3/s2 over the conv tile: 8x8 pooled pixels x 32 channel pairs
   for (int i = tid; i < kTP * kTP * (kCOUT / 2); i += kStemThreads) {
     const int cp = i % (kCOUT / 2), pos = i / (kCOUT / 2);
@@ -173,14 +194,17 @@ __global__ void __launch_bounds__(kStemThreads) stem_kernel(const __grid_constan
 
 }  // namespace argus
 
-extern "C" int argus_stem_fwd(const void* x, const void* w, const void* b, void* out, int N, int H,
-                              int W, void* stream) {
+namespace {
+
+int stem_launch(const void* x, const void* w, const void* b, void* out, void* y, int N, int H, int W,
+                void* stream) {
   using namespace argus;
   StemArgs p;
   p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
   p.b = static_cast<const float*>(b);
   p.out = static_cast<bf16*>(out);
+  p.y = static_cast<bf16*>(y);
   p.N = N;
   p.H = H;
   p.W = W;
@@ -197,4 +221,17 @@ extern "C" int argus_stem_fwd(const void* x, const void* w, const void* b, void*
   stem_kernel<<<static_cast<unsigned>(blocks), kStemThreads, kStemSmem,
                 static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int argus_stem_fwd(const void* x, const void* w, const void* b, void* out, int N, int H,
+                              int W, void* stream) {
+  return stem_launch(x, w, b, out, nullptr, N, H, W, stream);
+}
+
+// the training forward: also writes y (N, Hc, Wc, 64)
+extern "C" int argus_stem_fwd_save(const void* x, const void* w, const void* b, void* out, void* y, int N,
+                                   int H, int W, void* stream) {
+  return stem_launch(x, w, b, out, y, N, H, W, stream);
 }

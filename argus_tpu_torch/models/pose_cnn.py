@@ -25,13 +25,12 @@ from argus_tpu_torch.models.resnet import BACKBONES, DTYPES
 @dataclass(frozen=True)
 class NCameraCNNConfig:
     """Same fields and defaults as `argus_tpu.models.NCameraCNNConfig`, so a
-    checkpoint's stored config loads unchanged. `stem_frozen` and
-    `frozen_stages` stop gradients in the training forward as argus_tpu's
-    do; `bn_frozen` + `bn_frozen_affine` is the one BN mode training takes.
-    The BN statistics strides and engine, remat and the stem gradient stride
-    belong to training modes that are not ported yet (exact BN, remat, an
-    unfrozen fused stem: the training forward raises for those) and change
-    nothing in eval."""
+    checkpoint's stored config loads unchanged, and each reaches the
+    backbone as in argus_tpu: the BN mode (`bn_frozen`, `bn_frozen_affine`,
+    else exact train-mode BN with `bn_stats_stride`, `bn_grad_stride` and
+    the reduction engine `bn_impl`), `stem_frozen`, `stem_grad_stride` (the
+    fused stem's weight gradient on 1/s of the images) and `frozen_stages`.
+    remat raises in training (ROADMAP A10). None of them changes eval."""
 
     n_cams: int = 2
     resnet_output_dim: int = 1024
@@ -75,7 +74,11 @@ class NCameraCNN(nn.Module):
             dtype=cfg.dtype,
             stem_space_to_depth=cfg.stem_space_to_depth,
             stem_frozen=cfg.stem_frozen,
+            stem_grad_stride=cfg.stem_grad_stride,
             frozen_stages=cfg.frozen_stages,
+            bn_stats_stride=cfg.bn_stats_stride,
+            bn_grad_stride=cfg.bn_grad_stride,
+            bn_impl=cfg.bn_impl,
             bn_frozen=cfg.bn_frozen,
             bn_frozen_affine=cfg.bn_frozen_affine,
             fuse_pointwise=cfg.fuse_pointwise,

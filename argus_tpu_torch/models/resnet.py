@@ -19,20 +19,24 @@ identity bottlenecks, and the identity BasicBlocks of ResNet-18/34 (stride
 through the kernel functions of
 `argus_tpu_torch.ops.kernels` on BN-folded weights (hand-written CUDA on the
 card, their plain versions on the CPU); otherwise each conv is `F.conv2d`
-followed by the frozen BatchNorm.
+followed by its BatchNorm.
 
-`forward(x, train=True)` is the training forward, under argus_tpu's
-frozen-BN fine-tune semantics: BN with running statistics and a frozen affine
-(no gradient to scale or bias), the BN folded into the conv weights with
-autograd on every call (a gradient dk = bf16(dw) * c flows back through the
-fold), and the fused blocks and chains as `torch.autograd.Function`s whose
-backward is a kernel too. `stem_frozen` stops the gradient at the stem, and
-`frozen_stages=k` at the output of stage k-1, so the frozen part runs its
-no-save forwards under `torch.no_grad()`. Training configurations that are
-not ported yet raise `NotImplementedError`: exact train-mode BN or a
-trainable BN affine, and remat (ROADMAP A3); an unfrozen fused stem (its
-backward kernel, ROADMAP B6). The BN statistics strides and the stem
-gradient stride only act in those configurations.
+`forward(x, train=True)` is the training forward, with argus_tpu's BN
+modes: exact train-mode BN (batch statistics, the running ones updated in
+place, `norm_momentum`, `bn_stats_stride`, `bn_grad_stride`, the reduction
+engine `bn_impl`; see `ops.norm`) unless `bn_frozen`, which normalises with
+the running statistics, its affine trainable or, with `bn_frozen_affine`,
+frozen too (no gradient to scale or bias). Under a frozen affine the BN is
+folded into the conv weights with autograd on every call (a gradient dk =
+bf16(dw) * c flows back through the fold), and the fused stem, blocks and
+chains are `torch.autograd.Function`s whose backward is a kernel too; the
+fused stem's backward is its weight gradient, on the first N /
+`stem_grad_stride` images. `stem_frozen` stops the gradient at the stem,
+and `frozen_stages=k` at the output of stage k-1, so the frozen part runs
+its no-save forwards under `torch.no_grad()` (train-mode BN there still
+updates its running statistics, as argus_tpu's does). remat in training
+raises `NotImplementedError` (ROADMAP A10): `torch.utils.checkpoint` would
+re-run the forward and update the running statistics twice.
 
 `forward(x, return_spatial=True)` returns the stride-32 feature map in f32
 instead of the pooled features, for the keypoint family's dense head.
@@ -52,7 +56,7 @@ from argus_tpu_torch.ops.kernels.block_fused import block_saved, fold_bottleneck
 from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, proj_saved
 from argus_tpu_torch.ops.kernels.stage_fused import stage_chain
 from argus_tpu_torch.ops.kernels.stem_fused import fold_stem_params, stem_pool
-from argus_tpu_torch.ops.norm import BatchNorm
+from argus_tpu_torch.ops.norm import IMPLS, BatchNorm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -113,10 +117,10 @@ class BasicBlock(nn.Module):
             self.conv_proj = Conv(cin, filters, 1, strides)
             self.norm_proj = BatchNorm(filters, eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = self.BatchNorm_1(self.Conv_1(y))
-        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x))
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), batch_stats))
+        y = self.BatchNorm_1(self.Conv_1(y), batch_stats)
+        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x), batch_stats)
         return torch.relu(y + residual)
 
     def fold(self, dtype) -> tuple:
@@ -151,11 +155,11 @@ class BottleneckBlock(nn.Module):
             self.conv_proj = Conv(cin, cout, 1, strides)
             self.norm_proj = BatchNorm(cout, eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
-        y = torch.relu(self.BatchNorm_1(self.Conv_1(y)))
-        y = self.BatchNorm_2(self.Conv_2(y))
-        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x))
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
+        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), batch_stats))
+        y = torch.relu(self.BatchNorm_1(self.Conv_1(y), batch_stats))
+        y = self.BatchNorm_2(self.Conv_2(y), batch_stats)
+        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x), batch_stats)
         return torch.relu(y + residual)
 
     def fold(self, dtype) -> tuple:
@@ -188,9 +192,14 @@ class ResNet(nn.Module):
         output_dim: Optional[int] = 1024,
         num_filters: int = 64,
         dtype: str = "float32",
+        norm_momentum: float = 0.9,
         norm_eps: float = 1e-5,
         stem_space_to_depth: bool = False,
+        bn_stats_stride: int = 1,
+        bn_grad_stride: int = 1,
+        bn_impl: str = "xla",
         stem_frozen: bool = False,
+        stem_grad_stride: int = 1,
         frozen_stages: int = 0,
         bn_frozen: bool = False,
         bn_frozen_affine: bool = False,
@@ -211,6 +220,10 @@ class ResNet(nn.Module):
             )
         if not 0 <= frozen_stages <= len(stage_sizes):
             raise ValueError(f"frozen_stages={frozen_stages} out of range for {len(stage_sizes)} stages")
+        if bn_impl not in IMPLS:
+            raise ValueError(f"bn_impl must be one of {IMPLS}, got {bn_impl!r}")
+        if min(bn_stats_stride, bn_grad_stride, stem_grad_stride) < 1:
+            raise ValueError("bn_stats_stride, bn_grad_stride and stem_grad_stride must be >= 1")
         self.stage_sizes = tuple(stage_sizes)
         self.block_cls = block_cls
         self.output_dim = output_dim
@@ -219,7 +232,9 @@ class ResNet(nn.Module):
         self.norm_eps = norm_eps
         self.stem_space_to_depth = stem_space_to_depth
         self.stem_frozen = stem_frozen
+        self.stem_grad_stride = stem_grad_stride
         self.frozen_stages = frozen_stages
+        self.bn_frozen = bn_frozen
         self.frozen = bn_frozen and bn_frozen_affine
         self.remat = remat or bool(tuple(remat_stages))
         self.fuse_block, self.fuse_proj = fuse_block, fuse_proj
@@ -244,6 +259,8 @@ class ResNet(nn.Module):
         for mod in self.modules():
             if isinstance(mod, BatchNorm):
                 mod.frozen_affine = self.frozen
+                mod.momentum = norm_momentum
+                mod.stats_stride, mod.grad_stride, mod.impl = bn_stats_stride, bn_grad_stride, bn_impl
         self._folded: Optional[Dict[str, tuple]] = None
 
     def blocks(self, i: int):
@@ -278,21 +295,16 @@ class ResNet(nn.Module):
             return self._folded[key]
         return self._fold_one(key)
 
-    def _check_trainable(self) -> None:
-        if not self.frozen:
-            raise NotImplementedError(
-                "training with exact (batch-statistics) BatchNorm or a trainable BN affine is not "
-                "ported yet (ROADMAP A3): set bn_frozen and bn_frozen_affine"
-            )
-        if self.remat:
-            raise NotImplementedError("remat in the training step is not ported yet (ROADMAP A3)")
-
     # ─────────────── forward ───────────────
 
     def forward(self, x: torch.Tensor, train: bool = False, return_spatial: bool = False) -> torch.Tensor:
-        if train:
-            self._check_trainable()
+        if train and self.remat:
+            raise NotImplementedError(
+                "remat in the training step is not ported yet (ROADMAP A10): re-running a block's "
+                "forward would update its running statistics twice"
+            )
         dt = self.dtype
+        bs = train and not self.bn_frozen  # argus_tpu: use_running_average = not train or bn_frozen
         bottleneck = self.block_cls is BottleneckBlock
         fuse_stem = (
             self.frozen
@@ -309,16 +321,11 @@ class ResNet(nn.Module):
         # the stem is frozen under stem_frozen or any frozen_stages depth: its
         # forward records no graph, and the frozen stages' neither
         stem_frozen = self.stem_frozen or self.frozen_stages >= 1
-        if train and fuse_stem and not stem_frozen:
-            raise NotImplementedError(
-                "training an unfrozen fused stem needs its backward kernel, not ported yet "
-                "(ROADMAP B6): set stem_frozen"
-            )
 
         x = x.to(dt)
         with torch.no_grad() if stem_frozen else contextlib.nullcontext():
             if fuse_stem:
-                x = stem_pool(x, *self._folded_weights("stem"))
+                x = stem_pool(x, *self._folded_weights("stem"), self.stem_grad_stride)
             else:
                 if self.stem_space_to_depth:
                     n, h, w, c = x.shape
@@ -326,12 +333,12 @@ class ResNet(nn.Module):
                     x = self.conv_init_s2d(x.reshape(n, h // 2, w // 2, 4 * c))
                 else:
                     x = self.conv_init(x)
-                x = torch.relu(self.norm_init(x))
+                x = torch.relu(self.norm_init(x, bs))
                 x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
         for i in range(len(self.stage_sizes)):
             with torch.no_grad() if i < self.frozen_stages else contextlib.nullcontext():
-                x = self._stage(i, x, fuse_blk, fuse_prj, fuse_stg)
+                x = self._stage(i, x, fuse_blk, fuse_prj, fuse_stg, bs)
 
         if return_spatial:
             # the stride-32 feature map, for dense-prediction heads (keypoint family)
@@ -343,7 +350,7 @@ class ResNet(nn.Module):
             x = F.linear(x, self.fc.weight.to(dt)) + self.fc.bias.to(dt)
         return x.float()
 
-    def _stage(self, i: int, x: torch.Tensor, fuse_blk: bool, fuse_prj: bool, fuse_stg: bool):
+    def _stage(self, i: int, x: torch.Tensor, fuse_blk: bool, fuse_prj: bool, fuse_stg: bool, bs: bool):
         blocks = self.blocks(i)
         fused_here = i in self.fuse_block_stages
         if fuse_stg and fused_here and (i in self.fuse_stage_stages or i < self.frozen_stages):
@@ -355,7 +362,7 @@ class ResNet(nn.Module):
             if fused_here and ((fuse_blk and blk.is_identity) or (fuse_prj and not blk.is_identity)):
                 x = blk.forward_fused(x, self._folded_weights(f"stage{i}_block{j}"))
             else:
-                x = blk(x)
+                x = blk(x, bs)
         return x
 
 

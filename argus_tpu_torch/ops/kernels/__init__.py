@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels of the port, one module per argus_tpu Pallas
-kernel family (forward, saving forward, backward; the bottleneck and the
-BasicBlock families; the augmentation's whole-stack and blur kernels), each
-with its plain
-PyTorch version beside it (see `_build` for how the CUDA sources are
+kernel family (forward, saving forward, backward; the stem, the bottleneck
+and the BasicBlock families; the augmentation's whole-stack and blur
+kernels; BatchNorm's two reductions), each with its plain PyTorch version
+beside it (see `_build` for how the CUDA sources are
 compiled and bound).
 
 `KERNELS` maps each kernel's name to its `Kernel` handle, whose `launches`
@@ -16,6 +16,7 @@ from argus_tpu_torch.ops.kernels import (
     basic_fused,
     block_fused,
     blur,
+    bn_reduce,
     proj_fused,
     stage_fused,
     stem_fused,
@@ -37,6 +38,10 @@ KERNELS = {
     "basic_fused": basic_fused.KERNEL,
     "basic_fused_save": basic_fused.KERNEL_SAVE,
     "basic_fused_bwd": basic_fused.KERNEL_BWD,
+    "stem_fused_save": stem_fused.KERNEL_SAVE,
+    "stem_fused_bwd": stem_fused.KERNEL_BWD,
+    "bn_stats": bn_reduce.KERNEL_STATS,
+    "bn_bwd_reduce": bn_reduce.KERNEL_BWD,
 }
 
 

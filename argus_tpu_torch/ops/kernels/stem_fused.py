@@ -1,14 +1,27 @@
-"""ResNet stem forward: conv7x7/s2/pad3 + folded frozen BN + relu +
-maxpool3x3/s2/pad1, NHWC.
+"""ResNet stem: conv7x7/s2/pad3 + folded frozen BN + relu +
+maxpool3x3/s2/pad1, NHWC, forward, saving forward and weight gradient.
 
-Port of `argus_tpu/ops/pallas/stem_fused.py` (`fused_stem_pool`, no-save
-forward). The conv sums in f32, the folded bias is added in f32, relu, one
-rounding to the activation dtype, then the max pool; zero padding of the
-pool equals torch's -inf padding because relu output is >= 0.
+Port of `argus_tpu/ops/pallas/stem_fused.py` (`fused_stem_pool`: the no-save
+forward, `_stem_fwd_save_pallas` and `_stem_bwd_pallas`). The conv sums in
+f32, the folded bias is added in f32, relu, one rounding to the activation
+dtype (y), then the max pool; zero padding of the pool equals torch's -inf
+padding because relu output is >= 0. The backward is the weight gradient
+only (the image is data, the folded bias a frozen buffer):
 
-On a CUDA tensor `stem_pool` launches `csrc/stem_fused.cu` (conv, bias,
-relu and pool in one launch); on a CPU tensor it runs the plain version
-`stem_pool_plain`. The training step runs it frozen (forward only).
+    dacc = bf16(sum of g routed to each window's first maximum) * (y > 0)
+    dW   = sum over the first n_images images of tap^T dacc     (f32)
+
+with the window elements in row-major order and ties going to the first
+(XLA's select-and-scatter order, `_POOL_TERMS`). With `grad_stride` s > 1
+only the first N/s images contribute and dW is scaled by s in f32, an
+unbiased estimate for a shuffled batch (`_stem_pool_bwd`); argus_tpu's rule
+applies: s = 1 when N % s != 0.
+
+On a CUDA tensor the wrappers launch `csrc/stem_fused.cu` (the forward, with
+or without y) and `csrc/stem_fused_bwd.cu`; on a CPU tensor they run the
+plain versions. `stem_pool` is the stem as autograd sees it: the no-save
+forward when nothing needs a gradient, else `stem_saved`, the saving forward
+with the weight-gradient backward.
 """
 
 from __future__ import annotations
@@ -22,9 +35,15 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     check_device,
     fold_affine,
     needs_grad,
+    zero_grad_of,
 )
 
 KERNEL = Kernel("stem_fused", "argus_stem_fwd", [P] * 4 + [I] * 3 + [P])
+KERNEL_SAVE = Kernel("stem_fused", "argus_stem_fwd_save", [P] * 5 + [I] * 3 + [P])
+KERNEL_BWD = Kernel("stem_fused_bwd", "argus_stem_bwd", [P] * 6 + [I] * 4 + [P])
+
+_BWD_TILE = 16  # conv pixels per tile edge of csrc/stem_fused_bwd.cu
+_BWD_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
 
 
 def fold_stem_params(k7, scale, bias, mean, var, eps: float, dtype):
@@ -33,38 +52,144 @@ def fold_stem_params(k7, scale, bias, mean, var, eps: float, dtype):
     return fold_affine(k7, scale, bias, mean, var, eps, dtype)
 
 
-def stem_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The stem in plain PyTorch, with the kernel's rounding point."""
+def stem_fwd_save_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """The stem in plain PyTorch with the kernel's rounding point: (out
+    (N, H/4, W/4, 64), y (N, H/2, W/2, 64) the conv + bias + relu output)."""
     y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1), stride=2, padding=3)
     y = torch.relu(y + b.float().reshape(1, -1, 1, 1)).to(x.dtype)
-    y = F.max_pool2d(y.float(), 3, stride=2, padding=1).to(x.dtype)
-    return y.permute(0, 2, 3, 1).contiguous()
+    out = F.max_pool2d(y.float(), 3, stride=2, padding=1).to(x.dtype)
+    return out.permute(0, 2, 3, 1).contiguous(), y.permute(0, 2, 3, 1).contiguous()
 
 
-def stem_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, 3) image -> (N, H/4, W/4, 64): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor. The kernel has no backward
-    yet: on the card it raises where autograd would need one."""
-    if not check_device(x):
-        return stem_pool_plain(x, w, b)
-    if needs_grad(x, w, b):
-        raise NotImplementedError(
-            "the fused stem's backward kernel is not ported yet (ROADMAP B6): "
-            "freeze the stem (stem_frozen) or run it without gradients"
-        )
+def stem_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return stem_fwd_save_plain(x, w, b)[0]
+
+
+def stem_bwd_plain(x, g, out, y, n_images: int) -> torch.Tensor:
+    """dW (7,7,3,64) f32 from the first n_images images, in plain PyTorch:
+    the pool cotangent to each window's first maximum (window terms in
+    row-major order, each pixel's contributions summed in that order in f32),
+    the relu mask, dacc rounded to x's dtype, then the conv weight gradient."""
+    x, g, out, y = (t[:n_images] for t in (x, g, out, y))
+    hc, wc = y.shape[1:3]
+    hp, wp = out.shape[1:3]
+    # conv row/col r sits at r + 1; zeros around are the pool's padding
+    yp = F.pad(y.float(), (0, 0, 1, 1, 1, 1))
+    d = torch.zeros_like(yp)
+    of, gf = out.float(), g.float()
+    taken = torch.zeros_like(of, dtype=torch.bool)
+    for ry in range(3):
+        for rx in range(3):
+            rows, cols = slice(ry, ry + 2 * hp - 1, 2), slice(rx, rx + 2 * wp - 1, 2)
+            take = (yp[:, rows, cols] == of) & ~taken
+            taken |= take
+            d[:, rows, cols] += gf * take
+    dacc = (d[:, 1:hc + 1, 1:wc + 1] * (y > 0)).to(x.dtype)
+    dw = torch.nn.grad.conv2d_weight(x.float().permute(0, 3, 1, 2), (64, 3, 7, 7),
+                                     dacc.float().permute(0, 3, 1, 2), stride=2, padding=3)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def _check_stem(x, w, b):
     n, h, wd, c = x.shape
     if c != 3 or h % 4 or wd % 4:
         raise ValueError(f"stem kernel takes (N, H, W, 3) with H, W % 4 == 0, got {tuple(x.shape)}")
     check_cuda("x", x, torch.bfloat16)
     check_cuda("w", w, torch.bfloat16, (7, 7, 3, 64))
-    check_cuda("b", b, torch.float32, (1, 64))
+    if b is not None:
+        check_cuda("b", b, torch.float32, (1, 64))
+    return n, h, wd
+
+
+def stem_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The no-save forward, (N, H, W, 3) -> (N, H/4, W/4, 64): the CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    if not check_device(x):
+        return stem_pool_plain(x, w, b)
+    n, h, wd = _check_stem(x, w, b)
     out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
     KERNEL.launch(x, w, b, out, n, h, wd)
     return out
 
 
-def fused_stem_pool(x, k7, scale, bias, mean, var, *, eps: float = 1e-5):
+def stem_fwd_save(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """The training forward, (out, y): the CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if not check_device(x):
+        return stem_fwd_save_plain(x, w, b)
+    n, h, wd = _check_stem(x, w, b)
+    out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((n, h // 2, wd // 2, 64), dtype=torch.bfloat16, device=x.device)
+    KERNEL_SAVE.launch(x, w, b, out, y, n, h, wd)
+    return out, y
+
+
+def stem_bwd(x, g, out, y, n_images: int) -> torch.Tensor:
+    """dW (7,7,3,64) f32 over the first n_images images: the CUDA kernel on a
+    CUDA tensor (it reads nothing of the other images), the plain version on
+    a CPU tensor."""
+    if not check_device(x):
+        return stem_bwd_plain(x, g, out, y, n_images)
+    n, h, wd, c = x.shape
+    if c != 3 or h % 4 or wd % 4 or not 1 <= n_images <= n:
+        raise ValueError(f"stem backward takes (N, H, W, 3) with H, W % 4 == 0 and 1 <= n_images <= N, "
+                         f"got {tuple(x.shape)}, n_images={n_images}")
+    check_cuda("x", x, torch.bfloat16)
+    for name, t, shape in (("g", g, (n, h // 4, wd // 4, 64)), ("out", out, (n, h // 4, wd // 4, 64)),
+                           ("y", y, (n, h // 2, wd // 2, 64))):
+        check_cuda(name, t, torch.bfloat16, shape)
+    tiles = n_images * -(-(h // 2) // _BWD_TILE) * -(-(wd // 2) // _BWD_TILE)
+    blocks = min(tiles, _BWD_BLOCKS)
+    ws = torch.empty((blocks, 147, 64), dtype=torch.float32, device=x.device)
+    dw = torch.empty((7, 7, 3, 64), dtype=torch.float32, device=x.device)
+    KERNEL_BWD.launch(x, g, out, y, ws, dw, n_images, h, wd, blocks)
+    return dw
+
+
+class _StemSaved(torch.autograd.Function):
+    """argus_tpu's `_stem_pool` custom VJP: the saving forward, then the
+    weight gradient on the first N/grad_stride images scaled by grad_stride
+    in f32 and cast to w's dtype; the image and the folded bias get zeros."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, grad_stride: int):
+        out, y = stem_fwd_save(x, w, b)
+        ctx.save_for_backward(x, out, y)
+        ctx.w_dtype, ctx.b, ctx.grad_stride = w.dtype, b, grad_stride
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, y = ctx.saved_tensors
+        s = ctx.grad_stride
+        dw = stem_bwd(x, g.contiguous(), out, y, x.shape[0] // s)
+        if s > 1:
+            dw = dw * float(s)
+        need = ctx.needs_input_grad
+        return zero_grad_of(need[0], x), dw.to(ctx.w_dtype), zero_grad_of(need[2], ctx.b), None
+
+
+def stem_saved(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, grad_stride: int = 1) -> torch.Tensor:
+    """The trained stem: the saving forward with the weight-gradient backward
+    (`grad_stride` falls back to 1 when it does not divide the batch)."""
+    if grad_stride < 1:
+        raise ValueError(f"grad_stride must be >= 1, got {grad_stride}")
+    if x.shape[0] % grad_stride:
+        grad_stride = 1
+    return _StemSaved.apply(x, w, b, grad_stride)
+
+
+def stem_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, grad_stride: int = 1) -> torch.Tensor:
+    """(N, H, W, 3) image -> (N, H/4, W/4, 64) as autograd sees it: the
+    no-save forward when no input needs a gradient, else `stem_saved`."""
+    if needs_grad(x, w, b):
+        return stem_saved(x, w, b, grad_stride)
+    return stem_fwd(x, w, b)
+
+
+def fused_stem_pool(x, k7, scale, bias, mean, var, *, eps: float = 1e-5, grad_stride: int = 1):
     """argus_tpu's `fused_stem_pool` signature: the (7,7,3,64) conv_init
-    kernel and raw norm_init buffers, folded here in f32, then the stem."""
+    kernel and raw norm_init buffers, folded here in f32 (the gradient
+    reaches k7 only), then the stem."""
     w, b = fold_stem_params(k7, scale, bias, mean, var, eps, x.dtype)
-    return stem_pool(x, w, b)
+    return stem_pool(x, w, b, grad_stride)

@@ -4,11 +4,13 @@ batch of uint8 frames, in PyTorch on the card.
 
 Port of `argus_tpu/train.py` (`TrainConfig`, `geometric_loss_fn`,
 `make_optimizer`, `TrainState`, `create_train_state`, `make_train_step`,
-`checkpoint_meta`) for the frozen-BN fine-tune step that argus_tpu's flagship
-configuration runs: bf16 (`amp`), BN with running statistics and a frozen
-affine, any frozen stem and stages, full backprop through the rest, the fused
-kernels of `ops.kernels` (with their backward kernels) on the card. The step
-is
+`checkpoint_meta`) for one microbatch: bf16 (`amp`) or f32, exact train-mode
+BN (batch statistics, running statistics updated) or argus_tpu's frozen-BN
+fine-tune modes (running statistics, the affine trained or frozen), any
+frozen or trained stem and frozen stages, full backprop through the rest;
+on the card the fused kernels of `ops.kernels` (with their backward
+kernels) under frozen BN and affine, BatchNorm's reduction kernels under
+exact BN with `bn_impl` "pallas" or "auto". The step is
 
     images = u8_to_f32(batch["images"], bf16 if amp else f32)
     images = apply_augmentation(augmentation_config, fold_in(base_seed, step), images)
@@ -27,8 +29,10 @@ the step's `hw`, else the dataset config's, else (256, 256).
 The augmentation (`use_augmentation`, argus_tpu's default) runs in the feed
 dtype through `ops.augment` (the fused kernel on the card). Configurations
 not ported yet raise `NotImplementedError` naming their ROADMAP item:
-gradient accumulation (A5), a device mesh or several cards (A7), and exact or
-trainable-affine BN (A3). The entry points run on
+gradient accumulation (A5), a device mesh or several cards (A7), and remat
+(A10). After a step `state.batch_stats`, the model's own BN buffers, hold
+the running statistics argus_tpu's step returns as `new_batch_stats`. The
+entry points run on
 CUDA unless the caller passes `device="cpu"`, and raise without a card.
 """
 
@@ -116,10 +120,10 @@ def check_config(cfg: TrainConfig, mesh=None) -> None:
     if mesh is not None or cfg.multigpu or (cfg.num_chips or 1) > 1 or cfg.num_model_shards > 1:
         raise NotImplementedError("data or tensor parallelism over several cards is not ported yet (ROADMAP A7)")
     _, m = _resolved_model_config(cfg)
-    if not (m.bn_frozen and m.bn_frozen_affine):
+    if getattr(m, "remat", False) or tuple(getattr(m, "remat_stages", ())):
         raise NotImplementedError(
-            "training with exact (batch-statistics) BatchNorm or a trainable BN affine is not "
-            "ported yet (ROADMAP A3): set bn_frozen and bn_frozen_affine"
+            "remat in the training step is not ported yet (ROADMAP A10): re-running a block's forward "
+            "would update its running statistics twice"
         )
 
 

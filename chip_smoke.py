@@ -5,8 +5,9 @@
 
 Phases, each fatal on failure (nothing is caught and ignored):
 
-1. build every CUDA kernel of the serving, training, augmentation and
-   keypoint paths from `argus_tpu_torch/csrc/` (11 sources, one nvcc each,
+1. build every CUDA kernel of the serving, training, augmentation,
+   keypoint, trained-stem and exact-BN paths from `argus_tpu_torch/csrc/`
+   (13 sources, one nvcc each,
    in parallel) and print the seconds and ptxas' register/spill report;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
@@ -84,7 +85,27 @@ Phases, each fatal on failure (nothing is caught and ignored):
    serving, `Estimator(ckpt, batch_size=256)` on a checkpoint of those
    weights (unfused bf16, as argus_tpu serves BasicBlock backbones: no
    kernel launch), poses within 0.05 of the CPU estimator on 8 rows;
-8. the `kernels` JSON line, the card's name and power limit, and the result
+8. the stem_fused_save/bwd and BN-reduction kernels (with phase 4): the
+   trained stem's saving forward (out and y within one bf16 ulp of the plain
+   version, or within 1e-5 of the largest value where relu keeps a sum that
+   sits within f32 rounding of zero) and its weight gradient over all 512
+   images and over the first 128 (2e-2 * max |plain| + 1e-2); BatchNorm's
+   statistics and backward reductions at every distinct (M, C) of ResNet-50's
+   53 BN inputs at N = 512, strides 1 and 4 (n_rows equal, sums within 1e-4
+   of each channel's sum of magnitudes), timed beside `torch.batch_norm_stats`
+   and `torch.batch_norm_backward_reduce`; then Path A, the flagship step
+   with the fused stem trained (fuse flags "auto"): against the unfused cuDNN
+   step on 8 augmented rows within phase 6's gates (conv_init's gradient
+   included), launches 1 augment / 1 stem save / 1 stem backward / 1 + 1 /
+   3 + 3 / 10 + 10, 6 timed steps, and 6 at `stem_grad_stride=4`; Path B,
+   the exact-BN step at argus_tpu's default BN and stem with `bn_impl="auto"`
+   against its "xla" twin on 8 augmented rows (loss within 1e-2, gradients
+   0.3 / 0.1 max / median, the running statistics' change 5e-2 / 1e-2,
+   relative 2-norms: the engines reduce in other orders and round bf16 at
+   other points), launches 1 augment / 53 `bn_stats` / 53 `bn_bwd_reduce`,
+   6 timed steps of each; then the keypoint family's default step (exact BN,
+   unfused), 6 timed steps;
+9. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the augmentation kernels.
@@ -143,8 +164,13 @@ REPLACES = {
     "basic_fused": "argus_tpu/ops/pallas/basic_fused.py:87",
     "basic_fused_save": "argus_tpu/ops/pallas/basic_fused.py:87",
     "basic_fused_bwd": "argus_tpu/ops/pallas/basic_fused.py:167",
+    "stem_fused_save": "argus_tpu/ops/pallas/stem_fused.py:280",
+    "stem_fused_bwd": "argus_tpu/ops/pallas/stem_fused.py:304",
+    "bn_stats": "argus_tpu/ops/pallas/bn_reduce.py:74",
+    "bn_bwd_reduce": "argus_tpu/ops/pallas/bn_reduce.py:149",
 }
 SOURCES = {name: f"argus_tpu_torch/csrc/{name.replace('_save', '')}.cu" for name in REPLACES}
+SOURCES.update(bn_stats="argus_tpu_torch/csrc/bn_reduce.cu", bn_bwd_reduce="argus_tpu_torch/csrc/bn_reduce.cu")
 _NONE = {name: 0 for name in REPLACES}
 EXPECTED_LAUNCHES = {**_NONE, "stem_fused": 1, "stage_fused": 1, "proj_fused": 3, "block_fused": 10}
 EXPECTED_TRAIN_LAUNCHES = {
@@ -154,6 +180,21 @@ EXPECTED_TRAIN_LAUNCHES = {
 # the keypoint family (resnet18, fused): per train step, and per eval forward
 EXPECTED_KP_LAUNCHES = {**_NONE, "augment_fused": 1, "stem_fused": 1, "basic_fused_save": 5, "basic_fused_bwd": 5}
 EXPECTED_KP_EVAL_LAUNCHES = {**_NONE, "stem_fused": 1, "basic_fused": 5}
+# the trained stem (Path A): per step, beside the flagship's fused blocks
+EXPECTED_STEM_LAUNCHES = {**EXPECTED_TRAIN_LAUNCHES, "stem_fused": 0, "stem_fused_save": 1, "stem_fused_bwd": 1}
+# exact BN (Path B): every BN of ResNet-50 reduces once each way; no conv kernel
+EXPECTED_EXACT_LAUNCHES = {**_NONE, "augment_fused": 1, "bn_stats": 53, "bn_bwd_reduce": 53}
+# Path B against its "xla" twin on 8 rows: loss, per-parameter gradients (max,
+# median over parameters) and the running statistics' change (max, median
+# over buffers), relative 2-norms: the two engines reduce in other orders and
+# the kernel path's dx is argus_tpu's closed formula where "xla" is autodiff
+# through each bf16 op, so bf16 roundings differ at every BN
+EXACT_LOSS_RTOL, EXACT_GRAD_RTOL, EXACT_STATS_RTOL = 1e-2, (0.3, 0.1), (5e-2, 1e-2)
+STEM_ULP = 2.0 ** -7  # one bf16 ulp relative to the value: 2^-8 of the binade's top, 2^-7 of its bottom
+# a conv value within f32 rounding of zero, which relu keeps on one side and
+# zeroes on the other: the 147-term sums' reordering error, relative to the output's largest value
+STEM_ZERO = 1e-5
+BN_RTOL = 1e-4  # the BN reductions: kernel vs plain, relative to the channel's sum of magnitudes
 # ResNet-18's identity BasicBlocks at N = 512, 256x256 frames: (C, H = W,
 # blocks of that geometry in a forward: stage 0 blocks 0-1, stages 1-3 block 1)
 BASIC_GEOMETRIES = [(64, 64, 2), (128, 32, 1), (256, 16, 1), (512, 8, 1)]
@@ -713,6 +754,184 @@ def basic_kernel_phase() -> dict:
     return results
 
 
+def _resnet50_bn_inputs(n: int) -> list:
+    """(M, C, count) of the inputs of ResNet-50's 53 BatchNorms for n
+    256x256 images, grouped by shape: the stem's, then per stage the entry
+    block's BN0 (before the stride), BN1, BN2 and projection, and the
+    identity blocks' BN0-2."""
+    shapes = {(n * (HW // 2) ** 2, 64): 1}
+    side = HW // 4
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2**i
+        out = side if i == 0 else side // 2
+        for m, c, k in ((n * side * side, f, 1), (n * out * out, f, 1 + 2 * (blocks - 1)),
+                        (n * out * out, 4 * f, 2 + (blocks - 1))):
+            shapes[(m, c)] = shapes.get((m, c), 0) + k
+        side = out
+    assert sum(shapes.values()) == 53
+    return [(m, c, k) for (m, c), k in shapes.items()]
+
+
+def _ulp_compare(name, got, want) -> float:
+    """bf16 outputs bit-equal or one bf16 ulp apart (or both within f32
+    rounding of zero)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs plain {tuple(want.shape)} {want.dtype}")
+    import torch
+
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    bad = int((err > STEM_ULP * torch.maximum(a.abs(), b.abs()) + STEM_ZERO * b.abs().max()).sum())
+    off = int((err > 0).sum())
+    say(f"{name}: {off} of {a.numel()} elements differ from the plain version, {bad} by more than one bf16 ulp; "
+        f"max |diff| {err.max().item():.4g}")
+    if bad or not got.isfinite().all():
+        raise AssertionError(f"{name}: kernel disagrees with its plain version by more than one bf16 ulp")
+    return err.max().item()
+
+
+def stem_bn_kernel_phase() -> dict:
+    """The trained stem's two kernels at the flagship's shapes (N = 512,
+    256x256) and BatchNorm's two reductions at every distinct (M, C) of
+    ResNet-50's 53 BN inputs at N = 512, against their plain versions. The
+    stem's saving forward: out and y within one bf16 ulp of the plain
+    version's; its weight gradient over all N images and over the first N/4
+    (`stem_grad_stride` 4), 2e-2 * max |plain| + 1e-2; library_ms the cuDNN
+    composition's forward, and its autograd weight gradient. The BN
+    reductions at stride 1 and 4: n_rows equal, sums within BN_RTOL of each
+    channel's sum of magnitudes; library_ms `torch.batch_norm_stats` and
+    `torch.batch_norm_backward_reduce` on the channels-last view (stride 1;
+    mean/invstd and sum dy, sum dy*(x-mean)). Times per train step: one
+    stem each way, each BN shape times its count."""
+    import torch
+    import torch.nn.functional as F
+
+    from argus_tpu_torch.ops.kernels import bn_reduce, stem_fused
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    results = {}
+    bf = torch.bfloat16
+
+    x = torch.rand(N_IMG, HW, HW, 3, generator=g, device="cuda").to(bf)
+    w7, b7 = _w(g, 7, 7, 3, 64), _b(g, 64)
+    out, y = stem_fused.stem_fwd_save(x, w7, b7)
+    pout, py = stem_fused.stem_fwd_save_plain(x, w7, b7)
+    err = max(_ulp_compare("stem_fused_save out", out, pout), _ulp_compare("stem_fused_save y", y, py))
+    del pout, py
+    conv_flops = 2 * N_IMG * (HW // 2) ** 2 * 64 * 147
+
+    def lib_fwd(w):
+        yl = torch.relu(_lib_conv(x, w, 2, 3) + b7.reshape(-1).to(bf))
+        return F.max_pool2d(yl.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+    ms = cuda_ms(lambda: stem_fused.stem_fwd_save(x, w7, b7), 5)
+    pms = cuda_ms(lambda: stem_fused.stem_fwd_save_plain(x, w7, b7), 2)
+    lms = cuda_ms(lambda: lib_fwd(w7), 5)
+    nb = nbytes(x, w7, b7, out, y)
+    b, by = bound_ms(conv_flops, nb)
+    say(f"stem_fused_save {tuple(x.shape)} x1: kernel {ms:.3f} ms, plain {pms:.3f} ms, library {lms:.3f} ms, bound "
+        f"{b:.3f} ms ({by}), {nb / ms / 1e6:.0f} GB/s")
+    results["stem_fused_save"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, flops=conv_flops, bytes=nb)
+
+    gr = torch.randn(out.shape, generator=g, device="cuda").to(bf)
+    wl = w7.detach().requires_grad_(True)
+    lib_out = lib_fwd(wl)
+    entry = dict(max_abs_err=0.0)
+    for n_images in (N_IMG, N_IMG // 4):
+        kern = lambda n=n_images: stem_fused.stem_bwd(x, gr, out, y, n)  # noqa: E731
+        plain = lambda n=n_images: stem_fused.stem_bwd_plain(x, gr, out, y, n)  # noqa: E731
+        e = _compare(f"stem_fused_bwd n_images={n_images}", kern(), plain())
+        ms, pms = cuda_ms(kern, 5), cuda_ms(plain, 2)
+        if n_images == N_IMG:
+            lib = lambda: torch.autograd.grad(lib_out, [wl], gr, retain_graph=True)  # noqa: E731
+            lms = cuda_ms(lib, 5)
+        else:
+            lms = None
+        fl = conv_flops * n_images // N_IMG
+        nb = nbytes(x, gr, out, y) * n_images // N_IMG + 147 * 64 * 4
+        b, by = bound_ms(fl, nb)
+        say(f"stem_fused_bwd n_images={n_images} x1: max_abs_err {e:.4g}, kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+            f"library {'-' if lms is None else f'{lms:.3f}'} ms (autograd dW of the cuDNN composition, all images), "
+            f"bound {b:.3f} ms ({by}), {nb / ms / 1e6:.0f} GB/s")
+        entry["max_abs_err"] = max(entry["max_abs_err"], e)
+        if n_images == N_IMG:
+            entry.update(ms=ms, plain_ms=pms, library_ms=lms, flops=fl, bytes=nb)
+    results["stem_fused_bwd"] = entry
+    del x, out, y, gr, lib_out, wl
+    torch.cuda.empty_cache()
+
+    def bn_close(name, got, want, scale):
+        err = (got - want).abs()
+        bad = err > BN_RTOL * scale + 1e-6
+        if bool(bad.any()) or not bool(got.isfinite().all()):
+            raise AssertionError(f"{name}: {int(bad.sum())} channels beyond {BN_RTOL} of their sum of magnitudes, "
+                                 f"max rel {(err / scale.clamp(min=1e-30)).max().item():.3g}")
+        return (err / scale.clamp(min=1e-30)).max().item(), err.max().item()
+
+    stats = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, peak=PEAK_F32)
+    bwd = dict(stats)
+    for m, c, count in _resnet50_bn_inputs(N_IMG):
+        side = int(round((m // N_IMG) ** 0.5))
+        xb = torch.randn(m, c, generator=g, device="cuda").to(bf)
+        dy = torch.randn(m, c, generator=g, device="cuda").to(bf)
+        x4 = xb.view(N_IMG, side, side, c).permute(0, 3, 1, 2)
+        dy4 = dy.view(N_IMG, side, side, c).permute(0, 3, 1, 2)
+        s, q, n = bn_reduce.fused_stats(xb, 1)
+        mean = s / n
+        rstd = torch.rsqrt(torch.clamp(q / n - mean * mean, min=0.0) + 1e-5)
+        for stride in (1, 4):
+            R, S, n_rows = bn_reduce.visited_rows(m, c, stride)
+            rows = xb if n_rows == m else torch.cat([xb[i * S: i * S + R] for i in range(n_rows // R)])
+            drows = dy if n_rows == m else torch.cat([dy[i * S: i * S + R] for i in range(n_rows // R)])
+            xa, da = rows.float().abs(), drows.float().abs()
+            k_s, k_q, k_n = bn_reduce.fused_stats(xb, stride)
+            p_s, p_q, p_n = bn_reduce.fused_stats_plain(xb, stride)
+            if k_n != p_n:
+                raise AssertionError(f"bn_stats ({m}, {c}) stride {stride}: n_rows {k_n} != plain {p_n}")
+            (r1, a1), (r2, a2) = bn_close("bn_stats sum", k_s, p_s, xa.sum(0)), \
+                bn_close("bn_stats sumsq", k_q, p_q, (xa * xa).sum(0))
+            e1, e1_abs = max(r1, r2), max(a1, a2)
+            k_d, k_dx, k_n2 = bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride)
+            p_d, p_dx, p_n2 = bn_reduce.fused_bn_bwd_reduce_plain(xb, dy, mean, rstd, stride)
+            if k_n2 != p_n2 or k_n2 != k_n:
+                raise AssertionError(f"bn_bwd_reduce ({m}, {c}) stride {stride}: n_rows {k_n2} != plain {p_n2}")
+            xh = ((rows.float() - mean) * rstd).abs()
+            (r1, a1), (r2, a2) = bn_close("bn_bwd_reduce sum dy", k_d, p_d, da.sum(0)), \
+                bn_close("bn_bwd_reduce sum dy*xhat", k_dx, p_dx, (da * xh).sum(0))
+            e2, e2_abs = max(r1, r2), max(a1, a2)
+            stats["max_abs_err"] = max(stats["max_abs_err"], e1_abs)
+            bwd["max_abs_err"] = max(bwd["max_abs_err"], e2_abs)
+            del rows, drows, xa, da, xh
+            t = [cuda_ms(lambda: bn_reduce.fused_stats(xb, stride), 10),
+                 cuda_ms(lambda: bn_reduce.fused_stats_plain(xb, stride), 3),
+                 cuda_ms(lambda: bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride), 10),
+                 cuda_ms(lambda: bn_reduce.fused_bn_bwd_reduce_plain(xb, dy, mean, rstd, stride), 3)]
+            nb_s, nb_b = n_rows * c * BF + 2 * c * 4, 2 * n_rows * c * BF + 4 * c * 4
+            if stride == 1:
+                lib_s = cuda_ms(lambda: torch.batch_norm_stats(x4, 1e-5), 10)
+                lib_b = cuda_ms(lambda: torch.batch_norm_backward_reduce(dy4, x4, mean, rstd, None, True, False,
+                                                                         False), 10)
+                # f32 operations per element: x and x*x summed (3); dy summed,
+                # (x - mean) * rstd * dy summed (5)
+                for d, ms, pms, lms, nb, ops in ((stats, t[0], t[1], lib_s, nb_s, 3), (bwd, t[2], t[3], lib_b, nb_b, 5)):
+                    for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bytes", nb),
+                                 ("flops", ops * n_rows * c)):
+                        d[k] += count * v
+            else:
+                lib_s = lib_b = None
+            say(f"bn ({m}, {c}) x{count} stride {stride}: n_rows {k_n}; bn_stats {t[0]:.3f} ms (plain {t[1]:.3f}, "
+                f"library {'-' if lib_s is None else f'{lib_s:.3f}'}, bound {bound_ms(0, nb_s)[0]:.3f}), "
+                f"bn_bwd_reduce {t[2]:.3f} ms (plain {t[3]:.3f}, library {'-' if lib_b is None else f'{lib_b:.3f}'}, "
+                f"bound {bound_ms(0, nb_b)[0]:.3f}); max rel err {e1:.3g}, {e2:.3g} (abs {e1_abs:.3g}, {e2_abs:.3g})")
+        del xb, dy, x4, dy4
+        torch.cuda.empty_cache()
+    results["bn_stats"], results["bn_bwd_reduce"] = stats, bwd
+    say(f"bn per step (53 BNs, stride 1): bn_stats {stats['ms']:.2f} ms (library {stats['library_ms']:.2f}, bound "
+        f"{bound_ms(0, stats['bytes'])[0]:.2f}), bn_bwd_reduce {bwd['ms']:.2f} ms (library {bwd['library_ms']:.2f}, "
+        f"bound {bound_ms(0, bwd['bytes'])[0]:.2f})")
+    return results
+
+
 # ─────────────────────── phase 5: augmentation ───────────────────────
 
 
@@ -916,12 +1135,14 @@ def _grad_errors(got: dict, want: dict):
 FUSE_ON = dict(fuse_block="on", fuse_proj="on", fuse_stem="on", fuse_stage="on")
 
 
-def flagship_train_setup():
+def flagship_train_setup(**model_overrides):
     """(cfg, model, state, batch) of the flagship train step on the card:
     ResNet-50 NCameraCNN at full width (2 cameras, 1024-d features), bf16,
     frozen BN + affine, frozen stem, full backprop, argus_tpu's default
     augmentation, clip(1.0) + Adam at lr 1e-4; random weights from seed 0 with BN randomised; a batch
-    of 256 seeded uint8 frame pairs with non-identity poses, on the card."""
+    of 256 seeded uint8 frame pairs with non-identity poses, on the card.
+    `model_overrides` replace fields of the model config (the trained stem,
+    exact BN)."""
     import numpy as np
     import torch
 
@@ -929,10 +1150,11 @@ def flagship_train_setup():
     from argus_tpu_torch.ops.augment import AugmentationConfig
     from argus_tpu_torch.train import TrainConfig, create_train_state
 
-    mcfg = NCameraCNNConfig(
-        n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True, bn_frozen_affine=True,
-        stem_frozen=True, frozen_stages=0, **FUSE_ON,
-    )
+    mcfg = NCameraCNNConfig(**{
+        **dict(n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True, bn_frozen_affine=True,
+               stem_frozen=True, frozen_stages=0, **FUSE_ON),
+        **model_overrides,
+    })
     cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=True,
                       augmentation_config=AugmentationConfig(), batch_size=N_ROWS, learning_rate=1e-4,
                       max_grad_norm=1.0)
@@ -1035,19 +1257,154 @@ def _time_steps(step, state, batch, label: str):
     ms = float(np.mean(ev_ms))
     say(f"train {label}: losses per step {[round(v, 6) for v in losses]}")
     say(f"train {label}: {TRAIN_STEPS} steps of batch {N_ROWS} rows ({N_IMG} camera images, {HW}x{HW}, "
-        f"bf16, frozen BN + stem, full backprop): {ms:.2f} ms/step by CUDA events (per step "
+        f"bf16, full backprop): {ms:.2f} ms/step by CUDA events (per step "
         f"{[round(v, 2) for v in ev_ms]}), {float(np.mean(host_ms)):.2f} ms/step by host clock, "
         f"{N_IMG / ms * 1e3:.1f} camera-images/s; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
     return launches, ms, state
 
 
-# ─────────────────────── phase 8: the keypoint family ───────────────────────
+# ─────────────── phase 8: the trained stem and exact BN (Path A, Path B) ───────────────
+
+
+def _eight_rows(cfg, batch):
+    """The first 8 rows of `batch` and their augmented, fed images."""
+    from argus_tpu_torch.ops.augment import apply_augmentation
+    from argus_tpu_torch.train import feed_images
+
+    head = {k: v[:8] for k, v in batch.items()}
+    return head, apply_augmentation(cfg.augmentation_config, 99, feed_images(cfg, head["images"], "cuda"))
+
+
+def _spread(errs: dict):
+    worst = max(errs, key=errs.get)
+    return errs[worst], sorted(errs.values())[len(errs) // 2], worst
+
+
+def path_a_phase() -> tuple:
+    """The flagship step with the fused stem trained (`stem_frozen=False`,
+    the fuse flags "auto"): against the unfused cuDNN step on 8 augmented
+    rows within the flagship's gates (conv_init's gradient included), then
+    6 timed steps and 6 with `stem_grad_stride=4`, launches per step 1
+    augment / 1 stem save / 1 stem backward / 1+1 / 3+3 / 10+10. Returns
+    (launches per step, ms/step, ms/step at grad stride 4)."""
+    import torch
+
+    from argus_tpu_torch.models import NCameraCNN
+    from argus_tpu_torch.train import _loss_and_grads_on, make_train_step
+
+    auto = {k: "auto" for k in FUSE_ON}
+    cfg, model, state, batch = flagship_train_setup(stem_frozen=False, **auto)
+    head, images = _eight_rows(cfg, batch)
+    ref = NCameraCNN(dataclasses.replace(cfg.model_config, dtype="bfloat16", **{k: "off" for k in FUSE_ON})).cuda()
+    ref.load_state_dict(model.state_dict())
+    loss_f, grads_f = _loss_and_grads_on(model, state.params, images, head)
+    loss_r, grads_r = _loss_and_grads_on(ref, dict(ref.named_parameters()), images, head)
+    errs = _grad_errors(grads_f, grads_r)
+    worst, median, name = _spread(errs)
+    loss_err = abs(loss_f.item() - loss_r.item()) / abs(loss_r.item())
+    stem_err = errs.get("backbone.conv_init.weight")
+    say(f"path A (trained fused stem): fused vs unfused on the first 8 rows: loss {loss_f.item():.6f} vs "
+        f"{loss_r.item():.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); gradients of {len(errs)} parameters: max "
+        f"rel {worst:.3g} ({name}), median {median:.3g} (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN}); conv_init.weight "
+        f"{stem_err}")
+    if stem_err is None or not (loss_err <= TRAIN_LOSS_RTOL and worst <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
+        raise AssertionError("the trained-stem step disagrees with the unfused one")
+    del ref, grads_f, grads_r, head, images
+    torch.cuda.empty_cache()
+
+    launches, ms, state = _time_steps(make_train_step(model, cfg), state, batch, "path A (stem trained)")
+    if launches != EXPECTED_STEM_LAUNCHES:
+        raise AssertionError(f"path A launch counts {launches} != expected {EXPECTED_STEM_LAUNCHES}")
+    model.backbone.stem_grad_stride = 4
+    launches4, ms4, state = _time_steps(make_train_step(model, cfg), state, batch, "path A stem_grad_stride=4")
+    if launches4 != EXPECTED_STEM_LAUNCHES:
+        raise AssertionError(f"path A (grad stride 4) launch counts {launches4} != expected {EXPECTED_STEM_LAUNCHES}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return launches, ms, ms4
+
+
+def path_b_phase() -> tuple:
+    """The exact-BN flagship step (argus_tpu's default BN and stem:
+    `bn_frozen=False`, `stem_frozen=False`; `bn_impl="auto"`, strides 1):
+    against the same step with `bn_impl="xla"` (autodiff through the
+    statistics) on 8 augmented rows: loss, per-parameter gradients and the
+    running statistics' change; then 6 timed steps of each, launches per
+    step 1 augment / 53 bn_stats / 53 bn_bwd_reduce and no conv kernel.
+    Returns (launches per step, ms/step auto, ms/step xla)."""
+    import torch
+
+    from argus_tpu_torch.ops.norm import BatchNorm
+    from argus_tpu_torch.train import _loss_and_grads_on, create_train_state, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup(bn_frozen=False, bn_frozen_affine=False, stem_frozen=False,
+                                                    bn_impl="auto", **{k: "auto" for k in FUSE_ON})
+    xla_cfg = dataclasses.replace(cfg, model_config=dataclasses.replace(cfg.model_config, bn_impl="xla"))
+    twin, twin_state = create_train_state(xla_cfg, seed=0)
+    twin.load_state_dict(model.state_dict())
+    head, images = _eight_rows(cfg, batch)
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    loss_a, grads_a = _loss_and_grads_on(model, state.params, images, head)
+    loss_x, grads_x = _loss_and_grads_on(twin, twin_state.params, images, head)
+    errs = _grad_errors(grads_a, grads_x)
+    worst, median, name = _spread(errs)
+    after_a, after_x = dict(model.named_buffers()), dict(twin.named_buffers())
+    moved = {k: (after_a[k] - before[k], after_x[k] - before[k]) for k in before}
+    serr = {k: ((a - b).norm() / b.norm()).item() for k, (a, b) in moved.items() if b.norm() > 0}
+    s_worst, s_median, s_name = _spread(serr)
+    loss_err = abs(loss_a.item() - loss_x.item()) / abs(loss_x.item())
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    say(f"path B (exact BN): bn_impl auto vs xla on the first 8 rows: loss {loss_a.item():.6f} vs {loss_x.item():.6f} "
+        f"(rel {loss_err:.3g}, tol {EXACT_LOSS_RTOL}); gradients of {len(errs)} parameters: max rel {worst:.3g} "
+        f"({name}), median {median:.3g} (tol {EXACT_GRAD_RTOL}); running statistics' change, {len(serr)} of "
+        f"{2 * n_bn} buffers: max rel {s_worst:.3g} ({s_name}), median {s_median:.3g} (tol {EXACT_STATS_RTOL})")
+    if not (loss_err <= EXACT_LOSS_RTOL and worst <= EXACT_GRAD_RTOL[0] and median <= EXACT_GRAD_RTOL[1]
+            and len(serr) == 2 * n_bn and s_worst <= EXACT_STATS_RTOL[0] and s_median <= EXACT_STATS_RTOL[1]):
+        raise AssertionError("the exact-BN step with the reduction kernels disagrees with its xla twin")
+    del grads_a, grads_x, head, images, moved
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for label, m, c, st in (("auto", model, cfg, state), ("xla", twin, xla_cfg, twin_state)):
+        runs[label] = _time_steps(make_train_step(m, c), st, batch, f"path B (exact BN, bn_impl={label})")
+        torch.cuda.empty_cache()
+    if runs["auto"][0] != EXPECTED_EXACT_LAUNCHES:
+        raise AssertionError(f"path B launch counts {runs['auto'][0]} != expected {EXPECTED_EXACT_LAUNCHES}")
+    want_xla = {**_NONE, "augment_fused": 1}
+    if runs["xla"][0] != want_xla:
+        raise AssertionError(f"path B (xla) launch counts {runs['xla'][0]} != expected {want_xla}")
+    say(f"path B: exact BN {runs['auto'][1]:.2f} ms/step with the reduction kernels, {runs['xla'][1]:.2f} ms/step "
+        f"with xla reductions, in this call")
+    del model, twin, state, twin_state, runs["xla"]
+    torch.cuda.empty_cache()
+    return runs["auto"][0], runs["auto"][1]
+
+
+def keypoint_default_phase() -> float:
+    """The keypoint family at argus_tpu's default config (exact BN, "xla",
+    stem and affine trained, unfused), bf16, batch 256: 6 timed steps,
+    finite losses, launches 1 augment."""
+    import torch
+
+    from argus_tpu_torch.models import CubeKeypointNetConfig
+    from argus_tpu_torch.train import make_train_step
+
+    cfg, model, state, batch = keypoint_setup(CubeKeypointNetConfig())
+    launches, ms, state = _time_steps(make_train_step(model, cfg), state, batch, "keypoint default (exact BN)")
+    if launches != {**_NONE, "augment_fused": 1}:
+        raise AssertionError(f"keypoint default launch counts {launches}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return ms
+
+
+# ─────────────────────── phase 7: the keypoint family ───────────────────────
 
 KP_FUSE = dict(fuse_block="on", fuse_stem="on")
 
 
-def keypoint_setup():
+def keypoint_setup(kcfg=None):
     """(cfg, model, state, batch) of the keypoint train step on the card:
     CubeKeypointNet at argus_tpu's default config (2 cameras, 8 corners,
     resnet18, head_features 128, heatmap stride 8: 32x32 heatmaps), bf16
@@ -1055,7 +1412,8 @@ def keypoint_setup():
     and stem, argus_tpu's default augmentation, clip(1.0) + Adam at lr 1e-4;
     random weights from seed 0 with every BN and LayerNorm randomised; a
     batch of 256 seeded uint8 frame pairs with cube poses in view of the
-    nominal cameras, non-identity rotations."""
+    nominal cameras, non-identity rotations. `kcfg` replaces the model config
+    (argus_tpu's default, exact BN, for the default step)."""
     import numpy as np
     import torch
 
@@ -1063,7 +1421,7 @@ def keypoint_setup():
     from argus_tpu_torch.ops.augment import AugmentationConfig
     from argus_tpu_torch.train import TrainConfig, create_train_state
 
-    kcfg = CubeKeypointNetConfig(bn_frozen=True, bn_frozen_affine=True, stem_frozen=True, **KP_FUSE)
+    kcfg = kcfg or CubeKeypointNetConfig(bn_frozen=True, bn_frozen_affine=True, stem_frozen=True, **KP_FUSE)
     cfg = TrainConfig(model_type="keypoint", keypoint_config=kcfg, amp=True, use_augmentation=True,
                       augmentation_config=AugmentationConfig(), batch_size=N_ROWS, learning_rate=1e-4,
                       max_grad_norm=1.0)
@@ -1240,6 +1598,7 @@ def main() -> int:
     import argus_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     GPU = gpu_line()
+    t_start = time.perf_counter()
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     build_phase()
     measured = kernel_phase()
@@ -1249,6 +1608,7 @@ def main() -> int:
         launches, _ = end_to_end_phase(tmpdir)
     measured.update(train_kernel_phase())
     measured.update(basic_kernel_phase())
+    measured.update(stem_bn_kernel_phase())
     aug_measured, aug_launches = augment_phase()
     measured.update(aug_measured)
     train_launches, step_ms = train_phase()
@@ -1258,8 +1618,15 @@ def main() -> int:
             f"{name} {m['ms']:.2f}" for name, m in measured.items() if train_launches[name])
         + f"); the other {step_ms - kernel_ms:.2f} ms: the u8 feed, augmentation sampling and layout "
         f"transposes, mean pool, head, loss, BN folds, weight transposes, optimizer and launch gaps")
+    a_launches, a_ms, a4_ms = path_a_phase()
+    b_launches, b_ms = path_b_phase()
+    say(f"train steps in this call (ms/step): frozen stem {step_ms:.2f}, stem trained {a_ms:.2f}, stem trained at "
+        f"grad stride 4 {a4_ms:.2f}, exact BN {b_ms:.2f}")
+    kp_default_ms = keypoint_default_phase()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         kp_launches, kp_eval_launches, kp_ms = keypoint_phase(tmpdir)
+    say(f"keypoint train steps in this call (ms/step): default (exact BN, unfused) {kp_default_ms:.2f}, fused frozen "
+        f"BN {kp_ms:.2f}")
     kp_kernel_ms = sum(m["ms"] for name, m in measured.items() if kp_launches[name])
     say(f"keypoint train breakdown: fused kernels {kp_kernel_ms:.2f} ms of the {kp_ms:.2f} ms step (phase-2/4/5 "
         f"kernel times at these shapes: " + ", ".join(
@@ -1273,11 +1640,12 @@ def main() -> int:
         b, by = bound_ms(m["flops"], m["bytes"], m.get("peak", PEAK_FLOPS))
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": (launches[name] or train_launches[name] or aug_launches["per-op"][name]
-                         or kp_launches[name] or kp_eval_launches[name]),
+            "launches": (launches[name] or train_launches[name] or a_launches[name] or b_launches[name]
+                         or aug_launches["per-op"][name] or kp_launches[name] or kp_eval_launches[name]),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })
+    say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(GPU)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,17 @@
 `torch.profiler`: device time by CUDA kernel and the device's busy and idle
 share over a window of steps.
 
-    python3 scripts/profile_torch_train_step.py [--model flagship|keypoint|keypoint-unfused]
+    python3 scripts/profile_torch_train_step.py
+        [--model flagship|stem|exact|exact-xla|keypoint|keypoint-unfused]
         [--steps 3] [--out chiprun_out/profile_<model>.txt]
 
 `flagship` is `chip_smoke.flagship_train_setup`'s step (ResNet-50 NCameraCNN
 at full width, batch 256 two-camera 256x256 uint8 rows, bf16, frozen BN and
-stem, full backprop, argus_tpu's default augmentation); `keypoint` is
+stem, full backprop, argus_tpu's default augmentation); `stem` the same
+with the fused stem trained (`stem_frozen=False`); `exact` the same model
+at argus_tpu's default BN and stem (exact train-mode BN with
+`bn_impl="auto"`: the BN reduction kernels, cuDNN convs), `exact-xla` with
+`bn_impl="xla"`; `keypoint` is
 `chip_smoke.keypoint_setup`'s (CubeKeypointNet at argus_tpu's default
 config, resnet18, the same batch shape, fused identity BasicBlocks and
 stem), `keypoint-unfused` the same with the fuse flags off (cuDNN convs).
@@ -54,7 +59,8 @@ def main() -> int:
         print("profile_torch_train_step: no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("flagship", "keypoint", "keypoint-unfused"), default="flagship")
+    ap.add_argument("--model", choices=("flagship", "stem", "exact", "exact-xla", "keypoint", "keypoint-unfused"),
+                    default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -66,8 +72,15 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     chip_smoke.GPU = chip_smoke.gpu_line()
+    auto = {k: "auto" for k in chip_smoke.FUSE_ON}
     if args.model == "flagship":
         cfg, model, state, batch = chip_smoke.flagship_train_setup()
+    elif args.model == "stem":
+        cfg, model, state, batch = chip_smoke.flagship_train_setup(stem_frozen=False, **auto)
+    elif args.model.startswith("exact"):
+        cfg, model, state, batch = chip_smoke.flagship_train_setup(
+            bn_frozen=False, bn_frozen_affine=False, stem_frozen=False,
+            bn_impl="xla" if args.model == "exact-xla" else "auto", **auto)
     else:
         cfg, model, state, batch = chip_smoke.keypoint_setup()
         if args.model == "keypoint-unfused":

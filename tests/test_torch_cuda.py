@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the forwards, the saving forwards and the one-pass backwards (bottleneck and
-BasicBlock), the two augmentation kernels, and the fused training steps of
-both model families against their CPU runs.
+BasicBlock), the two augmentation kernels, the trained stem's saving
+forward and weight gradient, BatchNorm's two reductions, and the training
+steps (fused, trained stem, exact BN) against their CPU runs.
 
 These need an NVIDIA Hopper GPU and nvcc: they carry the `cuda` marker and
 skip elsewhere. Run them on the card with
@@ -28,6 +29,7 @@ from argus_tpu_torch.ops.kernels import augment_fused as taf
 from argus_tpu_torch.ops.kernels import basic_fused as tbf
 from argus_tpu_torch.ops.kernels import block_fused as tb
 from argus_tpu_torch.ops.kernels import blur as tbl
+from argus_tpu_torch.ops.kernels import bn_reduce as tbn
 from argus_tpu_torch.ops.kernels import proj_fused as tp
 from argus_tpu_torch.ops.kernels import stage_fused as tst
 from argus_tpu_torch.ops.kernels import stem_fused as ts
@@ -116,6 +118,7 @@ def test_wrappers_check_arguments(dev):
         "stage_fused_save", "stage_fused_bwd", "proj_fused_save", "proj_fused_bwd",
         "block_fused_save", "block_fused_bwd", "augment_fused", "blur",
         "basic_fused", "basic_fused_save", "basic_fused_bwd",
+        "stem_fused_save", "stem_fused_bwd", "bn_stats", "bn_bwd_reduce",
     }
 
 
@@ -236,6 +239,7 @@ def test_train_step_on_card_matches_cpu(dev):
         "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused_save": 3, "proj_fused_bwd": 3,
         "block_fused_save": 10, "block_fused_bwd": 10, "augment_fused": 0, "blur": 0,
         "basic_fused": 0, "basic_fused_save": 0, "basic_fused_bwd": 0,
+        "stem_fused_save": 0, "stem_fused_bwd": 0, "bn_stats": 0, "bn_bwd_reduce": 0,
     }, counts
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
 
@@ -366,3 +370,96 @@ def test_augmented_train_step_launches_the_fused_kernel(dev):
         assert counts["augment_fused"] == 1 and counts["blur"] == 0 and counts["stem_fused"] == 1, counts
         assert torch.isfinite(loss)
     assert state.step == 2 and int(state.opt_state.count) == 2
+
+
+# the stem: a batch whose image edges do not fall on the kernels' tiles
+@pytest.mark.parametrize("n,h,w", [(3, 36, 44), (2, 64, 64)])
+def test_stem_save_and_weight_gradient_kernels(dev, n, h, w):
+    g = torch.Generator().manual_seed(11)
+    x = torch.rand(n, h, w, 3, generator=g).to(dev, torch.bfloat16)
+    w7 = (0.2 * torch.randn(7, 7, 3, 64, generator=g)).to(dev, torch.bfloat16)
+    b = _b(g, 64, dev)
+    before = (ts.KERNEL_SAVE.launches, ts.KERNEL_BWD.launches)
+    out, y = ts.stem_fwd_save(x, w7, b)
+    pout, py = ts.stem_fwd_save_plain(x, w7, b)
+    for got, want in ((out, pout), (y, py)):  # within one bf16 ulp, or of f32 rounding of zero
+        assert got.shape == want.shape and got.dtype == want.dtype
+        a, r = got.float(), want.float()
+        assert ((a - r).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), r.abs()) + 1e-5 * r.abs().max()).all()
+    assert torch.equal(ts.stem_fwd(x, w7, b), out)
+    gr = _grad(g, out.shape, dev)
+    for n_images in (n, 1):
+        _close(ts.stem_bwd(x, gr, out, y, n_images), ts.stem_bwd_plain(x, gr, out, y, n_images))
+    assert (ts.KERNEL_SAVE.launches, ts.KERNEL_BWD.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,c", [(1000, 64), (4 * 17 * 13, 256), (8192, 2048)])
+@pytest.mark.parametrize("stride", [1, 4])
+def test_bn_reduce_kernels(dev, m, c, stride, dtype):
+    """Ragged row counts (no power of two), stride 1 and argus_tpu's row
+    blocks at stride 4: n_rows equal, sums within 1e-4 of each channel's sum
+    of magnitudes."""
+    if stride > 1 and m % tbn._fold_factor(c):
+        pytest.skip("argus_tpu's strided reduction needs M % f == 0")
+    g = torch.Generator().manual_seed(12)
+    x = (torch.randn(m, c, generator=g) * 2 + 0.5).to(dev, dtype)
+    dy = torch.randn(m, c, generator=g).to(dev, dtype)
+    mean = torch.randn(c, generator=g).to(dev)
+    rstd = (0.5 + torch.rand(c, generator=g)).to(dev)
+    before = (tbn.KERNEL_STATS.launches, tbn.KERNEL_BWD.launches)
+    got = tbn.fused_stats(x, stride) + tbn.fused_bn_bwd_reduce(x, dy, mean, rstd, stride)
+    want = tbn.fused_stats_plain(x, stride) + tbn.fused_bn_bwd_reduce_plain(x, dy, mean, rstd, stride)
+    assert (tbn.KERNEL_STATS.launches, tbn.KERNEL_BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert got[2] == want[2] == got[5] == want[5]
+    R, S, n = tbn.visited_rows(m, c, stride)
+    rows = lambda t: torch.cat([t[i * S: i * S + R] for i in range(n // R)]).float().abs()  # noqa: E731
+    xa, da = rows(x), rows(dy)
+    scales = (xa.sum(0), (xa * xa).sum(0), da.sum(0), (da * (xa + mean.abs()) * rstd).sum(0))
+    for a, b, sc in zip(got[:2] + got[3:5], want[:2] + want[3:5], scales):
+        assert ((a - b).abs() <= 1e-4 * sc + 1e-6).all()
+
+
+@pytest.mark.parametrize("model", ["stem", "exact"])
+def test_trained_stem_and_exact_bn_steps_on_card_match_cpu(dev, model):
+    """A ResNet-50 train step (bf16) with the fused stem trained, or with
+    exact BN (`bn_impl="auto"`: the reduction kernels on the card, the plain
+    "xla" engine on the CPU), on the card and on the CPU from the same
+    state: losses within bf16 tolerance, the running statistics' change
+    close, and the launch counts."""
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+
+    kw = (dict(bn_frozen=True, bn_frozen_affine=True, stem_frozen=False, stem_grad_stride=2) if model == "stem"
+          else dict(bn_impl="auto"))
+    mcfg = NCameraCNNConfig(n_cams=2, backbone="resnet50", resnet_output_dim=32, **kw)
+    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=False, learning_rate=1e-3)
+    rng = np.random.default_rng(3)
+    batch = {
+        "images": rng.integers(0, 256, (2, 64, 64, 6), dtype=np.uint8),
+        "cube_pose": np.tile(np.array([0.1, 0, 0.2, 0, 0, 0.6, 0.8], np.float32), (2, 1)),
+        "mask": np.ones(2, np.float32),
+    }
+    losses, moved = {}, {}
+    for d in ("cpu", "cuda"):
+        m, state = create_train_state(cfg, seed=0, device=d)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith("BatchNorm_2.weight"):
+                    p.fill_(0.2)
+        before = {k: v.clone() for k, v in state.batch_stats.items()}
+        kernels.reset_launch_counts()
+        state, loss = make_train_step(m, cfg, device=d)(state, batch)
+        losses[d] = float(loss)
+        moved[d] = torch.cat([(state.batch_stats[k] - before[k]).flatten().cpu() for k in sorted(before)])
+        counts = kernels.launch_counts()
+    want = {name: 0 for name in kernels.KERNELS}
+    if model == "stem":
+        want.update(stem_fused_save=1, stem_fused_bwd=1, stage_fused_save=1, stage_fused_bwd=1,
+                    proj_fused_save=3, proj_fused_bwd=3, block_fused_save=10, block_fused_bwd=10)
+        assert torch.count_nonzero(moved["cuda"]) == 0
+    else:
+        want.update(bn_stats=53, bn_bwd_reduce=53)
+        assert (moved["cuda"] - moved["cpu"]).norm() <= 3e-2 * moved["cpu"].norm()
+    assert counts == want, counts
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
