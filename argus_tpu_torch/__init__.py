@@ -9,8 +9,10 @@ Covered so far (ROADMAP.md lists what waits): batched serving of both
 model families (`serve.Estimator`), the train step of either family
 (`train.make_train_step`) in argus_tpu's BN modes (exact train-mode BN with
 BatchNorm's reduction kernels, frozen BN with a trained or frozen affine)
-with a trained or frozen stem, and the augmentation stack, with the CUDA
-kernels of `ops.kernels`.
+with a trained or frozen stem or frozen stages, the augmentation stack,
+and argus_tpu's training loop on one card (`train.train`: the host data
+feed of `data`, the eval step, the plateau schedule, checkpoints of the
+whole train state and resume), with the CUDA kernels of `ops.kernels`.
 
 Entry points take `device=None`, meaning CUDA; they raise when no card is
 present, and run on the CPU only when the caller passes `device="cpu"`.

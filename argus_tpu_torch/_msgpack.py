@@ -74,29 +74,65 @@ def _pack_len(out: bytearray, n: int, fix: int, fix_max: int, codes) -> None:
         raise ValueError(f"msgpack object of length {n} is too large")
 
 
-def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
-    n = len(data)
+class _Runs:
+    """The encoded stream as runs of bytes: headers and small values gathered
+    in a bytearray (`out += b`), array contents kept as views of the arrays
+    (`view`), so a checkpoint's arrays are not copied to be encoded."""
+
+    def __init__(self) -> None:
+        self.runs: list = []
+        self.head = bytearray()
+
+    def __iadd__(self, data) -> "_Runs":
+        self.head += data
+        return self
+
+    def view(self, data: memoryview) -> None:
+        if self.head:
+            self.runs.append(bytes(self.head))
+            self.head = bytearray()
+        self.runs.append(data)
+
+    def done(self) -> list:
+        if self.head:
+            self.runs.append(bytes(self.head))
+            self.head = bytearray()
+        return self.runs
+
+
+def _pack_ext_header(out, code: int, n: int) -> None:
     fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     if n in fixext:
         out += struct.pack("B", fixext[n])
     else:
         _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
-    out += struct.pack("b", code) + data
+    out += struct.pack("b", code)
 
 
-def _array_payload(shape, dtype_name: str, raw: bytes) -> bytes:
-    return packb([list(shape), dtype_name, raw])
+def _pack_array(out: _Runs, code: int, shape, dtype_name: str, a: np.ndarray) -> None:
+    """flax's ndarray ext: the msgpack of (shape, dtype name, C-order bytes),
+    with the bytes written as a view of the array."""
+    raw = memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+    head = _Runs()
+    _pack_len(head, 3, 0x90, 16, (None, 0xDC, 0xDD))
+    _pack(head, list(shape))
+    _pack(head, dtype_name)
+    _pack_len(head, raw.nbytes, None, 0, (0xC4, 0xC5, 0xC6))
+    head = head.done()[0]
+    _pack_ext_header(out, code, len(head) + raw.nbytes)
+    out += head
+    out.view(raw)
 
 
 def _tensor_parts(t: torch.Tensor):
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
-        return tuple(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes()
+        return tuple(t.shape), "bfloat16", t.view(torch.int16).numpy()
     a = t.numpy()
-    return a.shape, a.dtype.name, a.tobytes("C")
+    return a.shape, a.dtype.name, a
 
 
-def _pack(out: bytearray, obj: Any) -> None:
+def _pack(out: _Runs, obj: Any) -> None:
     if obj is None:
         out += b"\xc0"
     elif obj is True:
@@ -106,12 +142,12 @@ def _pack(out: bytearray, obj: Any) -> None:
     elif isinstance(obj, np.ndarray):
         if obj.dtype.hasobject or obj.dtype.isalignedstruct:
             raise ValueError("object and structured dtypes cannot be serialized")
-        _pack_ext(out, _EXT_NDARRAY, _array_payload(obj.shape, obj.dtype.name, obj.tobytes("C")))
+        _pack_array(out, _EXT_NDARRAY, obj.shape, obj.dtype.name, obj)
     elif isinstance(obj, torch.Tensor):
-        _pack_ext(out, _EXT_NDARRAY, _array_payload(*_tensor_parts(obj)))
+        _pack_array(out, _EXT_NDARRAY, *_tensor_parts(obj))
     elif isinstance(obj, np.generic):
         a = np.asarray(obj)
-        _pack_ext(out, _EXT_NPSCALAR, _array_payload(a.shape, a.dtype.name, a.tobytes("C")))
+        _pack_array(out, _EXT_NPSCALAR, a.shape, a.dtype.name, a)
     elif isinstance(obj, int):
         _pack_int(out, obj)
     elif isinstance(obj, float):
@@ -137,11 +173,23 @@ def _pack(out: bytearray, obj: Any) -> None:
         raise TypeError(f"cannot serialize {type(obj).__name__} to msgpack")
 
 
+def _encode(obj: Any) -> list:
+    out = _Runs()
+    _pack(out, obj)
+    return out.done()
+
+
 def packb(obj: Any) -> bytes:
     """Serialize a tree of dicts, lists, scalars and arrays to msgpack bytes."""
-    out = bytearray()
-    _pack(out, obj)
-    return bytes(out)
+    return b"".join(_encode(obj))
+
+
+def dump(obj: Any, f) -> None:
+    """`packb(obj)` written to the binary file `f` run by run: the arrays'
+    contents go from their own memory to the file, with no copy that holds
+    the interpreter lock (a writer thread then leaves the loop room to run)."""
+    for run in _encode(obj):
+        f.write(run)
 
 
 # ─────────────────────────────── decoding ───────────────────────────────

@@ -165,6 +165,15 @@ def se3_inverse(pose: torch.Tensor) -> torch.Tensor:
     return torch.cat([-quat_rotate(q_inv, pose[..., :3]), q_inv], dim=-1)
 
 
+def xyzwxyz_to_xyzxyzw_SE3(pose):
+    """(x,y,z, qw,qx,qy,qz) -> (x,y,z, qx,qy,qz,qw): the HDF5 datasets' wxyz
+    order to the model's xyzw, converted once at load. Takes a torch tensor
+    or a numpy array and returns the same kind."""
+    if isinstance(pose, torch.Tensor):
+        return torch.cat([pose[..., :3], pose[..., -3:], pose[..., -4:-3]], dim=-1)
+    return np.concatenate([pose[..., :3], pose[..., -3:], pose[..., -4:-3]], axis=-1)
+
+
 def xyzxyzw_to_xyzwxyz_SE3(pose):
     """(x,y,z, qx,qy,qz,qw) -> (x,y,z, qw,qx,qy,qz), the MuJoCo qpos order.
     Takes a torch tensor or a numpy array and returns the same kind."""

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from argus_tpu_torch.geom import convert_pose_unity_to_mjpc, matrix_to_quat, quat_rotate
-from argus_tpu_torch.models.resnet import BACKBONES, DTYPES
+from argus_tpu_torch.models.resnet import BACKBONES, DTYPES, lecun_normal_
 
 # the CAD-nominal camera mounts of the rig, Unity frame, xyz + xyzw
 # (argus_tpu/datagen.py CAM1_NOMINAL, CAM2_NOMINAL)
@@ -85,7 +85,7 @@ class HeadConv(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
-        nn.init.kaiming_normal_(self.weight, nonlinearity="linear")
+        lecun_normal_(self.weight)
 
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
         k = self.weight.shape[-1]

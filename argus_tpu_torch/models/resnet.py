@@ -10,16 +10,23 @@ so `models.jax_import` maps argus_tpu variables onto `state_dict` keys
 mechanically.
 
 Activations are (N, H, W, C) tensors, in the compute dtype (`dtype`); params
-stay f32 and are cast where they are used, as flax does. The `fuse_*` flags
-keep argus_tpu's names and values ("on" | "off" | "auto", where "auto" means
-on when the activation is a CUDA tensor). Under frozen BN (`bn_frozen` and
+stay f32 and are cast where they are used, as flax does. Fresh weights are
+flax's `lecun_normal` (`lecun_normal_`). The `fuse_*` flags keep argus_tpu's
+names and values. "on" and "off" force a kernel function on or off, with
+argus_tpu's coupling (the stage chain needs `fuse_block` and `fuse_proj`
+too). "auto" is off on a CPU tensor; on a CUDA tensor it reads `AUTO_FUSE`,
+which holds, per kernel function and mode, whether the port's kernel made
+the model faster than its unfused path on the H100 (argus_tpu's "auto"
+means "on the TPU" and gives no rule for a GPU). Under frozen BN (`bn_frozen` and
 `bn_frozen_affine`) with fusion on, the stem, stage chains, projection and
 identity bottlenecks, and the identity BasicBlocks of ResNet-18/34 (stride
 1, cin == cout; the strided BasicBlocks stay unfused, as in argus_tpu) run
 through the kernel functions of
 `argus_tpu_torch.ops.kernels` on BN-folded weights (hand-written CUDA on the
 card, their plain versions on the CPU); otherwise each conv is `F.conv2d`
-followed by its BatchNorm.
+followed by its BatchNorm. Under `frozen_stages >= 1` with the stem and the
+stage-0 chain fused, the stem writes the pair-packed view the stage-0 chain
+reads (argus_tpu's `packed_out`, `_packed_fwd_ok`).
 
 `forward(x, train=True)` is the training forward, with argus_tpu's BN
 modes: exact train-mode BN (batch statistics, the running ones updated in
@@ -54,18 +61,56 @@ from torch import nn
 from argus_tpu_torch.ops.kernels.basic_fused import basic_saved, fold_basic_params
 from argus_tpu_torch.ops.kernels.block_fused import block_saved, fold_bottleneck_params
 from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, proj_saved
-from argus_tpu_torch.ops.kernels.stage_fused import stage_chain
+from argus_tpu_torch.ops.kernels.stage_fused import packed_fwd_ok, stage_chain
 from argus_tpu_torch.ops.kernels.stem_fused import fold_stem_params, stem_pool
 from argus_tpu_torch.ops.norm import IMPLS, BatchNorm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# What "auto" chooses on a CUDA tensor, per kernel function and mode: on
+# where the port's kernel made the model faster than cuDNN's convs with
+# PyTorch's frozen BN. "forward" is the no-save forward (serving, eval,
+# frozen stages), "train" the saving forward with its backward. The chain's
+# no-save forward is two functions, as in argus_tpu: the stage-0 form
+# ("stage_chain_packed", `packed_fwd_ok`) and the whole-stage chains of
+# frozen stages 1-3. From scripts/time_torch_auto_fuse.py at batch 256 rows
+# (512 images of 256x256, bf16) on one NVIDIA H100 80GB HBM3 at 700.00 W:
+# ms per step or forward saved by turning the function on alone, every
+# other entry off (negative: cuDNN wins), in the workloads named.
+AUTO_FUSE = {
+    ("stem", "forward"): True,  # flagship step 11.50, serving 8.99
+    ("stem", "train"): True,  # stem-trained step 19.22
+    ("stage_chain_packed", "forward"): True,  # serving 25.64; frozen_stages=3 step 37.58 with the packed stem
+    ("stage_chain", "forward"): True,  # frozen_stages=3 step 14.65 (stages 1-2)
+    ("stage_chain", "train"): True,  # flagship step 27.21
+    ("projection", "forward"): True,  # serving 18.77
+    ("projection", "train"): False,  # flagship step -6.09, frozen_stages=3 step -8.77
+    ("identity", "forward"): True,  # serving 19.80
+    ("identity", "train"): False,  # flagship step -28.35, frozen_stages=3 step -13.40
+    ("basic", "forward"): False,  # keypoint eval forward -2.42
+    ("basic", "train"): False,  # keypoint step -23.65
+}
 
-def flag_on(flag: str, x: torch.Tensor) -> bool:
-    """A fuse flag's value for this activation: "auto" is on for CUDA tensors."""
+
+def flag_on(flag: str, x: torch.Tensor, function: str, mode: str) -> bool:
+    """A fuse flag's value for kernel function `function` in `mode` on this
+    activation: "on" and "off" as given, "auto" off on a CPU tensor and
+    `AUTO_FUSE[(function, mode)]` on a CUDA tensor."""
     if flag not in ("on", "off", "auto"):
         raise ValueError(f"fuse flag must be 'on', 'off' or 'auto', got {flag!r}")
-    return flag == "on" or (flag == "auto" and x.is_cuda)
+    if flag == "auto":
+        return x.is_cuda and AUTO_FUSE[(function, mode)]
+    return flag == "on"
+
+
+def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's `lecun_normal` in place: a normal truncated at +-2 standard
+    deviations, rescaled to variance 1 / fan_in (fan_in = kh * kw * cin for
+    a conv, in_features for a dense layer: every dim of a torch weight but
+    the first)."""
+    std = w[0].numel() ** -0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 class Conv(nn.Module):
@@ -75,7 +120,7 @@ class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding=0) -> None:
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
-        nn.init.kaiming_normal_(self.weight, nonlinearity="linear")
+        lecun_normal_(self.weight)
         self.stride = stride
         self.padding = padding
 
@@ -306,6 +351,10 @@ class ResNet(nn.Module):
         dt = self.dtype
         bs = train and not self.bn_frozen  # argus_tpu: use_running_average = not train or bn_frozen
         bottleneck = self.block_cls is BottleneckBlock
+        grad = torch.is_grad_enabled()
+        # the stem is frozen under stem_frozen or any frozen_stages depth: its
+        # forward records no graph, and the frozen stages' neither
+        stem_frozen = self.stem_frozen or self.frozen_stages >= 1
         fuse_stem = (
             self.frozen
             and self.num_filters == 64
@@ -313,19 +362,25 @@ class ResNet(nn.Module):
             and x.shape[1] % 8 == 0
             and x.shape[2] % 8 == 0
             and x.shape[3] == 3
-            and flag_on(self.fuse_stem, x)
+            and flag_on(self.fuse_stem, x, "stem", "train" if grad and not stem_frozen else "forward")
         )
-        fuse_blk = self.frozen and flag_on(self.fuse_block, x)
-        fuse_prj = bottleneck and self.frozen and flag_on(self.fuse_proj, x)
-        fuse_stg = fuse_blk and fuse_prj and flag_on(self.fuse_stage, x)
-        # the stem is frozen under stem_frozen or any frozen_stages depth: its
-        # forward records no graph, and the frozen stages' neither
-        stem_frozen = self.stem_frozen or self.frozen_stages >= 1
+        # the stem hands the stage-0 chain its pair-packed view (argus_tpu's
+        # predicate, `models/resnet.py` there: frozen stages, every fuse flag
+        # on for the no-save forward, the packed chain's geometry)
+        packed = (
+            fuse_stem
+            and self.frozen_stages >= 1
+            and bottleneck
+            and 0 in self.fuse_block_stages
+            and self._fuse(x, "forward", 0, x.shape[2] // 4)[2]
+            and packed_fwd_ok(self.num_filters, 1, x.shape[2] // 4, self.num_filters,
+                              self.num_filters * self.block_cls.expansion)
+        )
 
         x = x.to(dt)
         with torch.no_grad() if stem_frozen else contextlib.nullcontext():
             if fuse_stem:
-                x = stem_pool(x, *self._folded_weights("stem"), self.stem_grad_stride)
+                x = stem_pool(x, *self._folded_weights("stem"), self.stem_grad_stride, packed_out=packed)
             else:
                 if self.stem_space_to_depth:
                     n, h, w, c = x.shape
@@ -337,8 +392,11 @@ class ResNet(nn.Module):
                 x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
         for i in range(len(self.stage_sizes)):
-            with torch.no_grad() if i < self.frozen_stages else contextlib.nullcontext():
-                x = self._stage(i, x, fuse_blk, fuse_prj, fuse_stg, bs)
+            frozen = i < self.frozen_stages
+            with torch.no_grad() if frozen else contextlib.nullcontext():
+                mode = "train" if grad and not frozen else "forward"
+                w_in = x.shape[2] * (2 if packed and i == 0 else 1)
+                x = self._stage(i, x, *self._fuse(x, mode, i, w_in), bs, x_packed=packed and i == 0)
 
         if return_spatial:
             # the stride-32 feature map, for dense-prediction heads (keypoint family)
@@ -350,14 +408,34 @@ class ResNet(nn.Module):
             x = F.linear(x, self.fc.weight.to(dt)) + self.fc.bias.to(dt)
         return x.float()
 
-    def _stage(self, i: int, x: torch.Tensor, fuse_blk: bool, fuse_prj: bool, fuse_stg: bool, bs: bool):
+    def _fuse(self, x: torch.Tensor, mode: str, i: int, w_in: int) -> tuple:
+        """(identity blocks, projection blocks, stage chain) fused for stage
+        `i` (input width `w_in`) in `mode`. The chain needs the block and
+        projection flags not "off", as argus_tpu's `fuse_stg = fuse_blk and
+        fuse_prj and fuse_stage` needs them on; under "auto" each function
+        reads its own `AUTO_FUSE` entry, so the chain can run where the
+        blocks alone would not."""
+        if not self.frozen:
+            return False, False, False
+        bottleneck = self.block_cls is BottleneckBlock
+        blk = flag_on(self.fuse_block, x, "identity" if bottleneck else "basic", mode)
+        prj = bottleneck and flag_on(self.fuse_proj, x, "projection", mode)
+        f, s = self.num_filters * 2**i, 2 if i > 0 else 1
+        cin = self.num_filters if i == 0 else f // 2 * self.block_cls.expansion
+        packed = mode == "forward" and packed_fwd_ok(f, s, w_in // s, cin, f * self.block_cls.expansion)
+        stg = (bottleneck and self.fuse_block != "off" and self.fuse_proj != "off"
+               and flag_on(self.fuse_stage, x, "stage_chain_packed" if packed else "stage_chain", mode))
+        return blk, prj, stg
+
+    def _stage(self, i: int, x: torch.Tensor, fuse_blk: bool, fuse_prj: bool, fuse_stg: bool, bs: bool,
+               x_packed: bool = False):
         blocks = self.blocks(i)
         fused_here = i in self.fuse_block_stages
         if fuse_stg and fused_here and (i in self.fuse_stage_stages or i < self.frozen_stages):
             ws = [self._folded_weights(f"stage{i}_block{j}") for j in range(len(blocks))]
             proj = None if blocks[0].is_identity else ws[0]
             ids = ws if proj is None else ws[1:]
-            return stage_chain(x, proj, ids, blocks[0].strides)
+            return stage_chain(x, proj, ids, blocks[0].strides, x_packed=x_packed)
         for j, blk in enumerate(blocks):
             if fused_here and ((fuse_blk and blk.is_identity) or (fuse_prj and not blk.is_identity)):
                 x = blk.forward_fused(x, self._folded_weights(f"stage{i}_block{j}"))

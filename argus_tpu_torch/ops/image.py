@@ -1,6 +1,6 @@
 """Basic on-device image ops (NHWC).
 
-Port of `argus_tpu/ops/image.py` `u8_to_f32`.
+Port of `argus_tpu/ops/image.py` (`u8_to_f32`, `center_crop`).
 """
 
 from __future__ import annotations
@@ -13,3 +13,15 @@ def u8_to_f32(images: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     the cast, then a multiply by 1/255 rounded to `dtype` (under amp a bf16
     multiply, not a float division)."""
     return images.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype, device=images.device)
+
+
+def center_crop(images, crop_hw: tuple):
+    """Static centre crop of (..., H, W, C) images (torch or numpy) to
+    (..., ch, cw, C): rows from (H - ch) // 2, columns from (W - cw) // 2,
+    the pixels the host loader's numpy crop and kornia's `center_crop`
+    select."""
+    h, w = images.shape[-3], images.shape[-2]
+    ch, cw = crop_hw
+    top = (h - ch) // 2
+    left = (w - cw) // 2
+    return images[..., top:top + ch, left:left + cw, :]

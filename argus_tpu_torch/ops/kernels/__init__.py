@@ -39,6 +39,8 @@ KERNELS = {
     "basic_fused_save": basic_fused.KERNEL_SAVE,
     "basic_fused_bwd": basic_fused.KERNEL_BWD,
     "stem_fused_save": stem_fused.KERNEL_SAVE,
+    "stem_fused_packed": stem_fused.KERNEL_PACKED,
+    "stage_fused_frozen": stage_fused.KERNEL_FROZEN,
     "stem_fused_bwd": stem_fused.KERNEL_BWD,
     "bn_stats": bn_reduce.KERNEL_STATS,
     "bn_bwd_reduce": bn_reduce.KERNEL_BWD,

@@ -13,7 +13,12 @@ pair-packed layout are Mosaic constraints and are not ported.
 
 On a CUDA tensor the wrappers launch `csrc/stage_fused.cu` (forwards) and
 `csrc/stage_fused_bwd.cu`, each running the whole chain from one C call; on
-a CPU tensor they run the plain versions.
+a CPU tensor they run the plain versions. The no-save forward counts its
+launches in `KERNEL` where argus_tpu takes `_chain_fwd_packed` (stage 0,
+`packed_fwd_ok`) and in `KERNEL_FROZEN` where it takes `_chain_fwd_pallas(
+save=False)` (the whole-stage chains of frozen stages 1-3). `stage_chain(
+..., x_packed=True)` takes the packed stem's (N, H, W/2, 128) view and reads
+it back as the (N, H, W, 64) NHWC tensor it is.
 """
 
 from __future__ import annotations
@@ -45,8 +50,17 @@ from argus_tpu_torch.ops.kernels.proj_fused import (
 )
 
 KERNEL = Kernel("stage_fused", "argus_stage_fwd", [P] * 8 + [I] * 8 + [P])
+KERNEL_FROZEN = Kernel("stage_fused", "argus_stage_fwd", [P] * 8 + [I] * 8 + [P])
 KERNEL_SAVE = Kernel("stage_fused", "argus_stage_fwd_save", [P] * 7 + [I] * 8 + [P])
 KERNEL_BWD = Kernel("stage_fused_bwd", "argus_stage_bwd", [P] * 16 + [L] + [I] * 8 + [P])
+
+
+def packed_fwd_ok(F: int, S: int, W_out: int, CIN: int, COUT: int) -> bool:
+    """argus_tpu's `_packed_fwd_ok`: whether its no-save chain runs the
+    pair-packed form (stride 1, F < 128, lane-filling widths) rather than
+    `_chain_fwd_pallas(save=False)`."""
+    return S == 1 and W_out % 2 == 0 and F < 128 and (2 * F) % 128 == 0 and (2 * CIN) % 128 == 0 \
+        and (2 * COUT) % 128 == 0
 
 
 def stage_plain(x, proj_folded, id_folded, stride):
@@ -154,7 +168,8 @@ def fused_stage(
         proj_arr = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in proj_folded])
     id_ptrs = [t.data_ptr() for idw in ids for t in idw]
     id_arr = (ctypes.c_void_p * max(len(id_ptrs), 1))(*id_ptrs)
-    KERNEL.launch(
+    kernel = KERNEL if packed_fwd_ok(f, s, w // s, cin, cout) else KERNEL_FROZEN
+    kernel.launch(
         x, out, h1, h2, tmp[0], tmp[1],
         ctypes.addressof(proj_arr) if proj_arr is not None else None,
         ctypes.addressof(id_arr), len(ids), n, h, w, cin, f, cout, s,
@@ -289,11 +304,26 @@ class _StageChain(torch.autograd.Function):
         return (dx, None, None, *grads)
 
 
-def stage_chain(x, proj_folded, id_folded, stride=2):
+def unpacked_view(x: torch.Tensor) -> torch.Tensor:
+    """The packed stem's (N, H, W/2, 2C) view back as (N, H, W, C), no copy."""
+    n, h, wp, c2 = x.shape
+    if c2 % 2 or not x.is_contiguous():
+        raise ValueError(f"a pair-packed input is a contiguous (N, H, W/2, 2C) view, got {tuple(x.shape)}")
+    out = x.view(n, h, 2 * wp, c2 // 2)
+    assert out.is_contiguous()
+    return out
+
+
+def stage_chain(x, proj_folded, id_folded, stride=2, x_packed: bool = False):
     """The chain as autograd sees it: the no-save forward when no input needs
-    a gradient, else the saving chain with the kernel backward."""
+    a gradient, else the saving chain with the kernel backward. `x_packed`:
+    x is the packed stem's view (forward only, as in argus_tpu)."""
     ids = [tuple(w) for w in id_folded]
     flat = list(proj_folded or ()) + [t for idw in ids for t in idw]
+    if x_packed:
+        if needs_grad(x, *flat) or (proj_folded is not None and stride != 1):
+            raise ValueError("a pair-packed chain input is forward only and stride 1")
+        return fused_stage(unpacked_view(x), proj_folded, ids, stride)
     if needs_grad(x, *flat):
         return _StageChain.apply(x, stride, proj_folded is not None, *flat)
     return fused_stage(x, proj_folded, ids, stride)

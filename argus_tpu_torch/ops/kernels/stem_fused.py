@@ -21,7 +21,10 @@ On a CUDA tensor the wrappers launch `csrc/stem_fused.cu` (the forward, with
 or without y) and `csrc/stem_fused_bwd.cu`; on a CPU tensor they run the
 plain versions. `stem_pool` is the stem as autograd sees it: the no-save
 forward when nothing needs a gradient, else `stem_saved`, the saving forward
-with the weight-gradient backward.
+with the weight-gradient backward. With `packed_out` it is argus_tpu's
+packed-output stem (`_stem_fwd_packed_pallas`, forward only): the
+(N, H/4, W/8, 128) pair-packed view the frozen stage-0 chain reads
+(`stem_fwd_packed`).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from argus_tpu_torch.ops.kernels.block_fused import (
 
 KERNEL = Kernel("stem_fused", "argus_stem_fwd", [P] * 4 + [I] * 3 + [P])
 KERNEL_SAVE = Kernel("stem_fused", "argus_stem_fwd_save", [P] * 5 + [I] * 3 + [P])
+# the packed-output stem launches the same kernel, counted apart
+KERNEL_PACKED = Kernel("stem_fused", "argus_stem_fwd", [P] * 4 + [I] * 3 + [P])
 KERNEL_BWD = Kernel("stem_fused_bwd", "argus_stem_bwd", [P] * 6 + [I] * 4 + [P])
 
 _BWD_TILE = 16  # conv pixels per tile edge of csrc/stem_fused_bwd.cu
@@ -63,6 +68,20 @@ def stem_fwd_save_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
 
 def stem_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return stem_fwd_save_plain(x, w, b)[0]
+
+
+def packed_view(out: torch.Tensor) -> torch.Tensor:
+    """(N, Ho, Wo, 64) -> the pair-packed (N, Ho, Wo/2, 128) view, no copy:
+    packed[n, h, j, r*64 + c] = out[n, h, 2j + r, c]."""
+    n, ho, wo, c = out.shape
+    if wo % 2 or not out.is_contiguous():
+        raise ValueError(f"the pair-packed view needs a contiguous output of even width, got {tuple(out.shape)}")
+    return out.view(n, ho, wo // 2, 2 * c)
+
+
+def stem_pool_packed_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """argus_tpu's packed-output stem in plain PyTorch: (N, H/4, W/8, 128)."""
+    return packed_view(stem_pool_plain(x, w, b))
 
 
 def stem_bwd_plain(x, g, out, y, n_images: int) -> torch.Tensor:
@@ -110,6 +129,25 @@ def stem_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
     KERNEL.launch(x, w, b, out, n, h, wd)
     return out
+
+
+def stem_fwd_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """argus_tpu's `_stem_fwd_packed_pallas`, (N, H, W, 3) -> (N, H/4, W/8,
+    128) with out[n, h, j, r*64 + c] = pool[n, h, 2j + r, c]. In row-major
+    memory that element sits at (j*128 + r*64 + c) = ((2j + r)*64 + c) within
+    its row, NHWC's own offset of pool[n, h, 2j + r, c]: the pair packing only
+    fills the TPU's 128-lane tiles, and on the card it is a view of the NHWC
+    output. So this launches `stem_fwd`'s kernel (counted in
+    `KERNEL_PACKED`) and returns the view, which the stage-0 chain reads
+    without a copy. The plain version on a CPU tensor."""
+    if not check_device(x):
+        return stem_pool_packed_plain(x, w, b)
+    n, h, wd = _check_stem(x, w, b)
+    if wd % 8:
+        raise ValueError(f"the packed stem needs W % 8 == 0, got {tuple(x.shape)}")
+    out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
+    KERNEL_PACKED.launch(x, w, b, out, n, h, wd)
+    return packed_view(out)
 
 
 def stem_fwd_save(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
@@ -179,17 +217,25 @@ def stem_saved(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, grad_stride: i
     return _StemSaved.apply(x, w, b, grad_stride)
 
 
-def stem_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, grad_stride: int = 1) -> torch.Tensor:
+def stem_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, grad_stride: int = 1,
+              packed_out: bool = False) -> torch.Tensor:
     """(N, H, W, 3) image -> (N, H/4, W/4, 64) as autograd sees it: the
-    no-save forward when no input needs a gradient, else `stem_saved`."""
+    no-save forward when no input needs a gradient, else `stem_saved`. With
+    `packed_out`, the (N, H/4, W/8, 128) view of `stem_fwd_packed`, forward
+    only (a frozen stem)."""
+    if packed_out:
+        if needs_grad(x, w, b):
+            raise ValueError("the packed-output stem is forward only: call it with gradients off")
+        return stem_fwd_packed(x, w, b)
     if needs_grad(x, w, b):
         return stem_saved(x, w, b, grad_stride)
     return stem_fwd(x, w, b)
 
 
-def fused_stem_pool(x, k7, scale, bias, mean, var, *, eps: float = 1e-5, grad_stride: int = 1):
+def fused_stem_pool(x, k7, scale, bias, mean, var, *, eps: float = 1e-5, grad_stride: int = 1,
+                    packed_out: bool = False):
     """argus_tpu's `fused_stem_pool` signature: the (7,7,3,64) conv_init
     kernel and raw norm_init buffers, folded here in f32 (the gradient
     reaches k7 only), then the stem."""
     w, b = fold_stem_params(k7, scale, bias, mean, var, eps, x.dtype)
-    return stem_pool(x, w, b, grad_stride)
+    return stem_pool(x, w, b, grad_stride, packed_out)

@@ -11,9 +11,10 @@ resolution (CubeKeypointNet), and returns (B, 7) xyzw poses (or MuJoCo wxyz
 order) as numpy.
 
 From batch `SERVING_FUSED_MIN_BATCH` up, `throughput_tuned_config` switches a
-bottleneck backbone to bf16, frozen BN and every fused kernel: on the card,
-the stem, the stage-0 chain, the stage 1-3 projection blocks and the
-identity blocks run the hand-written CUDA kernels. A BasicBlock backbone
+bottleneck backbone to bf16, frozen BN and the fused kernels under "auto":
+on the card, the stem, the stage-0 chain, the stage 1-3 projection blocks
+and the identity blocks run the hand-written CUDA kernels wherever
+`models.resnet.AUTO_FUSE` names them. A BasicBlock backbone
 (the keypoint family's ResNet-18) takes bf16 and folded BN but keeps its
 convolutions unfused, as argus_tpu does. Below it the f32 model runs with
 plain convolutions.
@@ -64,11 +65,14 @@ def latency_tuned_config(cfg):
 def throughput_tuned_config(cfg):
     """Batched serving: at eval exact BN equals frozen BN (both apply the
     running statistics), so fold BN and run bf16; the fused kernels engage
-    for bottleneck backbones only. No-op for configs without fuse fields."""
+    for bottleneck backbones only, under "auto" (argus_tpu sets "on"): each
+    kernel function runs where `models.resnet.AUTO_FUSE` measured it faster
+    than cuDNN. BasicBlock backbones stay unfused, as in argus_tpu. No-op
+    for configs without fuse fields."""
     names = {f.name for f in dataclasses.fields(cfg)} & set(_FUSE_FIELDS)
     if not names:
         return cfg
-    on = "on" if _bottleneck(cfg) else "off"
+    on = "auto" if _bottleneck(cfg) else "off"
     return dataclasses.replace(
         cfg, bn_frozen=True, bn_frozen_affine=True, dtype="bfloat16", **{name: on for name in names}
     )

@@ -1,10 +1,12 @@
-"""Training step of the port: one clipped-Adam step of either model family
-(the NCameraCNN pose regressor or the CubeKeypointNet corner detector) on a
-batch of uint8 frames, in PyTorch on the card.
+"""Training of the port: the train step of either model family (the
+NCameraCNN pose regressor or the CubeKeypointNet corner detector), the eval
+step, the plateau schedule and the epoch loop with checkpoints, in PyTorch
+on the card.
 
 Port of `argus_tpu/train.py` (`TrainConfig`, `geometric_loss_fn`,
 `make_optimizer`, `TrainState`, `create_train_state`, `make_train_step`,
-`checkpoint_meta`) for one microbatch: bf16 (`amp`) or f32, exact train-mode
+`make_eval_step`, `ReduceLROnPlateau`, `initialize_training`, `train`,
+`checkpoint_meta`) on one card: bf16 (`amp`) or f32, exact train-mode
 BN (batch statistics, running statistics updated) or argus_tpu's frozen-BN
 fine-tune modes (running statistics, the affine trained or frozen), any
 frozen or trained stem and frozen stages, full backprop through the rest;
@@ -27,13 +29,25 @@ keypoint family (`model_type="keypoint"`, `keypoint_config`), with the crop
 the step's `hw`, else the dataset config's, else (256, 256).
 
 The augmentation (`use_augmentation`, argus_tpu's default) runs in the feed
-dtype through `ops.augment` (the fused kernel on the card). Configurations
-not ported yet raise `NotImplementedError` naming their ROADMAP item:
-gradient accumulation (A5), a device mesh or several cards (A7), and remat
-(A10). After a step `state.batch_stats`, the model's own BN buffers, hold
-the running statistics argus_tpu's step returns as `new_batch_stats`. The
-entry points run on
-CUDA unless the caller passes `device="cpu"`, and raise without a card.
+dtype through `ops.augment` (the fused kernel on the card). After a step
+`state.batch_stats`, the model's own BN buffers, hold the running
+statistics argus_tpu's step returns as `new_batch_stats`.
+
+`train(cfg)` is argus_tpu's loop on one card: the host loader
+(`data.HostDataLoader`) and the device feed (`data.feed.device_prefetch`),
+a train step per batch with the losses fetched in blocks of 50, an eval
+pass per `val_epochs` whose mean loss drives the plateau schedule, a
+format-2 checkpoint of the whole train state per `save_epochs` (written by
+`checkpoint.AsyncCheckpointer`), a SIGTERM guard that saves and returns,
+and `resume_from`. `python -m argus_tpu_torch.train --dataset-config.dataset-path
+DIR ...` runs it from the command line (`configs.cli`).
+
+Configurations not ported yet raise `NotImplementedError` naming their
+ROADMAP item: gradient accumulation (A5), a device mesh or several cards
+(A7), remat (A10) and, in `initialize_training`, the device-resident data
+path that argus_tpu takes for any `device_resident_mb > 0` (A11; pass 0 for
+the host feed). The entry points run on CUDA unless the caller passes
+`device="cpu"`, and raise without a card.
 """
 
 from __future__ import annotations
@@ -42,20 +56,28 @@ import dataclasses
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Optional
+import sys
+import time
+from typing import Dict, Optional
+
+import numpy as np
 
 import torch
 
 from argus_tpu_torch import resolve_device
+from argus_tpu_torch.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
+from argus_tpu_torch.data.dataset import CameraCubePoseDataset, CameraCubePoseDatasetConfig, HostDataLoader
+from argus_tpu_torch.data.feed import device_prefetch
 from argus_tpu_torch.geom import se3_exp, se3_inverse, se3_log, se3_multiply
 from argus_tpu_torch.models import CubeKeypointNetConfig, NCameraCNNConfig, resolve_model
 from argus_tpu_torch.models.keypoint_net import (
     HeadConv,
     HeadLayerNorm,
+    fit_pose,
     keypoint_loss_fn,
     nominal_camera_matrices,
 )
-from argus_tpu_torch.models.resnet import BasicBlock, BottleneckBlock
+from argus_tpu_torch.models.resnet import BasicBlock, BottleneckBlock, Conv, lecun_normal_
 from argus_tpu_torch.ops import augment
 from argus_tpu_torch.ops.augment import AugmentationConfig
 from argus_tpu_torch.ops.image import u8_to_f32
@@ -77,7 +99,7 @@ class TrainConfig:
     `use_augmentation`, `grad_accum_steps`, the multi-card fields and, for
     the keypoint family's cameras, the dataset config's `center_crop`."""
 
-    dataset_config: Optional[Any] = None
+    dataset_config: Optional[CameraCubePoseDatasetConfig] = None
     model_config: NCameraCNNConfig = field(default_factory=NCameraCNNConfig)
     model_type: str = "pose_cnn"
     keypoint_config: CubeKeypointNetConfig = field(default_factory=CubeKeypointNetConfig)
@@ -270,20 +292,21 @@ def build_model(cfg: TrainConfig):
     return model, mcfg.n_cams
 
 
-def _init_(model: torch.nn.Module) -> None:
-    """flax's initialisers where they matter: the last BN scale of each
-    residual block at zero (`models/resnet.py:120, 301`), dense layers and
-    the keypoint head's convs lecun-normal with zero bias, its LayerNorms
-    at scale one and bias zero."""
+def _init_(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """flax's initialisers: every conv and dense kernel lecun-normal (a
+    truncated normal, `lecun_normal_`) drawn from `generator`, dense and
+    head-conv biases zero, the last BN scale of each residual block at zero
+    (`models/resnet.py:120, 301`), the head's LayerNorms at scale one and
+    bias zero."""
     for mod in model.modules():
+        if isinstance(mod, (Conv, torch.nn.Linear, HeadConv)):
+            lecun_normal_(mod.weight, generator)
+            if getattr(mod, "bias", None) is not None:
+                torch.nn.init.zeros_(mod.bias)
         if isinstance(mod, BottleneckBlock):
             mod.BatchNorm_2.weight.data.zero_()
         elif isinstance(mod, BasicBlock):
             mod.BatchNorm_1.weight.data.zero_()
-        elif isinstance(mod, (torch.nn.Linear, HeadConv)):
-            w = mod.weight
-            torch.nn.init.normal_(w, 0.0, w[0].numel() ** -0.5)
-            torch.nn.init.zeros_(mod.bias)
         elif isinstance(mod, HeadLayerNorm):
             torch.nn.init.ones_(mod.weight)
             torch.nn.init.zeros_(mod.bias)
@@ -299,7 +322,7 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, sample_hw: tuple = (256,
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model, _ = build_model(cfg)
-        _init_(model)
+    _init_(model, torch.Generator().manual_seed(seed))
     model = model.to(device)
     params = dict(model.named_parameters())
     state = TrainState(
@@ -397,3 +420,253 @@ def _loss_and_grads_on(model: torch.nn.Module, params: Dict[str, torch.Tensor], 
     grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
     grads = {k: torch.zeros_like(params[k]) if gk is None else gk for k, gk in zip(names, grads)}
     return loss.detach(), grads
+
+
+# ───────────────────────────── eval step ─────────────────────────────
+
+
+def eval_arc_params(base_seed: int, step: int, batch_idx: int, n: int, n_arcs: int, H: int, W: int, device):
+    """The eval step's spaghetti arcs, (n, n_arcs, 10), keyed by
+    fold_in(fold_in(base_seed + 1, step), batch_idx) (argus_tpu: the step
+    alone would draw the same arcs on every batch of a validation pass)."""
+    key = augment.fold_in(augment.fold_in(base_seed + 1, step), batch_idx)
+    return augment._arc_params(augment.generator(key, device), n, n_arcs, H, W)
+
+
+def make_eval_step(model: torch.nn.Module, cfg: TrainConfig, base_seed: int = 0, hw=None, device=None):
+    """The eval step `eval_step(state, batch, batch_idx=0) -> (sum of the
+    per-sample losses times the mask, sum of the mask)`, two f32 scalars on
+    the device, so an epoch's mean is exact under padding. Frames are fed
+    in f32 (`u8_to_f32`); with `val_spaghetti` and augmentation on, the
+    configured number of spaghetti arcs is drawn on them (`eval_arc_params`),
+    as argus_tpu's val pipeline does. The keypoint family reports the
+    geodesic error of the fitted pose (triangulation + Procrustes through
+    the nominal cameras at the crop), the quantity the pose regressor
+    reports. No graph is recorded."""
+    device = resolve_device(device)
+    model_type, mcfg = _resolved_model_config(cfg)
+    n_cams = mcfg.n_cams
+    n_spag = cfg.augmentation_config.num_spaghetti if cfg.use_augmentation else 0
+    cam_P = nominal_camera_matrices(*training_crop(cfg, hw)).to(device) if model_type == "keypoint" else None
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict, batch_idx: int = 0):
+        images = u8_to_f32(torch.as_tensor(batch["images"]).to(device))
+        if cfg.val_spaghetti and n_spag > 0:
+            B, H, W, C = images.shape
+            per_cam = images.reshape(B, H, W, n_cams, 3).permute(0, 3, 4, 1, 2).reshape(B * n_cams, 3, H, W)
+            arcs = eval_arc_params(base_seed, state.step, batch_idx, B * n_cams, n_spag, H, W, device)
+            per_cam = augment.spaghetti_arcs(per_cam, arcs)
+            images = per_cam.reshape(B, n_cams, 3, H, W).permute(0, 3, 4, 1, 2).reshape(B, H, W, C).contiguous()
+        pred = model(images, train=False)
+        poses = torch.as_tensor(batch["cube_pose"]).to(device, torch.float32)
+        if model_type == "keypoint":
+            losses = geometric_loss_fn(se3_log(fit_pose(cam_P, pred[0])), poses)
+        else:
+            losses = geometric_loss_fn(pred, poses)
+        mask = torch.as_tensor(batch["mask"]).to(device, torch.float32)
+        return (losses * mask).sum(), mask.sum()
+
+    return eval_step
+
+
+# ───────────────────────────── plateau scheduler ─────────────────────────────
+
+
+class ReduceLROnPlateau:
+    """argus_tpu's host-side ReduceLROnPlateau(min, patience=5, factor=0.5),
+    torch's semantics: a relative threshold of 1e-4, and a cut once the bad
+    epochs exceed the patience."""
+
+    def __init__(self, patience: int = 5, factor: float = 0.5, threshold: float = 1e-4):
+        self.patience = patience
+        self.factor = factor
+        self.threshold = threshold
+        self.best = float("inf")
+        self.num_bad = 0
+
+    def step(self, metric: float, lr: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad > self.patience:
+            self.num_bad = 0
+            return lr * self.factor
+        return lr
+
+
+# ───────────────────────────── training loop ─────────────────────────────
+
+
+def rank_print(msg: str, rank: int = 0) -> None:
+    """Print on process 0 only."""
+    if rank == 0:
+        print(msg, flush=True)
+
+
+def initialize_training(cfg: TrainConfig, device=None, datasets=None) -> dict:
+    """Set up what `train` needs on one card: the datasets and their host
+    loaders, the model and train state (restored from `resume_from`), the
+    train and eval steps, and the metrics logger. `datasets` = (train, val)
+    replaces the datasets of `cfg.dataset_config` (any object with
+    `__len__`, `__getitem__`, `cube_poses` and `load_images_batch`).
+    Raises `NotImplementedError` for `device_resident_mb > 0`: argus_tpu
+    then trains from a device-resident copy of the data (ROADMAP A11), and
+    the host feed here is its path at 0."""
+    from argus_tpu_torch.logging_utils import MetricsLogger, generate_run_id
+
+    device = resolve_device(device)
+    check_config(cfg)
+    if cfg.device_resident_mb > 0:
+        raise NotImplementedError(
+            "the device-resident data path is not ported yet (ROADMAP A11): argus_tpu takes it for any "
+            "device_resident_mb > 0 on one process; pass device_resident_mb=0 for the host feed"
+        )
+    if datasets is None:
+        if cfg.dataset_config is None:
+            raise ValueError("TrainConfig.dataset_config is required for training, or pass datasets")
+        datasets = (CameraCubePoseDataset(cfg.dataset_config, train=True),
+                    CameraCubePoseDataset(cfg.dataset_config, train=False))
+    train_dataset, val_dataset = datasets
+    loader_kw = dict(batch_size=cfg.batch_size, num_workers=cfg.num_workers, seed=cfg.random_seed)
+    train_loader = HostDataLoader(train_dataset, shuffle=True, **loader_kw)
+    val_loader = HostDataLoader(val_dataset, shuffle=False, **loader_kw)
+
+    crop = cfg.dataset_config.center_crop if cfg.dataset_config is not None else None
+    sample_hw = tuple(crop or train_dataset[0]["images"].shape[:2])
+    model, state = create_train_state(cfg, seed=cfg.random_seed, sample_hw=sample_hw, device=device)
+    if cfg.resume_from is not None:
+        state = load_checkpoint(cfg.resume_from, target=state)
+    train_step = make_train_step(model, cfg, base_seed=cfg.random_seed, hw=sample_hw, device=device)
+    eval_step = make_eval_step(model, cfg, base_seed=cfg.random_seed, hw=sample_hw, device=device)
+
+    run_id = generate_run_id()
+    logger = MetricsLogger(cfg.wandb_project, run_id=run_id, config=cfg, enabled=cfg.wandb_log)
+    return dict(device=device, model=model, sample_hw=sample_hw, state=state, train_loader=train_loader,
+                val_loader=val_loader, train_step=train_step, eval_step=eval_step, logger=logger,
+                run_id=run_id, rank=0)
+
+
+def train(cfg: TrainConfig, device=None, datasets=None) -> str:
+    """argus_tpu's training loop on one card (`datasets` as in
+    `initialize_training`). Returns the checkpoint's path,
+    `<save_dir>/<run_id>.ckpt`.
+
+    A SIGTERM is latched by `PreemptionGuard`: the loop finishes the step
+    in flight, saves the full train state and returns, so `resume_from`
+    continues the run. A save in flight is drained before the final save,
+    also when an exception unwinds the loop."""
+    from argus_tpu_torch.preemption import PreemptionGuard
+
+    setup = initialize_training(cfg, device, datasets)
+    state = setup["state"]
+    logger, run_id, rank = setup["logger"], setup["run_id"], setup["rank"]
+    scheduler = ReduceLROnPlateau(patience=5, factor=0.5)
+    ckpt_path = str(Path(cfg.save_dir) / f"{run_id}.ckpt")
+
+    lr = float(cfg.learning_rate)
+    global_step = int(state.step)
+    guard = PreemptionGuard()
+    ckpt = AsyncCheckpointer() if cfg.async_checkpoint else None
+    meta = checkpoint_meta(cfg, hw=setup["sample_hw"])
+    guard.__enter__()
+    try:
+        state, global_step, lr, preempted = _train_epochs(
+            cfg, setup, state, scheduler, ckpt_path, guard, global_step, lr, ckpt, meta)
+    finally:
+        # always restore the SIGTERM handler, and drain a save in flight so an
+        # exception cannot strand a .tmp; a drain error does not replace the
+        # exception being raised
+        guard.__exit__()
+        if ckpt is not None:
+            try:
+                ckpt.wait()
+            except BaseException as e:
+                if sys.exc_info()[0] is None:
+                    raise
+                rank_print(f"    (async checkpoint drain also failed: {e!r})", rank)
+    save_checkpoint(ckpt_path, state, meta=meta)
+    logger.finish()
+    if preempted:
+        rank_print(f"    Preempted at step {global_step}; resumable from {ckpt_path}", rank)
+    return ckpt_path
+
+
+def _train_epochs(cfg, setup, state, scheduler, ckpt_path, guard, global_step, lr, ckpt=None, meta=None):
+    """The epoch loop of `train`, split out so the guard wraps it in
+    try/finally. Returns (state, global_step, lr, preempted)."""
+    device, rank, logger = setup["device"], setup["rank"], setup["logger"]
+    train_step, eval_step = setup["train_step"], setup["eval_step"]
+    preempted = False
+    for epoch in range(cfg.n_epochs):
+        setup["train_loader"].set_epoch(epoch)
+
+        # the losses stay on the device and are fetched in blocks: a fetch per
+        # step would stall the queue of launches; each is logged at its step
+        epoch_losses, pending = [], []
+
+        def flush_pending():
+            nonlocal global_step
+            if not pending:
+                return
+            for v in torch.stack(pending).cpu().tolist():
+                epoch_losses.append(float(v))
+                logger.log({"loss": float(v)}, step=global_step)
+                global_step += 1
+            pending.clear()
+
+        for batch in device_prefetch(setup["train_loader"], device):
+            state, loss = train_step(state, batch)
+            pending.append(loss)
+            if len(pending) >= 50:
+                flush_pending()
+            if guard.requested:
+                break
+        flush_pending()
+
+        if guard.requested:
+            preempted = True
+            rank_print("    Preemption signal received: checkpointing and exiting", rank)
+            logger.log({"preempted": 1}, step=global_step)
+            break
+
+        if epoch % cfg.print_epochs == 0:
+            rank_print(f"    Avg. Loss in Epoch: {np.mean(epoch_losses):.6f}", rank)
+
+        # validation and the plateau schedule: (sum, count) summed on the
+        # device, one fetch per pass
+        if epoch % cfg.val_epochs == 0:
+            total = torch.zeros((), dtype=torch.float32, device=device)
+            count = torch.zeros((), dtype=torch.float32, device=device)
+            for bi, batch in enumerate(device_prefetch(setup["val_loader"], device)):
+                s, c = eval_step(state, batch, bi)
+                total += s
+                count += c
+            val_loss = float(total) / max(float(count), 1.0)
+            logger.log({"val_loss": val_loss}, step=global_step)
+            rank_print(f"    Validation loss: {val_loss:.6f}", rank)
+            new_lr = scheduler.step(val_loss, lr)
+            if new_lr != lr:
+                lr = new_lr
+                state.lr.fill_(lr)
+                rank_print(f"    Reducing learning rate to {lr:.2e}", rank)
+
+        # the whole train state, asynchronously unless async_checkpoint is off
+        if epoch % cfg.save_epochs == 0:
+            if ckpt is not None:
+                ckpt.save(ckpt_path, state, meta=meta)
+            else:
+                save_checkpoint(ckpt_path, state, meta=meta)
+
+    return state, global_step, lr, preempted
+
+
+if __name__ == "__main__":
+    from argus_tpu_torch.configs import cli
+
+    cfg = cli(TrainConfig)
+    start = time.time()
+    train(cfg)
+    print(f"Training took {time.time() - start:.2f} seconds.")

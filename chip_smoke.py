@@ -6,9 +6,9 @@
 Phases, each fatal on failure (nothing is caught and ignored):
 
 1. build every CUDA kernel of the serving, training, augmentation,
-   keypoint, trained-stem and exact-BN paths from `argus_tpu_torch/csrc/`
-   (13 sources, one nvcc each,
-   in parallel) and print the seconds and ptxas' register/spill report;
+   keypoint, trained-stem, exact-BN and frozen-stage paths from
+   `argus_tpu_torch/csrc/` (13 sources, one nvcc each, in parallel) and
+   print the seconds and ptxas' register/spill report;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -94,7 +94,7 @@ Phases, each fatal on failure (nothing is caught and ignored):
    53 BN inputs at N = 512, strides 1 and 4 (n_rows equal, sums within 1e-4
    of each channel's sum of magnitudes), timed beside `torch.batch_norm_stats`
    and `torch.batch_norm_backward_reduce`; then Path A, the flagship step
-   with the fused stem trained (fuse flags "auto"): against the unfused cuDNN
+   with the fused stem trained (fuse flags "on"): against the unfused cuDNN
    step on 8 augmented rows within phase 6's gates (conv_init's gradient
    included), launches 1 augment / 1 stem save / 1 stem backward / 1 + 1 /
    3 + 3 / 10 + 10, 6 timed steps, and 6 at `stem_grad_stride=4`; Path B,
@@ -105,7 +105,31 @@ Phases, each fatal on failure (nothing is caught and ignored):
    other points), launches 1 augment / 53 `bn_stats` / 53 `bn_bwd_reduce`,
    6 timed steps of each; then the keypoint family's default step (exact BN,
    unfused), 6 timed steps;
-9. the `kernels` JSON line, the card's name and power limit, and the result
+9. the frozen-stage fine-tune (`frozen_stages=3`: stem and stages 0-2
+   frozen, fuse flags "on"): the packed-output stem (argus_tpu's
+   `_stem_fwd_packed_pallas`) against its plain version at 512 x 256x256
+   within one bf16 ulp, and the whole-stage no-save chains of stages 1 and
+   2 (stride 2, 3 and 5 identity blocks) under the conv gate, timed beside
+   plain and cuDNN; then the step: fused against unfused on 8 augmented
+   rows under phase 6's gates (nothing below stage 3 gets a gradient),
+   launches per eval forward 1 packed stem / 1 stage-0 chain / 2 frozen
+   chains / 1 projection / 2 identity and per step 1 augment / 1 packed
+   stem / 1 / 2 / 1+1 / 2+2, 6 timed steps fused and 6 unfused;
+10. what "auto" chooses (`models.resnet.AUTO_FUSE`, printed): the fuse
+   flags all "on", all "off" and all "auto" for the flagship step, the
+   `frozen_stages=3` step and batch-256 serving, in this call; an "auto"
+   step launches exactly what the table names, and is no slower than the
+   faster of "on" and "off" by more than 2%;
+11. `train()` end to end: the `frozen_stages=3` fine-tune at full width
+   (fuse "auto", `device_resident_mb=0`, augmentation on) on 1024 + 160
+   frames rendered by the port's synthetic renderer into an in-memory
+   dataset (no h5py on the card), through `HostDataLoader` and the device
+   feed: 2 epochs, then 1 more resumed from the saved file; finite losses,
+   the step count continuing, the file restoring bit-equal into a fresh
+   `TrainState`, every kernel "auto" names launched; end-to-end
+   camera-images/s beside the compute-only step, and how long
+   `AsyncCheckpointer.save` holds the caller;
+12. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the augmentation kernels.
@@ -168,8 +192,12 @@ REPLACES = {
     "stem_fused_bwd": "argus_tpu/ops/pallas/stem_fused.py:304",
     "bn_stats": "argus_tpu/ops/pallas/bn_reduce.py:74",
     "bn_bwd_reduce": "argus_tpu/ops/pallas/bn_reduce.py:149",
+    "stem_fused_packed": "argus_tpu/ops/pallas/stem_fused.py:262",
+    "stage_fused_frozen": "argus_tpu/ops/pallas/stage_fused.py:364",
 }
 SOURCES = {name: f"argus_tpu_torch/csrc/{name.replace('_save', '')}.cu" for name in REPLACES}
+SOURCES.update(stem_fused_packed="argus_tpu_torch/csrc/stem_fused.cu",
+               stage_fused_frozen="argus_tpu_torch/csrc/stage_fused.cu")
 SOURCES.update(bn_stats="argus_tpu_torch/csrc/bn_reduce.cu", bn_bwd_reduce="argus_tpu_torch/csrc/bn_reduce.cu")
 _NONE = {name: 0 for name in REPLACES}
 EXPECTED_LAUNCHES = {**_NONE, "stem_fused": 1, "stage_fused": 1, "proj_fused": 3, "block_fused": 10}
@@ -199,6 +227,19 @@ BN_RTOL = 1e-4  # the BN reductions: kernel vs plain, relative to the channel's 
 # blocks of that geometry in a forward: stage 0 blocks 0-1, stages 1-3 block 1)
 BASIC_GEOMETRIES = [(64, 64, 2), (128, 32, 1), (256, 16, 1), (512, 8, 1)]
 SHIFT_INVARIANT = "heatmap.bias"  # its gradient is zero up to rounding: the spatial softmax cancels it
+# the frozen_stages=3 fine-tune, fuse "on": per train step, and per eval forward
+EXPECTED_FROZEN_LAUNCHES = {
+    **_NONE, "augment_fused": 1, "stem_fused_packed": 1, "stage_fused": 1, "stage_fused_frozen": 2,
+    "proj_fused_save": 1, "proj_fused_bwd": 1, "block_fused_save": 2, "block_fused_bwd": 2,
+}
+EXPECTED_FROZEN_EVAL_LAUNCHES = {
+    **_NONE, "stem_fused_packed": 1, "stage_fused": 1, "stage_fused_frozen": 2, "proj_fused": 1, "block_fused": 2,
+}
+C1_STEPS = 5  # timed steps per fuse setting in the auto phase; the median is kept
+C1_ROUNDS = 12  # interleaved predicts per fuse setting in the auto phase, in rotated orders; the fastest is kept
+LOOP_TRAIN, LOOP_VAL = 1024, 160  # rendered examples of the loop phase: 4 train batches, 1 padded val batch
+LOOP_VAL_BATCHES = 1
+AUTO_SLACK = 0.02  # "auto" may be this much slower than the faster of all "on" and all "off"
 
 
 def gpu_line() -> str:
@@ -510,10 +551,13 @@ def end_to_end_phase(tmpdir: str) -> tuple:
 
     t0 = time.perf_counter()
     est = Estimator(ckpt, batch_size=N_ROWS)
-    say(f"end to end: Estimator(batch_size={N_ROWS}) on {est.device} built and warmed in "
-        f"{time.perf_counter() - t0:.1f} s; config dtype={est.cfg.dtype}, fuse_stem={est.cfg.fuse_stem}, "
-        f"fuse_stage={est.cfg.fuse_stage}")
     frames = np.random.default_rng(0).integers(0, 256, (N_ROWS, HW, HW, 6), dtype=np.uint8)
+    for k in FUSE_ON:  # every kernel of the path launches here; the auto phase times "auto"
+        setattr(est.model.backbone, k, "on")
+    est.predict(frames)
+    say(f"end to end: Estimator(batch_size={N_ROWS}) on {est.device} built and warmed in "
+        f"{time.perf_counter() - t0:.1f} s; config dtype={est.cfg.dtype}, fuse flags {est.cfg.fuse_stem} "
+        f"(set to 'on')")
 
     kernels.reset_launch_counts()
     poses = est.predict(frames)
@@ -1283,7 +1327,7 @@ def _spread(errs: dict):
 
 def path_a_phase() -> tuple:
     """The flagship step with the fused stem trained (`stem_frozen=False`,
-    the fuse flags "auto"): against the unfused cuDNN step on 8 augmented
+    the fuse flags "on"): against the unfused cuDNN step on 8 augmented
     rows within the flagship's gates (conv_init's gradient included), then
     6 timed steps and 6 with `stem_grad_stride=4`, launches per step 1
     augment / 1 stem save / 1 stem backward / 1+1 / 3+3 / 10+10. Returns
@@ -1293,8 +1337,7 @@ def path_a_phase() -> tuple:
     from argus_tpu_torch.models import NCameraCNN
     from argus_tpu_torch.train import _loss_and_grads_on, make_train_step
 
-    auto = {k: "auto" for k in FUSE_ON}
-    cfg, model, state, batch = flagship_train_setup(stem_frozen=False, **auto)
+    cfg, model, state, batch = flagship_train_setup(stem_frozen=False)
     head, images = _eight_rows(cfg, batch)
     ref = NCameraCNN(dataclasses.replace(cfg.model_config, dtype="bfloat16", **{k: "off" for k in FUSE_ON})).cuda()
     ref.load_state_dict(model.state_dict())
@@ -1587,6 +1630,466 @@ def keypoint_phase(tmpdir: str) -> tuple:
     return runs["fused"][0], eval_launches, runs["fused"][1]
 
 
+# ─────────────── phase 9: the frozen-stage fine-tune (B2) ───────────────
+
+
+def frozen_kernel_phase() -> dict:
+    """The kernels only the `frozen_stages=3` fine-tune reaches, at its shapes
+    (N = 512 camera images of 256x256): the packed-output stem against
+    `stem_pool_packed_plain` within one bf16 ulp (the stem's gate), and the
+    whole-stage no-save chains of stages 1 and 2 (stride 2, 3 and 5
+    identity blocks) against `stage_plain` under the conv gate. library_ms
+    is the cuDNN composition of the same function. Times per step (one
+    launch each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from argus_tpu_torch.ops.kernels import stage_fused, stem_fused
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    results = {}
+    bf = torch.bfloat16
+    x = torch.rand(N_IMG, HW, HW, 3, generator=g, device="cuda").to(bf)
+    w7, b7 = _w(g, 7, 7, 3, 64), _b(g, 64)
+    out = stem_fused.stem_fwd_packed(x, w7, b7)
+    if out.shape != (N_IMG, HW // 4, HW // 8, 128):
+        raise AssertionError(f"packed stem shape {tuple(out.shape)}")
+    err = _ulp_compare("stem_fused_packed", out, stem_fused.stem_pool_packed_plain(x, w7, b7))
+
+    def lib_stem():
+        y = torch.relu(_lib_conv(x, w7, 2, 3) + b7.reshape(-1).to(bf))
+        return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1).reshape(out.shape)
+
+    ms = cuda_ms(lambda: stem_fused.stem_fwd_packed(x, w7, b7), 5)
+    pms = cuda_ms(lambda: stem_fused.stem_pool_packed_plain(x, w7, b7), 2)
+    lms = cuda_ms(lib_stem, 5)
+    flops, nb = 2 * N_IMG * (HW // 2) ** 2 * 64 * 147, nbytes(x, w7, b7, out)
+    b, by = bound_ms(flops, nb)
+    say(f"stem_fused_packed {tuple(x.shape)} -> {tuple(out.shape)} x1: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"library {lms:.3f} ms, bound {b:.3f} ms ({by})")
+    results["stem_fused_packed"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, flops=flops, bytes=nb)
+    del x, out
+
+    record = _recorder(results)
+    cases = []
+    for i, (h, cin, f, n_id) in ((1, (64, 256, 128, 3)), (2, (32, 512, 256, 5))):
+        cout, ho = 4 * f, h // 2
+        xs = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(bf)
+        pw = _proj_weights(g, cin, f, cout)
+        ids = [_id_weights(g, cout, f) for _ in range(n_id)]
+
+        def lib(xs=xs, pw=pw, ids=ids):
+            y = _lib_block(xs, *pw[:6], pw[6], pw[7], stride=2)
+            for w in ids:
+                y = _lib_block(y, *w)
+            return y
+
+        out_bytes = N_IMG * ho * ho * cout * BF
+        cases.append((
+            f"stage{i} {tuple(xs.shape)} F={f} S=2 {n_id} identity", 1,
+            lambda xs=xs, pw=pw, ids=ids: stage_fused.fused_stage(xs, pw, ids, 2),
+            lambda xs=xs, pw=pw, ids=ids: stage_fused.stage_plain(xs, pw, ids, 2), lib,
+            _block_flops(N_IMG, h, h, cin, f, cout, 2, True) + n_id * _block_flops(N_IMG, ho, ho, cout, f, cout, 1,
+                                                                                     False),
+            nbytes(xs, *pw, *[t for w in ids for t in w]) + out_bytes, 3 * (1 + n_id),
+            _round_trip_bytes(N_IMG, h, h, f, 2) + n_id * _round_trip_bytes(N_IMG, ho, ho, f, 1)
+            + 2 * n_id * out_bytes,
+        ))
+    record("stage_fused_frozen", cases)
+    del cases
+    torch.cuda.empty_cache()
+    return results
+
+
+def _expected_launches(frozen_stages: int, stem_trained: bool, serving: bool = False, augment: bool = True) -> dict:
+    """The launches of one flagship train step (or, with `serving`, one
+    no-save forward) with every fuse flag "auto": what `AUTO_FUSE` names for
+    each function in its mode (`models/resnet.py`'s dispatch)."""
+    from argus_tpu_torch.models.resnet import AUTO_FUSE
+
+    want = dict(_NONE, augment_fused=int(augment and not serving))
+
+    def mode(frozen):
+        return "forward" if serving or frozen else "train"
+
+    stem_on = AUTO_FUSE[("stem", "train" if stem_trained and not serving else "forward")]
+    packed = stem_on and frozen_stages >= 1 and AUTO_FUSE[("stage_chain_packed", "forward")]
+    if stem_on:
+        key = "stem_fused_packed" if packed else "stem_fused_save" if stem_trained and not serving else "stem_fused"
+        want[key] += 1
+        if stem_trained and not serving:
+            want["stem_fused_bwd"] += 1
+    for i, n in enumerate((3, 4, 6, 3)):
+        frozen = i < frozen_stages
+        m = mode(frozen)
+        if i == 0 or frozen:
+            chain = "stage_chain_packed" if i == 0 and m == "forward" else "stage_chain"
+            if AUTO_FUSE[(chain, m)]:
+                if m == "forward":
+                    want["stage_fused" if i == 0 else "stage_fused_frozen"] += 1
+                else:
+                    want["stage_fused_save"] += 1
+                    want["stage_fused_bwd"] += 1
+                continue
+        for name, count, fn in (("proj_fused", 1, "projection"), ("block_fused", n - 1, "identity")):
+            if AUTO_FUSE[(fn, m)]:
+                if m == "forward":
+                    want[name] += count
+                else:
+                    want[name + "_save"] += count
+                    want[name + "_bwd"] += count
+    return want
+
+
+def frozen_phase() -> tuple:
+    """The `frozen_stages=3` fine-tune step (the flagship with stages 0-2 and
+    the stem frozen, fuse "on"): the fused loss and the stage-3 and head
+    gradients against the unfused cuDNN step on 8 augmented rows, under phase
+    6's gates (nothing below stage 3 gets a gradient on either side); the
+    launches of an eval forward (1 packed stem / 1 stage-0 chain / 2 frozen
+    chains / 1 projection / 2 identity) and of a step (1 augment / 1 packed
+    stem / 1 / 2 / 1+1 / 2+2); 6 timed steps fused and 6 unfused. Returns
+    (launches per step, launches per eval forward, fused ms/step, unfused
+    ms/step)."""
+    import torch
+
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.train import _loss_and_grads_on, create_train_state, feed_images, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup(frozen_stages=3)
+    off = dataclasses.replace(cfg, model_config=dataclasses.replace(cfg.model_config,
+                                                                    **{k: "off" for k in FUSE_ON}))
+    ref, ref_state = create_train_state(off, seed=0)
+    ref.load_state_dict(model.state_dict())
+    head, images = _eight_rows(cfg, batch)
+    loss_f, grads_f = _loss_and_grads_on(model, state.params, images, head)
+    loss_r, grads_r = _loss_and_grads_on(ref, ref_state.params, images, head)
+    errs = _grad_errors(grads_f, grads_r)
+    worst, median, name = _spread(errs)
+    trained = ("backbone.stage3_", "backbone.fc.", "head_")
+    below = sorted(k for k, v in {**grads_f, **grads_r}.items()
+                   if torch.count_nonzero(v) and not k.startswith(trained))
+    loss_err = abs(loss_f.item() - loss_r.item()) / abs(loss_r.item())
+    say(f"frozen fine-tune (frozen_stages=3): fused vs unfused on the first 8 rows: loss {loss_f.item():.6f} vs "
+        f"{loss_r.item():.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); gradients of {len(errs)} parameters "
+        f"(stage 3 and the head): max rel {worst:.3g} ({name}), median {median:.3g} (tol {GRAD_RTOL}, "
+        f"{GRAD_RTOL_MEDIAN}); parameters below stage 3 with a gradient: {below}")
+    if below or not (loss_err <= TRAIN_LOSS_RTOL and worst <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
+        raise AssertionError("the frozen_stages=3 fused step disagrees with the unfused one")
+    del grads_f, grads_r, head, images
+    torch.cuda.empty_cache()
+
+    fed = feed_images(cfg, batch["images"], "cuda")
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        pred = model(fed)
+        eval_launches = kernels.launch_counts()
+        want = ref(fed)
+    err = ((pred - want).norm() / want.norm()).item()
+    say(f"frozen fine-tune eval forward ({N_IMG} camera images): launches {eval_launches}; outputs against the "
+        f"unfused forward: relative 2-norm {err:.3g} (tol {GRAD_RTOL})")
+    if eval_launches != EXPECTED_FROZEN_EVAL_LAUNCHES or not err <= GRAD_RTOL:
+        raise AssertionError(f"frozen eval forward: launches {eval_launches} != {EXPECTED_FROZEN_EVAL_LAUNCHES} "
+                             f"or outputs {err} apart")
+    del fed, pred, want
+
+    runs = {}
+    for label, (m, c, st) in (("fused", (model, cfg, state)), ("unfused", (ref, off, ref_state))):
+        runs[label] = _time_steps(make_train_step(m, c), st, batch, f"frozen_stages=3 {label}")
+        torch.cuda.empty_cache()
+    if runs["fused"][0] != EXPECTED_FROZEN_LAUNCHES:
+        raise AssertionError(f"frozen_stages=3 launch counts {runs['fused'][0]} != {EXPECTED_FROZEN_LAUNCHES}")
+    if runs["unfused"][0] != {**_NONE, "augment_fused": 1}:
+        raise AssertionError(f"unfused frozen_stages=3 launch counts {runs['unfused'][0]}")
+    say(f"frozen fine-tune: fused {runs['fused'][1]:.2f} ms/step against unfused (cuDNN) "
+        f"{runs['unfused'][1]:.2f} ms/step in this call")
+    del model, ref, state, ref_state, batch
+    torch.cuda.empty_cache()
+    return runs["fused"][0], eval_launches, runs["fused"][1], runs["unfused"][1]
+
+
+# ─────────────── phase 10: what "auto" chooses (C1) ───────────────
+
+
+def _median_step_ms(step, state, batch, n: int = C1_STEPS):
+    """A warm-up call, then the median ms of `n` calls by CUDA events: (ms,
+    launches in the first timed call, state)."""
+    import torch
+
+    from argus_tpu_torch.ops import kernels
+
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    ms = []
+    for i in range(n):
+        if i == 0:
+            kernels.reset_launch_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _ = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        if i == 0:
+            launches = kernels.launch_counts()
+    return sorted(ms)[n // 2], launches, state
+
+
+def auto_phase(tmpdir: str) -> dict:
+    """The fuse flags all "on", all "off" and all "auto" in one call, for the
+    flagship step, the `frozen_stages=3` step (both batch 256, the median
+    of C1_STEPS timed steps by CUDA events after a warm-up) and batch-256
+    serving (the fastest of C1_ROUNDS `Estimator.predict` calls by host
+    clock, the three settings interleaved in rotated orders on one
+    estimator with its flags switched: "auto" and "on" are one
+    configuration there, and the upload from pageable memory varies more
+    from call to call than the 2% gate). Prints `AUTO_FUSE`'s choice for each function and mode; an
+    "auto" step must launch exactly what the table names, and be no slower
+    than the faster of "on" and "off" by more than AUTO_SLACK. Returns
+    {workload: {flags: ms}}."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.checkpoint import save_checkpoint
+    from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
+    from argus_tpu_torch.models.jax_import import variables_from_state_dict
+    from argus_tpu_torch.models.resnet import AUTO_FUSE
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.serve import Estimator
+    from argus_tpu_torch.train import make_train_step
+
+    say("auto: AUTO_FUSE " + ", ".join(f"{f}/{m} {'on' if v else 'off'}" for (f, m), v in AUTO_FUSE.items()))
+    timings = {}
+
+    def switch(backbone, flags):
+        for k in FUSE_ON:
+            setattr(backbone, k, flags)
+
+    for workload, frozen_stages in (("flagship", 0), ("frozen_stages=3", 3)):
+        cfg, model, state, batch = flagship_train_setup(frozen_stages=frozen_stages)
+        step = make_train_step(model, cfg)
+        for flags in ("on", "off", "auto"):
+            switch(model.backbone, flags)
+            ms, launches, state = _median_step_ms(step, state, batch)
+            timings.setdefault(workload, {})[flags] = ms
+            if flags == "auto":
+                want = _expected_launches(frozen_stages, stem_trained=False)
+                if launches != want:
+                    raise AssertionError(f"auto {workload}: launches {launches} != the table's {want}")
+            say(f"auto: {workload} step, flags {flags}: {ms:.2f} ms/step "
+                f"({N_IMG / ms * 1e3:.1f} camera-images/s; launches {({k: v for k, v in launches.items() if v})})")
+        del model, state, batch, step
+        torch.cuda.empty_cache()
+
+    mcfg = NCameraCNNConfig(n_cams=2, resnet_output_dim=1024, backbone="resnet50")
+    model = NCameraCNN(mcfg)
+    _randomize_(model, seed=0)
+    params, stats = variables_from_state_dict(model.state_dict())
+    ckpt = os.path.join(tmpdir, "resnet50_auto.ckpt")
+    save_checkpoint(ckpt, {"params": params, "batch_stats": stats},
+                    meta={"model_type": "pose_cnn", "model_config": dataclasses.asdict(mcfg), "center_crop": [HW, HW]})
+    del model, params, stats
+    est = Estimator(ckpt, batch_size=N_ROWS)
+    if {getattr(est.cfg, k) for k in FUSE_ON} != {"auto"}:
+        raise AssertionError(f"batched serving's tuned config is not 'auto': {est.cfg}")
+    frames = np.random.default_rng(0).integers(0, 256, (N_ROWS, HW, HW, 6), dtype=np.uint8)
+    times = {}
+    for flags in ("on", "off", "auto"):
+        switch(est.model.backbone, flags)
+        est.predict(frames)
+        kernels.reset_launch_counts()
+        est.predict(frames)
+        launches = kernels.launch_counts()
+        if flags == "auto":
+            want = _expected_launches(0, stem_trained=False, serving=True)
+            if launches != want:
+                raise AssertionError(f"auto serving: launches {launches} != the table's {want}")
+        say(f"auto: serving, flags {flags}: launches {({k: v for k, v in launches.items() if v})}")
+    # the settings interleaved, and each round's order rotated, so that the
+    # host's load and the one before fall on all three alike
+    settings = ("on", "off", "auto")
+    for r in range(C1_ROUNDS):
+        for flags in settings[r % 3:] + settings[:r % 3]:
+            switch(est.model.backbone, flags)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.predict(frames)
+            times.setdefault(flags, []).append((time.perf_counter() - t0) * 1e3)
+    for flags, ts in times.items():
+        timings.setdefault("serving", {})[flags] = min(ts)
+        say(f"auto: serving predict of {N_ROWS} rows, flags {flags}: fastest of {C1_ROUNDS} {min(ts):.2f} ms, "
+            f"median {sorted(ts)[C1_ROUNDS // 2]:.2f} ms (host clock, interleaved with the other settings)")
+    del est
+    torch.cuda.empty_cache()
+    for workload, t in timings.items():
+        best = min(t["on"], t["off"])
+        say(f"auto: {workload}: auto {t['auto']:.2f} ms against on {t['on']:.2f} and off {t['off']:.2f} "
+            f"({(t['auto'] / best - 1) * 100:+.1f}% of the faster; limit {AUTO_SLACK * 100:.0f}%)")
+        if t["auto"] > (1 + AUTO_SLACK) * best:
+            raise AssertionError(f"auto {workload} is slower than the faster of on and off by more than {AUTO_SLACK}")
+    return timings
+
+
+
+# ─────────────── phase 11: training end to end (the loop) ───────────────
+
+
+class FramesDataset:
+    """An in-memory dataset with the interface `HostDataLoader` reads:
+    frames rendered by the port's synthetic renderer (the card's Python has
+    no h5py, so no HDF5 + PNG dataset is written there), xyzw poses."""
+
+    def __init__(self, images, poses_wxyz):
+        from argus_tpu_torch.geom import xyzwxyz_to_xyzxyzw_SE3
+
+        self.images = images
+        self.cube_poses = xyzwxyz_to_xyzxyzw_SE3(poses_wxyz).astype("float32")
+        self.n_cams = 2
+        self.requested = []  # host clock of each batch request
+
+    def __len__(self):
+        return len(self.cube_poses)
+
+    def __getitem__(self, idx):
+        return {"images": self.images[idx], "cube_pose": self.cube_poses[idx]}
+
+    def load_images_batch(self, idxs, n_threads=1, pool=None):
+        self.requested.append(time.perf_counter())
+        return self.images[list(idxs)]
+
+
+class _Recorder:
+    """The loop's metrics, kept in memory with their host time (the runs here
+    log to no file and no service)."""
+
+    runs = []
+
+    def __init__(self, *a, **k):
+        self.records = []
+        _Recorder.runs.append(self)
+
+    def log(self, metrics, step=None):
+        self.records.append((time.perf_counter(), step, dict(metrics)))
+
+    def finish(self):
+        pass
+
+
+def loop_phase(tmpdir: str) -> dict:
+    """`train()` on the card at full width: the `frozen_stages=3` fine-tune
+    (ResNet-50 NCameraCNN, 2 cameras, 1024-d features, 256x256, batch 256,
+    amp, frozen BN and affine, augmentation on, fuse "auto",
+    `device_resident_mb=0`) on LOOP_TRAIN + LOOP_VAL rendered examples
+    through `HostDataLoader` and the device feed: 2 epochs, then a run
+    resumed from the file that saved for 1 more. Checks: every epoch's loss
+    and val loss finite, the step count continuing (8, then 12), the first
+    file restoring bit-equal into a fresh `TrainState`, and every kernel
+    "auto" names for this path launched. Prints end-to-end camera-images/s
+    of the resumed run's train pass (loader, feed, steps; from its first
+    batch request to its losses), and of the first run's second epoch,
+    during which epoch 0's checkpoint is written, beside the compute-only
+    step on a resident batch, and how long `AsyncCheckpointer.save` holds
+    the caller."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch import logging_utils
+    from argus_tpu_torch.checkpoint import AsyncCheckpointer, load_checkpoint, train_state_tree
+    from argus_tpu_torch.data.synthetic import render_dataset_arrays
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step, train
+
+    t0 = time.perf_counter()
+    sets = [render_dataset_arrays(n, HW, HW, seed=s) for n, s in ((LOOP_TRAIN, 10), (LOOP_VAL, 11))]
+    datasets = tuple(FramesDataset(*a) for a in sets)
+    say(f"loop: rendered {LOOP_TRAIN} + {LOOP_VAL} corner-projection examples ({HW}x{HW}, 2 cameras) in "
+        f"{time.perf_counter() - t0:.1f} s; PNG decode is not on this path (no HDF5 writer on this host)")
+    mcfg = NCameraCNNConfig(n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True,
+                            bn_frozen_affine=True, stem_frozen=True, frozen_stages=3)
+    cfg = TrainConfig(model_config=mcfg, amp=True, batch_size=N_ROWS, n_epochs=2, learning_rate=1e-4,
+                      device_resident_mb=0, wandb_log=False, num_workers=8, save_dir=os.path.join(tmpdir, "ckpt"))
+    orig = logging_utils.MetricsLogger
+    logging_utils.MetricsLogger = _Recorder
+    try:
+        _Recorder.runs.clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = train(cfg, datasets=datasets)
+        t_first = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        datasets[0].requested.clear()
+        t0 = time.perf_counter()
+        resumed = train(dataclasses.replace(cfg, n_epochs=1, resume_from=first), datasets=datasets)
+        t_resumed = time.perf_counter() - t0
+    finally:
+        logging_utils.MetricsLogger = orig
+    runs = [r.records for r in _Recorder.runs]
+    losses = [[m["loss"] for _, _, m in r if "loss" in m] for r in runs]
+    vals = [[m["val_loss"] for _, _, m in r if "val_loss" in m] for r in runs]
+    per_epoch = LOOP_TRAIN // N_ROWS
+    say(f"loop: train() 2 epochs in {t_first:.1f} s, resumed 1 epoch in {t_resumed:.1f} s (model set-up, "
+        f"datasets and checkpoint files included); losses {[round(v, 4) for v in losses[0]]} then "
+        f"{[round(v, 4) for v in losses[1]]}; val losses {[round(v, 4) for v in vals[0]]} then "
+        f"{[round(v, 4) for v in vals[1]]}; launches over both epochs {({k: v for k, v in launches.items() if v})}")
+    first_tree, final_tree = load_checkpoint(first), load_checkpoint(resumed)
+    steps = (int(first_tree["step"]), int(final_tree["step"]))
+    if steps != (2 * per_epoch, 3 * per_epoch) or len(losses[0]) != 2 * per_epoch or len(losses[1]) != per_epoch:
+        raise AssertionError(f"loop: step counts {steps}, losses {len(losses[0])} + {len(losses[1])}")
+    if not (np.isfinite(losses[0] + losses[1]).all() and np.isfinite(vals[0] + vals[1]).all()
+            and len(vals[0]) == 2 and len(vals[1]) == 1):
+        raise AssertionError(f"loop: non-finite or missing losses {losses} {vals}")
+    want = {k for k, v in _expected_launches(3, stem_trained=False).items() if v}
+    want |= {k for k, v in _expected_launches(3, stem_trained=False, serving=True).items() if v}
+    missed = sorted(k for k in want if not launches[k])
+    if missed or launches["stem_fused_packed"] != 2 * (per_epoch + LOOP_VAL_BATCHES):
+        raise AssertionError(f"loop: kernels of the path not launched {missed} (launches {launches})")
+
+    # the saved file restores bit-equal into a fresh state
+    _, fresh = create_train_state(cfg, seed=5)
+    load_checkpoint(first, target=fresh)
+    got = train_state_tree(fresh)
+
+    def leaves(t, pre=""):
+        for k, v in t.items():
+            yield from leaves(v, f"{pre}/{k}") if isinstance(v, dict) else [(f"{pre}/{k}", np.asarray(v))]
+
+    a, b = dict(leaves(got)), dict(leaves(first_tree))
+    unequal = [k for k in b if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+    if a.keys() != b.keys() or unequal:
+        raise AssertionError(f"loop: the saved state does not restore bit-equal: {unequal[:5]}")
+    say(f"loop: {first} restores bit-equal into a fresh TrainState ({len(b)} leaves); steps {steps[0]} then "
+        f"{steps[1]}")
+
+    # end to end against compute only, and the save's hold on the loop
+    # each epoch's losses are logged when its train pass ends
+    t_val0 = next(t for t, s, m in runs[0] if "val_loss" in m)
+    t_loss1 = [t for t, s, m in runs[0] if "loss" in m][per_epoch]
+    saving_ms = (t_loss1 - t_val0) / per_epoch * 1e3
+    t_resumed_loss = next(t for t, s, m in runs[1] if "loss" in m)
+    e2e_ms = (t_resumed_loss - datasets[0].requested[0]) / per_epoch * 1e3
+    model, state = create_train_state(cfg, seed=5)
+    load_checkpoint(first, target=state)
+    batch = {"images": torch.from_numpy(sets[0][0][:N_ROWS]).cuda(),
+             "cube_pose": torch.from_numpy(datasets[0].cube_poses[:N_ROWS]).cuda(),
+             "mask": torch.ones(N_ROWS, device="cuda")}
+    compute_ms, _, state = _median_step_ms(make_train_step(model, cfg, base_seed=cfg.random_seed), state, batch)
+    ck = AsyncCheckpointer()
+    t0 = time.perf_counter()
+    ck.save(os.path.join(tmpdir, "held.ckpt"), state)
+    hold_ms = (time.perf_counter() - t0) * 1e3
+    ck.wait()
+    write_ms = (time.perf_counter() - t0) * 1e3
+    say(f"loop: end to end {N_IMG / e2e_ms * 1e3:.1f} camera-images/s ({e2e_ms:.2f} ms per step of the resumed "
+        f"run's train pass through HostDataLoader, the feed and the step; host clock) against compute only "
+        f"{N_IMG / compute_ms * 1e3:.1f} ({compute_ms:.2f} ms/step, resident batch, CUDA events); the first "
+        f"run's second epoch, while epoch 0's file is written, {saving_ms:.2f} ms/step; AsyncCheckpointer.save "
+        f"holds the caller {hold_ms:.1f} ms, the write ends {write_ms:.0f} ms after")
+    del model, state, batch, fresh
+    torch.cuda.empty_cache()
+    return dict(e2e_ms=e2e_ms, saving_ms=saving_ms, compute_ms=compute_ms, hold_ms=hold_ms, launches=launches)
+
+
 def main() -> int:
     global GPU
     import torch
@@ -1596,6 +2099,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import argus_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from argus_tpu_torch.ops import kernels
+
+    os.environ["WANDB_MODE"] = "disabled"  # no run here reaches a metrics service
 
     GPU = gpu_line()
     t_start = time.perf_counter()
@@ -1620,8 +2126,15 @@ def main() -> int:
         f"transposes, mean pool, head, loss, BN folds, weight transposes, optimizer and launch gaps")
     a_launches, a_ms, a4_ms = path_a_phase()
     b_launches, b_ms = path_b_phase()
+    measured.update(frozen_kernel_phase())
+    kernels.reset_launch_counts()  # the frozen fine-tune phase counts from here
+    f_launches, f_eval_launches, f_ms, f_unfused_ms = frozen_phase()
     say(f"train steps in this call (ms/step): frozen stem {step_ms:.2f}, stem trained {a_ms:.2f}, stem trained at "
-        f"grad stride 4 {a4_ms:.2f}, exact BN {b_ms:.2f}")
+        f"grad stride 4 {a4_ms:.2f}, exact BN {b_ms:.2f}, frozen_stages=3 {f_ms:.2f} (unfused {f_unfused_ms:.2f})")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        auto_ms = auto_phase(tmpdir)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        loop = loop_phase(tmpdir)
     kp_default_ms = keypoint_default_phase()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         kp_launches, kp_eval_launches, kp_ms = keypoint_phase(tmpdir)
@@ -1641,10 +2154,14 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": (launches[name] or train_launches[name] or a_launches[name] or b_launches[name]
-                         or aug_launches["per-op"][name] or kp_launches[name] or kp_eval_launches[name]),
+                         or aug_launches["per-op"][name] or kp_launches[name] or kp_eval_launches[name]
+                         or f_launches[name] or f_eval_launches[name]),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })
+    say(f"the fine-tune in this call: fused ('on') {f_ms:.2f} ms/step, 'auto' {auto_ms['frozen_stages=3']['auto']:.2f}, "
+        f"unfused {f_unfused_ms:.2f}; train() end to end {N_IMG / loop['e2e_ms'] * 1e3:.1f} camera-images/s against "
+        f"{N_IMG / loop['compute_ms'] * 1e3:.1f} compute only")
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(GPU)

@@ -81,6 +81,25 @@ def test_codec_bfloat16_both_ways():
     np.testing.assert_array_equal(np.asarray(back, np.float32), np.asarray(x, np.float32))
 
 
+def test_codec_streams_flax_bytes_from_array_views():
+    """`dump` writes `packb`'s bytes run by run, the arrays' contents as
+    views: empty, 0-d, strided, bool and scalar leaves included."""
+    import io
+
+    from flax import serialization
+
+    def ordered(t):  # flax writes a dict's keys sorted, as JAX flattens it
+        return {k: ordered(t[k]) for k in sorted(t)} if isinstance(t, dict) else t
+
+    tree = ordered(dict(_tree(np.random.default_rng(2)), empty=np.zeros((0, 3), np.float32),
+                        zero_d=np.asarray(2.5, np.float32), strided=np.ones((4, 6), np.float64)[:, ::2],
+                        flags=np.array([True, False, True]), scalar=np.float32(1.5)))
+    want = serialization.msgpack_serialize(tree)
+    f = io.BytesIO()
+    _msgpack.dump(tree, f)
+    assert f.getvalue() == _msgpack.packb(tree) == want
+
+
 def test_codec_rejects_trailing_and_truncated_data():
     data = _msgpack.packb({"a": [1, 2, 3]})
     with pytest.raises(ValueError):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the forwards, the saving forwards and the one-pass backwards (bottleneck and
 BasicBlock), the two augmentation kernels, the trained stem's saving
-forward and weight gradient, BatchNorm's two reductions, and the training
-steps (fused, trained stem, exact BN) against their CPU runs.
+forward and weight gradient, BatchNorm's two reductions, the packed stem
+and the frozen stages' no-save chains, and the training steps (fused,
+trained stem, exact BN, frozen stages) against their CPU runs; the device
+feed's batches; the launches of "auto" against `AUTO_FUSE`.
 
 These need an NVIDIA Hopper GPU and nvcc: they carry the `cuda` marker and
 skip elsewhere. Run them on the card with
@@ -119,6 +121,7 @@ def test_wrappers_check_arguments(dev):
         "block_fused_save", "block_fused_bwd", "augment_fused", "blur",
         "basic_fused", "basic_fused_save", "basic_fused_bwd",
         "stem_fused_save", "stem_fused_bwd", "bn_stats", "bn_bwd_reduce",
+        "stem_fused_packed", "stage_fused_frozen",
     }
 
 
@@ -240,6 +243,7 @@ def test_train_step_on_card_matches_cpu(dev):
         "block_fused_save": 10, "block_fused_bwd": 10, "augment_fused": 0, "blur": 0,
         "basic_fused": 0, "basic_fused_save": 0, "basic_fused_bwd": 0,
         "stem_fused_save": 0, "stem_fused_bwd": 0, "bn_stats": 0, "bn_bwd_reduce": 0,
+        "stem_fused_packed": 0, "stage_fused_frozen": 0,
     }, counts
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
 
@@ -430,8 +434,9 @@ def test_trained_stem_and_exact_bn_steps_on_card_match_cpu(dev, model):
     from argus_tpu_torch.models import NCameraCNNConfig
     from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
 
-    kw = (dict(bn_frozen=True, bn_frozen_affine=True, stem_frozen=False, stem_grad_stride=2) if model == "stem"
-          else dict(bn_impl="auto"))
+    fuse_on = dict(fuse_block="on", fuse_proj="on", fuse_stem="on", fuse_stage="on")
+    kw = (dict(bn_frozen=True, bn_frozen_affine=True, stem_frozen=False, stem_grad_stride=2, **fuse_on)
+          if model == "stem" else dict(bn_impl="auto"))
     mcfg = NCameraCNNConfig(n_cams=2, backbone="resnet50", resnet_output_dim=32, **kw)
     cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=False, learning_rate=1e-3)
     rng = np.random.default_rng(3)
@@ -463,3 +468,106 @@ def test_trained_stem_and_exact_bn_steps_on_card_match_cpu(dev, model):
         assert (moved["cuda"] - moved["cpu"]).norm() <= 3e-2 * moved["cpu"].norm()
     assert counts == want, counts
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
+
+
+@pytest.mark.parametrize("n,h,w", [(3, 40, 72), (2, 256, 256)])
+def test_packed_stem_kernel(dev, n, h, w):
+    """The packed-output stem launches the stem kernel (counted apart) and
+    returns the pair-packed view of its NHWC output."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.rand(n, h, w, 3, generator=g).to(dev, torch.bfloat16)
+    w7 = (0.2 * torch.randn(7, 7, 3, 64, generator=g)).to(dev, torch.bfloat16)
+    b = _b(g, 64, dev)
+    before = (ts.KERNEL.launches, ts.KERNEL_PACKED.launches)
+    got = ts.stem_pool(x, w7, b, packed_out=True)
+    assert got.shape == (n, h // 4, w // 8, 128) and got.is_contiguous()
+    assert (ts.KERNEL.launches, ts.KERNEL_PACKED.launches) == (before[0], before[1] + 1)
+    assert torch.equal(got.reshape(n, h // 4, w // 4, 64), ts.stem_fwd(x, w7, b))
+    want = ts.stem_pool_packed_plain(x, w7, b)
+    a, r = got.float(), want.float()  # within one bf16 ulp, or of f32 rounding of zero
+    assert ((a - r).abs() <= 2.0 ** -7 * torch.maximum(a.abs(), r.abs()) + 1e-5 * r.abs().max()).all()
+
+
+@pytest.mark.parametrize("n_id", [3, 5])
+def test_frozen_stage_chain_kernel(dev, n_id):
+    """The whole-stage no-save chain of a frozen stage (stride 2, a
+    projection and n_id identity blocks), counted as `stage_fused_frozen`,
+    and the packed stage-0 input read as NHWC."""
+    g = torch.Generator().manual_seed(14)
+    x = torch.rand(2, 12, 10, 128, generator=g).to(dev, torch.bfloat16)
+    proj = _proj(g, 128, 64, 256, dev)
+    ids = [_id(g, 256, 64, dev) for _ in range(n_id)]
+    before = (tst.KERNEL.launches, tst.KERNEL_FROZEN.launches)
+    _close(tst.stage_chain(x, proj, ids, 2), tst.stage_plain(x, proj, ids, 2))
+    assert (tst.KERNEL.launches, tst.KERNEL_FROZEN.launches) == (before[0], before[1] + 1)
+    x0 = torch.rand(2, 8, 8, 64, generator=g).to(dev, torch.bfloat16)
+    p0 = _proj(g, 64, 64, 256, dev)
+    id0 = [_id(g, 256, 64, dev) for _ in range(2)]
+    packed = tst.stage_chain(x0.view(2, 8, 4, 128), p0, id0, 1, x_packed=True)
+    assert torch.equal(packed, tst.fused_stage(x0, p0, id0, 1))
+    assert tst.KERNEL.launches == before[0] + 2
+
+
+def test_feed_on_card_yields_the_cpu_batches(dev):
+    from argus_tpu_torch.data.feed import device_prefetch
+
+    rng = np.random.default_rng(5)
+    batches = [{"images": rng.integers(0, 256, (4, 16, 16, 6), dtype=np.uint8),
+                "cube_pose": rng.normal(size=(4, 7)).astype(np.float32),
+                "mask": np.ones(4, np.float32)} for _ in range(5)]
+    got = list(device_prefetch(batches, dev))
+    want = list(device_prefetch(batches, "cpu"))
+    assert len(got) == len(want) == 5
+    for g_, w_ in zip(got, want):
+        for k in w_:
+            assert g_[k].is_cuda and torch.equal(g_[k].cpu(), w_[k])
+
+
+@pytest.mark.parametrize("frozen_stages", [0, 3])
+def test_auto_launches_what_the_table_names(dev, frozen_stages):
+    """Every fuse flag "auto": a train step and an eval forward launch the
+    kernels `AUTO_FUSE` names for each function and mode, and nothing else."""
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.models.resnet import AUTO_FUSE
+    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+
+    mcfg = NCameraCNNConfig(n_cams=2, backbone="resnet50", resnet_output_dim=32, bn_frozen=True,
+                            bn_frozen_affine=True, stem_frozen=True, frozen_stages=frozen_stages)
+    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=False, learning_rate=1e-3)
+    model, state = create_train_state(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(6)
+    batch = {"images": rng.integers(0, 256, (2, 64, 64, 6), dtype=np.uint8),
+             "cube_pose": np.tile(np.array([0.1, 0, 0.2, 0, 0, 0.6, 0.8], np.float32), (2, 1)),
+             "mask": np.ones(2, np.float32)}
+
+    def expect(mode_of):
+        want = {name: 0 for name in kernels.KERNELS}
+        packed = frozen_stages >= 1 and AUTO_FUSE[("stem", "forward")] and AUTO_FUSE[("stage_chain_packed", "forward")]
+        if AUTO_FUSE[("stem", "forward")]:
+            want["stem_fused_packed" if packed else "stem_fused"] += 1
+        for i, n in enumerate((3, 4, 6, 3)):
+            m = mode_of(i)
+            if i == 0 or i < frozen_stages:
+                chain = "stage_chain_packed" if i == 0 and m == "forward" else "stage_chain"
+                if AUTO_FUSE[(chain, m)]:
+                    key = ("stage_fused" if i == 0 else "stage_fused_frozen") if m == "forward" else "stage_fused_save"
+                    want[key] += 1
+                    want["stage_fused_bwd"] += m == "train"
+                    continue
+            for name, count, fn in (("proj_fused", 1, "projection"), ("block_fused", n - 1, "identity")):
+                if AUTO_FUSE[(fn, m)]:
+                    if m == "forward":
+                        want[name] += count
+                    else:
+                        want[name + "_save"] += count
+                        want[name + "_bwd"] += count
+        return want
+
+    kernels.reset_launch_counts()
+    state, loss = make_train_step(model, cfg, device="cuda")(state, batch)
+    assert torch.isfinite(loss)
+    assert kernels.launch_counts() == expect(lambda i: "forward" if i < frozen_stages else "train")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model(torch.rand(2, 64, 64, 6, device="cuda"))
+    assert kernels.launch_counts() == expect(lambda i: "forward")

@@ -2,12 +2,14 @@
 argus_tpu, and its entry points refuse to fall back to the CPU when no card
 is present."""
 
+import dataclasses
 import os
 import re
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,6 +59,29 @@ def test_port_imports_without_jax_or_argus_tpu():
     assert n >= 15, proc.stdout
 
 
+# the modules of the training loop, each imported alone under the same block
+LOOP_MODULES = (
+    "argus_tpu_torch.checkpoint", "argus_tpu_torch.configs", "argus_tpu_torch.data",
+    "argus_tpu_torch.data.dataset", "argus_tpu_torch.data.feed", "argus_tpu_torch.data.synthetic",
+    "argus_tpu_torch.logging_utils", "argus_tpu_torch.native", "argus_tpu_torch.preemption",
+    "argus_tpu_torch.train",
+)
+
+
+def test_loop_modules_import_without_jax():
+    """Each module of the loop is among those the package walk imports under
+    the block (its first import, before any other module of the port)."""
+    code = _BLOCKED_IMPORT.replace(
+        "import argus_tpu_torch\n",
+        f"import {LOOP_MODULES[-1]}\nimport argus_tpu_torch\n", 1,
+    ).replace('print("imported"', f'assert set({LOOP_MODULES!r}) <= set(names), names\nprint("imported"')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert int(proc.stdout.split()[-2]) >= 30, proc.stdout
+
+
 def test_chip_smoke_imports_no_jax():
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack|argus_tpu)\b", re.M)
@@ -92,8 +117,10 @@ def test_train_imports_without_jax():
 
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from argus_tpu_torch.data.feed import device_prefetch
     from argus_tpu_torch.models import NCameraCNNConfig
-    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+    from argus_tpu_torch.train import TrainConfig, create_train_state, initialize_training, make_eval_step, \
+        make_train_step, train
 
     cfg = TrainConfig(
         model_config=NCameraCNNConfig(backbone="resnet18", resnet_output_dim=8, bn_frozen=True,
@@ -106,3 +133,11 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         create_train_state(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(model, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_eval_step(model, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        next(device_prefetch([{"mask": np.ones(2, np.float32)}]))
+    loop_cfg = dataclasses.replace(cfg, device_resident_mb=0)
+    for entry in (initialize_training, train):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(loop_cfg, datasets=([], []))

@@ -72,7 +72,8 @@ def _batch(n, seed=1):
 def test_batched_bf16_estimator_matches_argus_tpu(resnet50_ckpt):
     """Batch 8: both sides switch to bf16, folded frozen BN and every fused
     path (argus_tpu's CPU path runs the kernels' XLA reference math, the
-    port's the kernels' plain versions).
+    port's the kernels' plain versions, its flags set "on" where its
+    tuned config says "auto").
 
     Tolerance 2e-2 on poses: the two sides round bf16 at different points
     (argus_tpu's CPU reference rounds each conv output to bf16 before the
@@ -82,7 +83,9 @@ def test_batched_bf16_estimator_matches_argus_tpu(resnet50_ckpt):
     as argus_tpu's own bf16-vs-f32 gap (9.0e-3)."""
     jax_est = JaxEstimator(resnet50_ckpt, batch_size=8)
     est = Estimator(resnet50_ckpt, batch_size=8, device="cpu")
-    assert est.cfg.dtype == "bfloat16" and est.cfg.fuse_stage == "on"
+    assert est.cfg.dtype == "bfloat16" and est.cfg.fuse_stage == "auto"
+    for k in ("fuse_block", "fuse_proj", "fuse_stem", "fuse_stage"):  # "auto" is off on the CPU
+        setattr(est.model.backbone, k, "on")
     assert est.hw == jax_est.hw == (HW, HW)
     batch = _batch(8)
     got, want = est.predict(batch), jax_est.predict(batch)
@@ -126,15 +129,19 @@ def test_fused_f32_model_matches_argus_tpu(resnet50_ckpt):
 
 
 def test_serving_tuned_config_matches_argus_tpu():
+    """argus_tpu's serving configs, except that batched serving's fuse flags
+    are "auto" where argus_tpu forces "on": the port's "auto" runs each
+    kernel function where the H100 measured it faster (`AUTO_FUSE`)."""
+    fuse = ("fuse_block", "fuse_proj", "fuse_stem", "fuse_stage")
     for backbone in ("resnet18", "resnet50"):
         jcfg = JaxConfig(n_cams=2, backbone=backbone, resnet_output_dim=16)
         cfg = NCameraCNNConfig(n_cams=2, backbone=backbone, resnet_output_dim=16)
         for bs in (1, SERVING_FUSED_MIN_BATCH - 1, SERVING_FUSED_MIN_BATCH, 256):
-            assert dataclasses.asdict(serving_tuned_config(cfg, bs)) == dataclasses.asdict(
-                jax_serving_tuned_config(jcfg, bs)
-            )
+            want = dataclasses.asdict(jax_serving_tuned_config(jcfg, bs))
+            want.update({k: "auto" for k in fuse if want[k] == "on"})
+            assert dataclasses.asdict(serving_tuned_config(cfg, bs)) == want
     hi = throughput_tuned_config(NCameraCNNConfig())
-    assert hi.fuse_stem == hi.fuse_stage == "on" and hi.dtype == "bfloat16"
+    assert hi.fuse_stem == hi.fuse_stage == "auto" and hi.dtype == "bfloat16"
     assert latency_tuned_config(NCameraCNNConfig()).fuse_pointwise == "off"
 
 
