@@ -29,8 +29,9 @@ class NCameraCNNConfig:
     backbone as in argus_tpu: the BN mode (`bn_frozen`, `bn_frozen_affine`,
     else exact train-mode BN with `bn_stats_stride`, `bn_grad_stride` and
     the reduction engine `bn_impl`), `stem_frozen`, `stem_grad_stride` (the
-    fused stem's weight gradient on 1/s of the images) and `frozen_stages`.
-    remat raises in training (ROADMAP A10). None of them changes eval."""
+    fused stem's weight gradient on 1/s of the images), `frozen_stages`,
+    `fuse_pointwise` and `remat` / `remat_stages` (a block's interior
+    recomputed in the backward). None of them changes eval."""
 
     n_cams: int = 2
     resnet_output_dim: int = 1024

@@ -23,8 +23,12 @@ identity bottlenecks, and the identity BasicBlocks of ResNet-18/34 (stride
 1, cin == cout; the strided BasicBlocks stay unfused, as in argus_tpu) run
 through the kernel functions of
 `argus_tpu_torch.ops.kernels` on BN-folded weights (hand-written CUDA on the
-card, their plain versions on the CPU); otherwise each conv is `F.conv2d`
-followed by its BatchNorm. Under `frozen_stages >= 1` with the stem and the
+card, their plain versions on the CPU). `fuse_pointwise` ("on", "dot",
+"auto"; argus_tpu's `fuse_pw`) runs Conv_0 and Conv_2 of each bottleneck
+that no block, projection or chain kernel takes through the pointwise op (`ops.kernels.pointwise`: the kernel, or
+with "dot" its matmul form). Otherwise each conv is `F.conv2d` followed by
+its BatchNorm, folded into the conv under a frozen affine (`conv_bn`). Under
+`frozen_stages >= 1` with the stem and the
 stage-0 chain fused, the stem writes the pair-packed view the stage-0 chain
 reads (argus_tpu's `packed_out`, `_packed_fwd_ok`).
 
@@ -41,9 +45,13 @@ fused stem's backward is its weight gradient, on the first N /
 `stem_grad_stride` images. `stem_frozen` stops the gradient at the stem,
 and `frozen_stages=k` at the output of stage k-1, so the frozen part runs
 its no-save forwards under `torch.no_grad()` (train-mode BN there still
-updates its running statistics, as argus_tpu's does). remat in training
-raises `NotImplementedError` (ROADMAP A10): `torch.utils.checkpoint` would
-re-run the forward and update the running statistics twice.
+updates its running statistics, as argus_tpu's does). `remat` (every stage)
+and `remat_stages` keep nothing of a block's interior for the backward, as
+argus_tpu's `nn.remat` does; a chain ignores both. A fused identity
+bottleneck runs its no-save forward and the recompute backward (B7), a fused
+projection its no-save forward and, in the backward, the saving forward
+again; any other block is re-run in the backward (`_recompute`) with the
+batch statistics its forward recorded, so no running statistic moves twice.
 
 `forward(x, return_spatial=True)` returns the stride-32 feature map in f32
 instead of the pooled features, for the keypoint family's dense head.
@@ -57,38 +65,43 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from argus_tpu_torch.ops.kernels.basic_fused import basic_saved, fold_basic_params
-from argus_tpu_torch.ops.kernels.block_fused import block_saved, fold_bottleneck_params
-from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, proj_saved
+from argus_tpu_torch.ops.kernels.block_fused import block_remat, block_saved, fold_affine, fold_bottleneck_params
+from argus_tpu_torch.ops.kernels.pointwise import pointwise_conv
+from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, proj_remat, proj_saved
 from argus_tpu_torch.ops.kernels.stage_fused import packed_fwd_ok, stage_chain
 from argus_tpu_torch.ops.kernels.stem_fused import fold_stem_params, stem_pool
-from argus_tpu_torch.ops.norm import IMPLS, BatchNorm
+from argus_tpu_torch.ops.norm import IMPLS, BatchNorm, StatsTape
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+POINTWISE_FLAGS = ("off", "on", "dot", "auto")
 
 # What "auto" chooses on a CUDA tensor, per kernel function and mode: on
-# where the port's kernel made the model faster than cuDNN's convs with
-# PyTorch's frozen BN. "forward" is the no-save forward (serving, eval,
-# frozen stages), "train" the saving forward with its backward. The chain's
-# no-save forward is two functions, as in argus_tpu: the stage-0 form
-# ("stage_chain_packed", `packed_fwd_ok`) and the whole-stage chains of
-# frozen stages 1-3. From scripts/time_torch_auto_fuse.py at batch 256 rows
-# (512 images of 256x256, bf16) on one NVIDIA H100 80GB HBM3 at 700.00 W:
-# ms per step or forward saved by turning the function on alone, every
-# other entry off (negative: cuDNN wins), in the workloads named.
+# where the port's kernel made the model faster than its unfused path, cuDNN
+# convs on BN-folded weights (`conv_bn`). "forward" is the no-save forward
+# (serving, eval, frozen stages), "train" the saving forward with its
+# backward. The chain's no-save forward is two functions, as in argus_tpu:
+# the stage-0 form ("stage_chain_packed", `packed_fwd_ok`) and the
+# whole-stage chains of frozen stages 1-3. From scripts/time_torch_auto_fuse.py
+# at batch 256 rows (512 images of 256x256, bf16) on one NVIDIA H100 80GB
+# HBM3 at 700.00 W: ms per step or forward saved by turning the function on
+# alone, every other entry off (negative: cuDNN wins), in the workloads named.
 AUTO_FUSE = {
-    ("stem", "forward"): True,  # flagship step 11.50, serving 8.99
-    ("stem", "train"): True,  # stem-trained step 19.22
-    ("stage_chain_packed", "forward"): True,  # serving 25.64; frozen_stages=3 step 37.58 with the packed stem
-    ("stage_chain", "forward"): True,  # frozen_stages=3 step 14.65 (stages 1-2)
-    ("stage_chain", "train"): True,  # flagship step 27.21
-    ("projection", "forward"): True,  # serving 18.77
-    ("projection", "train"): False,  # flagship step -6.09, frozen_stages=3 step -8.77
-    ("identity", "forward"): True,  # serving 19.80
-    ("identity", "train"): False,  # flagship step -28.35, frozen_stages=3 step -13.40
-    ("basic", "forward"): False,  # keypoint eval forward -2.42
-    ("basic", "train"): False,  # keypoint step -23.65
+    ("stem", "forward"): True,  # flagship step 8.57, serving 8.89
+    ("stem", "train"): True,  # stem-trained step 13.24
+    ("stage_chain_packed", "forward"): True,  # serving 9.38; frozen_stages=3 step 17.56 with the packed stem
+    ("stage_chain", "forward"): False,  # frozen_stages=3 step -6.33 (stages 1-2)
+    ("stage_chain", "train"): False,  # flagship step -4.55
+    ("projection", "forward"): True,  # serving 2.15
+    ("projection", "train"): False,  # flagship step -38.91, frozen_stages=3 step -12.65
+    ("identity", "forward"): False,  # serving -3.86
+    ("identity", "train"): False,  # flagship step -73.13, frozen_stages=3 step -15.62
+    ("basic", "forward"): False,  # keypoint eval forward -6.78
+    ("basic", "train"): False,  # keypoint step -42.02
+    ("pointwise", "forward"): True,  # serving 7.77 (fuse_pointwise "auto" in all 16 blocks)
+    ("pointwise", "train"): False,  # flagship step -49.64, frozen_stages=3 step -12.89
 }
 
 
@@ -124,18 +137,45 @@ class Conv(nn.Module):
         self.stride = stride
         self.padding = padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The conv with its own weight, or with `weight` (OIHW, x's dtype)
+        and an f32 `bias`, summed with each output in f32 and rounded once
+        to x's dtype: a BN-folded conv (`conv_bn`)."""
         x = x.permute(0, 3, 1, 2)
         pad = self.padding
         if isinstance(pad, tuple):
             (top, bottom), (left, right) = pad
             x, pad = F.pad(x, (left, right, top, bottom)), 0
-        y = F.conv2d(x, self.weight.to(x.dtype), stride=self.stride, padding=pad)
+        y = F.conv2d(x, self.weight.to(x.dtype) if weight is None else weight, stride=self.stride, padding=pad)
+        if bias is not None:
+            y.add_(bias.reshape(-1, 1, 1))
         return y.permute(0, 2, 3, 1)
 
     def hwio(self) -> torch.Tensor:
         """The weight in argus_tpu's HWIO layout."""
         return self.weight.permute(2, 3, 1, 0)
+
+
+def conv_bn(conv: Conv, bn: BatchNorm, x: torch.Tensor, batch_stats: bool) -> torch.Tensor:
+    """`conv` then `bn`. Under a frozen affine with the running statistics
+    the BN is folded into the conv as the kernels fold it (`fold_affine`,
+    autograd through the fold): one conv on the folded weight in x's dtype,
+    then its f32 bias with one rounding, where the unfolded BN would round
+    after each of its four elementwise ops."""
+    if bn.frozen_affine and not batch_stats:
+        w, b = fold_affine(conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps, x.dtype,
+                           axis=0)
+        return conv(x, w, b)
+    return bn(conv(x), batch_stats)
+
+
+def _fold_1x1(conv: Conv, bn: BatchNorm, dtype) -> tuple:
+    """A 1x1 conv's folded (CIN, COUT) weight and (1, COUT) f32 bias: the
+    pointwise op's operands."""
+    cout, cin = conv.weight.shape[:2]
+    return fold_affine(conv.weight.reshape(cout, cin).t(), bn.weight, bn.bias, bn.running_mean,
+                       bn.running_var, bn.eps, dtype)
 
 
 def _fold(conv: Conv, bn: BatchNorm):
@@ -163,9 +203,9 @@ class BasicBlock(nn.Module):
             self.norm_proj = BatchNorm(filters, eps)
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), batch_stats))
-        y = self.BatchNorm_1(self.Conv_1(y), batch_stats)
-        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x), batch_stats)
+        y = torch.relu(conv_bn(self.Conv_0, self.BatchNorm_0, x, batch_stats))
+        y = conv_bn(self.Conv_1, self.BatchNorm_1, y, batch_stats)
+        residual = x if self.is_identity else conv_bn(self.conv_proj, self.norm_proj, x, batch_stats)
         return torch.relu(y + residual)
 
     def fold(self, dtype) -> tuple:
@@ -201,11 +241,23 @@ class BottleneckBlock(nn.Module):
             self.norm_proj = BatchNorm(cout, eps)
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
-        y = torch.relu(self.BatchNorm_0(self.Conv_0(x), batch_stats))
-        y = torch.relu(self.BatchNorm_1(self.Conv_1(y), batch_stats))
-        y = self.BatchNorm_2(self.Conv_2(y), batch_stats)
-        residual = x if self.is_identity else self.norm_proj(self.conv_proj(x), batch_stats)
+        y = torch.relu(conv_bn(self.Conv_0, self.BatchNorm_0, x, batch_stats))
+        y = torch.relu(conv_bn(self.Conv_1, self.BatchNorm_1, y, batch_stats))
+        y = conv_bn(self.Conv_2, self.BatchNorm_2, y, batch_stats)
+        residual = x if self.is_identity else conv_bn(self.conv_proj, self.norm_proj, x, batch_stats)
         return torch.relu(y + residual)
+
+    def forward_pointwise(self, x: torch.Tensor, impl: str) -> torch.Tensor:
+        """argus_tpu's `_call_fused` (frozen BN and affine): Conv_0 and Conv_2
+        through the pointwise op on their folded weights (`impl` "kernel" or
+        "dot"), Conv_2 with the residual; Conv_1 and the projection shortcut
+        as in `forward`, folded."""
+        w1, b1 = _fold_1x1(self.Conv_0, self.BatchNorm_0, x.dtype)
+        y = pointwise_conv(x, w1, b1, relu=True, impl=impl)
+        y = torch.relu(conv_bn(self.Conv_1, self.BatchNorm_1, y, False))
+        residual = x if self.is_identity else conv_bn(self.conv_proj, self.norm_proj, x, False)
+        w3, b3 = _fold_1x1(self.Conv_2, self.BatchNorm_2, x.dtype)
+        return pointwise_conv(y, w3, b3, residual, relu=True, impl=impl)
 
     def fold(self, dtype) -> tuple:
         """Frozen-BN-folded weights: the 6-tuple of the identity block kernel,
@@ -221,10 +273,10 @@ class BottleneckBlock(nn.Module):
             dtype, *args, *_fold(self.conv_proj, self.norm_proj), eps=self.eps
         )
 
-    def forward_fused(self, x: torch.Tensor, folded: tuple) -> torch.Tensor:
+    def forward_fused(self, x: torch.Tensor, folded: tuple, remat: bool = False) -> torch.Tensor:
         if self.is_identity:
-            return block_saved(x, *folded)
-        return proj_saved(x, *folded, self.strides)
+            return (block_remat if remat else block_saved)(x, *folded)
+        return (proj_remat if remat else proj_saved)(x, *folded, self.strides)
 
 
 class ResNet(nn.Module):
@@ -259,10 +311,8 @@ class ResNet(nn.Module):
         remat_stages: Sequence[int] = (),
     ) -> None:
         super().__init__()
-        if fuse_pointwise != "off":
-            raise NotImplementedError(
-                "fuse_pointwise: the pointwise kernel is not ported yet (ROADMAP queue B)"
-            )
+        if fuse_pointwise not in POINTWISE_FLAGS:
+            raise ValueError(f"fuse_pointwise must be one of {POINTWISE_FLAGS}, got {fuse_pointwise!r}")
         if not 0 <= frozen_stages <= len(stage_sizes):
             raise ValueError(f"frozen_stages={frozen_stages} out of range for {len(stage_sizes)} stages")
         if bn_impl not in IMPLS:
@@ -281,7 +331,8 @@ class ResNet(nn.Module):
         self.frozen_stages = frozen_stages
         self.bn_frozen = bn_frozen
         self.frozen = bn_frozen and bn_frozen_affine
-        self.remat = remat or bool(tuple(remat_stages))
+        self.remat, self.remat_stages = remat, tuple(remat_stages)
+        self.fuse_pointwise = fuse_pointwise
         self.fuse_block, self.fuse_proj = fuse_block, fuse_proj
         self.fuse_stem, self.fuse_stage = fuse_stem, fuse_stage
         self.fuse_block_stages = tuple(fuse_block_stages)
@@ -343,11 +394,6 @@ class ResNet(nn.Module):
     # ─────────────── forward ───────────────
 
     def forward(self, x: torch.Tensor, train: bool = False, return_spatial: bool = False) -> torch.Tensor:
-        if train and self.remat:
-            raise NotImplementedError(
-                "remat in the training step is not ported yet (ROADMAP A10): re-running a block's "
-                "forward would update its running statistics twice"
-            )
         dt = self.dtype
         bs = train and not self.bn_frozen  # argus_tpu: use_running_average = not train or bn_frozen
         bottleneck = self.block_cls is BottleneckBlock
@@ -382,13 +428,12 @@ class ResNet(nn.Module):
             if fuse_stem:
                 x = stem_pool(x, *self._folded_weights("stem"), self.stem_grad_stride, packed_out=packed)
             else:
+                conv = self.conv_init
                 if self.stem_space_to_depth:
                     n, h, w, c = x.shape
                     x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
-                    x = self.conv_init_s2d(x.reshape(n, h // 2, w // 2, 4 * c))
-                else:
-                    x = self.conv_init(x)
-                x = torch.relu(self.norm_init(x, bs))
+                    x, conv = x.reshape(n, h // 2, w // 2, 4 * c), self.conv_init_s2d
+                x = torch.relu(conv_bn(conv, self.norm_init, x, bs))
                 x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 
         for i in range(len(self.stage_sizes)):
@@ -427,21 +472,54 @@ class ResNet(nn.Module):
                and flag_on(self.fuse_stage, x, "stage_chain_packed" if packed else "stage_chain", mode))
         return blk, prj, stg
 
+    def _pointwise(self, x: torch.Tensor, mode: str) -> Optional[str]:
+        """The pointwise op's implementation for the bottleneck blocks that no
+        block, projection or chain kernel takes, or None: argus_tpu's
+        `fuse_pw` (frozen BN and affine), "dot" the matmul path on any
+        device, "on" and "auto" (`AUTO_FUSE`) the kernel."""
+        if not (self.frozen and self.block_cls is BottleneckBlock) or self.fuse_pointwise == "off":
+            return None
+        if self.fuse_pointwise == "dot":
+            return "dot"
+        return "kernel" if flag_on(self.fuse_pointwise, x, "pointwise", mode) else None
+
     def _stage(self, i: int, x: torch.Tensor, fuse_blk: bool, fuse_prj: bool, fuse_stg: bool, bs: bool,
                x_packed: bool = False):
         blocks = self.blocks(i)
         fused_here = i in self.fuse_block_stages
         if fuse_stg and fused_here and (i in self.fuse_stage_stages or i < self.frozen_stages):
+            # a chain keeps its own saved residuals: remat does not apply (argus_tpu)
             ws = [self._folded_weights(f"stage{i}_block{j}") for j in range(len(blocks))]
             proj = None if blocks[0].is_identity else ws[0]
             ids = ws if proj is None else ws[1:]
             return stage_chain(x, proj, ids, blocks[0].strides, x_packed=x_packed)
+        grad = torch.is_grad_enabled()
+        pw = self._pointwise(x, "train" if grad else "forward")
+        remat = grad and (self.remat or i in self.remat_stages)
         for j, blk in enumerate(blocks):
+            key = f"stage{i}_block{j}"
             if fused_here and ((fuse_blk and blk.is_identity) or (fuse_prj and not blk.is_identity)):
-                x = blk.forward_fused(x, self._folded_weights(f"stage{i}_block{j}"))
+                if remat and isinstance(blk, BottleneckBlock):
+                    x = blk.forward_fused(x, self._folded_weights(key), remat=True)
+                    continue
+                fn = lambda x, blk=blk, key=key: blk.forward_fused(x, self._folded_weights(key))  # noqa: E731
+            elif pw is not None:
+                fn = lambda x, blk=blk: blk.forward_pointwise(x, pw)  # noqa: E731
             else:
-                x = blk(x, bs)
+                fn = lambda x, blk=blk: blk(x, bs)  # noqa: E731
+            x = _recompute(blk, fn, x) if remat else fn(x)
         return x
+
+
+def _recompute(block: nn.Module, fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x), a block's forward, under remat: nothing of the block's interior
+    is kept for the backward, which re-runs fn (torch.utils.checkpoint,
+    non-reentrant) with the batch statistics the forward recorded
+    (`StatsTape`): no statistic is computed twice and no running statistic
+    moves twice."""
+    tape = StatsTape(block)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (tape.record(), tape.replay()))
 
 
 def resnet18(**kw) -> ResNet:

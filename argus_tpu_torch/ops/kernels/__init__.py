@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, one module per argus_tpu Pallas
 kernel family (forward, saving forward, backward; the stem, the bottleneck
 and the BasicBlock families; the augmentation's whole-stack and blur
-kernels; BatchNorm's two reductions), each with its plain PyTorch version
+kernels; BatchNorm's two reductions; the pointwise conv; the identity block's
+recompute backward), each with its plain PyTorch version
 beside it (see `_build` for how the CUDA sources are
 compiled and bound).
 
@@ -17,6 +18,7 @@ from argus_tpu_torch.ops.kernels import (
     block_fused,
     blur,
     bn_reduce,
+    pointwise,
     proj_fused,
     stage_fused,
     stem_fused,
@@ -44,6 +46,9 @@ KERNELS = {
     "stem_fused_bwd": stem_fused.KERNEL_BWD,
     "bn_stats": bn_reduce.KERNEL_STATS,
     "bn_bwd_reduce": bn_reduce.KERNEL_BWD,
+    "pointwise": pointwise.KERNEL,
+    "pointwise_bwd": pointwise.KERNEL_BWD,
+    "block_fused_rbwd": block_fused.KERNEL_RBWD,
 }
 
 

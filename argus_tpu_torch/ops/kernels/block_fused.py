@@ -16,6 +16,10 @@ bias + relu, as the TPU kernel rounds. The backward from the saved h1/h2:
     m1 = bf16(conv3x3^T(m2)) * (h1 > 0)      dw2[ky, kx] = shift(h1)^T m2
     dx = bf16(m1 @ w1^T + m3)                dw1 = x^T m1     (dw in f32)
 
+The backward under remat recomputes h1/h2 from x first (`_block_bwd_pallas`,
+`block_bwd_recompute`, csrc/block_fused_rbwd.cu) and then takes the same
+formulas; it reads only x, g, out, the folded weights and the biases.
+
 Each function has three parts: the plain PyTorch version (`*_plain`), which
 the CPU tests hold against argus_tpu and `chip_smoke.py` holds the kernel
 against on the card; the wrapper, which launches the CUDA kernel on a CUDA
@@ -39,6 +43,7 @@ KERNEL = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
 # handle counts its launches apart
 KERNEL_SAVE = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
 KERNEL_BWD = Kernel("block_fused_bwd", "argus_block_bwd", [P] * 15 + [L] + [I] * 5 + [P])
+KERNEL_RBWD = Kernel("block_fused_rbwd", "argus_block_rbwd", [P] * 19 + [L] + [I] * 5 + [P])
 
 
 # ───────────────────────────── plain pieces ─────────────────────────────
@@ -105,14 +110,17 @@ def identity_wgrad_problems(n, h, w, cin, f):
     return [(rows, f, cin, 1), (rows, f, f, 9), (rows, cin, f, 1)]
 
 
-def fold_affine(k: torch.Tensor, s, b, m, v, eps: float, dtype):
+def fold_affine(k: torch.Tensor, s, b, m, v, eps: float, dtype, axis: int = -1):
     """Frozen BN after a conv folded into it: (k * c) in `dtype`, b - m*c in f32
-    as a (1, COUT) row, with c = s * rsqrt(v + eps) (argus_tpu's f32 fold).
-    The BN buffers are frozen: a gradient reaches k (dk = dw * c), never
-    s, b, m or v."""
+    as a (1, COUT) row, with c = s * rsqrt(v + eps) (argus_tpu's f32 fold)
+    scaling k's output-channel axis `axis` (the last of an HWIO kernel, the
+    first of a torch OIHW weight). The BN buffers are frozen: a gradient
+    reaches k (dk = dw * c), never s, b, m or v."""
     s, b, m, v = (t.detach() for t in (s, b, m, v))
     c = s.float() * torch.rsqrt(v.float() + eps)
-    w = (k.float() * c).to(dtype).contiguous()
+    shape = [1] * k.ndim
+    shape[axis] = -1
+    w = (k.float() * c.reshape(shape)).to(dtype).contiguous()
     return w, (b.float() - m.float() * c).reshape(1, -1).contiguous()
 
 
@@ -278,6 +286,47 @@ def block_bwd(x, g, out, h1, h2, w1, w2, w3, need_dx=True):
     return dx, dw1, dw2, dw3
 
 
+def block_bwd_recompute_plain(x, g, out, w1, b1, w2, b2, w3, b3, need_dx=True, recomputed=False):
+    """The recompute backward in plain PyTorch: h1 and h2 recomputed from x
+    and rounded after bias + relu as the forward rounds them, then
+    `block_bwd_plain`. b3 is not read (out is given). `recomputed` appends
+    h1 and h2 to the result."""
+    dt = x.dtype
+    h1 = bias_relu(matmul_f32(x, w1), b1, dt)
+    h2 = bias_relu(conv3x3_f32(h1, w2, 1), b2, dt)
+    grads = block_bwd_plain(x, g, out, h1, h2, w1, w2, w3, need_dx)
+    return (*grads, h1, h2) if recomputed else grads
+
+
+def block_bwd_recompute(x, g, out, w1, b1, w2, b2, w3, b3, need_dx=True, recomputed=False):
+    """The identity block's backward from x, g and out alone (argus_tpu's
+    `_block_bwd_pallas`): (dx or None, dw1, dw2, dw3 in f32). The CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor. The kernel writes
+    the recomputed h1/h2 to a workspace of its own launch; `recomputed`
+    appends them to the result (a check of the kernel reads them: where a
+    recomputed sum lies within rounding of zero, the two versions' relu
+    masks may differ, and the backward from there on with them)."""
+    if not check_device(x):
+        return block_bwd_recompute_plain(x, g, out, w1, b1, w2, b2, w3, b3, need_dx, recomputed)
+    n, h, w, cin, f = _check_block(x, w1, w2, w3, (b1, b2, b3))
+    bf = torch.bfloat16
+    for name, t in (("g", g), ("out", out)):
+        check_cuda(name, t, bf, (n, h, w, cin))
+    dev = x.device
+    h1, h2, m1, m2 = (torch.empty((n, h, w, f), dtype=bf, device=dev) for _ in range(4))
+    dx = torch.empty_like(x) if need_dx else None
+    dw1 = torch.empty((cin, f), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((3, 3, f, f), dtype=torch.float32, device=dev)
+    dw3 = torch.empty((f, cin), dtype=torch.float32, device=dev)
+    ws_elems = wgrad_workspace(*identity_wgrad_problems(n, h, w, cin, f))
+    ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=dev)
+    KERNEL_RBWD.launch(
+        x, g, out, w1, b1, w2, b2, *transposed_weights(w1, w2, w3), dx, h1, h2, m1, m2, dw1, dw2, dw3,
+        ws, ws_elems, n, h, w, cin, f,
+    )
+    return (dx, dw1, dw2, dw3, h1, h2) if recomputed else (dx, dw1, dw2, dw3)
+
+
 def zero_grad_of(needed: bool, t: torch.Tensor):
     """A frozen input's cotangent: zeros where autograd asks for one."""
     return torch.zeros_like(t) if needed else None
@@ -316,6 +365,34 @@ def block_saved(x, w1, b1, w2, b2, w3, b3):
     backward."""
     if needs_grad(x, w1, b1, w2, b2, w3, b3):
         return _BlockSaved.apply(x, w1, b1, w2, b2, w3, b3)
+    return bottleneck_block(x, w1, b1, w2, b2, w3, b3)
+
+
+class _BlockRemat(torch.autograd.Function):
+    """A fused identity block under remat (argus_tpu's `_block` custom VJP):
+    the no-save forward keeping only x and out, and the backward that
+    recomputes h1/h2 (`block_bwd_recompute`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3):
+        out = bottleneck_block(x, w1, b1, w2, b2, w3, b3)
+        ctx.save_for_backward(x, out, w1, b1, w2, b2, w3, b3)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, w1, b1, w2, b2, w3, b3 = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dw1, dw2, dw3 = block_bwd_recompute(x, g.contiguous(), out, w1, b1, w2, b2, w3, b3, need[0])
+        db1, db2, db3 = (zero_grad_of(need[i], b) for i, b in zip((2, 4, 6), (b1, b2, b3)))
+        return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dw3.to(w3.dtype), db3
+
+
+def block_remat(x, w1, b1, w2, b2, w3, b3):
+    """The identity block under remat: as `block_saved`, with the recompute
+    backward in place of the saved h1/h2."""
+    if needs_grad(x, w1, b1, w2, b2, w3, b3):
+        return _BlockRemat.apply(x, w1, b1, w2, b2, w3, b3)
     return bottleneck_block(x, w1, b1, w2, b2, w3, b3)
 
 

@@ -225,6 +225,36 @@ def proj_saved(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
     return projection_block(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
 
 
+class _ProjRemat(torch.autograd.Function):
+    """A fused projection block under remat: the no-save forward keeping x
+    only; the backward re-runs the saving forward, then the one-pass
+    backward (what argus_tpu's `nn.remat` does around `_proj_block`)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3, wsc, bsc)
+        ctx.stride = stride
+        return projection_block(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, w3, b3, wsc, bsc = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        out, h1, h2 = projection_block_save(x, w1, b1, w2, b2, w3, b3, wsc, bsc, ctx.stride)
+        dx, dw1, dw2, dw3, dwsc = proj_bwd(x, g.contiguous(), out, h1, h2, w1, w2, w3, wsc, ctx.stride, need[0])
+        db1, db2, db3, dbsc = (zero_grad_of(need[i], b) for i, b in zip((2, 4, 6, 8), (b1, b2, b3, bsc)))
+        return (dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, dw3.to(w3.dtype), db3,
+                dwsc.to(wsc.dtype), dbsc, None)
+
+
+def proj_remat(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
+    """The projection block under remat: as `proj_saved`, keeping only x
+    between the forward and the backward."""
+    if needs_grad(x, w1, b1, w2, b2, w3, b3, wsc, bsc):
+        return _ProjRemat.apply(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
+    return projection_block(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
+
+
 def fused_projection_block(
     x, k1, s1, bi1, m1, v1, k2, s2, bi2, m2, v2, k3, s3, bi3, m3, v3,
     ksc, ssc, bisc, msc, vsc, *, stride: int = 2, eps: float = 1e-5,

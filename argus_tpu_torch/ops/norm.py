@@ -33,12 +33,20 @@ With batch statistics (train mode, `norm.py:183-213`):
   engine ("pallas") every s-th row block of the flattened rows
   (`ops.kernels.bn_reduce`): at a stride above 1 the two read other rows.
 
+Under remat (`StatsTape`) a block's forward records the batch statistics
+each BatchNorm used, and the block's recompute in the backward normalises
+with them: it computes no statistics (no second `bn_stats` launch, no other
+sum of another order) and moves no running statistic, as argus_tpu's
+`nn.remat` discards what its recompute updates.
+
 `impl` keeps argus_tpu's names: "pallas" is the reduction kernels (their
 plain versions on a CPU tensor), "auto" is the kernels on a CUDA tensor and
 "xla" on a CPU tensor, as the port's `fuse_*` flags read "auto".
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -107,20 +115,23 @@ class _Moments(torch.autograd.Function):
     """(mean, mean of squares) over all axes but the last, in f32: autograd's
     values and gradient through ``x.float().mean(red)`` and
     ``x.float().square().mean(red)``, dx = (dmsq / M) * (2 x) + dmean / M cast
-    to x's dtype, saving x instead of its f32 copy."""
+    to x's dtype, saving x instead of its f32 copy. `recorded` (a remat
+    recompute) gives the values of the forward instead of summing again."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, recorded=None):
+        ctx.save_for_backward(x)
+        if recorded is not None:
+            return recorded[0].clone(), recorded[1].clone()
         red = tuple(range(x.ndim - 1))
         x32 = x.float()
-        ctx.save_for_backward(x)
         return x32.mean(red), x32.square().mean(red)
 
     @staticmethod
     def backward(ctx, dmean, dmsq):
         (x,) = ctx.saved_tensors
         M = x.numel() // x.shape[-1]
-        return ((dmsq / M) * (2.0 * x.float()) + dmean / M).to(x.dtype)
+        return ((dmsq / M) * (2.0 * x.float()) + dmean / M).to(x.dtype), None
 
 
 class _Affine(torch.autograd.Function):
@@ -145,6 +156,34 @@ class _Affine(torch.autograd.Function):
         return da, (-da).sum(red), (dp * a).sum(red), (dy * p).sum(red), dy.sum(red)
 
 
+class StatsTape:
+    """The batch statistics the BatchNorms of one block (`module`) used in its
+    forward, for the block's recompute under remat: `record()` around the
+    forward, `replay()` around the recompute (torch.utils.checkpoint's
+    `context_fn`). Replayed, a BatchNorm takes its recorded statistics and
+    updates no running statistic."""
+
+    def __init__(self, module: nn.Module) -> None:
+        self.bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+        self.stats = {}
+
+    @contextlib.contextmanager
+    def _mode(self, mode: str):
+        for bn in self.bns:
+            bn.tape = (self, mode)
+        try:
+            yield
+        finally:
+            for bn in self.bns:
+                bn.tape = None
+
+    def record(self):
+        return self._mode("record")
+
+    def replay(self):
+        return self._mode("replay")
+
+
 class BatchNorm(nn.Module):
     """flax-compatible BatchNorm over the channel (last) axis (see the module
     docstring for the modes)."""
@@ -164,6 +203,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.tape = None  # (StatsTape, "record" or "replay") while a remat block runs
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         dt = x.dtype
@@ -178,7 +218,11 @@ class BatchNorm(nn.Module):
         if impl == "auto":
             impl = "pallas" if x.is_cuda else "xla"
         custom = self.stats_stride > 1 or self.grad_stride > 1 or impl == "pallas"
-        if impl == "pallas":
+        tape, mode = self.tape or (None, None)
+        recorded = tape.stats[self] if mode == "replay" else None
+        if custom and recorded is not None:
+            mean, var = recorded
+        elif impl == "pallas":
             with torch.no_grad():
                 s, q, n = bn_reduce.fused_stats(x.detach(), self.stats_stride)
                 mean = s / n
@@ -189,15 +233,18 @@ class BatchNorm(nn.Module):
                 red = tuple(range(x.ndim - 1))
                 mean = xs32.mean(red)
                 var = torch.clamp(xs32.square().mean(red) - mean.square(), min=0.0)
-        else:
-            mean, msq = _Moments.apply(x)
+        if not custom:
+            mean, msq = _Moments.apply(x, recorded)
             v = msq - mean.square()
             var = torch.maximum(v, torch.zeros_like(v))  # jnp.maximum's tie gradient (half each)
+        if mode == "record":
+            tape.stats[self] = (mean, var) if custom else (mean.detach(), msq.detach())
 
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        if mode != "replay":
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
         rstd = torch.rsqrt(var + self.eps)
         if custom:

@@ -44,7 +44,7 @@ DIR ...` runs it from the command line (`configs.cli`).
 
 Configurations not ported yet raise `NotImplementedError` naming their
 ROADMAP item: gradient accumulation (A5), a device mesh or several cards
-(A7), remat (A10) and, in `initialize_training`, the device-resident data
+(A7) and, in `initialize_training`, the device-resident data
 path that argus_tpu takes for any `device_resident_mb > 0` (A11; pass 0 for
 the host feed). The entry points run on CUDA unless the caller passes
 `device="cpu"`, and raise without a card.
@@ -141,12 +141,6 @@ def check_config(cfg: TrainConfig, mesh=None) -> None:
         raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP A5)")
     if mesh is not None or cfg.multigpu or (cfg.num_chips or 1) > 1 or cfg.num_model_shards > 1:
         raise NotImplementedError("data or tensor parallelism over several cards is not ported yet (ROADMAP A7)")
-    _, m = _resolved_model_config(cfg)
-    if getattr(m, "remat", False) or tuple(getattr(m, "remat_stages", ())):
-        raise NotImplementedError(
-            "remat in the training step is not ported yet (ROADMAP A10): re-running a block's forward "
-            "would update its running statistics twice"
-        )
 
 
 # ───────────────────────────── loss ─────────────────────────────

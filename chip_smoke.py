@@ -6,8 +6,8 @@
 Phases, each fatal on failure (nothing is caught and ignored):
 
 1. build every CUDA kernel of the serving, training, augmentation,
-   keypoint, trained-stem, exact-BN and frozen-stage paths from
-   `argus_tpu_torch/csrc/` (13 sources, one nvcc each, in parallel) and
+   keypoint, trained-stem, exact-BN, frozen-stage, pointwise and remat paths
+   from `argus_tpu_torch/csrc/` (16 sources, one nvcc each, in parallel) and
    print the seconds and ptxas' register/spill report;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
@@ -84,7 +84,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
    6 timed steps fused and 6 unfused in the same call; then keypoint
    serving, `Estimator(ckpt, batch_size=256)` on a checkpoint of those
    weights (unfused bf16, as argus_tpu serves BasicBlock backbones: no
-   kernel launch), poses within 0.05 of the CPU estimator on 8 rows;
+   kernel launch), poses within 0.05 of the CPU estimator on 8 rows, or,
+   where the CPU's own bf16 poses sit farther than that from its f32 ones
+   (the random-weight fit amplifies bf16 rounding), no farther from the f32
+   poses than 1.25x the CPU's bf16 ones;
 8. the stem_fused_save/bwd and BN-reduction kernels (with phase 4): the
    trained stem's saving forward (out and y within one bf16 ulp of the plain
    version, or within 1e-5 of the largest value where relu keeps a sum that
@@ -129,7 +132,39 @@ Phases, each fatal on failure (nothing is caught and ignored):
    `TrainState`, every kernel "auto" names launched; end-to-end
    camera-images/s beside the compute-only step, and how long
    `AsyncCheckpointer.save` holds the caller;
-12. the `kernels` JSON line, the card's name and power limit, and the result
+12. the pointwise kernels (`fuse_pointwise`, B11) at every (M, CIN, COUT,
+   residual) of configuration P's step (N = 512 camera images, 256x256:
+   Conv_0 and Conv_2 of the 16 bottlenecks) and at an odd M (513 x 7 x 7):
+   the forward with and without the residual, the backward with and
+   without emitting m, against their plain versions under the conv gate
+   (out, dx, m, dw); timed beside the plain version and "dot" (cuBLAS's bf16
+   GEMMs with f32 outputs and PyTorch's epilogue passes, `library_ms`);
+13. configuration P, the flagship step with `fuse_pointwise="on"` and the
+   block, projection and chain flags off: loss and gradients on 8
+   augmented rows against the "off" step (its convs on folded weights) under
+   phase 6's gates, launches per step 1 augment / 1 stem / 32 pointwise /
+   32 pointwise_bwd, 6 timed steps each with "on", "dot", "off" and "auto"
+   (ms/step, camera-images/s, peak memory);
+14. the identity block's recompute backward (B7, the backward of a fused
+   identity block under remat) at the four identity geometries (N = 512)
+   against its plain version under the conv gate (dx, dw1-3), timed beside
+   the plain version, cuDNN's folded recompute forward with its autograd
+   backward (`library_ms`) and the saved-residual backward at the same
+   shapes;
+15. configuration R, the flagship step with `remat=True` and the fuse flags
+   "on": loss and gradients on 8 rows against the step without remat under
+   phase 6's gates; launches per step 1 augment / 1 stem / 1 + 1 stage-0
+   chain (it ignores remat) / 3 projection forwards, 3 saving forwards
+   re-run and 3 backwards / 10 identity forwards and 10 recompute
+   backwards; 6 timed steps each way, R's peak memory below the other's;
+16. configuration R-B, Path B with `remat=True`: loss, gradients and the
+   running statistics' change after one step on 8 rows against Path B
+   without remat within Path B's gates, `bn_stats` launches per step the
+   same (53) both ways, 6 timed steps each way, R-B's peak memory below
+   Path B's; (phase 10, "auto", also switches `fuse_pointwise` in the two
+   train workloads, and its expected launches count the pointwise kernels
+   where `AUTO_FUSE` names them);
+17. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the augmentation kernels.
@@ -194,6 +229,9 @@ REPLACES = {
     "bn_bwd_reduce": "argus_tpu/ops/pallas/bn_reduce.py:149",
     "stem_fused_packed": "argus_tpu/ops/pallas/stem_fused.py:262",
     "stage_fused_frozen": "argus_tpu/ops/pallas/stage_fused.py:364",
+    "pointwise": "argus_tpu/ops/pallas/pointwise.py:93",
+    "pointwise_bwd": "argus_tpu/ops/pallas/pointwise.py:157",
+    "block_fused_rbwd": "argus_tpu/ops/pallas/block_fused.py:519",
 }
 SOURCES = {name: f"argus_tpu_torch/csrc/{name.replace('_save', '')}.cu" for name in REPLACES}
 SOURCES.update(stem_fused_packed="argus_tpu_torch/csrc/stem_fused.cu",
@@ -1619,14 +1657,20 @@ def keypoint_phase(tmpdir: str) -> tuple:
         return float(np.abs(a[:, :3] - b[:, :3]).max()), float(np.abs(a[:, 3:] - flip * b[:, 3:]).max())
 
     d_gpu, d_bf16 = pose_diff(poses[:8], ref_poses), pose_diff(ref_poses, f32_poses)
+    d_gpu32 = pose_diff(poses[:8], f32_poses)
     err = max(d_gpu)
     say(f"keypoint serving: Estimator(batch_size={N_ROWS}) dtype={est.cfg.dtype}, fuse_block={est.cfg.fuse_block}, "
         f"{ms:.2f} ms per predict ({N_ROWS / ms * 1e3:.1f} rows/s, host clock); GPU vs CPU (bf16) poses on the "
         f"first 8 rows: max abs diff {err:.4g} (atol {POSE_ATOL}; translation {d_gpu[0]:.3g}, quaternion up to "
-        f"sign {d_gpu[1]:.3g}); the CPU's bf16 vs its f32 poses: translation {d_bf16[0]:.3g}, quaternion "
-        f"{d_bf16[1]:.3g}; {time.perf_counter() - t0:.1f} s with the CPU estimators")
-    if not err <= POSE_ATOL:
-        raise AssertionError(f"keypoint GPU poses differ from the CPU estimator by {err} > {POSE_ATOL}")
+        f"sign {d_gpu[1]:.3g}); against the CPU's f32 poses, the GPU's: translation {d_gpu32[0]:.3g}, quaternion "
+        f"{d_gpu32[1]:.3g}, the CPU's bf16: translation {d_bf16[0]:.3g}, quaternion {d_bf16[1]:.3g}; "
+        f"{time.perf_counter() - t0:.1f} s with the CPU estimators")
+    # the random-weight keypoint fit amplifies bf16 rounding: where the CPU's
+    # own bf16 poses sit farther than POSE_ATOL from its f32 ones, the GPU's
+    # are held to the f32 poses no worse than the CPU's bf16 ones (KP_GRAD_SLACK)
+    if not (err <= POSE_ATOL or all(g <= KP_GRAD_SLACK * max(b, POSE_ATOL) for g, b in zip(d_gpu32, d_bf16))):
+        raise AssertionError(f"keypoint GPU poses differ from the CPU estimator by {err} > {POSE_ATOL}, and from its "
+                             f"f32 poses by {d_gpu32} against the CPU's bf16 {d_bf16}")
     return runs["fused"][0], eval_launches, runs["fused"][1]
 
 
@@ -1701,10 +1745,12 @@ def frozen_kernel_phase() -> dict:
     return results
 
 
-def _expected_launches(frozen_stages: int, stem_trained: bool, serving: bool = False, augment: bool = True) -> dict:
+def _expected_launches(frozen_stages: int, stem_trained: bool, serving: bool = False, augment: bool = True,
+                       pointwise: bool = False) -> dict:
     """The launches of one flagship train step (or, with `serving`, one
-    no-save forward) with every fuse flag "auto": what `AUTO_FUSE` names for
-    each function in its mode (`models/resnet.py`'s dispatch)."""
+    no-save forward) with every fuse flag "auto" (`fuse_pointwise` too with
+    `pointwise`, else "off"): what `AUTO_FUSE` names for each function in its
+    mode (`models/resnet.py`'s dispatch)."""
     from argus_tpu_torch.models.resnet import AUTO_FUSE
 
     want = dict(_NONE, augment_fused=int(augment and not serving))
@@ -1738,6 +1784,9 @@ def _expected_launches(frozen_stages: int, stem_trained: bool, serving: bool = F
                 else:
                     want[name + "_save"] += count
                     want[name + "_bwd"] += count
+            elif pointwise and AUTO_FUSE[("pointwise", m)]:  # Conv_0 and Conv_2 of each block the kernels do not take
+                want["pointwise"] += 2 * count
+                want["pointwise_bwd"] += 2 * count * (m == "train")
     return want
 
 
@@ -1861,8 +1910,8 @@ def auto_phase(tmpdir: str) -> dict:
     say("auto: AUTO_FUSE " + ", ".join(f"{f}/{m} {'on' if v else 'off'}" for (f, m), v in AUTO_FUSE.items()))
     timings = {}
 
-    def switch(backbone, flags):
-        for k in FUSE_ON:
+    def switch(backbone, flags, pointwise=True):
+        for k in (*FUSE_ON, "fuse_pointwise") if pointwise else FUSE_ON:
             setattr(backbone, k, flags)
 
     for workload, frozen_stages in (("flagship", 0), ("frozen_stages=3", 3)):
@@ -1873,7 +1922,7 @@ def auto_phase(tmpdir: str) -> dict:
             ms, launches, state = _median_step_ms(step, state, batch)
             timings.setdefault(workload, {})[flags] = ms
             if flags == "auto":
-                want = _expected_launches(frozen_stages, stem_trained=False)
+                want = _expected_launches(frozen_stages, stem_trained=False, pointwise=True)
                 if launches != want:
                     raise AssertionError(f"auto {workload}: launches {launches} != the table's {want}")
             say(f"auto: {workload} step, flags {flags}: {ms:.2f} ms/step "
@@ -1895,7 +1944,7 @@ def auto_phase(tmpdir: str) -> dict:
     frames = np.random.default_rng(0).integers(0, 256, (N_ROWS, HW, HW, 6), dtype=np.uint8)
     times = {}
     for flags in ("on", "off", "auto"):
-        switch(est.model.backbone, flags)
+        switch(est.model.backbone, flags, pointwise=False)  # batched serving keeps fuse_pointwise "off"
         est.predict(frames)
         kernels.reset_launch_counts()
         est.predict(frames)
@@ -1910,7 +1959,7 @@ def auto_phase(tmpdir: str) -> dict:
     settings = ("on", "off", "auto")
     for r in range(C1_ROUNDS):
         for flags in settings[r % 3:] + settings[:r % 3]:
-            switch(est.model.backbone, flags)
+            switch(est.model.backbone, flags, pointwise=False)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             est.predict(frames)
@@ -2090,6 +2139,337 @@ def loop_phase(tmpdir: str) -> dict:
     return dict(e2e_ms=e2e_ms, saving_ms=saving_ms, compute_ms=compute_ms, hold_ms=hold_ms, launches=launches)
 
 
+
+# ─────────────── phase 12: the pointwise kernels (B11) ───────────────
+
+# configuration P's pointwise calls per step at N = 512, 256x256: (H = W, CIN,
+# COUT, residual, calls) for Conv_0 (no residual) and Conv_2 (the block's
+# residual) of the 16 bottleneck blocks
+POINTWISE_GEOMETRIES = [
+    (64, 64, 64, False, 1), (64, 256, 64, False, 2), (64, 64, 256, True, 3), (64, 256, 128, False, 1),
+    (32, 512, 128, False, 3), (32, 128, 512, True, 4), (32, 512, 256, False, 1), (16, 1024, 256, False, 5),
+    (16, 256, 1024, True, 6), (16, 1024, 512, False, 1), (8, 2048, 512, False, 2), (8, 512, 2048, True, 3),
+]
+P_FUSE = dict(fuse_pointwise="on", fuse_block="off", fuse_proj="off", fuse_stage="off", fuse_stem="on")
+EXPECTED_P_LAUNCHES = {**_NONE, "augment_fused": 1, "stem_fused": 1, "pointwise": 32, "pointwise_bwd": 32}
+# configuration R (remat, every fuse flag on): the stage-0 chain pair ignores remat; stages 1-3
+EXPECTED_R_LAUNCHES = {
+    **_NONE, "augment_fused": 1, "stem_fused": 1, "stage_fused_save": 1, "stage_fused_bwd": 1, "proj_fused": 3,
+    "proj_fused_save": 3, "proj_fused_bwd": 3, "block_fused": 10, "block_fused_rbwd": 10,
+}
+# the identity geometries of B7: (H = W, CIN, F, launches per R step); the
+# stage-0 geometry runs in the chain there, and is checked here beside
+RBWD_GEOMETRIES = [(64, 256, 64, 0), (32, 512, 128, 3), (16, 1024, 256, 5), (8, 2048, 512, 2)]
+
+
+def pointwise_kernel_phase() -> dict:
+    """The pointwise forward (with and without the residual) and backward
+    (emitting m where the op had a residual) at every geometry of
+    configuration P, and at an odd M, against their plain versions under the
+    conv gate, for out, dx, m and dw; times per P step. `library_ms` is the
+    "dot" composition (cuBLAS's bf16 GEMMs with f32 outputs and PyTorch's
+    epilogue passes); the bound counts x2, w, b (and res) read and out
+    written once (the backward: g, out, x2, w read, dx, the f32 dw and m
+    written), 2 * M * CIN * COUT FLOPs a product."""
+    import torch
+
+    from argus_tpu_torch.ops.kernels import pointwise
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    record = _recorder(results)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    # an odd M (513 images of 7x7): no tile divides it
+    m_odd = 513 * 7 * 7
+    x, w, b, res, gr = rand(m_odd, 256), _w(g, 256, 64), _b(g, 64), rand(m_odd, 64), rand(m_odd, 64)
+    for r in (None, res):
+        out = pointwise.pointwise_fwd(x, w, b, r)
+        e = _compare(f"pointwise M={m_odd}", out, pointwise.pointwise_fwd_plain(x, w, b, r))
+        args = (gr, out, x, w, True, r is not None)
+        e = max(e, _compare(f"pointwise_bwd M={m_odd}", [t for t in pointwise.pointwise_bwd(*args) if t is not None],
+                            [t for t in pointwise.pointwise_bwd_plain(*args) if t is not None]))
+        say(f"pointwise odd M = {m_odd} (CIN 256, COUT 64, residual {r is not None}): forward and backward "
+            f"within the gate, max_abs_err {e:.4g}")
+    del x, w, b, res, gr
+
+    fwd, bwd = [], []
+    for h, cin, cout, with_res, calls in POINTWISE_GEOMETRIES:
+        m = N_IMG * h * h
+        x, w, b = rand(m, cin), _w(g, cin, cout), _b(g, cout)
+        res = rand(m, cout) if with_res else None
+        args = (x, w, b, res)
+        out = pointwise.pointwise_fwd(*args)
+        label = f"M={m} ({N_IMG}x{h}x{h}) {cin}->{cout}{' +res' if with_res else ''}"
+        fl = 2 * m * cin * cout
+        fwd.append((
+            label, calls, lambda args=args: pointwise.pointwise_fwd(*args),
+            lambda args=args: pointwise.pointwise_fwd_plain(*args),
+            lambda args=args: pointwise.pointwise_fwd_dot(*args),
+            fl, nbytes(*(t for t in args if t is not None), out), 1, 0,
+        ))
+        gr = rand(m, cout)
+        args = (gr, out, x, w, True, with_res)
+        bwd.append((  # m is None without a residual: the gate takes the outputs there are
+            label, calls, lambda args=args: [t for t in pointwise.pointwise_bwd(*args) if t is not None],
+            lambda args=args: [t for t in pointwise.pointwise_bwd_plain(*args) if t is not None],
+            lambda args=args: pointwise.pointwise_bwd_dot(*args),
+            2 * fl, nbytes(gr, out, x, w, x) + 4 * cin * cout + (nbytes(gr) if with_res else 0), 3, 0,
+        ))
+    record("pointwise", fwd)
+    record("pointwise_bwd", bwd)
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    return results
+
+
+# ─────────────── phase 13: configuration P (fuse_pointwise) ───────────────
+
+
+def pointwise_phase() -> tuple:
+    """Configuration P: the flagship step with `fuse_pointwise="on"` and the
+    block, projection and chain flags off (the stem as the flagship has it):
+    its loss and gradients on 8 augmented rows against the "off" step (every
+    conv of the blocks through cuDNN on its folded weight), the flagship's
+    gates; launches per step 1 augment / 1 stem / 32 pointwise / 32
+    pointwise_bwd; then a warm-up and 6 timed steps each with
+    `fuse_pointwise` "on", "dot", "off" and "auto", finite losses, ms/step,
+    camera-images/s and peak memory. Returns (launches, {flag: (ms, peak
+    bytes)})."""
+    import torch
+
+    from argus_tpu_torch.train import _loss_and_grads_on, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup(**P_FUSE)
+    head, images = _eight_rows(cfg, batch)
+    bb = model.backbone
+    loss_p, grads_p = _loss_and_grads_on(model, state.params, images, head)
+    bb.fuse_pointwise, bb.fuse_stem = "off", "off"
+    loss_o, grads_o = _loss_and_grads_on(model, state.params, images, head)
+    bb.fuse_pointwise, bb.fuse_stem = "on", "on"
+    errs = _grad_errors(grads_p, grads_o)
+    worst, median, name = _spread(errs)
+    loss_err = abs(loss_p.item() - loss_o.item()) / abs(loss_o.item())
+    say(f"P (fuse_pointwise): pointwise vs off on the first 8 rows: loss {loss_p.item():.6f} vs {loss_o.item():.6f} "
+        f"(rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); gradients of {len(errs)} parameters: max rel {worst:.3g} "
+        f"({name}), median {median:.3g} (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
+        raise AssertionError("the pointwise step disagrees with the off step")
+    del grads_p, grads_o, head, images
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, cfg)
+    runs, launches = {}, None
+    for flag in ("on", "dot", "off", "auto"):
+        bb.fuse_pointwise = flag
+        got, ms, state = _time_steps(step, state, batch, f"P fuse_pointwise={flag}")
+        runs[flag] = (ms, torch.cuda.max_memory_allocated())
+        if flag == "on":
+            launches = got
+            if got != EXPECTED_P_LAUNCHES:
+                raise AssertionError(f"P launch counts {got} != expected {EXPECTED_P_LAUNCHES}")
+        elif flag in ("dot", "off") and (got["pointwise"] or got["pointwise_bwd"]):
+            raise AssertionError(f"P with fuse_pointwise={flag} launched the pointwise kernels: {got}")
+    say("P: " + ", ".join(f"{f} {ms:.2f} ms/step ({N_IMG / ms * 1e3:.1f} camera-images/s, peak "
+                          f"{peak / 2**30:.2f} GiB)" for f, (ms, peak) in runs.items()) + " in this call")
+    del model, state, batch, step
+    torch.cuda.empty_cache()
+    return launches, runs
+
+
+# ─────────────── phase 14: the recompute backward (B7) ───────────────
+
+
+def rbwd_kernel_phase() -> dict:
+    """B7 at the four identity geometries (N = 512, 256x256 frames): the
+    recomputed h1/h2 against the plain recompute and dx, dw1-3 against the
+    plain backward from the kernel's own h1/h2, under the conv gate (where a
+    recomputed value lies within the gate of zero the two recomputes' relu
+    masks may differ, and the backward from there on with them: counted and
+    printed, with dx's elements beyond the gate end to end); times per
+    configuration R step (3 + 5 + 2 calls) beside the plain version, the
+    bound and the library figure (cuDNN's folded recompute forward plus its
+    autograd backward), and the saved-residual backward's time at the same
+    shapes. The bound counts the backward's FLOPs plus the recomputed h1
+    and h2 (2 * M * (CIN * F + 9 * F * F)), x, g, out and the weights read
+    once, dx and the f32 dw written once."""
+    import torch
+
+    from argus_tpu_torch.ops.kernels import block_fused
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    results = {}
+    record = _recorder(results)
+    cases = []
+    for h, cin, f, calls in RBWD_GEOMETRIES:
+        x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        iw = _id_weights(g, cin, f)
+        out, h1, h2 = block_fused.bottleneck_block_save(x, *iw)
+        gi = torch.randn(out.shape, generator=g, device="cuda").to(torch.bfloat16)
+        args = (x, gi, out, *iw)
+        saved_ms = cuda_ms(lambda: block_fused.block_bwd(x, gi, out, h1, h2, iw[0], iw[2], iw[4]), 5)
+        xl = x.detach().requires_grad_()
+        wl = [t.detach().requires_grad_(t.dtype == torch.bfloat16) for t in iw]
+
+        def lib(xl=xl, wl=wl, gi=gi):  # the recompute: cuDNN forward, then its autograd backward
+            y = _lib_block(xl, *wl)
+            return torch.autograd.grad(y, [xl, wl[0], wl[2], wl[4]], gi)
+
+        m = N_IMG * h * h
+        fl = 2 * _block_flops(N_IMG, h, h, cin, f, cin, 1, False) + 2 * m * (cin * f + 9 * f * f)
+        label = f"({N_IMG}, {h}, {h}, {cin}) F={f}"
+        # the kernel's recomputed h1/h2 against the plain recompute, and its
+        # gradients against the plain backward from those h1/h2: a sum within
+        # rounding of zero may take the relu mask the other way in the two
+        # recomputes, and the backward from there on with it
+        *_, h1k, h2k = block_fused.block_bwd_recompute(*args, recomputed=True)
+        _, h1p, h2p = block_fused.bottleneck_block_save_plain(x, *iw)
+        flips = [int(((a > 0) != (b > 0)).sum()) for a, b in ((h1k, h1p), (h2k, h2p))]
+        near = max((torch.maximum(a.float().abs(), b.float().abs())[(a > 0) != (b > 0)].max().item() if n else 0.0)
+                   for (a, b), n in zip(((h1k, h1p), (h2k, h2p)), flips))
+        full = [t for t in block_fused.block_bwd_recompute_plain(*args)]
+        got = block_fused.block_bwd_recompute(*args)
+        beyond = int(((got[0].float() - full[0].float()).abs() > TOL_REL * full[0].float().abs().max() + TOL_ABS).sum())
+        say(f"block_fused_rbwd {label}: recomputed h1/h2 relu masks differ from the plain recompute at {flips[0]} "
+            f"and {flips[1]} of {h1p.numel()} elements each, all at |h| <= {near:.3g}; against the plain recompute "
+            f"end to end, {beyond} dx elements lie beyond the gate")
+        del full, got
+        cases.append((
+            label, calls,
+            lambda args=args: block_fused.block_bwd_recompute(*args, recomputed=True),
+            lambda args=args, h1k=h1k, h2k=h2k: [
+                *block_fused.block_bwd_plain(*args[:3], h1k, h2k, args[3], args[5], args[7]),
+                *block_fused.bottleneck_block_save_plain(args[0], *args[3:])[1:]],
+            lib,
+            fl, nbytes(x, gi, out, *iw) + nbytes(x) + 4 * (cin * f + 9 * f * f + f * cin), 11,
+            2 * _round_trip_bytes(N_IMG, h, h, f, 1),
+        ))
+        say(f"block_fused_rbwd {label}: the saved-residual backward (block_fused_bwd) takes {saved_ms:.3f} ms here")
+        del out, h1, h2
+    record("block_fused_rbwd", cases)
+    del cases
+    torch.cuda.empty_cache()
+    return results
+
+
+# ─────────────── phase 15: configuration R (remat, fused) ───────────────
+
+
+def remat_phase() -> tuple:
+    """Configuration R: the flagship step with `remat=True` and every fuse
+    flag "on" (the stage-0 chain ignores remat): loss and gradients on 8
+    augmented rows against the same model without remat, the flagship's
+    gates; launches per step 1 augment / 1 stem / 1 + 1 chain / 3 projection
+    forwards, 3 saving forwards re-run, 3 backwards / 10 identity forwards,
+    10 recompute backwards, no saving identity forward; 6 timed steps each
+    way, and R's peak memory below the step without remat. Returns
+    (launches, ms, peak, ms without remat, peak without remat)."""
+    import torch
+
+    from argus_tpu_torch.train import _loss_and_grads_on, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup(remat=True)
+    bb = model.backbone
+    head, images = _eight_rows(cfg, batch)
+    bb.remat = False  # the twin: the same model keeping every block's interiors
+    loss_s, grads_s = _loss_and_grads_on(model, state.params, images, head)
+    bb.remat = True
+    loss_r, grads_r = _loss_and_grads_on(model, state.params, images, head)
+    errs = _grad_errors(grads_r, grads_s)
+    worst, median, name = _spread(errs)
+    loss_err = abs(loss_r.item() - loss_s.item()) / abs(loss_s.item())
+    say(f"R (remat, fused): remat vs saved on the first 8 rows: loss {loss_r.item():.6f} vs {loss_s.item():.6f} "
+        f"(rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); gradients of {len(errs)} parameters: max rel {worst:.3g} "
+        f"({name}), median {median:.3g} (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
+        raise AssertionError("the remat step disagrees with the step without remat")
+    del grads_s, grads_r, head, images
+    torch.cuda.empty_cache()
+    step = make_train_step(model, cfg)
+    bb.remat = False
+    _, ms_s, state = _time_steps(step, state, batch, "R's twin (no remat, fuse on)")
+    peak_s = torch.cuda.max_memory_allocated()
+    bb.remat = True
+    launches, ms_r, state = _time_steps(step, state, batch, "R (remat, fuse on)")
+    peak_r = torch.cuda.max_memory_allocated()
+    if launches != EXPECTED_R_LAUNCHES:
+        raise AssertionError(f"R launch counts {launches} != expected {EXPECTED_R_LAUNCHES}")
+    say(f"R: {ms_r:.2f} ms/step, peak {peak_r / 2**30:.2f} GiB, against {ms_s:.2f} ms/step, peak "
+        f"{peak_s / 2**30:.2f} GiB without remat, in this call")
+    if not peak_r < peak_s:
+        raise AssertionError("R's peak memory is not below the step's without remat")
+    del model, state, batch, step
+    torch.cuda.empty_cache()
+    return launches, ms_r, peak_r, ms_s, peak_s
+
+
+# ─────────────── phase 16: configuration R-B (remat, exact BN) ───────────────
+
+
+def remat_exact_phase() -> tuple:
+    """Configuration R-B: Path B (exact BN, `bn_impl="auto"`, the stem
+    trained) with `remat=True`, against the same model without remat: loss,
+    gradients and the running statistics' change after one step on 8
+    augmented rows within Path B's gates; then 6 timed steps each way, the
+    `bn_stats` launches per step equal (53: the recompute reads the
+    statistics its forward recorded), and the remat step's peak memory below
+    the other's. Returns (launches, ms, peak, ms without remat, peak without
+    remat)."""
+    import torch
+
+    from argus_tpu_torch.train import _loss_and_grads_on, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup(bn_frozen=False, bn_frozen_affine=False, stem_frozen=False,
+                                                    bn_impl="auto", remat=True, **{k: "auto" for k in FUSE_ON})
+    bb = model.backbone
+    head, images = _eight_rows(cfg, batch)
+    bb.remat = False  # the twin: Path B itself
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    loss_s, grads_s = _loss_and_grads_on(model, state.params, images, head)
+    after_s = {k: v.clone() for k, v in model.named_buffers()}
+    with torch.no_grad():
+        for k, v in model.named_buffers():
+            v.copy_(before[k])
+    bb.remat = True
+    loss_r, grads_r = _loss_and_grads_on(model, state.params, images, head)
+    after_r = dict(model.named_buffers())
+    errs = _grad_errors(grads_r, grads_s)
+    worst, median, name = _spread(errs)
+    serr = {k: ((after_r[k] - before[k]) - (after_s[k] - before[k])).norm().item()
+            / (after_s[k] - before[k]).norm().item() for k in before if (after_s[k] - before[k]).norm() > 0}
+    s_worst, s_median, s_name = _spread(serr)
+    loss_err = abs(loss_r.item() - loss_s.item()) / abs(loss_s.item())
+    say(f"R-B (remat, exact BN): remat vs not on the first 8 rows: loss {loss_r.item():.6f} vs {loss_s.item():.6f} "
+        f"(rel {loss_err:.3g}, tol {EXACT_LOSS_RTOL}); gradients of {len(errs)} parameters: max rel {worst:.3g} "
+        f"({name}), median {median:.3g} (tol {EXACT_GRAD_RTOL}); running statistics' change, {len(serr)} of "
+        f"{len(before)} buffers: max rel {s_worst:.3g} ({s_name}), median {s_median:.3g} (tol {EXACT_STATS_RTOL})")
+    if not (loss_err <= EXACT_LOSS_RTOL and worst <= EXACT_GRAD_RTOL[0] and median <= EXACT_GRAD_RTOL[1]
+            and len(serr) == len(before) and s_worst <= EXACT_STATS_RTOL[0] and s_median <= EXACT_STATS_RTOL[1]):
+        raise AssertionError("the remat exact-BN step disagrees with the step without remat")
+    del grads_s, grads_r, head, images, before, after_s
+    torch.cuda.empty_cache()
+    step = make_train_step(model, cfg)
+    bb.remat = False
+    launches_s, ms_s, state = _time_steps(step, state, batch, "R-B's twin (exact BN, no remat)")
+    peak_s = torch.cuda.max_memory_allocated()
+    bb.remat = True
+    launches, ms_r, state = _time_steps(step, state, batch, "R-B (exact BN, remat)")
+    peak_r = torch.cuda.max_memory_allocated()
+    if launches != EXPECTED_EXACT_LAUNCHES or launches_s != EXPECTED_EXACT_LAUNCHES:
+        raise AssertionError(f"R-B launch counts {launches} (without remat {launches_s}) != expected "
+                             f"{EXPECTED_EXACT_LAUNCHES}")
+    say(f"R-B: {ms_r:.2f} ms/step, peak {peak_r / 2**30:.2f} GiB, against {ms_s:.2f} ms/step, peak "
+        f"{peak_s / 2**30:.2f} GiB without remat, in this call; bn_stats launches per step {launches['bn_stats']} "
+        f"both ways")
+    if not peak_r < peak_s:
+        raise AssertionError("R-B's peak memory is not below the step's without remat")
+    del model, state, batch, step
+    torch.cuda.empty_cache()
+    return launches, ms_r, peak_r, ms_s, peak_s
+
+
 def main() -> int:
     global GPU
     import torch
@@ -2126,6 +2506,15 @@ def main() -> int:
         f"transposes, mean pool, head, loss, BN folds, weight transposes, optimizer and launch gaps")
     a_launches, a_ms, a4_ms = path_a_phase()
     b_launches, b_ms = path_b_phase()
+    measured.update(pointwise_kernel_phase())
+    p_launches, p_runs = pointwise_phase()
+    measured.update(rbwd_kernel_phase())
+    r_launches, r_ms, r_peak, r_ms_s, r_peak_s = remat_phase()
+    rb_launches, rb_ms, rb_peak, rb_ms_s, rb_peak_s = remat_exact_phase()
+    say(f"the slice's steps in this call (ms/step, peak GiB): P " + ", ".join(
+        f"{f} {ms:.2f} ({peak / 2**30:.2f})" for f, (ms, peak) in p_runs.items())
+        + f"; R {r_ms:.2f} ({r_peak / 2**30:.2f}) against {r_ms_s:.2f} ({r_peak_s / 2**30:.2f}) without remat; "
+        f"R-B {rb_ms:.2f} ({rb_peak / 2**30:.2f}) against {rb_ms_s:.2f} ({rb_peak_s / 2**30:.2f})")
     measured.update(frozen_kernel_phase())
     kernels.reset_launch_counts()  # the frozen fine-tune phase counts from here
     f_launches, f_eval_launches, f_ms, f_unfused_ms = frozen_phase()
@@ -2155,7 +2544,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": (launches[name] or train_launches[name] or a_launches[name] or b_launches[name]
                          or aug_launches["per-op"][name] or kp_launches[name] or kp_eval_launches[name]
-                         or f_launches[name] or f_eval_launches[name]),
+                         or f_launches[name] or f_eval_launches[name] or p_launches[name] or r_launches[name]),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })

@@ -5,23 +5,26 @@ chooses on a CUDA tensor).
 
     python3 scripts/time_torch_auto_fuse.py [--steps 6] [--out outputs/auto_fuse.json]
 
-Needs one CUDA card. Every fuse flag is set to "auto" and `AUTO_FUSE` is
-patched: first with every entry off (the baseline: cuDNN convs and frozen BN
-through PyTorch), then with one entry (or the packed stem's pair) on at a
-time. A function's gain is the baseline's time less its own. Workloads, at
+Needs one CUDA card. Every fuse flag (`fuse_pointwise` too) is set to
+"auto" and `AUTO_FUSE` is patched: first with every entry off (the baseline:
+cuDNN convs on BN-folded weights), then with one entry (or the packed stem's
+pair) on at a time. A function's gain is the baseline's time less its own. Workloads, at
 full width (ResNet-50 NCameraCNN, 2 cameras, 1024-d features, bf16, frozen
 BN and affine, random weights, batch 256 rows = 512 camera images of
 256x256):
 
 - `flagship`: the train step with a frozen stem (argus_tpu's flagship),
   augmentation on: the stem's no-save forward, and the stage chain,
-  projection and identity functions in training mode;
+  projection, identity and pointwise functions in training mode (the
+  pointwise op alone, as `fuse_pointwise` runs it with the block flags
+  off: Conv_0 and Conv_2 of every bottleneck);
 - `stem_trained`: the same with the stem trained: the stem in training mode;
 - `frozen3`: the `frozen_stages=3` fine-tune step: the packed stem with the
   stage-0 chain, the whole-stage chains of stages 1-2 (no save), the
-  stage-3 blocks in training mode;
+  stage-3 blocks in training mode, and the pointwise op (its no-save
+  forward in stages 0-2, its training pair in stage 3);
 - `serving`: the model's forward on a resident batch of frames (gradients
-  off): every function's no-save forward;
+  off): every function's no-save forward, the pointwise op's among them;
 - `keypoint_eval` and `keypoint_step`: CubeKeypointNet (ResNet-18,
   frozen BN, affine and stem) eval forward and train step: the
   BasicBlock's two modes.
@@ -41,7 +44,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FLAGS = ("fuse_block", "fuse_proj", "fuse_stem", "fuse_stage")
+FLAGS = ("fuse_block", "fuse_proj", "fuse_stem", "fuse_stage", "fuse_pointwise")
 
 
 def _timer(fn, steps: int) -> float:
@@ -122,10 +125,11 @@ def main() -> int:
 
         keys = {
             "flagship": [("stem", "forward"), ("stage_chain", "train"), ("projection", "train"),
-                         ("identity", "train")],
+                         ("identity", "train"), ("pointwise", "train")],
             "stem_trained": [("stem", "train")],
             "frozen3": [(("stem", "forward"), ("stage_chain_packed", "forward")), ("stage_chain", "forward"),
-                        ("projection", "train"), ("identity", "train")],
+                        ("projection", "train"), ("identity", "train"), ("pointwise", "forward"),
+                        ("pointwise", "train")],
         }[workload]
         sweep(workload, run, model.backbone, keys)
         if workload == "flagship":
@@ -138,7 +142,7 @@ def main() -> int:
             model.backbone.fold_frozen_bn()  # once, as `serve.Estimator` folds
             sweep("serving", forward, model.backbone,
                   [("stem", "forward"), ("stage_chain_packed", "forward"), ("projection", "forward"),
-                   ("identity", "forward")])
+                   ("identity", "forward"), ("pointwise", "forward")])
         del model, state, batch, step, holder
         torch.cuda.empty_cache()
 

@@ -2,9 +2,11 @@
 the forwards, the saving forwards and the one-pass backwards (bottleneck and
 BasicBlock), the two augmentation kernels, the trained stem's saving
 forward and weight gradient, BatchNorm's two reductions, the packed stem
-and the frozen stages' no-save chains, and the training steps (fused,
-trained stem, exact BN, frozen stages) against their CPU runs; the device
-feed's batches; the launches of "auto" against `AUTO_FUSE`.
+and the frozen stages' no-save chains, the pointwise forward and backward
+and the identity block's recompute backward, and the training steps
+(fused, trained stem, exact BN, frozen stages, `fuse_pointwise`, remat)
+against their CPU runs; the device feed's batches; the launches of "auto"
+against `AUTO_FUSE`.
 
 These need an NVIDIA Hopper GPU and nvcc: they carry the `cuda` marker and
 skip elsewhere. Run them on the card with
@@ -121,7 +123,7 @@ def test_wrappers_check_arguments(dev):
         "block_fused_save", "block_fused_bwd", "augment_fused", "blur",
         "basic_fused", "basic_fused_save", "basic_fused_bwd",
         "stem_fused_save", "stem_fused_bwd", "bn_stats", "bn_bwd_reduce",
-        "stem_fused_packed", "stage_fused_frozen",
+        "stem_fused_packed", "stage_fused_frozen", "pointwise", "pointwise_bwd", "block_fused_rbwd",
     }
 
 
@@ -243,7 +245,8 @@ def test_train_step_on_card_matches_cpu(dev):
         "block_fused_save": 10, "block_fused_bwd": 10, "augment_fused": 0, "blur": 0,
         "basic_fused": 0, "basic_fused_save": 0, "basic_fused_bwd": 0,
         "stem_fused_save": 0, "stem_fused_bwd": 0, "bn_stats": 0, "bn_bwd_reduce": 0,
-        "stem_fused_packed": 0, "stage_fused_frozen": 0,
+        "stem_fused_packed": 0, "stage_fused_frozen": 0, "pointwise": 0, "pointwise_bwd": 0,
+        "block_fused_rbwd": 0,
     }, counts
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
 
@@ -571,3 +574,90 @@ def test_auto_launches_what_the_table_names(dev, frozen_stages):
     with torch.no_grad():
         model(torch.rand(2, 64, 64, 6, device="cuda"))
     assert kernels.launch_counts() == expect(lambda i: "forward")
+
+
+@pytest.mark.parametrize("m,cin,cout", [(2 * 9 * 7, 64, 64), (4608, 256, 64), (1000, 64, 256), (49, 512, 2048)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_pointwise_kernels(dev, m, cin, cout, residual):
+    """The pointwise forward and backward (m emitted with a residual) against
+    their plain versions; any M (4608 rows: dw splits and sums partials)."""
+    from argus_tpu_torch.ops.kernels import pointwise as tpw
+
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(m, cin, generator=g).to(dev, torch.bfloat16)
+    w, b = _w(g, cin, cout, dev=dev), _b(g, cout, dev)
+    res = torch.randn(m, cout, generator=g).to(dev, torch.bfloat16) if residual else None
+    before = (tpw.KERNEL.launches, tpw.KERNEL_BWD.launches)
+    out = tpw.pointwise_fwd(x, w, b, res)
+    _close(out, tpw.pointwise_fwd_plain(x, w, b, res))
+    for relu in (True, False):
+        _close(tpw.pointwise_fwd(x, w, b, res, relu), tpw.pointwise_fwd_plain(x, w, b, res, relu))
+    gr = _grad(g, out.shape, dev)
+    _all_close(tpw.pointwise_bwd(gr, out, x, w, True, residual), tpw.pointwise_bwd_plain(gr, out, x, w, True, residual))
+    got = tpw.pointwise_bwd(gr, out, x, w, False, residual, need_dx=False)
+    assert got[0] is None
+    _all_close(got, tpw.pointwise_bwd_plain(gr, out, x, w, False, residual, need_dx=False))
+    assert (tpw.KERNEL.launches, tpw.KERNEL_BWD.launches) == (before[0] + 3, before[1] + 2)
+
+
+@pytest.mark.parametrize("n,h,w,cin,f", [(2, 9, 7, 64, 16), (2, 48, 48, 64, 16), (1, 8, 8, 256, 64)])
+def test_recompute_backward_kernel(dev, n, h, w, cin, f):
+    """B7 against its plain version, with and without dx: the recomputed
+    h1/h2 against the plain recompute, the gradients against the plain
+    backward from the kernel's h1/h2 (a sum within rounding of zero may take
+    a relu mask the other way in the two recomputes)."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.rand(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
+    ws = _id(g, cin, f, dev)
+    out = tb.bottleneck_block(x, *ws)
+    args = (x, _grad(g, out.shape, dev), out, *ws)
+    before = tb.KERNEL_RBWD.launches
+    *grads, h1, h2 = tb.block_bwd_recompute(*args, recomputed=True)
+    _all_close((h1, h2), tb.bottleneck_block_save_plain(x, *ws)[1:])
+    want = tb.block_bwd_plain(*args[:3], h1, h2, ws[0], ws[2], ws[4])
+    _all_close(grads, want)
+    got = tb.block_bwd_recompute(*args, need_dx=False)
+    assert got[0] is None and tb.KERNEL_RBWD.launches == before + 2
+    _all_close(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("config", ["P", "R"])
+def test_pointwise_and_remat_steps_launch_their_kernels(dev, config):
+    """A train step of configuration P (`fuse_pointwise="on"`, the block
+    flags off) and of R (remat, the fuse flags on) launches what the
+    configuration names, and its loss and gradients match the same step on
+    the CPU (plain versions), bf16, within the fused steps' gates."""
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig, _loss_and_grads_on, create_train_state, make_train_step
+
+    fuse = dict(fuse_block="on", fuse_proj="on", fuse_stem="on", fuse_stage="on")
+    extra = (dict(fuse, fuse_pointwise="on", fuse_block="off", fuse_proj="off", fuse_stage="off") if config == "P"
+             else dict(fuse, remat=True))
+    mcfg = NCameraCNNConfig(n_cams=2, backbone="resnet50", resnet_output_dim=32, bn_frozen=True,
+                            bn_frozen_affine=True, stem_frozen=True, dtype="bfloat16", **extra)
+    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=False, learning_rate=1e-3)
+    model, state = create_train_state(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(6)
+    batch = {"images": rng.integers(0, 256, (2, 64, 64, 6), dtype=np.uint8),
+             "cube_pose": np.tile(np.array([0.1, 0, 0.2, 0, 0, 0.6, 0.8], np.float32), (2, 1)),
+             "mask": np.ones(2, np.float32)}
+    want = {name: 0 for name in kernels.KERNELS}
+    if config == "P":
+        want.update(stem_fused=1, pointwise=32, pointwise_bwd=32)
+    else:
+        want.update(stem_fused=1, stage_fused_save=1, stage_fused_bwd=1, proj_fused=3, proj_fused_save=3,
+                    proj_fused_bwd=3, block_fused=10, block_fused_rbwd=10)
+    images = torch.from_numpy(batch["images"]).to(dev).float() / 255
+    head = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    loss_g, grads_g = _loss_and_grads_on(model, state.params, images, head)
+    cpu, cpu_state = create_train_state(cfg, seed=0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    loss_c, grads_c = _loss_and_grads_on(cpu, cpu_state.params, images.cpu(), {k: v.cpu() for k, v in head.items()})
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-2 * abs(loss_c.item())
+    errs = sorted(((grads_g[k].cpu().float() - v.float()).norm() / v.float().norm()).item()
+                  for k, v in grads_c.items() if v.norm() > 0)
+    assert errs[-1] <= 0.1 and errs[len(errs) // 2] <= 0.05, errs[-5:]
+    kernels.reset_launch_counts()
+    state, loss = make_train_step(model, cfg, device="cuda")(state, batch)
+    assert torch.isfinite(loss)
+    assert kernels.launch_counts() == want

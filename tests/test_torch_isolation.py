@@ -82,6 +82,23 @@ def test_loop_modules_import_without_jax():
     assert int(proc.stdout.split()[-2]) >= 30, proc.stdout
 
 
+# the modules of the pointwise and remat slice: each imported first, alone,
+# under the same block
+SLICE_MODULES = ("argus_tpu_torch.ops.kernels.pointwise", "argus_tpu_torch.ops.norm",
+                 "argus_tpu_torch.models.resnet")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_import_without_jax(module):
+    code = _BLOCKED_IMPORT.replace(
+        "import argus_tpu_torch\n", f"import {module}\nimport argus_tpu_torch\n", 1,
+    ).replace('print("imported"', f'assert {module!r} in names, names\nprint("imported"')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
 def test_chip_smoke_imports_no_jax():
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack|argus_tpu)\b", re.M)

@@ -309,22 +309,11 @@ def test_unported_configurations_raise():
     cases = [
         (dict(use_augmentation=False, grad_accum_steps=2), "A5"),
         (dict(use_augmentation=False, multigpu=True), "A7"),
-        (dict(use_augmentation=False, model_config=dataclasses.replace(model_cfg, remat=True)), "A10"),
     ]
     for kw, item in cases:
         cfg = TrainConfig(**{"model_config": model_cfg, **kw})
         with pytest.raises(NotImplementedError, match=item):
             create_train_state(cfg, device="cpu")
-    # the model refuses remat in training too (re-running a block would
-    # update its running statistics twice); eval takes it
-    cfg = TrainConfig(model_config=model_cfg, use_augmentation=False)
-    model, _ = create_train_state(cfg, device="cpu")
-    model.backbone.remat = True
-    x = torch.rand(2, 32, 32, 6)
-    with pytest.raises(NotImplementedError, match="A10"):
-        model(x, train=True)
-    with torch.no_grad():
-        assert torch.isfinite(model(x)).all()
 
 
 def test_frozen_stages_stop_gradients():
