@@ -1,0 +1,55 @@
+// The two redesigned block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu)
+// composed from the engines they ran on before, the mma.sync conv-GEMM
+// (conv_gemm.cuh) and weight gradient (wgrad.cuh), which the identity,
+// recompute, stage-chain and pointwise backwards still use. No wrapper of
+// the port calls this library: chip_smoke.py and
+// scripts/time_torch_block_bwd.py time it beside the Hopper engines (same
+// inputs, same call) and break both down by device kernel.
+
+#include "conv_bwd.cuh"
+
+namespace argus {
+
+// x, g, out, h1, m1, dx (N, H, W, C); w1d, w2d (9, C, C); dw1, dw2 (3, 3, C, C) f32.
+inline cudaError_t basic_block_bwd_prev(const void* x, const void* g, const void* out, const void* h1,
+                                        const void* w1d, const void* w2d, void* dx, void* m1, void* dw1,
+                                        void* dw2, void* ws, int64_t ws_elems, int N, int H, int W, int C,
+                                        cudaStream_t st) {
+  // m1 = bf16(conv3x3^T(g * (out > 0))) * (h1 > 0)
+  ConvGemmArgs p = gemm_args(make_seg(g, w2d, H, W, C, 3, 1, 1, out), nullptr, N, H, W, C, m1);
+  p.emask = static_cast<const bf16*>(h1);
+  ARGUS_TRY(launch_conv_gemm(p, st));
+  // dw2[ky, kx] = shift(h1)^T (g * (out > 0))
+  ARGUS_TRY(wgrad(h1, H, W, C, 3, 1, 1, g, out, C, N, H, W, dw2, ws, ws_elems, st));
+  // dx = bf16(conv3x3^T(m1) + g * (out > 0))
+  if (dx != nullptr) {
+    p = gemm_args(make_seg(m1, w1d, H, W, C, 3, 1, 1), nullptr, N, H, W, C, dx);
+    p.residual = static_cast<const bf16*>(g);
+    p.rmask = static_cast<const bf16*>(out);
+    ARGUS_TRY(launch_conv_gemm(p, st));
+  }
+  // dw1[ky, kx] = shift(x)^T m1
+  return wgrad(x, H, W, C, 3, 1, 1, m1, nullptr, C, N, H, W, dw1, ws, ws_elems, st);
+}
+
+}  // namespace argus
+
+// The parent's launchers: the workspace is sized by block_fused.wgrad_workspace.
+extern "C" int argus_basic_bwd_prev(const void* x, const void* g, const void* out, const void* h1,
+                                    const void* w1d, const void* w2d, void* dx, void* m1, void* dw1,
+                                    void* dw2, void* ws, int64_t ws_elems, int N, int H, int W, int C,
+                                    void* stream) {
+  return static_cast<int>(argus::basic_block_bwd_prev(x, g, out, h1, w1d, w2d, dx, m1, dw1, dw2, ws,
+                                                      ws_elems, N, H, W, C,
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int argus_proj_bwd_prev(const void* x, const void* g, const void* out, const void* h1,
+                                   const void* h2, const void* w1t, const void* w2d, const void* w3t,
+                                   const void* wsct, void* dx, void* m1, void* m2, void* dw1, void* dw2,
+                                   void* dw3, void* dwsc, void* ws, int64_t ws_elems, int N, int H,
+                                   int W, int CIN, int F, int COUT, int S, void* stream) {
+  return static_cast<int>(argus::projection_block_bwd(
+      x, g, out, h1, h2, w1t, w2d, w3t, wsct, dx, m1, m2, dw1, dw2, dw3, dwsc, ws, ws_elems, N, H,
+      W, CIN, F, COUT, S, static_cast<cudaStream_t>(stream)));
+}

@@ -1,7 +1,9 @@
 // Implicit-GEMM convolution over NHWC bf16 with a fused bias/residual/relu
-// epilogue: the one tensor-core kernel behind the block, projection and stage
-// forwards (block_fused.cu, proj_fused.cu, stage_fused.cu) and the data
-// gradients of their backwards (conv_bwd.cuh).
+// epilogue: the mma.sync tensor-core kernel behind every forward (block,
+// projection, stage, BasicBlock and pointwise) and the data gradients of the
+// identity, recompute, stage-chain and pointwise backwards (conv_bwd.cuh).
+// The BasicBlock and projection-block backwards run on the Hopper engine
+// instead (conv_dgrad_sm90.cuh).
 //
 //   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] (+ bias0[n]) (+ bias1[n])
 //                         (+ residual[m, n] * (rmask[m, n] > 0))))
@@ -37,7 +39,9 @@
 // form is also the conv's zero padding, ldmatrix from padded (bank-conflict
 // free) shared rows. Each thread gathers one A row and walks k in 8-channel
 // vectors with an incremental (segment, ky, kx, c) decoder: no divisions in
-// the main loop. wgmma/TMA and keeping h1/h2 on chip are later work.
+// the main loop. The wgmma/TMA form of the data gradient is
+// conv_dgrad_sm90.cuh; moving the forwards and the other backwards onto it,
+// and keeping h1/h2 on chip, are later work.
 
 #pragma once
 

@@ -1,6 +1,8 @@
 // Weight gradient of a convolution tap over NHWC bf16, reduced over every
-// output pixel in f32: the second tensor-core kernel of the block backwards
-// (conv_bwd.cuh).
+// output pixel in f32: the mma.sync weight gradient of the identity,
+// recompute, stage-chain and pointwise backwards (conv_bwd.cuh). The
+// BasicBlock and projection-block backwards run on the Hopper engine instead
+// (wgrad_sm90.cuh).
 //
 //   dW[tap, c, n] = sum_m A_tap[m, c] * B[m, n] * (bmask[m, n] > 0)
 //
@@ -27,7 +29,8 @@
 // M-major in shared memory, so A's fragments come transposed through
 // ldmatrix.trans (B's, as in the forward, too). The relu mask of B is applied
 // by each thread to the vectors it loaded, before the tile is shared.
-// wgmma/TMA are later work.
+// The wgmma/TMA form is wgrad_sm90.cuh; moving these backwards onto it is
+// later work.
 
 #pragma once
 
@@ -210,7 +213,8 @@ __global__ void sum_splits_kernel(const float4* __restrict__ part, float4* __res
 
 // Splits of the reduction for a problem of M rows and `tiles` output tiles
 // (taps included): enough blocks to fill the card, at least kWMinRows rows
-// each. ops/kernels/_wgrad.py mirrors it to size the workspace.
+// each. ops/kernels/block_fused.py `wgrad_workspace` mirrors it to size the
+// workspace.
 inline int wgrad_splits(int64_t M, int64_t tiles) {
   const int64_t want = (kWTargetBlocks + tiles - 1) / tiles;
   const int64_t most = (M + kWMinRows - 1) / kWMinRows;

@@ -39,7 +39,7 @@ SOURCES = (
     "stem_fused", "block_fused", "proj_fused", "stage_fused",
     "block_fused_bwd", "proj_fused_bwd", "stage_fused_bwd", "blur", "augment_fused",
     "basic_fused", "basic_fused_bwd", "stem_fused_bwd", "bn_reduce",
-    "pointwise", "pointwise_bwd", "block_fused_rbwd",
+    "pointwise", "pointwise_bwd", "block_fused_rbwd", "bwd_prev",
 )
 
 

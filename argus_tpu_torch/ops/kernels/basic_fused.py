@@ -40,15 +40,15 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     fold_affine,
     needs_grad,
     relu_mask,
-    wgrad_workspace,
     zero_grad_of,
 )
+from argus_tpu_torch.ops.kernels import wgrad_plan
 
 KERNEL = Kernel("basic_fused", "argus_basic_fwd", [P] * 7 + [I] * 4 + [P])
 # the training forward is the same launcher with h1 kept; its own handle
 # counts its launches apart
 KERNEL_SAVE = Kernel("basic_fused", "argus_basic_fwd", [P] * 7 + [I] * 4 + [P])
-KERNEL_BWD = Kernel("basic_fused_bwd", "argus_basic_bwd", [P] * 11 + [L] + [I] * 4 + [P])
+KERNEL_BWD = Kernel("basic_fused_bwd", "argus_basic_bwd", [P] * 12 + [L] + [I] * 4 + [P])
 
 
 def fold_basic_params(dtype, k1, s1, bi1, m1, v1, k2, s2, bi2, m2, v2, *, eps=1e-5):
@@ -133,13 +133,13 @@ def basic_bwd(x, g, out, h1, w1, w2, need_dx=True):
     for name, t in (("g", g), ("out", out), ("h1", h1)):
         check_cuda(name, t, torch.bfloat16, (n, h, w, c))
     dev = x.device
-    m1 = torch.empty_like(h1)
+    m1, m2 = torch.empty_like(h1), torch.empty_like(h1)
     dx = torch.empty_like(x) if need_dx else None
     dw1 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
     dw2 = torch.empty_like(dw1)
-    ws_elems = wgrad_workspace((n * h * w, c, c, 9))
+    ws_elems = wgrad_plan.workspace((n * h * w, c, c, 3))
     ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=dev)
-    KERNEL_BWD.launch(x, g, out, h1, dgrad_w2(w1, 1), dgrad_w2(w2, 1), dx, m1, dw1, dw2,
+    KERNEL_BWD.launch(x, g, out, h1, dgrad_w2(w1, 1), dgrad_w2(w2, 1), dx, m1, m2, dw1, dw2,
                       ws, ws_elems, n, h, w, c)
     return dx, dw1, dw2
 

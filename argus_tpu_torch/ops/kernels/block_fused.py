@@ -249,8 +249,10 @@ def dgrad_w2(w2: torch.Tensor, stride: int) -> torch.Tensor:
     f = w2.shape[-1]
     if stride == 1:
         return w2.flip(0, 1).transpose(2, 3).reshape(9, f, f).contiguous()
-    taps = ([1], [2, 0])
-    parts = [w2[taps[py]][:, taps[px]].transpose(2, 3).reshape(-1, f, f)
+    def taps(t, parity, dim):  # tap 1, or taps 2 then 0 (no index tensor: no host-device copy)
+        return t.narrow(dim, 1, 1) if parity == 0 else torch.stack((t.select(dim, 2), t.select(dim, 0)), dim)
+
+    parts = [taps(taps(w2, py, 0), px, 1).transpose(2, 3).reshape(-1, f, f)
              for py in (0, 1) for px in (0, 1)]
     return torch.cat(parts).contiguous()
 

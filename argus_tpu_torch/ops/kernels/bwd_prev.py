@@ -1,0 +1,47 @@
+"""The BasicBlock and projection-block backwards on the engine they ran on
+before their Hopper redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and
+weight gradient that the other backwards keep). No path of the port calls
+these: `chip_smoke.py` and `scripts/time_torch_block_bwd.py` time them beside
+`basic_fused.basic_bwd` and `proj_fused.proj_bwd` on the same inputs, in the
+same call. CUDA tensors only; outputs as the redesigned wrappers give them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
+from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2, wgrad_workspace
+from argus_tpu_torch.ops.kernels.proj_fused import projection_wgrad_problems, transposed_weights
+
+KERNEL_BASIC = Kernel("bwd_prev", "argus_basic_bwd_prev", [P] * 11 + [L] + [I] * 4 + [P])
+KERNEL_PROJ = Kernel("bwd_prev", "argus_proj_bwd_prev", [P] * 17 + [L] + [I] * 7 + [P])
+
+
+def basic_bwd_prev(x, g, out, h1, w1, w2, need_dx=True):
+    """(dx or None, dw1, dw2 in f32), as `basic_fused.basic_bwd`."""
+    n, h, w, c = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m1 = torch.empty_like(h1)
+    dx = torch.empty_like(x) if need_dx else None
+    dw1, dw2 = torch.empty((3, 3, c, c), **f32), torch.empty((3, 3, c, c), **f32)
+    ws_elems = wgrad_workspace((n * h * w, c, c, 9))
+    ws = torch.empty(max(ws_elems, 1), **f32)
+    KERNEL_BASIC.launch(x, g, out, h1, dgrad_w2(w1, 1), dgrad_w2(w2, 1), dx, m1, dw1, dw2, ws, ws_elems, n, h, w, c)
+    return dx, dw1, dw2
+
+
+def proj_bwd_prev(x, g, out, h1, h2, w1, w2, w3, wsc, stride, need_dx=True):
+    """(dx or None, dw1, dw2, dw3, dwsc in f32), as `proj_fused.proj_bwd`."""
+    n, h, w, cin = x.shape
+    f, cout = w1.shape[1], w3.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m1, m2 = torch.empty_like(h1), torch.empty_like(h2)
+    dx = torch.empty_like(x) if need_dx else None
+    dw1, dw2 = torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32)
+    dw3, dwsc = torch.empty((f, cout), **f32), torch.empty((cin, cout), **f32)
+    ws_elems = wgrad_workspace(*projection_wgrad_problems(n, h, w, cin, f, cout, stride))
+    ws = torch.empty(max(ws_elems, 1), **f32)
+    KERNEL_PROJ.launch(x, g, out, h1, h2, *transposed_weights(w1, w2, w3, wsc, stride), dx, m1, m2, dw1, dw2, dw3,
+                       dwsc, ws, ws_elems, n, h, w, cin, f, cout, stride)
+    return dx, dw1, dw2, dw3, dwsc

@@ -38,13 +38,13 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     needs_grad,
     relu_mask,
     wgrad_f32,
-    wgrad_workspace,
     zero_grad_of,
 )
+from argus_tpu_torch.ops.kernels import wgrad_plan
 
 KERNEL = Kernel("proj_fused", "argus_proj_fwd", [P] * 12 + [I] * 7 + [P])
 KERNEL_SAVE = Kernel("proj_fused", "argus_proj_fwd", [P] * 12 + [I] * 7 + [P])  # kept h1/h2
-KERNEL_BWD = Kernel("proj_fused_bwd", "argus_proj_bwd", [P] * 17 + [L] + [I] * 7 + [P])
+KERNEL_BWD = Kernel("proj_fused_bwd", "argus_proj_bwd", [P] * 18 + [L] + [I] * 7 + [P])
 
 
 def fold_projection_params(
@@ -152,8 +152,17 @@ def projection_block_save(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
 
 
 def projection_wgrad_problems(n, h, w, cin, f, cout, stride):
+    """The block's weight gradients as csrc/wgrad.cuh's workspace rule
+    takes them (rows, C, COUT, taps): the stage chain's backward."""
     rows, rows_o = n * h * w, n * (h // stride) * (w // stride)
     return [(rows_o, f, cout, 1), (rows_o, cin, cout, 1), (rows_o, f, f, 9), (rows, cin, f, 1)]
+
+
+def projection_wgrad_plans(n, h, w, cin, f, cout, stride):
+    """The block's weight gradients as `wgrad_plan` takes them (rows, C,
+    COUT, kernel size): dw3, dwsc, dw2, dw1 in launch order."""
+    rows, rows_o = n * h * w, n * (h // stride) * (w // stride)
+    return [(rows_o, f, cout, 1), (rows_o, cin, cout, 1), (rows_o, f, f, 3), (rows, cin, f, 1)]
 
 
 def transposed_weights(w1, w2, w3, wsc, stride):
@@ -177,16 +186,15 @@ def proj_bwd(x, g, out, h1, h2, w1, w2, w3, wsc, stride, need_dx=True):
     ):
         check_cuda(name, t, bf, shape)
     dev = x.device
-    m1 = torch.empty_like(h1)
-    m2 = torch.empty_like(h2)
+    m1, m2, m3 = torch.empty_like(h1), torch.empty_like(h2), torch.empty_like(g)
     dx = torch.empty_like(x) if need_dx else None
     f32 = dict(dtype=torch.float32, device=dev)
     dw1, dw2 = torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32)
     dw3, dwsc = torch.empty((f, cout), **f32), torch.empty((cin, cout), **f32)
-    ws_elems = wgrad_workspace(*projection_wgrad_problems(n, h, w, cin, f, cout, stride))
+    ws_elems = wgrad_plan.workspace(*projection_wgrad_plans(n, h, w, cin, f, cout, stride))
     ws = torch.empty(max(ws_elems, 1), **f32)
     KERNEL_BWD.launch(
-        x, g, out, h1, h2, *transposed_weights(w1, w2, w3, wsc, stride), dx, m1, m2, dw1, dw2, dw3, dwsc,
+        x, g, out, h1, h2, *transposed_weights(w1, w2, w3, wsc, stride), dx, m1, m2, m3, dw1, dw2, dw3, dwsc,
         ws, ws_elems, n, h, w, cin, f, cout, stride,
     )
     return dx, dw1, dw2, dw3, dwsc

@@ -7,8 +7,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
 
 1. build every CUDA kernel of the serving, training, augmentation,
    keypoint, trained-stem, exact-BN, frozen-stage, pointwise and remat paths
-   from `argus_tpu_torch/csrc/` (16 sources, one nvcc each, in parallel) and
-   print the seconds and ptxas' register/spill report;
+   from `argus_tpu_torch/csrc/` (17 sources, one nvcc each, in parallel) and
+   print the seconds and ptxas' register/spill report; `cuobjdump -sass` of
+   the BasicBlock and projection backwards' libraries must show wgmma
+   (HGMMA) instructions;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -32,7 +34,11 @@ Phases, each fatal on failure (nothing is caught and ignored):
    with retain_graph); then the three BasicBlock kernels (no-save forward,
    saving forward, one-pass backward) at the four geometries of ResNet-18's
    identity blocks at N = 512 (C/H = 64/64, 128/32, 256/16, 512/8), same
-   tolerance and yardsticks;
+   tolerance and yardsticks; then those two backwards (BasicBlock and
+   projection, on the Hopper wgmma/TMA engines) beside the mma.sync engine
+   they ran on before (`ops/kernels/bwd_prev.py`) at their seven
+   geometries, each call broken down by device kernel (data gradient,
+   weight gradient, split sum, mask pass) from `torch.profiler`;
 5. the augmentation kernels at the flagship step's shapes (N = 512 camera
    images, 256x256, parameters from the port's samplers): the whole-stack
    kernel against its plain version in bf16 at each of the 4 hue positions
@@ -335,6 +341,23 @@ def build_phase() -> None:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     say(f"  ptxas {name}: {line.strip()}")
+
+
+def hgmma_check() -> None:
+    """The redesigned backwards run on wgmma: `cuobjdump -sass` of their
+    libraries must show HGMMA instructions."""
+    import shutil
+
+    from argus_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name in ("basic_fused_bwd", "proj_fused_bwd"):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        n = sass.count("HGMMA")
+        say(f"cuobjdump -sass {name}: {n} HGMMA instructions")
+        if n == 0:
+            raise AssertionError(f"{name}: no wgmma (HGMMA) instruction in its library")
 
 
 # ─────────────────────────── phase 2: kernels ───────────────────────────
@@ -748,7 +771,7 @@ def train_kernel_phase() -> dict:
             lambda args=args: proj_fused.proj_bwd_plain(*args),
             _lib_bwd(lambda x, *w: _lib_block(x, *w[:6], w[6], w[7], stride=2), [xp, *pw], gp),
             2 * fl, nbytes(xp, gp, *saved, pw[0], pw[2], pw[4], pw[6]) + nbytes(xp)
-            + dw_bytes(pw[0], pw[2], pw[4], pw[6]), 17, _round_trip_bytes(N_IMG, h, h, f, 2),
+            + dw_bytes(pw[0], pw[2], pw[4], pw[6]), 18, _round_trip_bytes(N_IMG, h, h, f, 2) + 2 * nbytes(gp),
         ))
         xi = torch.rand(N_IMG, ho, ho, cout, generator=g, device="cuda").to(torch.bfloat16)
         iw = _id_weights(g, cout, f)
@@ -826,7 +849,7 @@ def basic_kernel_phase() -> dict:
         bwd.append((
             label, count, lambda args=args: basic_fused.basic_bwd(*args),
             lambda args=args: basic_fused.basic_bwd_plain(*args), _lib_bwd(_lib_basic, [x, *ws], gr),
-            4 * conv, 5 * act + nbytes(ws[0], ws[2]) + 2 * 4 * ws[0].numel(), 6, 2 * act,
+            4 * conv, 5 * act + nbytes(ws[0], ws[2]) + 2 * 4 * ws[0].numel(), 7, 4 * act,
         ))
     record("basic_fused", fwd)
     record("basic_fused_save", save)
@@ -834,6 +857,41 @@ def basic_kernel_phase() -> dict:
     del fwd, save, bwd
     torch.cuda.empty_cache()
     return results
+
+
+def engine_phase() -> None:
+    """The BasicBlock and projection backwards on the Hopper engines beside
+    the mma.sync engine they ran on before (`ops/kernels/bwd_prev.py`), at
+    the seven geometries of scripts/time_torch_block_bwd.py, in this call:
+    ms per call (CUDA events, 5 calls) and each call's device kernels by
+    launch (torch.profiler), and the ms per train step of each."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("time_torch_block_bwd",
+                                                  os.path.join(REPO, "scripts", "time_torch_block_bwd.py"))
+    tbb = importlib.util.module_from_spec(spec)  # the script's cases and breakdown, scripts/ kept off sys.path
+    spec.loader.exec_module(tbb)
+
+    got = {}
+    for engine in ("prev", "new"):
+        for row, label, count, fn in tbb.cases(engine):
+            ms, _ = tbb.cuda_ms(fn, 5)
+            parts = tbb.breakdown(fn)
+            got.setdefault((row, label), {})[engine] = (ms, count)
+            say(f"{'mma.sync' if engine == 'prev' else 'Hopper'} engine {row} {label} x{count}: {ms:.3f} ms per call; "
+                f"{tbb.fmt(parts)}")
+        torch.cuda.empty_cache()
+    step = {}
+    for (row, label), d in got.items():
+        (pms, count), (nms, _) = d["prev"], d["new"]
+        say(f"{row} {label}: {nms:.3f} ms on the Hopper engine against {pms:.3f} ms on the mma.sync engine "
+            f"({pms / nms:.2f}x)")
+        prev, new = step.get(row, (0.0, 0.0))
+        step[row] = (prev + count * pms, new + count * nms)
+    for row, (pms, nms) in step.items():
+        say(f"{row} per train step: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms ({pms / nms:.2f}x)")
 
 
 def _resnet50_bn_inputs(n: int) -> list:
@@ -2487,6 +2545,7 @@ def main() -> int:
     t_start = time.perf_counter()
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     build_phase()
+    hgmma_check()
     measured = kernel_phase()
     from argus_tpu_torch.ops.kernels import _build
 
@@ -2494,6 +2553,7 @@ def main() -> int:
         launches, _ = end_to_end_phase(tmpdir)
     measured.update(train_kernel_phase())
     measured.update(basic_kernel_phase())
+    engine_phase()
     measured.update(stem_bn_kernel_phase())
     aug_measured, aug_launches = augment_phase()
     measured.update(aug_measured)

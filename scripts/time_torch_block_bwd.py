@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Time the BasicBlock and projection-block backwards (`basic_fused.basic_bwd`,
+`proj_fused.proj_bwd`) of one tree of the port on one NVIDIA GPU, at the
+seven geometries of the keypoint and flagship train steps (N = 512 camera
+images of 256x256, bf16), and break each call down by device kernel with
+`torch.profiler`: data gradient, weight gradient, split sum, the relu mask
+pass, the rest.
+
+    python3 scripts/time_torch_block_bwd.py [--root DIR] [--engine new|prev] [--reps 10]
+
+`--root` is the checkout whose `argus_tpu_torch` is imported (default: this
+one), so a parent commit unpacked with `git archive` under `_trees/parent`
+is timed by the same script in the same call:
+
+    python3 scripts/time_torch_block_bwd.py --root _trees/parent
+    python3 scripts/time_torch_block_bwd.py
+    python3 scripts/time_torch_block_bwd.py
+    python3 scripts/time_torch_block_bwd.py --root _trees/parent
+
+`--engine prev` times `ops/kernels/bwd_prev.py` (the two backwards on the
+mma.sync engine they ran on before, from this tree) instead of the
+wrappers. Times are the mean of `--reps` calls between CUDA events after a
+warm-up; the breakdown is one profiled call. Prints one line per geometry
+and, last, one JSON object. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+N_IMG = 512
+# (C, H = W, blocks per keypoint step) of ResNet-18's identity BasicBlocks
+BASIC = [(64, 64, 2), (128, 32, 1), (256, 16, 1), (512, 8, 1)]
+# (H = W, CIN, F) of ResNet-50's stride-2 projection blocks, COUT = 4F, one per step
+PROJ = [(64, 256, 128), (32, 512, 256), (16, 1024, 512)]
+
+
+def kind(name: str) -> str:
+    """The launch of a backward a device kernel's name belongs to."""
+    if "sum_splits" in name or "wgrad_sum" in name:
+        return "split sum"
+    if "wgrad" in name:
+        return "weight gradient"
+    if "conv_gemm" in name or "dgrad" in name:
+        return "data gradient"
+    if "relu_mask" in name:
+        return "mask pass"
+    return "other"
+
+
+def breakdown(fn, detail: bool = False) -> dict:
+    """{kind: [device ms, launches]} of one call of `fn` (after a warm-up),
+    from torch.profiler's key_averages(); with `detail`, each kernel's full
+    name too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        for key in (kind(ev.key), ev.key) if detail else (kind(ev.key),):
+            entry = out.setdefault(key, [0.0, 0])
+            entry[0] += us / 1e3
+            entry[1] += ev.count
+    return out
+
+
+def cuda_ms(fn, reps: int):
+    """(ms per call between CUDA events, ms per call of the host's enqueue)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, host
+
+
+def cases(engine: str = "new"):
+    """Yields (row, label, blocks per step, the call) at the seven
+    geometries; inputs from seed 0, h1/h2/out from the tree's saving
+    forwards (the relu masks the backward sees in training)."""
+    import torch
+
+    from argus_tpu_torch.ops.kernels import basic_fused, proj_fused
+
+    if engine == "prev":
+        from argus_tpu_torch.ops.kernels import bwd_prev
+
+        basic_bwd, proj_bwd = bwd_prev.basic_bwd_prev, bwd_prev.proj_bwd_prev
+    else:
+        basic_bwd, proj_bwd = basic_fused.basic_bwd, proj_fused.proj_bwd
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def w(*shape):
+        fan_in = 1
+        for s in shape[:-1]:
+            fan_in *= s
+        return (torch.randn(*shape, generator=g, device="cuda") / fan_in**0.5).to(torch.bfloat16)
+
+    def b(c):
+        return 0.1 * torch.randn(1, c, generator=g, device="cuda")
+
+    def grad(t):
+        return torch.randn(t.shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    for c, h, count in BASIC:
+        x = torch.rand(N_IMG, h, h, c, generator=g, device="cuda").to(torch.bfloat16)
+        ws = (w(3, 3, c, c), b(c), w(3, 3, c, c), b(c))
+        out, h1 = basic_fused.basic_block_save(x, *ws)
+        args = (x, grad(out), out, h1, ws[0], ws[2])
+        yield "basic_fused_bwd", f"{tuple(x.shape)}", count, lambda args=args: basic_bwd(*args)
+        del x, out, h1, args
+    for h, cin, f in PROJ:
+        cout = 4 * f
+        x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        pw = (w(cin, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout), w(cin, cout), b(cout))
+        out, h1, h2 = proj_fused.projection_block_save(x, *pw, 2)
+        args = (x, grad(out), out, h1, h2, pw[0], pw[2], pw[4], pw[6], 2)
+        yield "proj_fused_bwd", f"{tuple(x.shape)} F={f} S=2", 1, lambda args=args: proj_bwd(*args)
+        del x, out, h1, h2, args
+    torch.cuda.empty_cache()
+
+
+KINDS = ("data gradient", "weight gradient", "split sum", "mask pass", "other")
+
+
+def fmt(parts: dict) -> str:
+    return ", ".join(f"{k} {parts[k][0]:.3f} ms ({parts[k][1]} launches)" for k in KINDS if k in parts)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--engine", choices=("new", "prev"), default="new")
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--detail", action="store_true", help="also print each device kernel's time")
+    a = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_torch_block_bwd: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(a.root)
+    sys.path.insert(0, root)
+    from argus_tpu_torch.ops.kernels import _build
+
+    if not _build.PACKAGE_DIR.is_relative_to(root):
+        raise RuntimeError(f"imported {_build.PACKAGE_DIR}, not the tree under {root}")
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    rows = []
+    for row, label, count, fn in cases(a.engine):
+        ms, host = cuda_ms(fn, a.reps)
+        parts = breakdown(fn, a.detail)
+        for key, (kms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
+            if a.detail and key not in KINDS:
+                print(f"    {kms:.3f} ms, {n} launches: {key[:160]}")
+        print(f"{root} {a.engine} {row} {label} x{count}: {ms:.3f} ms per call (host enqueue {host:.3f}); "
+              f"{fmt(parts)}  [{gpu}]", flush=True)
+        rows.append({"row": row, "label": label, "count": count, "ms": ms, "host_ms": host,
+                     "breakdown": {k: v[0] for k, v in parts.items() if k in KINDS},
+                     "launches": {k: v[1] for k, v in parts.items() if k in KINDS}})
+    print(json.dumps({"root": root, "engine": a.engine, "gpu": gpu, "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -160,16 +160,26 @@ def test_identity_block_save_and_backward_kernels(dev, n, h, w, cin, f):
     _all_close(got[1:], tb.block_bwd_plain(*args)[1:])
 
 
+@pytest.mark.parametrize("n,h,w", [(2, 10, 6), (4, 32, 32)])
+@pytest.mark.parametrize("cin,f,cout", [(64, 32, 128), (256, 64, 256), (256, 128, 512)])
 @pytest.mark.parametrize("stride", [1, 2])
-def test_projection_block_save_and_backward_kernels(dev, stride):
+def test_projection_block_save_and_backward_kernels(dev, stride, cin, f, cout, n, h, w):
+    """The saving forward and the one-pass backward at the Hopper engines'
+    edges: F = 32 and 64 (narrower than one 64- or 128-wide tile), ragged
+    spatial sizes, and (4, 32, 32) whose weight gradients split their rows;
+    without dx too."""
     g = torch.Generator().manual_seed(6)
-    x = torch.rand(2, 10, 6, 64, generator=g).to(dev, torch.bfloat16)
-    ws = _proj(g, 64, 32, 128, dev)
+    x = torch.rand(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
+    ws = _proj(g, cin, f, cout, dev)
     saved = tp.projection_block_save(x, *ws, stride)
     _all_close(saved, tp.projection_block_save_plain(x, *ws, stride))
     out, h1, h2 = saved
     args = (x, _grad(g, out.shape, dev), out, h1, h2, ws[0], ws[2], ws[4], ws[6], stride)
+    count = tp.KERNEL_BWD.launches
     _all_close(tp.proj_bwd(*args), tp.proj_bwd_plain(*args))
+    got = tp.proj_bwd(*args, need_dx=False)
+    assert got[0] is None and tp.KERNEL_BWD.launches == count + 2
+    _all_close(got[1:], tp.proj_bwd_plain(*args)[1:])
 
 
 @pytest.mark.parametrize("with_proj,stride", [(True, 1), (True, 2), (False, 1)])
@@ -255,12 +265,16 @@ def _basic(g, c, dev):
     return _w(g, 3, 3, c, c, dev=dev), _b(g, c, dev), _w(g, 3, 3, c, c, dev=dev), _b(g, c, dev)
 
 
-@pytest.mark.parametrize("n,h,w,c", [(2, 9, 7, 64), (2, 48, 48, 64), (1, 8, 8, 256), (3, 5, 11, 128)])
+@pytest.mark.parametrize("n,h,w,c", [
+    (2, 9, 7, 64), (2, 48, 48, 64), (1, 8, 8, 256), (3, 5, 11, 128), (2, 7, 9, 256), (1, 5, 7, 512),
+    (4, 32, 32, 128),
+])
 def test_basic_block_kernels(dev, n, h, w, c):
     """The no-save and saving forwards and the one-pass backward of the
-    identity BasicBlock; ragged spatial sizes put image edges inside the
-    128-row GEMM tiles, and (2, 48, 48) has 4608 rows: the weight gradients
-    split and sum partials."""
+    identity BasicBlock at C = 64 to 512; ragged spatial sizes put image
+    edges inside the 128-row GEMM tiles, and (2, 48, 48, 64) and (4, 32, 32,
+    128) have 4608 and 4096 rows: the weight gradients split and sum
+    partials."""
     g = torch.Generator().manual_seed(11)
     x = torch.rand(n, h, w, c, generator=g).to(dev, torch.bfloat16)
     ws = _basic(g, c, dev)
@@ -275,6 +289,28 @@ def test_basic_block_kernels(dev, n, h, w, c):
     got = tbf.basic_bwd(*args, need_dx=False)
     assert got[0] is None
     _all_close(got[1:], tbf.basic_bwd_plain(*args)[1:])
+
+
+@pytest.mark.parametrize("block", ["basic", "projection"])
+def test_block_backward_weight_gradients_are_deterministic(dev, block):
+    """Two calls of the redesigned backwards on the same inputs give the
+    same bits: the weight gradients' split partials are added in a fixed
+    order, with no atomics (shapes whose reductions split)."""
+    g = torch.Generator().manual_seed(12)
+    if block == "basic":
+        x = torch.rand(4, 32, 32, 128, generator=g).to(dev, torch.bfloat16)
+        ws = _basic(g, 128, dev)
+        out, h1 = tbf.basic_block_save(x, *ws)
+        args = (x, _grad(g, out.shape, dev), out, h1, ws[0], ws[2])
+        first, second = tbf.basic_bwd(*args), tbf.basic_bwd(*args)
+    else:
+        x = torch.rand(4, 32, 32, 64, generator=g).to(dev, torch.bfloat16)
+        ws = _proj(g, 64, 32, 128, dev)
+        out, h1, h2 = tp.projection_block_save(x, *ws, 2)
+        args = (x, _grad(g, out.shape, dev), out, h1, h2, ws[0], ws[2], ws[4], ws[6], 2)
+        first, second = tp.proj_bwd(*args), tp.proj_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_keypoint_train_step_on_card_matches_cpu(dev):

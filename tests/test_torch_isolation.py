@@ -82,10 +82,11 @@ def test_loop_modules_import_without_jax():
     assert int(proc.stdout.split()[-2]) >= 30, proc.stdout
 
 
-# the modules of the pointwise and remat slice: each imported first, alone,
+# the modules of the pointwise, remat and Hopper-backward slices: each imported first, alone,
 # under the same block
 SLICE_MODULES = ("argus_tpu_torch.ops.kernels.pointwise", "argus_tpu_torch.ops.norm",
-                 "argus_tpu_torch.models.resnet")
+                 "argus_tpu_torch.models.resnet", "argus_tpu_torch.ops.kernels.wgrad_plan",
+                 "argus_tpu_torch.ops.kernels.bwd_prev")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -1,0 +1,150 @@
+"""The work plan of the Hopper weight-gradient engine (`csrc/wgrad_sm90.cuh`
+`wg90_plan`, mirrored by `argus_tpu_torch.ops.kernels.wgrad_plan`), on the
+CPU: every (tap, source channel, gradient channel, pixel row) of a weight
+gradient is reduced by exactly one warpgroup of the launch, each partial
+region is written once, the split rule keeps its limits, and the workspace
+the wrappers allocate holds every partial the launches write. The problems
+are those of the seven main-path geometries (the keypoint step's
+BasicBlocks and the flagship's stride-2 projection blocks at N = 512,
+256x256 frames) and of the card tests (`tests/test_torch_cuda.py`).
+"""
+
+import re
+from pathlib import Path
+
+import pytest
+
+from argus_tpu_torch.ops.kernels import wgrad_plan
+from argus_tpu_torch.ops.kernels.proj_fused import projection_wgrad_plans
+
+N_IMG = 512
+
+
+def _basic(n, h, w, c):
+    return [(n * h * w, c, c, 3)]  # dw1 and dw2: the same problem
+
+
+def _proj(n, h, w, cin, f, cout, s):
+    return projection_wgrad_plans(n, h, w, cin, f, cout, s)
+
+
+MAIN = sorted({
+    *[p for c, h in [(64, 64), (128, 32), (256, 16), (512, 8)] for p in _basic(N_IMG, h, h, c)],
+    *[p for h, cin, f in [(64, 256, 128), (32, 512, 256), (16, 1024, 512)] for p in _proj(N_IMG, h, h, cin, f, 4 * f, 2)],
+})
+CARD = sorted({
+    *[p for n, h, w, c in [(2, 9, 7, 64), (2, 48, 48, 64), (1, 8, 8, 256), (3, 5, 11, 128), (2, 7, 9, 256),
+                           (1, 5, 7, 512), (4, 32, 32, 128)] for p in _basic(n, h, w, c)],
+    *[p for n, h, w in [(2, 10, 6), (4, 32, 32)] for cin, f, cout in [(64, 32, 128), (256, 64, 256), (256, 128, 512)]
+      for s in (1, 2) for p in _proj(n, h, w, cin, f, cout, s)],
+})
+CARD = [p for p in CARD if p not in MAIN]
+
+
+def work_items(p, rows: int, c: int, cout: int, ks: int):
+    """Every (block, warpgroup) of the launch as `wgrad_sm90_kernel` decodes
+    it: yields (partial, taps, c range, n range, row ranges) of what that
+    warpgroup reduces and where it writes."""
+    taps = ks * ks
+    step_rows = p.rows_per_step
+    for bid in range(p.blocks):
+        unit = bid % p.units
+        rest = bid // p.units
+        split = rest % p.splits
+        n0 = (rest // p.splits) * p.bn
+        mbeg = split * p.steps_per_split * step_rows
+        mend = min(rows, mbeg + p.steps_per_split * step_rows)
+        for wg in range(2):
+            job = unit if p.rowsplit else unit * 2 + wg
+            cb, tg = job % p.cblocks, job // p.cblocks
+            tap_range = range(tg * p.taps_per_job, (tg + 1) * p.taps_per_job)
+            assert tap_range.stop <= taps
+            if p.rowsplit:  # this warpgroup's 64-row half of every step
+                row_ranges = [range(r + wg * 64, min(r + wg * 64 + 64, mend)) for r in range(mbeg, mend, step_rows)]
+            else:
+                row_ranges = [range(mbeg, mend)]
+            part = split * 2 + wg if p.rowsplit else split
+            yield (part, tap_range, range(cb * 64, min(cb * 64 + 64, c)), range(n0, min(n0 + p.bn, cout)),
+                   [r for r in row_ranges if len(r)])
+
+
+def _ids(problems):
+    return [f"M{m}-C{c}-N{n}-k{k}" for m, c, n, k in problems]
+
+
+@pytest.mark.parametrize("rows,c,cout,ks", MAIN + CARD, ids=_ids(MAIN + CARD))
+def test_plan_covers_every_tap_channel_and_row_once(rows, c, cout, ks):
+    p = wgrad_plan.plan(rows, c, cout, ks)
+    taps = ks * ks
+    rows_of = {}  # (tap, c block, n block) -> row ranges reduced
+    written = set()  # (part, tap, c block, n block)
+    for part, tap_range, c_range, n_range, row_ranges in work_items(p, rows, c, cout, ks):
+        assert 0 <= part < p.parts
+        assert len(c_range) > 0 and len(n_range) > 0
+        for tap in tap_range:
+            key = (part, tap, c_range.start, n_range.start)
+            assert key not in written, f"partial region {key} written twice"
+            written.add(key)
+            rows_of.setdefault((tap, c_range.start, n_range.start), []).extend(row_ranges)
+    assert len(rows_of) == taps * p.cblocks * p.nblocks
+    for key, ranges in rows_of.items():
+        ranges = sorted((r.start, r.stop) for r in ranges)
+        pos = 0
+        for start, stop in ranges:
+            assert start == pos, f"{key}: rows {pos}..{start} missed or overlapped"
+            pos = stop
+        assert pos == rows, f"{key}: rows {pos}..{rows} missed"
+    # every channel block and n block of every tap is there, and nothing past C / COUT
+    assert {k[1] for k in rows_of} == set(range(0, c, 64))
+    assert {k[2] for k in rows_of} == set(range(0, cout, p.bn))
+
+
+@pytest.mark.parametrize("rows,c,cout,ks", MAIN + CARD, ids=_ids(MAIN + CARD))
+def test_plan_keeps_its_limits(rows, c, cout, ks):
+    p = wgrad_plan.plan(rows, c, cout, ks)
+    slots = wgrad_plan.SMS * p.minb
+    assert p.splits == 1 or p.blocks <= wgrad_plan.MAX_WAVES * slots
+    assert p.splits == 1 or p.steps_per_split >= wgrad_plan.MIN_STEPS
+    assert (p.splits - 1) * p.steps_per_split * p.rows_per_step < rows <= p.splits * p.steps_per_split * p.rows_per_step
+    assert p.parts == p.splits * (1 + p.rowsplit)
+    assert p.partial_elems == (p.parts * ks * ks * c * cout if p.parts > 1 else 0)
+    # the tile shapes the kernel is instantiated for
+    assert (p.taps_per_job, p.bn, p.rowsplit, p.minb) in {(3, 64, 1, 1), (1, 64, 0, 2), (1, 64, 1, 2), (1, 128, 0, 2)}
+
+
+@pytest.mark.parametrize("geometry", ["basic", "projection"])
+@pytest.mark.parametrize("shape", [(N_IMG, 64, 64, 64), (N_IMG, 8, 8, 512), (2, 9, 7, 64), (4, 32, 32, 128)])
+def test_workspace_holds_every_launch(geometry, shape):
+    """The wrappers' workspace (the largest partial set of the backward's
+    weight gradients) holds what each of its launches writes, and the main
+    path's stays within a few tens of MB."""
+    n, h, w, c = shape
+    if geometry == "basic":
+        problems = _basic(n, h, w, c)
+    else:
+        problems = _proj(n, h, w, c, c // 2, 2 * c, 2 if h % 2 == 0 and w % 2 == 0 else 1)
+    ws = wgrad_plan.workspace(*problems)
+    for prob in problems:
+        assert wgrad_plan.plan(*prob).partial_elems <= ws
+    assert ws * 4 < 256 * 2**20
+
+
+def test_main_path_plans_fill_whole_waves():
+    """At the seven geometries the split rule fills at least 90% of the
+    last wave of blocks."""
+    for rows, c, cout, ks in MAIN:
+        p = wgrad_plan.plan(rows, c, cout, ks)
+        slots = wgrad_plan.SMS * p.minb
+        waves = -(-p.blocks // slots)
+        assert p.blocks / (waves * slots) >= 0.9, (rows, c, cout, ks, p)
+
+
+def test_mirror_constants_match_the_kernel_header():
+    src = (Path(wgrad_plan.__file__).resolve().parents[2] / "csrc" / "wgrad_sm90.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kWgSms") == wgrad_plan.SMS
+    assert const("kWgMaxWaves") == wgrad_plan.MAX_WAVES
+    assert const("kWgMinSteps") == wgrad_plan.MIN_STEPS
