@@ -1,8 +1,8 @@
-// The two redesigned block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu)
-// composed from the engines they ran on before, the mma.sync conv-GEMM
-// (conv_gemm.cuh) and weight gradient (wgrad.cuh), which the identity,
-// recompute, stage-chain and pointwise backwards still use. No wrapper of
-// the port calls this library: chip_smoke.py and
+// The four redesigned block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu,
+// block_fused_bwd.cu, block_fused_rbwd.cu) composed from the engines they
+// ran on before, the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient
+// (wgrad.cuh), which the stage-chain and pointwise backwards still use. No
+// wrapper of the port calls this library: chip_smoke.py and
 // scripts/time_torch_block_bwd.py time it beside the Hopper engines (same
 // inputs, same call) and break both down by device kernel.
 
@@ -52,4 +52,34 @@ extern "C" int argus_proj_bwd_prev(const void* x, const void* g, const void* out
   return static_cast<int>(argus::projection_block_bwd(
       x, g, out, h1, h2, w1t, w2d, w3t, wsct, dx, m1, m2, dw1, dw2, dw3, dwsc, ws, ws_elems, N, H,
       W, CIN, F, COUT, S, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int argus_block_bwd_prev(const void* x, const void* g, const void* out, const void* h1,
+                                    const void* h2, const void* w1t, const void* w2d, const void* w3t,
+                                    void* dx, void* m1, void* m2, void* dw1, void* dw2, void* dw3,
+                                    void* ws, int64_t ws_elems, int N, int H, int W, int CIN, int F,
+                                    void* stream) {
+  return static_cast<int>(argus::identity_block_bwd(x, g, out, h1, h2, w1t, w2d, w3t, dx, m1, m2,
+                                                    dw1, dw2, dw3, ws, ws_elems, N, H, W, CIN, F,
+                                                    static_cast<cudaStream_t>(stream)));
+}
+
+// the recompute: two forward launches of the conv-GEMM write h1/h2, then
+// the identity backward above
+extern "C" int argus_block_rbwd_prev(const void* x, const void* g, const void* out, const void* w1,
+                                     const void* b1, const void* w2, const void* b2, const void* w1t,
+                                     const void* w2d, const void* w3t, void* dx, void* h1, void* h2,
+                                     void* m1, void* m2, void* dw1, void* dw2, void* dw3, void* ws,
+                                     int64_t ws_elems, int N, int H, int W, int CIN, int F,
+                                     void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = argus::conv_gemm(argus::make_seg(x, w1, H, W, CIN, 1, 1, 0), nullptr, N, H, W, F,
+                                   b1, nullptr, nullptr, h1, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = argus::conv_gemm(argus::make_seg(h1, w2, H, W, F, 3, 1, 1), nullptr, N, H, W, F, b2, nullptr,
+                       nullptr, h2, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(argus::identity_block_bwd(x, g, out, h1, h2, w1t, w2d, w3t, dx, m1, m2,
+                                                    dw1, dw2, dw3, ws, ws_elems, N, H, W, CIN, F,
+                                                    st));
 }

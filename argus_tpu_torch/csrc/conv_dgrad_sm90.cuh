@@ -1,8 +1,15 @@
 // The data-gradient engine of the redesigned block backwards
-// (basic_fused_bwd.cu, proj_fused_bwd.cu): an implicit-GEMM convolution over
-// NHWC bf16 on Hopper's warpgroup MMA, in the gradient form of conv_gemm.cuh
+// (basic_fused_bwd.cu, proj_fused_bwd.cu, and block_fused_bwd.cu /
+// block_fused_rbwd.cu through identity_bwd_sm90.cuh): an implicit-GEMM
+// convolution over NHWC bf16 on Hopper's warpgroup MMA, in the gradient form
+// of conv_gemm.cuh
 //
 //   out[m, n] = bf16(sum_k A[m, k] * B[k, n] (+ residual[m, n])) * (emask[m, n] > 0)
+//
+// or, in its forward mode (`bias` set, `launch_conv_bias_relu`), the
+// folded forward conv of the recompute backward (block_fused_rbwd.cu)
+//
+//   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] + bias[n]))   (bias f32)
 //
 // with A the gather of one or two segments (each a (kh, kw) conv over its
 // own source, stride and padding offsets, as conv_gemm.cuh's ConvSeg) and B
@@ -67,6 +74,7 @@ struct DgradArgs {
   int COUT;
   const bf16* residual;  // like out, or nullptr
   const bf16* emask;     // like out, or nullptr
+  const float* bias;     // (COUT,) f32: the forward mode (no residual, no mask), or nullptr
   bf16* out;             // (N, OH, OW, COUT)
 };
 
@@ -103,8 +111,10 @@ struct KPos {
 
 // kVec: every segment's C is a multiple of 64, so a step is one tap and a
 // thread's chunks of it are contiguous channels of one source pixel.
-template <int BN, int MINB, bool kVec>
-__global__ void __launch_bounds__(kDgThreads, MINB) dgrad_sm90_kernel(const __grid_constant__ DgradArgs p) {
+// kBias: the forward mode's epilogue, bias + relu (a separate instantiation,
+// so the gradient launches carry no register or branch for it).
+template <int BN, int MINB, bool kVec, bool kBias>
+__device__ __forceinline__ void dgrad_sm90_body(const DgradArgs& p) {
   using Cfg = DgradCfg<BN, MINB>;
   constexpr int S = Cfg::kStages;
   constexpr int BM = kDgBM;
@@ -257,7 +267,7 @@ __global__ void __launch_bounds__(kDgThreads, MINB) dgrad_sm90_kernel(const __gr
     wgmma_commit();
     const int m0 = (ctile / ntn) * BM;
     const int n0 = (ctile % ntn) * BN;
-    if (Cfg::kPre && ts == 0) {
+    if (Cfg::kPre && !kBias && ts == 0) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int64_t ro = row_off(m0, i);
@@ -279,7 +289,8 @@ __global__ void __launch_bounds__(kDgThreads, MINB) dgrad_sm90_kernel(const __gr
     ctile += gridDim.x;
 
     // the tile's epilogue: (+ residual), one rounding to bf16, then the
-    // output mask; the next tile's first steps are loading meanwhile. The
+    // output mask (the forward mode: + bias, relu, one rounding); the next
+    // tile's first steps are loading meanwhile. The
     // accumulators are read in straight-line code, the stores predicated.
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -290,7 +301,10 @@ __global__ void __launch_bounds__(kDgThreads, MINB) dgrad_sm90_kernel(const __gr
         uint32_t rv[JC], ev[JC];
 #pragma unroll
         for (int jj = 0; jj < JC; ++jj) {
-          if (Cfg::kPre) {
+          if (kBias) {
+            rv[jj] = 0u;
+            ev[jj] = 0x3F803F80u;
+          } else if (Cfg::kPre) {
             const int x = Cfg::kPre ? i * (BN / 8) + jc + jj : 0;
             rv[jj] = pre_r[x];
             ev[jj] = pre_e[x];
@@ -305,16 +319,34 @@ __global__ void __launch_bounds__(kDgThreads, MINB) dgrad_sm90_kernel(const __gr
           const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rv[jj]);
           const __nv_bfloat162 em = *reinterpret_cast<const __nv_bfloat162*>(&ev[jj]);
           __nv_bfloat162 o;
-          o.x = __float2bfloat16(acc[j * 4 + i * 2] + __bfloat162float(r.x));
-          o.y = __float2bfloat16(acc[j * 4 + i * 2 + 1] + __bfloat162float(r.y));
-          if (!(__bfloat162float(em.x) > 0.f)) o.x = __float2bfloat16(0.f);
-          if (!(__bfloat162float(em.y) > 0.f)) o.y = __float2bfloat16(0.f);
+          if (kBias) {  // one rounding after the f32 bias and relu
+            const float2 bv = n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias + n)) : make_float2(0.f, 0.f);
+            o.x = __float2bfloat16(fmaxf(acc[j * 4 + i * 2] + bv.x, 0.f));
+            o.y = __float2bfloat16(fmaxf(acc[j * 4 + i * 2 + 1] + bv.y, 0.f));
+          } else {
+            o.x = __float2bfloat16(acc[j * 4 + i * 2] + __bfloat162float(r.x));
+            o.y = __float2bfloat16(acc[j * 4 + i * 2 + 1] + __bfloat162float(r.y));
+            if (!(__bfloat162float(em.x) > 0.f)) o.x = __float2bfloat16(0.f);
+            if (!(__bfloat162float(em.y) > 0.f)) o.y = __float2bfloat16(0.f);
+          }
           if (ro >= 0 && n < p.COUT) *reinterpret_cast<__nv_bfloat162*>(p.out + ro + n) = o;
         }
       }
     }
   }
   cp_async_wait<0>();
+}
+
+template <int BN, int MINB, bool kVec>
+__global__ void __launch_bounds__(kDgThreads, MINB) dgrad_sm90_kernel(const __grid_constant__ DgradArgs p) {
+  dgrad_sm90_body<BN, MINB, kVec, false>(p);
+}
+
+// the forward mode under its own name, so that a profile tells the
+// recompute's launches from the gradients'
+template <int BN, int MINB, bool kVec>
+__global__ void __launch_bounds__(kDgThreads, MINB) conv_fwd_sm90_kernel(const __grid_constant__ DgradArgs p) {
+  dgrad_sm90_body<BN, MINB, kVec, true>(p);
 }
 
 // m = g * (ref > 0) over n16 16-byte vectors of bf16
@@ -388,17 +420,20 @@ inline DgradArgs dgrad_args(const DgradSeg& first, const DgradSeg* second, int N
 }
 
 // static: each kernel library keeps its own once-only state
-template <int BN, int MINB, bool kVec>
+template <int BN, int MINB, bool kVec, bool kBias>
 static inline cudaError_t launch_dgrad_cfg(const DgradArgs& p, cudaStream_t stream) {
   using Cfg = DgradCfg<BN, MINB>;
+  void (*kernel)(const DgradArgs);
+  if constexpr (kBias)
+    kernel = conv_fwd_sm90_kernel<BN, MINB, kVec>;
+  else
+    kernel = dgrad_sm90_kernel<BN, MINB, kVec>;
   static int sms = 0;  // set once per instantiation: the SM count and the shared-memory opt-in
   if (sms == 0) {
     int dev = 0, n = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(dgrad_sm90_kernel<BN, MINB, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Cfg::kSmem);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
     if (e != cudaSuccess) return e;
     sms = n * MINB;
   }
@@ -406,26 +441,40 @@ static inline cudaError_t launch_dgrad_cfg(const DgradArgs& p, cudaStream_t stre
   const int64_t M = static_cast<int64_t>(p.N) * p.Ho * p.Wo;
   const int64_t tiles = (M + kDgBM - 1) / kDgBM * ((p.COUT + BN - 1) / BN);
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  dgrad_sm90_kernel<BN, MINB, kVec><<<grid, kDgThreads, Cfg::kSmem, stream>>>(p);
+  kernel<<<grid, kDgThreads, Cfg::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int BN, int MINB>
+template <int BN, int MINB, bool kBias>
 static inline cudaError_t launch_dgrad_tile(const DgradArgs& p, cudaStream_t stream) {
   const bool vec = p.seg0.C % 64 == 0 && (p.nseg == 1 || p.seg1.C % 64 == 0);
-  return vec ? launch_dgrad_cfg<BN, MINB, true>(p, stream) : launch_dgrad_cfg<BN, MINB, false>(p, stream);
+  return vec ? launch_dgrad_cfg<BN, MINB, true, kBias>(p, stream) : launch_dgrad_cfg<BN, MINB, false, kBias>(p, stream);
 }
 
-// Builds the weights' tensor maps and launches; w0 is (first.K, COUT), w1
-// (second.K, COUT) row-major.
-inline cudaError_t launch_dgrad(DgradArgs p, const void* w0, const void* w1, cudaStream_t stream) {
+template <bool kBias>
+static inline cudaError_t launch_dgrad_mode(DgradArgs& p, const void* w0, const void* w1, cudaStream_t stream) {
   cudaError_t e = make_tmap_2d(&p.w0, w0, p.seg0.K, p.COUT, p.COUT);
   if (e != cudaSuccess) return e;
   e = make_tmap_2d(&p.w1, p.nseg > 1 ? w1 : w0, p.nseg > 1 ? p.seg1.K : p.seg0.K, p.COUT, p.COUT);
   if (e != cudaSuccess) return e;
-  if (p.COUT <= 64) return launch_dgrad_tile<64, 2>(p, stream);
-  if (p.COUT <= 128) return launch_dgrad_tile<128, 2>(p, stream);
-  return launch_dgrad_tile<256, 1>(p, stream);
+  if (p.COUT <= 64) return launch_dgrad_tile<64, 2, kBias>(p, stream);
+  if (p.COUT <= 128) return launch_dgrad_tile<128, 2, kBias>(p, stream);
+  return launch_dgrad_tile<256, 1, kBias>(p, stream);
+}
+
+// Builds the weights' tensor maps and launches; w0 is (first.K, COUT), w1
+// (second.K, COUT) row-major. The gradient modes: `bias` must be unset.
+inline cudaError_t launch_dgrad(DgradArgs p, const void* w0, const void* w1, cudaStream_t stream) {
+  if (p.bias != nullptr) return cudaErrorInvalidValue;
+  return launch_dgrad_mode<false>(p, w0, w1, stream);
+}
+
+// The forward mode: out = bf16(relu(conv + bias)) over one segment with
+// weights w (first.K, COUT) row-major (an HWIO kernel), `bias` set, no
+// residual or mask. Only a library that calls it compiles its kernels.
+inline cudaError_t launch_conv_bias_relu(DgradArgs p, const void* w, cudaStream_t stream) {
+  if (p.bias == nullptr || p.residual != nullptr || p.emask != nullptr || p.nseg != 1) return cudaErrorInvalidValue;
+  return launch_dgrad_mode<true>(p, w, nullptr, stream);
 }
 
 }  // namespace argus

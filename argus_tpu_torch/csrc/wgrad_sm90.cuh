@@ -1,5 +1,6 @@
 // The weight-gradient engine of the redesigned block backwards
-// (basic_fused_bwd.cu, proj_fused_bwd.cu) on Hopper's warpgroup MMA:
+// (basic_fused_bwd.cu, proj_fused_bwd.cu, identity_bwd_sm90.cuh) on Hopper's
+// warpgroup MMA:
 //
 //   dW[tap, c, n] = sum_m A_tap[m, c] * B[m, n]
 //

@@ -96,8 +96,8 @@ AUTO_FUSE = {
     ("stage_chain", "train"): False,  # flagship step -4.55
     ("projection", "forward"): True,  # serving 2.15
     ("projection", "train"): False,  # flagship step -1.66, frozen_stages=3 step -2.87 (Hopper backward)
-    ("identity", "forward"): False,  # serving -3.86
-    ("identity", "train"): False,  # flagship step -73.13, frozen_stages=3 step -15.62
+    ("identity", "forward"): False,  # serving -3.92
+    ("identity", "train"): False,  # flagship step -14.26, frozen_stages=3 step -4.82 (Hopper backward)
     ("basic", "forward"): False,  # keypoint eval forward -6.78
     ("basic", "train"): False,  # keypoint step -11.62 (Hopper backward)
     ("pointwise", "forward"): True,  # serving 7.77 (fuse_pointwise "auto" in all 16 blocks)

@@ -36,14 +36,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from argus_tpu_torch.ops.kernels import wgrad_plan
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
 
 KERNEL = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
 # the training forward is the same launcher with the buffers kept; its own
 # handle counts its launches apart
 KERNEL_SAVE = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
-KERNEL_BWD = Kernel("block_fused_bwd", "argus_block_bwd", [P] * 15 + [L] + [I] * 5 + [P])
-KERNEL_RBWD = Kernel("block_fused_rbwd", "argus_block_rbwd", [P] * 19 + [L] + [I] * 5 + [P])
+KERNEL_BWD = Kernel("block_fused_bwd", "argus_block_bwd", [P] * 16 + [L] + [I] * 5 + [P])
+KERNEL_RBWD = Kernel("block_fused_rbwd", "argus_block_rbwd", [P] * 20 + [L] + [I] * 5 + [P])
 
 
 # ───────────────────────────── plain pieces ─────────────────────────────
@@ -106,8 +107,32 @@ def wgrad_workspace(*problems) -> int:
 
 
 def identity_wgrad_problems(n, h, w, cin, f):
+    """The identity block's weight gradients as csrc/wgrad.cuh's workspace
+    rule takes them (rows, C, COUT, taps): the stage chain's backward."""
     rows = n * h * w
     return [(rows, f, cin, 1), (rows, f, f, 9), (rows, cin, f, 1)]
+
+
+def identity_wgrad_plans(n, h, w, cin, f):
+    """The identity block's weight gradients as `wgrad_plan` takes them
+    (rows, C, COUT, kernel size): dw3, dw2, dw1 in the launch order of
+    csrc/identity_bwd_sm90.cuh."""
+    rows = n * h * w
+    return [(rows, f, cin, 1), (rows, f, f, 3), (rows, cin, f, 1)]
+
+
+def _identity_scratch(x, n, h, w, cin, f, need_dx):
+    """The Hopper identity backward's outputs and scratch: dx (or None),
+    m1, m2 (N, H, W, F), m3 (N, H, W, CIN), dw1-3 in f32, the workspace of
+    the weight gradients' partials and its size."""
+    dev, bf = x.device, torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=dev)
+    m1, m2 = (torch.empty((n, h, w, f), dtype=bf, device=dev) for _ in range(2))
+    m3 = torch.empty_like(x)
+    dx = torch.empty_like(x) if need_dx else None
+    dws = (torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32), torch.empty((f, cin), **f32))
+    ws_elems = wgrad_plan.workspace(*identity_wgrad_plans(n, h, w, cin, f))
+    return dx, m1, m2, m3, dws, torch.empty(max(ws_elems, 1), **f32), ws_elems
 
 
 def fold_affine(k: torch.Tensor, s, b, m, v, eps: float, dtype, axis: int = -1):
@@ -272,20 +297,11 @@ def block_bwd(x, g, out, h1, h2, w1, w2, w3, need_dx=True):
     bf = torch.bfloat16
     for name, t, c in (("g", g, cin), ("out", out, cin), ("h1", h1, f), ("h2", h2, f)):
         check_cuda(name, t, bf, (n, h, w, c))
-    dev = x.device
-    m1 = torch.empty_like(h1)
-    m2 = torch.empty_like(h2)
-    dx = torch.empty_like(x) if need_dx else None
-    dw1 = torch.empty((cin, f), dtype=torch.float32, device=dev)
-    dw2 = torch.empty((3, 3, f, f), dtype=torch.float32, device=dev)
-    dw3 = torch.empty((f, cin), dtype=torch.float32, device=dev)
-    ws_elems = wgrad_workspace(*identity_wgrad_problems(n, h, w, cin, f))
-    ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=dev)
+    dx, m1, m2, m3, dws, ws, ws_elems = _identity_scratch(x, n, h, w, cin, f, need_dx)
     KERNEL_BWD.launch(
-        x, g, out, h1, h2, *transposed_weights(w1, w2, w3), dx, m1, m2, dw1, dw2, dw3,
-        ws, ws_elems, n, h, w, cin, f,
+        x, g, out, h1, h2, *transposed_weights(w1, w2, w3), dx, m1, m2, m3, *dws, ws, ws_elems, n, h, w, cin, f,
     )
-    return dx, dw1, dw2, dw3
+    return (dx, *dws)
 
 
 def block_bwd_recompute_plain(x, g, out, w1, b1, w2, b2, w3, b3, need_dx=True, recomputed=False):
@@ -314,19 +330,13 @@ def block_bwd_recompute(x, g, out, w1, b1, w2, b2, w3, b3, need_dx=True, recompu
     bf = torch.bfloat16
     for name, t in (("g", g), ("out", out)):
         check_cuda(name, t, bf, (n, h, w, cin))
-    dev = x.device
-    h1, h2, m1, m2 = (torch.empty((n, h, w, f), dtype=bf, device=dev) for _ in range(4))
-    dx = torch.empty_like(x) if need_dx else None
-    dw1 = torch.empty((cin, f), dtype=torch.float32, device=dev)
-    dw2 = torch.empty((3, 3, f, f), dtype=torch.float32, device=dev)
-    dw3 = torch.empty((f, cin), dtype=torch.float32, device=dev)
-    ws_elems = wgrad_workspace(*identity_wgrad_problems(n, h, w, cin, f))
-    ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=dev)
+    h1, h2 = (torch.empty((n, h, w, f), dtype=bf, device=x.device) for _ in range(2))
+    dx, m1, m2, m3, dws, ws, ws_elems = _identity_scratch(x, n, h, w, cin, f, need_dx)
     KERNEL_RBWD.launch(
-        x, g, out, w1, b1, w2, b2, *transposed_weights(w1, w2, w3), dx, h1, h2, m1, m2, dw1, dw2, dw3,
+        x, g, out, w1, b1, w2, b2, *transposed_weights(w1, w2, w3), dx, h1, h2, m1, m2, m3, *dws,
         ws, ws_elems, n, h, w, cin, f,
     )
-    return (dx, dw1, dw2, dw3, h1, h2) if recomputed else (dx, dw1, dw2, dw3)
+    return (dx, *dws, h1, h2) if recomputed else (dx, *dws)
 
 
 def zero_grad_of(needed: bool, t: torch.Tensor):

@@ -1,9 +1,12 @@
-"""The BasicBlock and projection-block backwards on the engine they ran on
-before their Hopper redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and
-weight gradient that the other backwards keep). No path of the port calls
-these: `chip_smoke.py` and `scripts/time_torch_block_bwd.py` time them beside
-`basic_fused.basic_bwd` and `proj_fused.proj_bwd` on the same inputs, in the
-same call. CUDA tensors only; outputs as the redesigned wrappers give them.
+"""The BasicBlock, projection-block and identity-block backwards and the
+identity block's recompute backward on the engine they ran on before their
+Hopper redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and weight
+gradient that the stage-chain and pointwise backwards keep). No path of the
+port calls these: `chip_smoke.py` and `scripts/time_torch_block_bwd.py` time
+them beside `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
+`block_fused.block_bwd` and `block_fused.block_bwd_recompute` on the same
+inputs, in the same call. CUDA tensors only; outputs as the redesigned
+wrappers give them.
 """
 
 from __future__ import annotations
@@ -11,11 +14,14 @@ from __future__ import annotations
 import torch
 
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
-from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2, wgrad_workspace
+from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2, identity_wgrad_problems, wgrad_workspace
+from argus_tpu_torch.ops.kernels.block_fused import transposed_weights as identity_transposed_weights
 from argus_tpu_torch.ops.kernels.proj_fused import projection_wgrad_problems, transposed_weights
 
 KERNEL_BASIC = Kernel("bwd_prev", "argus_basic_bwd_prev", [P] * 11 + [L] + [I] * 4 + [P])
 KERNEL_PROJ = Kernel("bwd_prev", "argus_proj_bwd_prev", [P] * 17 + [L] + [I] * 7 + [P])
+KERNEL_ID = Kernel("bwd_prev", "argus_block_bwd_prev", [P] * 15 + [L] + [I] * 5 + [P])
+KERNEL_ID_R = Kernel("bwd_prev", "argus_block_rbwd_prev", [P] * 19 + [L] + [I] * 5 + [P])
 
 
 def basic_bwd_prev(x, g, out, h1, w1, w2, need_dx=True):
@@ -45,3 +51,35 @@ def proj_bwd_prev(x, g, out, h1, h2, w1, w2, w3, wsc, stride, need_dx=True):
     KERNEL_PROJ.launch(x, g, out, h1, h2, *transposed_weights(w1, w2, w3, wsc, stride), dx, m1, m2, dw1, dw2, dw3,
                        dwsc, ws, ws_elems, n, h, w, cin, f, cout, stride)
     return dx, dw1, dw2, dw3, dwsc
+
+
+def _identity_outputs(x, f, need_dx):
+    n, h, w, cin = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m1, m2 = (torch.empty((n, h, w, f), dtype=x.dtype, device=x.device) for _ in range(2))
+    dx = torch.empty_like(x) if need_dx else None
+    dws = (torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32), torch.empty((f, cin), **f32))
+    ws_elems = wgrad_workspace(*identity_wgrad_problems(n, h, w, cin, f))
+    return dx, m1, m2, dws, torch.empty(max(ws_elems, 1), **f32), ws_elems
+
+
+def block_bwd_prev(x, g, out, h1, h2, w1, w2, w3, need_dx=True):
+    """(dx or None, dw1, dw2, dw3 in f32), as `block_fused.block_bwd`."""
+    n, h, w, cin = x.shape
+    f = w1.shape[1]
+    dx, m1, m2, dws, ws, ws_elems = _identity_outputs(x, f, need_dx)
+    KERNEL_ID.launch(x, g, out, h1, h2, *identity_transposed_weights(w1, w2, w3), dx, m1, m2, *dws, ws, ws_elems,
+                     n, h, w, cin, f)
+    return (dx, *dws)
+
+
+def block_bwd_recompute_prev(x, g, out, w1, b1, w2, b2, w3, b3, need_dx=True, recomputed=False):
+    """(dx or None, dw1, dw2, dw3 in f32, and h1, h2 with `recomputed`), as
+    `block_fused.block_bwd_recompute`."""
+    n, h, w, cin = x.shape
+    f = w1.shape[1]
+    h1, h2 = (torch.empty((n, h, w, f), dtype=x.dtype, device=x.device) for _ in range(2))
+    dx, m1, m2, dws, ws, ws_elems = _identity_outputs(x, f, need_dx)
+    KERNEL_ID_R.launch(x, g, out, w1, b1, w2, b2, *identity_transposed_weights(w1, w2, w3), dx, h1, h2, m1, m2,
+                       *dws, ws, ws_elems, n, h, w, cin, f)
+    return (dx, *dws, h1, h2) if recomputed else (dx, *dws)

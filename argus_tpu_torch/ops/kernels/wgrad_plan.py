@@ -20,9 +20,10 @@ pixel rows is cut into:
 `parts` = splits * (1 + rowsplit) partials of (taps, C, COUT) f32 are added
 in order by a second pass when there is more than one.
 
-Used by the block backwards `basic_fused.basic_bwd` and
-`proj_fused.proj_bwd`; the other backwards keep the older engine
-(`csrc/wgrad.cuh`, sized by `block_fused.wgrad_workspace`).
+Used by the block backwards `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
+`block_fused.block_bwd` and `block_fused.block_bwd_recompute`; the stage
+chain's and the pointwise backwards keep the older engine (`csrc/wgrad.cuh`,
+sized by `block_fused.wgrad_workspace`).
 """
 
 from __future__ import annotations

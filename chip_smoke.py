@@ -9,7 +9,8 @@ Phases, each fatal on failure (nothing is caught and ignored):
    keypoint, trained-stem, exact-BN, frozen-stage, pointwise and remat paths
    from `argus_tpu_torch/csrc/` (17 sources, one nvcc each, in parallel) and
    print the seconds and ptxas' register/spill report; `cuobjdump -sass` of
-   the BasicBlock and projection backwards' libraries must show wgmma
+   the BasicBlock, projection and identity backwards' libraries (the
+   identity's saved-residual and recompute backwards) must show wgmma
    (HGMMA) instructions;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
@@ -34,11 +35,13 @@ Phases, each fatal on failure (nothing is caught and ignored):
    with retain_graph); then the three BasicBlock kernels (no-save forward,
    saving forward, one-pass backward) at the four geometries of ResNet-18's
    identity blocks at N = 512 (C/H = 64/64, 128/32, 256/16, 512/8), same
-   tolerance and yardsticks; then those two backwards (BasicBlock and
-   projection, on the Hopper wgmma/TMA engines) beside the mma.sync engine
-   they ran on before (`ops/kernels/bwd_prev.py`) at their seven
-   geometries, each call broken down by device kernel (data gradient,
-   weight gradient, split sum, mask pass) from `torch.profiler`;
+   tolerance and yardsticks; then the four backwards on the Hopper
+   wgmma/TMA engines (BasicBlock, projection, and the identity block's
+   saved-residual and recompute backwards) beside the mma.sync engine they
+   ran on before (`ops/kernels/bwd_prev.py`), at the seven BasicBlock and
+   projection geometries and the four identity ones, each call broken down
+   by device kernel (data gradient, weight gradient, split sum, mask pass,
+   recompute) from `torch.profiler`, with per-step totals;
 5. the augmentation kernels at the flagship step's shapes (N = 512 camera
    images, 256x256, parameters from the port's samplers): the whole-stack
    kernel against its plain version in bf16 at each of the 4 hue positions
@@ -351,7 +354,7 @@ def hgmma_check() -> None:
     from argus_tpu_torch.ops.kernels import _build
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("basic_fused_bwd", "proj_fused_bwd"):
+    for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         n = sass.count("HGMMA")
@@ -791,7 +794,7 @@ def train_kernel_phase() -> dict:
             lambda args=args: block_fused.block_bwd_plain(*args),
             _lib_bwd(_lib_block, [xi, *iw], gi),
             2 * fl, nbytes(xi, gi, *saved, iw[0], iw[2], iw[4]) + nbytes(xi)
-            + dw_bytes(iw[0], iw[2], iw[4]), 9, _round_trip_bytes(N_IMG, ho, ho, f, 1),
+            + dw_bytes(iw[0], iw[2], iw[4]), 10, _round_trip_bytes(N_IMG, ho, ho, f, 1) + 2 * nbytes(gi),
         ))
     record("proj_fused_save", proj_save)
     record("proj_fused_bwd", proj_bwd)
@@ -860,11 +863,13 @@ def basic_kernel_phase() -> dict:
 
 
 def engine_phase() -> None:
-    """The BasicBlock and projection backwards on the Hopper engines beside
-    the mma.sync engine they ran on before (`ops/kernels/bwd_prev.py`), at
-    the seven geometries of scripts/time_torch_block_bwd.py, in this call:
-    ms per call (CUDA events, 5 calls) and each call's device kernels by
-    launch (torch.profiler), and the ms per train step of each."""
+    """The four Hopper backwards (BasicBlock, projection, identity, the
+    identity's recompute) beside the mma.sync engine they ran on before
+    (`ops/kernels/bwd_prev.py`), at the eleven geometries of
+    scripts/time_torch_block_bwd.py, in this call: ms per call (CUDA events,
+    5 calls) and each call's device kernels by launch (torch.profiler), and
+    the ms per train step of each (the recompute's per configuration R
+    step; stage 0's identity geometry runs in the chain, 0 a step)."""
     import importlib.util
 
     import torch
@@ -891,7 +896,8 @@ def engine_phase() -> None:
         prev, new = step.get(row, (0.0, 0.0))
         step[row] = (prev + count * pms, new + count * nms)
     for row, (pms, nms) in step.items():
-        say(f"{row} per train step: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms ({pms / nms:.2f}x)")
+        per = "R step" if row == "block_fused_rbwd" else "train step"
+        say(f"{row} per {per}: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms ({pms / nms:.2f}x)")
 
 
 def _resnet50_bn_inputs(n: int) -> list:
@@ -2401,8 +2407,8 @@ def rbwd_kernel_phase() -> dict:
                 *block_fused.block_bwd_plain(*args[:3], h1k, h2k, args[3], args[5], args[7]),
                 *block_fused.bottleneck_block_save_plain(args[0], *args[3:])[1:]],
             lib,
-            fl, nbytes(x, gi, out, *iw) + nbytes(x) + 4 * (cin * f + 9 * f * f + f * cin), 11,
-            2 * _round_trip_bytes(N_IMG, h, h, f, 1),
+            fl, nbytes(x, gi, out, *iw) + nbytes(x) + 4 * (cin * f + 9 * f * f + f * cin), 12,
+            2 * _round_trip_bytes(N_IMG, h, h, f, 1) + 2 * nbytes(gi),
         ))
         say(f"block_fused_rbwd {label}: the saved-residual backward (block_fused_bwd) takes {saved_ms:.3f} ms here")
         del out, h1, h2

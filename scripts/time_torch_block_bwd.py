@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Time the BasicBlock and projection-block backwards (`basic_fused.basic_bwd`,
-`proj_fused.proj_bwd`) of one tree of the port on one NVIDIA GPU, at the
-seven geometries of the keypoint and flagship train steps (N = 512 camera
-images of 256x256, bf16), and break each call down by device kernel with
-`torch.profiler`: data gradient, weight gradient, split sum, the relu mask
-pass, the rest.
+"""Time the block backwards of one tree of the port on one NVIDIA GPU: the
+BasicBlock's and the projection block's (`basic_fused.basic_bwd`,
+`proj_fused.proj_bwd`) at the seven geometries of the keypoint and flagship
+train steps, and the identity bottleneck's saved-residual and recompute
+backwards (`block_fused.block_bwd`, `block_fused.block_bwd_recompute`) at its
+four geometries (N = 512 camera images of 256x256, bf16), and break each
+call down by device kernel with `torch.profiler`: data gradient, weight
+gradient, split sum, the relu mask pass, the recompute's forward convs, the
+rest.
 
     python3 scripts/time_torch_block_bwd.py [--root DIR] [--engine new|prev] [--reps 10]
 
@@ -17,7 +20,7 @@ is timed by the same script in the same call:
     python3 scripts/time_torch_block_bwd.py
     python3 scripts/time_torch_block_bwd.py --root _trees/parent
 
-`--engine prev` times `ops/kernels/bwd_prev.py` (the two backwards on the
+`--engine prev` times `ops/kernels/bwd_prev.py` (the backwards on the
 mma.sync engine they ran on before, from this tree) instead of the
 wrappers. Times are the mean of `--reps` calls between CUDA events after a
 warm-up; the breakdown is one profiled call. Prints one line per geometry
@@ -37,6 +40,9 @@ N_IMG = 512
 BASIC = [(64, 64, 2), (128, 32, 1), (256, 16, 1), (512, 8, 1)]
 # (H = W, CIN, F) of ResNet-50's stride-2 projection blocks, COUT = 4F, one per step
 PROJ = [(64, 256, 128), (32, 512, 256), (16, 1024, 512)]
+# (H = W, CIN, F, blocks per step) of ResNet-50's identity bottlenecks in stages
+# 1-3, and stage 0's (which runs in the stage chain: 0 a step)
+IDENTITY = [(64, 256, 64, 0), (32, 512, 128, 3), (16, 1024, 256, 5), (8, 2048, 512, 2)]
 
 
 def kind(name: str) -> str:
@@ -45,6 +51,8 @@ def kind(name: str) -> str:
         return "split sum"
     if "wgrad" in name:
         return "weight gradient"
+    if "conv_fwd" in name or "conv_gemm_kernel<false>" in name:  # the recompute's h1/h2
+        return "recompute"
     if "conv_gemm" in name or "dgrad" in name:
         return "data gradient"
     if "relu_mask" in name:
@@ -99,18 +107,22 @@ def cuda_ms(fn, reps: int):
 
 def cases(engine: str = "new"):
     """Yields (row, label, blocks per step, the call) at the seven
-    geometries; inputs from seed 0, h1/h2/out from the tree's saving
-    forwards (the relu masks the backward sees in training)."""
+    BasicBlock and projection geometries, then at the identity block's four
+    (the saved-residual and the recompute backward each); inputs from seed
+    0, h1/h2/out from the tree's saving forwards (the relu masks the
+    backward sees in training)."""
     import torch
 
-    from argus_tpu_torch.ops.kernels import basic_fused, proj_fused
+    from argus_tpu_torch.ops.kernels import basic_fused, block_fused, proj_fused
 
     if engine == "prev":
         from argus_tpu_torch.ops.kernels import bwd_prev
 
         basic_bwd, proj_bwd = bwd_prev.basic_bwd_prev, bwd_prev.proj_bwd_prev
+        block_bwd, block_rbwd = bwd_prev.block_bwd_prev, bwd_prev.block_bwd_recompute_prev
     else:
         basic_bwd, proj_bwd = basic_fused.basic_bwd, proj_fused.proj_bwd
+        block_bwd, block_rbwd = block_fused.block_bwd, block_fused.block_bwd_recompute
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def w(*shape):
@@ -140,10 +152,21 @@ def cases(engine: str = "new"):
         args = (x, grad(out), out, h1, h2, pw[0], pw[2], pw[4], pw[6], 2)
         yield "proj_fused_bwd", f"{tuple(x.shape)} F={f} S=2", 1, lambda args=args: proj_bwd(*args)
         del x, out, h1, h2, args
+    for h, cin, f, count in IDENTITY:
+        x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        iw = (w(cin, f), b(f), w(3, 3, f, f), b(f), w(f, cin), b(cin))
+        out, h1, h2 = block_fused.bottleneck_block_save(x, *iw)
+        gr = grad(out)
+        label = f"{tuple(x.shape)} F={f}"
+        args = (x, gr, out, h1, h2, iw[0], iw[2], iw[4])
+        yield "block_fused_bwd", label, count, lambda args=args: block_bwd(*args)
+        args = (x, gr, out, *iw)
+        yield "block_fused_rbwd", label, count, lambda args=args: block_rbwd(*args)
+        del x, out, h1, h2, gr, args
     torch.cuda.empty_cache()
 
 
-KINDS = ("data gradient", "weight gradient", "split sum", "mask pass", "other")
+KINDS = ("data gradient", "weight gradient", "split sum", "mask pass", "recompute", "other")
 
 
 def fmt(parts: dict) -> str:

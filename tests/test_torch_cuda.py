@@ -141,9 +141,18 @@ def _all_close(got, want):
         assert err <= 2e-2 * b.float().abs().max().item() + 1e-2, err
 
 
-@pytest.mark.parametrize("n,h,w,cin,f", [(2, 9, 7, 64, 16), (2, 48, 48, 64, 16), (1, 8, 8, 256, 64)])
+# the identity block's card cases (n, h, w, cin, f): F = 16 below the 64-wide
+# tiles (zero-filled past F), odd H and W, F = 32, CIN 2048 with F 512 at a
+# small N, shapes whose weight gradients split (4608 and 4096 rows), and CIN
+# 72 with F 24 (no launch in whole 64-channel steps)
+IDENTITY_CASES = [(2, 9, 7, 64, 16), (2, 48, 48, 64, 16), (1, 8, 8, 256, 64), (3, 5, 11, 128, 32),
+                  (1, 5, 7, 2048, 512), (4, 32, 32, 256, 64), (2, 6, 5, 72, 24)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,f", IDENTITY_CASES)
 def test_identity_block_save_and_backward_kernels(dev, n, h, w, cin, f):
-    """(2, 48, 48) has 4608 rows: the weight gradients split and sum partials."""
+    """The saving forward and the one-pass backward (on the Hopper engines),
+    with and without dx."""
     g = torch.Generator().manual_seed(5)
     x = torch.rand(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
     ws = _id(g, cin, f, dev)
@@ -291,7 +300,7 @@ def test_basic_block_kernels(dev, n, h, w, c):
     _all_close(got[1:], tbf.basic_bwd_plain(*args)[1:])
 
 
-@pytest.mark.parametrize("block", ["basic", "projection"])
+@pytest.mark.parametrize("block", ["basic", "projection", "identity", "recompute"])
 def test_block_backward_weight_gradients_are_deterministic(dev, block):
     """Two calls of the redesigned backwards on the same inputs give the
     same bits: the weight gradients' split partials are added in a fixed
@@ -303,12 +312,23 @@ def test_block_backward_weight_gradients_are_deterministic(dev, block):
         out, h1 = tbf.basic_block_save(x, *ws)
         args = (x, _grad(g, out.shape, dev), out, h1, ws[0], ws[2])
         first, second = tbf.basic_bwd(*args), tbf.basic_bwd(*args)
-    else:
+    elif block == "projection":
         x = torch.rand(4, 32, 32, 64, generator=g).to(dev, torch.bfloat16)
         ws = _proj(g, 64, 32, 128, dev)
         out, h1, h2 = tp.projection_block_save(x, *ws, 2)
         args = (x, _grad(g, out.shape, dev), out, h1, h2, ws[0], ws[2], ws[4], ws[6], 2)
         first, second = tp.proj_bwd(*args), tp.proj_bwd(*args)
+    else:
+        x = torch.rand(4, 32, 32, 256, generator=g).to(dev, torch.bfloat16)
+        ws = _id(g, 256, 64, dev)
+        out, h1, h2 = tb.bottleneck_block_save(x, *ws)
+        if block == "identity":
+            args = (x, _grad(g, out.shape, dev), out, h1, h2, ws[0], ws[2], ws[4])
+            first, second = tb.block_bwd(*args), tb.block_bwd(*args)
+        else:
+            args = (x, _grad(g, out.shape, dev), out, *ws)
+            first = tb.block_bwd_recompute(*args, recomputed=True)
+            second = tb.block_bwd_recompute(*args, recomputed=True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -636,7 +656,7 @@ def test_pointwise_kernels(dev, m, cin, cout, residual):
     assert (tpw.KERNEL.launches, tpw.KERNEL_BWD.launches) == (before[0] + 3, before[1] + 2)
 
 
-@pytest.mark.parametrize("n,h,w,cin,f", [(2, 9, 7, 64, 16), (2, 48, 48, 64, 16), (1, 8, 8, 256, 64)])
+@pytest.mark.parametrize("n,h,w,cin,f", IDENTITY_CASES)
 def test_recompute_backward_kernel(dev, n, h, w, cin, f):
     """B7 against its plain version, with and without dx: the recomputed
     h1/h2 against the plain recompute, the gradients against the plain

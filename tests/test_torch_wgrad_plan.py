@@ -4,9 +4,11 @@ CPU: every (tap, source channel, gradient channel, pixel row) of a weight
 gradient is reduced by exactly one warpgroup of the launch, each partial
 region is written once, the split rule keeps its limits, and the workspace
 the wrappers allocate holds every partial the launches write. The problems
-are those of the seven main-path geometries (the keypoint step's
-BasicBlocks and the flagship's stride-2 projection blocks at N = 512,
-256x256 frames) and of the card tests (`tests/test_torch_cuda.py`).
+are those of the eleven main-path geometries (the keypoint step's
+BasicBlocks, the flagship's stride-2 projection blocks and its identity
+bottlenecks at N = 512, 256x256 frames) and of the card tests
+(`tests/test_torch_cuda.py`); the identity block's plans follow the launch
+order of `csrc/identity_bwd_sm90.cuh`.
 """
 
 import re
@@ -15,6 +17,7 @@ from pathlib import Path
 import pytest
 
 from argus_tpu_torch.ops.kernels import wgrad_plan
+from argus_tpu_torch.ops.kernels.block_fused import identity_wgrad_plans
 from argus_tpu_torch.ops.kernels.proj_fused import projection_wgrad_plans
 
 N_IMG = 512
@@ -28,15 +31,24 @@ def _proj(n, h, w, cin, f, cout, s):
     return projection_wgrad_plans(n, h, w, cin, f, cout, s)
 
 
+# (H = W, CIN, F) of ResNet-50's identity bottlenecks, stages 0-3
+IDENTITY_MAIN = [(64, 256, 64), (32, 512, 128), (16, 1024, 256), (8, 2048, 512)]
+# the identity and recompute backwards' card cases (n, h, w, cin, f)
+IDENTITY_CARD = [(2, 9, 7, 64, 16), (2, 48, 48, 64, 16), (1, 8, 8, 256, 64), (3, 5, 11, 128, 32),
+                 (1, 5, 7, 2048, 512), (4, 32, 32, 256, 64), (2, 6, 5, 72, 24)]
+
+
 MAIN = sorted({
     *[p for c, h in [(64, 64), (128, 32), (256, 16), (512, 8)] for p in _basic(N_IMG, h, h, c)],
     *[p for h, cin, f in [(64, 256, 128), (32, 512, 256), (16, 1024, 512)] for p in _proj(N_IMG, h, h, cin, f, 4 * f, 2)],
+    *[p for h, cin, f in IDENTITY_MAIN for p in identity_wgrad_plans(N_IMG, h, h, cin, f)],
 })
 CARD = sorted({
     *[p for n, h, w, c in [(2, 9, 7, 64), (2, 48, 48, 64), (1, 8, 8, 256), (3, 5, 11, 128), (2, 7, 9, 256),
                            (1, 5, 7, 512), (4, 32, 32, 128)] for p in _basic(n, h, w, c)],
     *[p for n, h, w in [(2, 10, 6), (4, 32, 32)] for cin, f, cout in [(64, 32, 128), (256, 64, 256), (256, 128, 512)]
       for s in (1, 2) for p in _proj(n, h, w, cin, f, cout, s)],
+    *[p for shape in IDENTITY_CARD for p in identity_wgrad_plans(*shape)],
 })
 CARD = [p for p in CARD if p not in MAIN]
 
@@ -112,7 +124,7 @@ def test_plan_keeps_its_limits(rows, c, cout, ks):
     assert (p.taps_per_job, p.bn, p.rowsplit, p.minb) in {(3, 64, 1, 1), (1, 64, 0, 2), (1, 64, 1, 2), (1, 128, 0, 2)}
 
 
-@pytest.mark.parametrize("geometry", ["basic", "projection"])
+@pytest.mark.parametrize("geometry", ["basic", "projection", "identity"])
 @pytest.mark.parametrize("shape", [(N_IMG, 64, 64, 64), (N_IMG, 8, 8, 512), (2, 9, 7, 64), (4, 32, 32, 128)])
 def test_workspace_holds_every_launch(geometry, shape):
     """The wrappers' workspace (the largest partial set of the backward's
@@ -121,6 +133,8 @@ def test_workspace_holds_every_launch(geometry, shape):
     n, h, w, c = shape
     if geometry == "basic":
         problems = _basic(n, h, w, c)
+    elif geometry == "identity":
+        problems = identity_wgrad_plans(n, h, w, 4 * c, c)
     else:
         problems = _proj(n, h, w, c, c // 2, 2 * c, 2 if h % 2 == 0 and w % 2 == 0 else 1)
     ws = wgrad_plan.workspace(*problems)
@@ -130,13 +144,32 @@ def test_workspace_holds_every_launch(geometry, shape):
 
 
 def test_main_path_plans_fill_whole_waves():
-    """At the seven geometries the split rule fills at least 90% of the
-    last wave of blocks."""
+    """At the eleven geometries (the identity block's four included) the
+    split rule fills at least 90% of the last wave of blocks."""
     for rows, c, cout, ks in MAIN:
         p = wgrad_plan.plan(rows, c, cout, ks)
         slots = wgrad_plan.SMS * p.minb
         waves = -(-p.blocks // slots)
         assert p.blocks / (waves * slots) >= 0.9, (rows, c, cout, ks, p)
+
+
+@pytest.mark.parametrize("n,h,w,cin,f", [(N_IMG, h, h, cin, f) for h, cin, f in IDENTITY_MAIN] + IDENTITY_CARD)
+def test_identity_plans_follow_the_kernel_launches(n, h, w, cin, f):
+    """`identity_wgrad_plans` lists the weight-gradient launches of
+    `identity_block_bwd_sm90` in its order, each with its rows, source
+    channels, gradient channels and kernel size (wgrad_sm90(a, H, W, C, ks,
+    stride, pad, b, COUT, N, Ho, Wo, ...), read from the header), so the
+    workspace the wrappers allocate is sized by what the kernel launches."""
+    src = (Path(wgrad_plan.__file__).resolve().parents[2] / "csrc" / "identity_bwd_sm90.cuh").read_text()
+    body = src[src.index("identity_block_bwd_sm90("):]
+    dims = {"N": n, "H": h, "W": w, "CIN": cin, "F": f}
+    launches = []
+    for args in re.findall(r"wgrad_sm90\(([^;]*)\);", body):
+        a = [t.strip() for t in args.split(",")]
+        c, ks, cout, rows = dims[a[3]], int(a[4]), dims[a[8]], dims[a[9]] * dims[a[10]] * dims[a[11]]
+        assert (a[5], a[6]) == ("1", "0" if ks == 1 else "1")  # stride 1, "same" padding
+        launches.append((rows, c, cout, ks))
+    assert launches == identity_wgrad_plans(n, h, w, cin, f)
 
 
 def test_mirror_constants_match_the_kernel_header():
