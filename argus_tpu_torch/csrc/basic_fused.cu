@@ -16,35 +16,29 @@
 // of ResNet-18 (C doubles as H*W quarters): 1.55e11 FLOP at N = 512 and
 // 256x256 frames, so a block is 0.31 ms of bf16 tensor-core issue against
 // 0.24 ms for its bytes at stage 0 (x, h1 and out of 268 MB each, h1 written
-// and read back). Design: two launches of the implicit-GEMM kernel
-// (conv_gemm.cuh) with K = 9C, the bias, the relu and the residual add in
-// the epilogue, h1 through device memory. The save variant is the same two
-// launches (the caller keeps h1). The TPU kernel's nine shifted matmuls over
-// a padded VMEM copy are not carried over: the conv-GEMM gathers the taps
-// as it loads A, the zero padding from cp.async's zero fill. One launch per
-// block with h1 on chip, then wgmma/TMA tiles, are later work.
+// and read back). Design: two launches, h1 through device memory (the
+// no-save variant writes it to scratch, so one launcher serves both), each
+// a forward conv on the TMA engine (conv_fwd_sm90.cuh) with the bias, the
+// relu and (the second) the residual in its epilogue: a tile of 128 output
+// pixels is a box of one image (or of whole images, where they are small),
+// its A operand per tap and 64 channels one tiled TMA box (the zero fill
+// is the padding), a producer issuing the boxes to two wgmma warpgroups
+// through mbarriers. Needs C % 64 == 0, which every BasicBlock of
+// ResNet-18/34 has. The TPU kernel's nine shifted matmuls over a padded
+// VMEM copy are not carried over. One launch per block with h1 on chip is
+// later work. The previous form, two launches of the mma.sync conv-GEMM
+// (conv_gemm.cuh), is `argus_basic_fwd_prev` in bwd_prev.cu.
 
-#include "conv_gemm.cuh"
+#include "conv_fwd_sm90.cuh"
 
-namespace argus {
-
-inline cudaError_t basic_block(const void* x, void* h1, void* out, const void* w1, const void* b1,
-                               const void* w2, const void* b2, int N, int H, int W, int C,
-                               cudaStream_t stream) {
-  cudaError_t e;
-  const ConvSeg s1 = make_seg(x, w1, H, W, C, 3, 1, 1);
-  if ((e = conv_gemm(s1, nullptr, N, H, W, C, b1, nullptr, nullptr, h1, stream)) != cudaSuccess)
-    return e;
-  const ConvSeg s2 = make_seg(h1, w2, H, W, C, 3, 1, 1);
-  return conv_gemm(s2, nullptr, N, H, W, C, b2, nullptr, x, out, stream);
-}
-
-}  // namespace argus
-
-// x, h1, out (N, H, W, C) bf16; w1, w2 (3, 3, C, C) HWIO bf16; b1, b2 (C,) f32.
-extern "C" int argus_basic_fwd(const void* x, void* h1, void* out, const void* w1, const void* b1,
-                               const void* w2, const void* b2, int N, int H, int W, int C,
-                               void* stream) {
-  return static_cast<int>(argus::basic_block(x, h1, out, w1, b1, w2, b2, N, H, W, C,
-                                             static_cast<cudaStream_t>(stream)));
+// x, h1, out (N, H, W, C) bf16; w1, w2 (3, 3, C, C) HWIO bf16; b1, b2 (C,)
+// f32; C % 64 == 0.
+extern "C" int argus_basic_fwd(const void* x, void* h1, void* out, const void* w1, const void* b1, const void* w2,
+                               const void* b2, int N, int H, int W, int C, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // h1 = bf16(relu(conv3x3(x) + b1)); out = bf16(relu(conv3x3(h1) + b2 + f32(x)))
+  cudaError_t e = argus::launch_conv_fwd_tma(x, w1, static_cast<const float*>(b1), nullptr, h1, N, H, W, C, C, st);
+  if (e == cudaSuccess)
+    e = argus::launch_conv_fwd_tma(h1, w2, static_cast<const float*>(b2), x, out, N, H, W, C, C, st);
+  return static_cast<int>(e);
 }

@@ -1,10 +1,12 @@
-// The four redesigned block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu,
-// block_fused_bwd.cu, block_fused_rbwd.cu) composed from the engines they
-// ran on before, the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient
-// (wgrad.cuh), which the stage-chain and pointwise backwards still use. No
-// wrapper of the port calls this library: chip_smoke.py and
-// scripts/time_torch_block_bwd.py time it beside the Hopper engines (same
-// inputs, same call) and break both down by device kernel.
+// The six redesigned kernels composed from the engines they ran on before,
+// the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient (wgrad.cuh),
+// which the pointwise backward and the bottleneck forwards still use: the
+// block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu, block_fused_bwd.cu,
+// block_fused_rbwd.cu), the stage chain's backward (stage_fused_bwd.cu) and
+// the BasicBlock forward (basic_fused.cu). No wrapper of the port calls this
+// library: chip_smoke.py and scripts/time_torch_block_bwd.py time it beside
+// the Hopper engines (same inputs, same call) and break both down by device
+// kernel.
 
 #include "conv_bwd.cuh"
 
@@ -82,4 +84,57 @@ extern "C" int argus_block_rbwd_prev(const void* x, const void* g, const void* o
   return static_cast<int>(argus::identity_block_bwd(x, g, out, h1, h2, w1t, w2d, w3t, dx, m1, m2,
                                                     dw1, dw2, dw3, ws, ws_elems, N, H, W, CIN, F,
                                                     st));
+}
+
+// The BasicBlock forward as two launches of the conv-GEMM: h1 = bf16(relu(
+// conv3x3(x) + b1)), out = bf16(relu(conv3x3(h1) + b2 + f32(x))); x, h1,
+// out (N, H, W, C); w1, w2 (3, 3, C, C) HWIO; b1, b2 (C,) f32.
+extern "C" int argus_basic_fwd_prev(const void* x, void* h1, void* out, const void* w1, const void* b1,
+                                    const void* w2, const void* b2, int N, int H, int W, int C, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = argus::conv_gemm(argus::make_seg(x, w1, H, W, C, 3, 1, 1), nullptr, N, H, W, C, b1, nullptr,
+                                         nullptr, h1, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(argus::conv_gemm(argus::make_seg(h1, w2, H, W, C, 3, 1, 1), nullptr, N, H, W, C, b2,
+                                           nullptr, x, out, st));
+}
+
+// The stage chain's backward as the block backwards of conv_bwd.cuh in turn
+// (each applying its own relu mask as it loads the cotangent), the
+// cotangent ping-ponging between gtmp0 and gtmp1; arguments as
+// `argus_stage_bwd` (stage_fused_bwd.cu) takes them, the workspace sized by
+// block_fused.wgrad_workspace.
+extern "C" int argus_stage_bwd_prev(const void* x, const void* g, const void* out, const void* const* bnds,
+                                    const void* const* h1s, const void* const* h2s, const void* const* proj,
+                                    const void* const* ids, void* const* pdw, void* const* idw, void* dx, void* m1,
+                                    void* m2, void* gtmp0, void* gtmp1, void* ws, int64_t ws_elems, int K, int N,
+                                    int H, int W, int CIN, int F, int COUT, int S, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int Ho = H / S, Wo = W / S;
+  const int has_proj = proj != nullptr ? 1 : 0;
+  const int nblocks = has_proj + K;
+  void* tmp[2] = {gtmp0, gtmp1};
+  const void* gcur = g;
+  int slot = 0;
+  for (int j = K - 1; j >= 0; --j) {
+    const int b = j + has_proj;
+    const void* out_b = b == nblocks - 1 ? out : bnds[b];
+    const void* x_b = b == 0 ? x : bnds[b - 1];
+    void* dst = b == 0 ? dx : tmp[slot];
+    const void* const* w = ids + 3 * j;
+    void* const* d = idw + 3 * j;
+    const cudaError_t e = argus::identity_block_bwd(x_b, gcur, out_b, h1s[b], h2s[b], w[0], w[1], w[2], dst, m1, m2,
+                                                    d[0], d[1], d[2], ws, ws_elems, N, Ho, Wo, COUT, F, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    gcur = dst;
+    slot ^= 1;
+  }
+  if (has_proj) {
+    const void* out_0 = nblocks == 1 ? out : bnds[0];
+    const cudaError_t e = argus::projection_block_bwd(x, gcur, out_0, h1s[0], h2s[0], proj[0], proj[1], proj[2],
+                                                      proj[3], dx, m1, m2, pdw[0], pdw[1], pdw[2], pdw[3], ws,
+                                                      ws_elems, N, H, W, CIN, F, COUT, S, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaSuccess);
 }

@@ -1,12 +1,12 @@
 // One-pass bottleneck backwards from saved h1/h2, on folded frozen-BN weights,
 // composed from the masked data-gradient mode of the mma.sync conv-GEMM
-// (conv_gemm.cuh) and the weight-gradient reduction (wgrad.cuh): the stage
-// chain's (stage_fused_bwd.cu: its identity blocks run `identity_block_bwd`,
-// its projection block `projection_block_bwd`), and the previous form of the
-// redesigned backwards (bwd_prev.cu). The block backwards themselves
-// (block_fused_bwd.cu, block_fused_rbwd.cu, proj_fused_bwd.cu,
-// basic_fused_bwd.cu) run on the Hopper engines (conv_dgrad_sm90.cuh,
-// wgrad_sm90.cuh) with the same formulas and rounding points:
+// (conv_gemm.cuh) and the weight-gradient reduction (wgrad.cuh): the
+// previous form of the redesigned backwards and of the stage chain's
+// backward, which bwd_prev.cu keeps for timing. The block and chain
+// backwards themselves (block_fused_bwd.cu, block_fused_rbwd.cu,
+// proj_fused_bwd.cu, basic_fused_bwd.cu, stage_fused_bwd.cu) run on the
+// Hopper engines (conv_dgrad_sm90.cuh, wgrad_sm90.cuh) with the same
+// formulas and rounding points:
 //
 //   m3  = g * (out > 0)                       (applied as g is loaded)
 //   m2  = bf16(m3 @ w3^T) * (h2 > 0)          dw3  = h2^T m3

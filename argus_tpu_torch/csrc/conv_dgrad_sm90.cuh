@@ -1,6 +1,7 @@
-// The data-gradient engine of the redesigned block backwards
-// (basic_fused_bwd.cu, proj_fused_bwd.cu, and block_fused_bwd.cu /
-// block_fused_rbwd.cu through identity_bwd_sm90.cuh): an implicit-GEMM
+// The data-gradient engine of the redesigned block and chain backwards
+// (basic_fused_bwd.cu, and proj_fused_bwd.cu, block_fused_bwd.cu,
+// block_fused_rbwd.cu and stage_fused_bwd.cu through proj_bwd_sm90.cuh and
+// identity_bwd_sm90.cuh): an implicit-GEMM
 // convolution over NHWC bf16 on Hopper's warpgroup MMA, in the gradient form
 // of conv_gemm.cuh
 //
@@ -33,7 +34,12 @@
 //   and B N-major from shared memory: 128 x 256 at one block per
 //   SM where COUT >= 256, else 128 x 64 or 128 x 128 at two blocks per SM,
 //   whose loads and MMAs overlap each other's (1.72 against 2.64 ms for
-//   one block of 256 x 64 at (512, 64, 64, 64));
+//   one block of 256 x 64 at (512, 64, 64, 64)); a launch of at most two
+//   k-steps a tile (the 1x1 dx of an identity block, K = F <= 128) takes
+//   128 x 128 tiles at any COUT: its epilogue is its pace, and two blocks
+//   per SM keep twice the epilogue loads in flight (the stage-0 chain's
+//   backward 14.61 against 15.00 ms on 256-wide tiles, NVIDIA H100 80GB
+//   HBM3 at 700 W, scripts/time_torch_block_bwd.py);
 // - k in steps of 64 (one 128-byte swizzle row), a ring of 3-4 stages in
 //   dynamic shared memory, each segment's steps apart (no step straddles two
 //   segments, a short last step is zero-filled);
@@ -47,12 +53,16 @@
 //   steps, so the next tile's loads are in flight during an epilogue; wgmma
 //   of step t overlaps the loads of the next steps (wait_group 1);
 // - the epilogue's residual and mask are loaded into registers while the
-//   tile's MMAs run, where registers allow (`kPre`).
+//   tile's MMAs run, where registers allow (`kPre`); on tiles up to 128
+//   wide they arrive and the output leaves as 16-byte vectors, a quad of
+//   lanes transposing its four 8-column groups of a row with shuffles
+//   (sm90.cuh `quad_split`, `kQuad`).
 
 #pragma once
 
 #include <algorithm>
 #include <cstring>
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -93,6 +103,10 @@ struct DgradCfg {
   static constexpr int kAhead = kStages - 2;                         // steps loaded ahead
   static constexpr int kSmem = kStages * kStageBytes + 1024 + 64;    // + alignment + barriers
   static constexpr bool kPre = BN * MINB <= 128;                     // epilogue operands prefetched
+  // the epilogue moves 16-byte vectors (quad_split / quad_join); 256-wide
+  // tiles (one block per SM, the long-K launches) keep per-lane pairs: the
+  // vectors cost them 3% at (512, 8, 8, 512), K = 4608 (PERF.md)
+  static constexpr bool kQuad = BN < 256;
 };
 
 // A decoder of one thread's k position in a segment: (ky, kx, c), walked in
@@ -223,19 +237,48 @@ __device__ __forceinline__ void dgrad_sm90_body(const DgradArgs& p) {
     const int n = q / p.Ho;
     return ((static_cast<int64_t>(n) * p.OH + oh * p.ostride + p.oy) * p.OW + ow * p.ostride + p.ox) * p.COUT;
   };
-  // the residual and the mask at row offset ro, column pair j (zero and
-  // "keep" where absent or out of bounds: predicated loads, no branch)
-  auto fetch = [&](int64_t ro, int n0, int j, uint32_t& rv, uint32_t& ev) {
-    const int n = n0 + 8 * j + (lane & 3) * 2;
-    const bool ok = ro >= 0 && n < p.COUT;
-    const int64_t off = ok ? ro + n : 0;
-    rv = (ok && p.residual != nullptr) ? __ldg(reinterpret_cast<const unsigned int*>(p.residual + off)) : 0u;
-    ev = (ok && p.emask != nullptr) ? __ldg(reinterpret_cast<const unsigned int*>(p.emask + off)) : 0x3F803F80u;
+  // the residual and the mask at row offset ro and column c, as T (a
+  // 16-byte vector of an 8-column group, or a pair); zero and "keep" where
+  // absent or out of bounds: predicated loads, no branch
+  auto fetch = [&](int64_t ro, int c, auto& rv, auto& ev) {
+    using T = std::remove_reference_t<decltype(rv)>;
+    constexpr uint32_t kOne = 0x3F803F80u;  // two bf16 ones
+    const bool ok = ro >= 0 && c < p.COUT;
+    const int64_t off = ok ? ro + c : 0;
+    if constexpr (sizeof(T) == 16) {
+      rv = (ok && p.residual != nullptr) ? __ldg(reinterpret_cast<const uint4*>(p.residual + off)) : make_uint4(0u, 0u, 0u, 0u);
+      ev = (ok && p.emask != nullptr) ? __ldg(reinterpret_cast<const uint4*>(p.emask + off)) : make_uint4(kOne, kOne, kOne, kOne);
+    } else {
+      rv = (ok && p.residual != nullptr) ? __ldg(reinterpret_cast<const unsigned int*>(p.residual + off)) : 0u;
+      ev = (ok && p.emask != nullptr) ? __ldg(reinterpret_cast<const unsigned int*>(p.emask + off)) : kOne;
+    }
+  };
+  // this lane's 8-column group of 32-column block jb of the tile at n0
+  auto group_col = [&](int n0, int jb) { return n0 + 32 * jb + 8 * (lane & 3); };
+  // the output pair of columns n, n + 1 from their accumulators a0, a1 and
+  // their residual and mask pairs: (+ residual), one rounding, the mask; the
+  // forward mode: + bias, relu, one rounding
+  auto out_pair = [&](float a0, float a1, int n, uint32_t rw, uint32_t ew) -> uint32_t {
+    const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rw);
+    __nv_bfloat162 o;
+    if (kBias) {
+      const float2 bv = n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias + n)) : make_float2(0.f, 0.f);
+      o.x = __float2bfloat16(fmaxf(a0 + bv.x, 0.f));
+      o.y = __float2bfloat16(fmaxf(a1 + bv.y, 0.f));
+    } else {
+      const __nv_bfloat162 em = *reinterpret_cast<const __nv_bfloat162*>(&ew);
+      o.x = __float2bfloat16(a0 + __bfloat162float(r.x));
+      o.y = __float2bfloat16(a1 + __bfloat162float(r.y));
+      if (!(__bfloat162float(em.x) > 0.f)) o.x = __float2bfloat16(0.f);
+      if (!(__bfloat162float(em.y) > 0.f)) o.y = __float2bfloat16(0.f);
+    }
+    return *reinterpret_cast<const uint32_t*>(&o);
   };
 
   constexpr int R = BN / 2;
-  constexpr int NP = Cfg::kPre ? 2 * (BN / 8) : 1;
-  uint32_t pre_r[NP], pre_e[NP];
+  constexpr int NB = BN / 32;  // 32-column blocks of a tile row: one vector a lane each
+  constexpr int NP = Cfg::kPre ? 2 * NB : 1;
+  uint4 pre_r[NP], pre_e[NP];
   float acc[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
@@ -272,9 +315,9 @@ __device__ __forceinline__ void dgrad_sm90_body(const DgradArgs& p) {
       for (int i = 0; i < 2; ++i) {
         const int64_t ro = row_off(m0, i);
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int x = Cfg::kPre ? i * (BN / 8) + j : 0;
-          fetch(ro, n0, j, pre_r[x], pre_e[x]);
+        for (int jb = 0; jb < NB; ++jb) {
+          const int x = Cfg::kPre ? i * NB + jb : 0;
+          fetch(ro, group_col(n0, jb), pre_r[x], pre_e[x]);
         }
       }
     }
@@ -288,48 +331,64 @@ __device__ __forceinline__ void dgrad_sm90_body(const DgradArgs& p) {
     ts = 0;
     ctile += gridDim.x;
 
-    // the tile's epilogue: (+ residual), one rounding to bf16, then the
-    // output mask (the forward mode: + bias, relu, one rounding); the next
-    // tile's first steps are loading meanwhile. The
-    // accumulators are read in straight-line code, the stores predicated.
+    // the tile's epilogue (`out_pair`); the next tile's first steps are
+    // loading meanwhile. The accumulators are read in straight-line code,
+    // the loads and stores predicated.
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int64_t ro = row_off(m0, i);
-      constexpr int JC = Cfg::kPre ? BN / 8 : 8;  // column pairs of loads in flight together
+      if constexpr (Cfg::kQuad) {
+        // the residual and the mask arrive as 16-byte vectors and the output
+        // leaves as one (quad_split / quad_join)
+        constexpr int JB = Cfg::kPre ? NB : (NB < 4 ? NB : 4);  // vectors of loads in flight together
 #pragma unroll
-      for (int jc = 0; jc < BN / 8; jc += JC) {
-        uint32_t rv[JC], ev[JC];
+        for (int jb0 = 0; jb0 < NB; jb0 += JB) {
+          uint4 rv[JB], ev[JB];
 #pragma unroll
-        for (int jj = 0; jj < JC; ++jj) {
-          if (kBias) {
-            rv[jj] = 0u;
-            ev[jj] = 0x3F803F80u;
-          } else if (Cfg::kPre) {
-            const int x = Cfg::kPre ? i * (BN / 8) + jc + jj : 0;
-            rv[jj] = pre_r[x];
-            ev[jj] = pre_e[x];
-          } else {
-            fetch(ro, n0, jc + jj, rv[jj], ev[jj]);
+          for (int jj = 0; jj < JB; ++jj) {
+            if (kBias) {
+              continue;
+            } else if (Cfg::kPre) {
+              const int x = Cfg::kPre ? i * NB + jb0 + jj : 0;
+              rv[jj] = pre_r[x];
+              ev[jj] = pre_e[x];
+            } else {
+              fetch(ro, group_col(n0, jb0 + jj), rv[jj], ev[jj]);
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < JB; ++jj) {
+            uint32_t rw[4] = {0u, 0u, 0u, 0u}, ew[4] = {0u, 0u, 0u, 0u}, ow[4];
+            if (!kBias) {
+              quad_split(rv[jj], rw);
+              quad_split(ev[jj], ew);
+            }
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              const int j = (jb0 + jj) * 4 + g;
+              ow[g] = out_pair(acc[j * 4 + i * 2], acc[j * 4 + i * 2 + 1], n0 + 8 * j + (lane & 3) * 2, rw[g], ew[g]);
+            }
+            const uint4 o4 = quad_join(ow);
+            const int c = group_col(n0, jb0 + jj);
+            if (ro >= 0 && c < p.COUT) *reinterpret_cast<uint4*>(p.out + ro + c) = o4;
           }
         }
+      } else {
+        // each lane loads and stores its own pairs, eight column pairs of
+        // loads in flight together
 #pragma unroll
-        for (int jj = 0; jj < JC; ++jj) {
-          const int j = jc + jj;
-          const int n = n0 + 8 * j + (lane & 3) * 2;
-          const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rv[jj]);
-          const __nv_bfloat162 em = *reinterpret_cast<const __nv_bfloat162*>(&ev[jj]);
-          __nv_bfloat162 o;
-          if (kBias) {  // one rounding after the f32 bias and relu
-            const float2 bv = n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias + n)) : make_float2(0.f, 0.f);
-            o.x = __float2bfloat16(fmaxf(acc[j * 4 + i * 2] + bv.x, 0.f));
-            o.y = __float2bfloat16(fmaxf(acc[j * 4 + i * 2 + 1] + bv.y, 0.f));
-          } else {
-            o.x = __float2bfloat16(acc[j * 4 + i * 2] + __bfloat162float(r.x));
-            o.y = __float2bfloat16(acc[j * 4 + i * 2 + 1] + __bfloat162float(r.y));
-            if (!(__bfloat162float(em.x) > 0.f)) o.x = __float2bfloat16(0.f);
-            if (!(__bfloat162float(em.y) > 0.f)) o.y = __float2bfloat16(0.f);
+        for (int jc = 0; jc < BN / 8; jc += 8) {
+          uint32_t rv[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}, ev[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            if (!kBias) fetch(ro, n0 + 8 * (jc + jj) + (lane & 3) * 2, rv[jj], ev[jj]);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = jc + jj;
+            const int n = n0 + 8 * j + (lane & 3) * 2;
+            const uint32_t o = out_pair(acc[j * 4 + i * 2], acc[j * 4 + i * 2 + 1], n, rv[jj], ev[jj]);
+            if (ro >= 0 && n < p.COUT) *reinterpret_cast<uint32_t*>(p.out + ro + n) = o;
           }
-          if (ro >= 0 && n < p.COUT) *reinterpret_cast<__nv_bfloat162*>(p.out + ro + n) = o;
         }
       }
     }
@@ -458,7 +517,8 @@ static inline cudaError_t launch_dgrad_mode(DgradArgs& p, const void* w0, const 
   e = make_tmap_2d(&p.w1, p.nseg > 1 ? w1 : w0, p.nseg > 1 ? p.seg1.K : p.seg0.K, p.COUT, p.COUT);
   if (e != cudaSuccess) return e;
   if (p.COUT <= 64) return launch_dgrad_tile<64, 2, kBias>(p, stream);
-  if (p.COUT <= 128) return launch_dgrad_tile<128, 2, kBias>(p, stream);
+  const int steps = p.seg0.steps + (p.nseg > 1 ? p.seg1.steps : 0);  // k-steps of one tile
+  if (p.COUT <= 128 || steps <= 2) return launch_dgrad_tile<128, 2, kBias>(p, stream);
   return launch_dgrad_tile<256, 1, kBias>(p, stream);
 }
 

@@ -1,9 +1,10 @@
 // Implicit-GEMM convolution over NHWC bf16 with a fused bias/residual/relu
-// epilogue: the mma.sync tensor-core kernel behind every forward (block,
-// projection, stage, BasicBlock and pointwise) and the data gradients of the
-// identity, recompute, stage-chain and pointwise backwards (conv_bwd.cuh).
-// The BasicBlock and projection-block backwards run on the Hopper engine
-// instead (conv_dgrad_sm90.cuh).
+// epilogue: the mma.sync tensor-core kernel behind the bottleneck forwards
+// (block, projection, stage) and the pointwise kernels' forward and data
+// gradient, and behind the previous forms that bwd_prev.cu keeps for timing
+// (conv_bwd.cuh's block and chain backwards, the BasicBlock forward). Every
+// block backward, the chain backward and the BasicBlock forward run on the
+// Hopper engines instead (conv_dgrad_sm90.cuh, conv_fwd_sm90.cuh).
 //
 //   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] (+ bias0[n]) (+ bias1[n])
 //                         (+ residual[m, n] * (rmask[m, n] > 0))))

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the wgmma/TMA engines (conv_dgrad_sm90.cuh,
-// wgrad_sm90.cuh): the shared-memory matrix descriptor of wgmma for the
-// 128-byte swizzle, the warpgroup MMA itself (bf16 in, f32 accumulate), its
-// fences, mbarriers, the 2-D TMA load, and the host-side tensor-map encoder
-// reached through cudaGetDriverEntryPoint (no libcuda link).
+// Hopper (sm_90a) building blocks of the wgmma/TMA engines
+// (conv_dgrad_sm90.cuh, wgrad_sm90.cuh, conv_fwd_sm90.cuh): the
+// shared-memory matrix descriptor of wgmma for the 128-byte swizzle, the
+// warpgroup MMA itself (bf16 in, f32 accumulate), its fences, mbarriers,
+// the 2-D and 4-D TMA loads, and the host-side tensor-map encoders reached
+// through cudaGetDriverEntryPoint (no libcuda link).
 //
 // The 128-byte swizzle: a tile row is 64 bf16 (128 bytes, eight 16-byte
 // chunks) and chunk j of row r sits at chunk j ^ (r % 8); TMA's
@@ -109,6 +110,43 @@ __device__ __forceinline__ void wgmma<64, 1>(float (&d)[32], uint64_t da, uint64
 template <>
 __device__ __forceinline__ void wgmma<128, 1>(float (&d)[64], uint64_t da, uint64_t db, int sd) { wgmma_m64n128_t11(d, da, db, sd); }
 
+// The epilogues' 16-byte vectors. A wgmma accumulator row gives the quad
+// of lanes q = lane % 4 the pair of columns 8g + 2q, +1 of every 8-column
+// group g; a 16-byte vector is one whole group. Four groups of a row move
+// between the two layouts by a 4 x 4 transpose inside the quad (three
+// shuffles), so the epilogue loads and stores whole 16-byte vectors.
+
+// word k (0..3) of a vector
+__device__ __forceinline__ uint32_t word4(uint32_t x, uint32_t y, uint32_t z, uint32_t w, int k) {
+  return k & 2 ? (k & 1 ? w : z) : (k & 1 ? y : x);
+}
+
+// v: group q's vector (lane q of the quad); w[p]: this lane's pair of group p
+__device__ __forceinline__ void quad_split(const uint4& v, uint32_t (&w)[4]) {
+  const int q = threadIdx.x & 3;
+  uint32_t r[4];  // round s: word q of group q ^ s
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint32_t send = word4(v.x, v.y, v.z, v.w, q ^ s);
+    r[s] = s == 0 ? send : __shfl_xor_sync(0xffffffffu, send, s);
+  }
+#pragma unroll
+  for (int g = 0; g < 4; ++g) w[g] = word4(r[0], r[1], r[2], r[3], g ^ q);
+}
+
+// the inverse: w[p], this lane's pair of group p -> group q's vector
+__device__ __forceinline__ uint4 quad_join(const uint32_t (&w)[4]) {
+  const int q = threadIdx.x & 3;
+  uint32_t r[4];  // round s: word q ^ s of group q
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint32_t send = word4(w[0], w[1], w[2], w[3], q ^ s);
+    r[s] = s == 0 ? send : __shfl_xor_sync(0xffffffffu, send, s);
+  }
+  return make_uint4(word4(r[0], r[1], r[2], r[3], q), word4(r[0], r[1], r[2], r[3], 1 ^ q),
+                    word4(r[0], r[1], r[2], r[3], 2 ^ q), word4(r[0], r[1], r[2], r[3], 3 ^ q));
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
@@ -116,6 +154,11 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+
+// one arrival on the barrier (a consumer releasing a stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // waits until the phase of parity `parity` of the barrier has completed
@@ -134,6 +177,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// 4-D TMA load of one box at (c0 innermost, c1, c2, c3); coordinates may be
+// negative or run past the tensor, where the box is zero-filled
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -170,6 +224,28 @@ inline cudaError_t make_tmap_2d(CUtensorMap* map, const void* base, int64_t rows
   const cuuint32_t box[2] = {64, 64};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Host: a 4-D bf16 tensor map of an NHWC (N, H, W, C) activation, dims
+// innermost first (C, W, H, N), boxes of 64 channels x bw x bh x bn pixels
+// (one 128-byte row per pixel), 128-byte swizzle, zero fill out of bounds:
+// the A operand of a stride-1 conv tile, one box per (tap, 64 channels).
+// base and C * 2 must be 16-byte aligned (C % 8 == 0).
+inline cudaError_t make_tmap_nhwc(CUtensorMap* map, const void* base, int N, int H, int W, int C, int bw, int bh,
+                                  int bn) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
+                             static_cast<cuuint32_t>(bn)};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // Weight gradient of a convolution tap over NHWC bf16, reduced over every
-// output pixel in f32: the mma.sync weight gradient of the identity,
-// recompute, stage-chain and pointwise backwards (conv_bwd.cuh). The
-// BasicBlock and projection-block backwards run on the Hopper engine instead
-// (wgrad_sm90.cuh).
+// output pixel in f32: the mma.sync weight gradient of the pointwise
+// backward and of the previous block and chain backwards that bwd_prev.cu
+// keeps for timing (conv_bwd.cuh). Every block backward and the chain
+// backward run on the Hopper engine instead (wgrad_sm90.cuh).
 //
 //   dW[tap, c, n] = sum_m A_tap[m, c] * B[m, n] * (bmask[m, n] > 0)
 //

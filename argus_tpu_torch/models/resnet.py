@@ -89,19 +89,19 @@ POINTWISE_FLAGS = ("off", "on", "dot", "auto")
 # HBM3 at 700.00 W: ms per step or forward saved by turning the function on
 # alone, every other entry off (negative: cuDNN wins), in the workloads named.
 AUTO_FUSE = {
-    ("stem", "forward"): True,  # flagship step 8.57, serving 8.89
-    ("stem", "train"): True,  # stem-trained step 13.24
-    ("stage_chain_packed", "forward"): True,  # serving 9.38; frozen_stages=3 step 17.56 with the packed stem
-    ("stage_chain", "forward"): False,  # frozen_stages=3 step -6.33 (stages 1-2)
-    ("stage_chain", "train"): False,  # flagship step -4.55
-    ("projection", "forward"): True,  # serving 2.15
-    ("projection", "train"): False,  # flagship step -1.66, frozen_stages=3 step -2.87 (Hopper backward)
-    ("identity", "forward"): False,  # serving -3.92
-    ("identity", "train"): False,  # flagship step -14.26, frozen_stages=3 step -4.82 (Hopper backward)
-    ("basic", "forward"): False,  # keypoint eval forward -6.78
-    ("basic", "train"): False,  # keypoint step -11.62 (Hopper backward)
-    ("pointwise", "forward"): True,  # serving 7.77 (fuse_pointwise "auto" in all 16 blocks)
-    ("pointwise", "train"): False,  # flagship step -49.64, frozen_stages=3 step -12.89
+    ("stem", "forward"): True,  # flagship step 8.60, serving 8.80
+    ("stem", "train"): True,  # stem-trained step 13.53
+    ("stage_chain_packed", "forward"): True,  # serving 9.17; frozen_stages=3 step 17.69 with the packed stem
+    ("stage_chain", "forward"): False,  # frozen_stages=3 step -6.65 (stages 1-2)
+    ("stage_chain", "train"): True,  # flagship step 9.05 (the Hopper chain backward)
+    ("projection", "forward"): True,  # serving 2.05
+    ("projection", "train"): False,  # flagship step -1.13, frozen_stages=3 step -4.58 (Hopper backward)
+    ("identity", "forward"): False,  # serving -3.94
+    ("identity", "train"): False,  # flagship step -12.31, frozen_stages=3 step -5.11 (Hopper backward)
+    ("basic", "forward"): True,  # keypoint eval forward 4.38 (the TMA forward)
+    ("basic", "train"): False,  # keypoint step -0.21 (TMA forward, Hopper backward)
+    ("pointwise", "forward"): True,  # serving 8.20 (fuse_pointwise "auto" in all 16 blocks)
+    ("pointwise", "train"): False,  # flagship step -49.55, frozen_stages=3 step -13.09
 }
 
 

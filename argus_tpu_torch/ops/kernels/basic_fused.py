@@ -21,7 +21,10 @@ As for the bottleneck kernels (`block_fused`): the plain PyTorch versions
 argus_tpu and `chip_smoke.py` holds the kernels against on the card; the
 wrappers launch `csrc/basic_fused.cu` / `csrc/basic_fused_bwd.cu` on a CUDA
 tensor and run the plain version on a CPU tensor; `basic_saved` ties the
-saving forward to the backward for autograd.
+saving forward to the backward for autograd. The forward's two convs run on
+the Hopper TMA engine (`csrc/conv_fwd_sm90.cuh`: A as one TMA box per tap
+and 64 channels), which needs C % 64 == 0, as every BasicBlock of
+ResNet-18/34 has.
 """
 
 from __future__ import annotations
@@ -101,6 +104,8 @@ def _check(x, w1, w2, biases=None):
 
 def _forward(kernel, x, w1, b1, w2, b2):
     n, h, w, c = _check(x, w1, w2, (b1, b2))
+    if c % 64 != 0:
+        raise ValueError(f"C={c} must be a multiple of 64 for the forward kernel (whole 64-channel TMA boxes)")
     h1 = torch.empty_like(x)
     out = torch.empty_like(x)
     kernel.launch(x, h1, out, w1, b1, w2, b2, n, h, w, c)

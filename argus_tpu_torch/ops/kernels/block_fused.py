@@ -93,10 +93,11 @@ _WG_TILE, _WG_TARGET_BLOCKS, _WG_MIN_ROWS = 64, 4 * 132, 2048
 
 
 def wgrad_workspace(*problems) -> int:
-    """f32 elements of partials the weight-gradient launches of one backward
-    need, for problems (rows, C, COUT, taps): the split rule of
-    `wgrad_splits` in csrc/wgrad.cuh (the launcher takes fewer splits when
-    the workspace is short, so the two cannot overrun each other)."""
+    """f32 elements of partials the mma.sync weight-gradient launches of one
+    backward need (the pointwise backward's, and bwd_prev's), for problems
+    (rows, C, COUT, taps): the split rule of `wgrad_splits` in csrc/wgrad.cuh
+    (the launcher takes fewer splits when the workspace is short, so the two
+    cannot overrun each other)."""
     need = 0
     for rows, c, cout, taps in problems:
         tiles = taps * -(-c // _WG_TILE) * -(-cout // _WG_TILE)
@@ -104,13 +105,6 @@ def wgrad_workspace(*problems) -> int:
         if splits > 1:
             need = max(need, splits * taps * c * cout)
     return need
-
-
-def identity_wgrad_problems(n, h, w, cin, f):
-    """The identity block's weight gradients as csrc/wgrad.cuh's workspace
-    rule takes them (rows, C, COUT, taps): the stage chain's backward."""
-    rows = n * h * w
-    return [(rows, f, cin, 1), (rows, f, f, 9), (rows, cin, f, 1)]
 
 
 def identity_wgrad_plans(n, h, w, cin, f):

@@ -1,12 +1,14 @@
-"""The BasicBlock, projection-block and identity-block backwards and the
-identity block's recompute backward on the engine they ran on before their
-Hopper redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and weight
-gradient that the stage-chain and pointwise backwards keep). No path of the
-port calls these: `chip_smoke.py` and `scripts/time_torch_block_bwd.py` time
-them beside `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
-`block_fused.block_bwd` and `block_fused.block_bwd_recompute` on the same
-inputs, in the same call. CUDA tensors only; outputs as the redesigned
-wrappers give them.
+"""The redesigned kernels on the engine they ran on before their Hopper
+redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and weight gradient
+that the pointwise kernels and the bottleneck forwards keep): the
+BasicBlock, projection-block and identity-block backwards, the identity
+block's recompute backward, the stage chain's backward and the BasicBlock
+forward. No path of the port calls these: `chip_smoke.py` and
+`scripts/time_torch_block_bwd.py` time them beside `basic_fused.basic_bwd`,
+`proj_fused.proj_bwd`, `block_fused.block_bwd`,
+`block_fused.block_bwd_recompute`, `stage_fused.stage_bwd` and
+`basic_fused.basic_block` on the same inputs, in the same call. CUDA tensors
+only; outputs as the redesigned wrappers give them.
 """
 
 from __future__ import annotations
@@ -14,14 +16,31 @@ from __future__ import annotations
 import torch
 
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
-from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2, identity_wgrad_problems, wgrad_workspace
+from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2, wgrad_workspace
 from argus_tpu_torch.ops.kernels.block_fused import transposed_weights as identity_transposed_weights
-from argus_tpu_torch.ops.kernels.proj_fused import projection_wgrad_problems, transposed_weights
+from argus_tpu_torch.ops.kernels.proj_fused import transposed_weights
+from argus_tpu_torch.ops.kernels.stage_fused import chain_bwd_launch
 
 KERNEL_BASIC = Kernel("bwd_prev", "argus_basic_bwd_prev", [P] * 11 + [L] + [I] * 4 + [P])
 KERNEL_PROJ = Kernel("bwd_prev", "argus_proj_bwd_prev", [P] * 17 + [L] + [I] * 7 + [P])
 KERNEL_ID = Kernel("bwd_prev", "argus_block_bwd_prev", [P] * 15 + [L] + [I] * 5 + [P])
 KERNEL_ID_R = Kernel("bwd_prev", "argus_block_rbwd_prev", [P] * 19 + [L] + [I] * 5 + [P])
+KERNEL_STAGE = Kernel("bwd_prev", "argus_stage_bwd_prev", [P] * 16 + [L] + [I] * 8 + [P])
+KERNEL_BASIC_FWD = Kernel("bwd_prev", "argus_basic_fwd_prev", [P] * 7 + [I] * 4 + [P])
+
+
+def identity_wgrad_problems(n, h, w, cin, f):
+    """The identity block's weight gradients as csrc/wgrad.cuh's workspace
+    rule takes them (rows, C, COUT, taps)."""
+    rows = n * h * w
+    return [(rows, f, cin, 1), (rows, f, f, 9), (rows, cin, f, 1)]
+
+
+def projection_wgrad_problems(n, h, w, cin, f, cout, stride):
+    """The projection block's weight gradients as csrc/wgrad.cuh's workspace
+    rule takes them (rows, C, COUT, taps)."""
+    rows, rows_o = n * h * w, n * (h // stride) * (w // stride)
+    return [(rows_o, f, cout, 1), (rows_o, cin, cout, 1), (rows_o, f, f, 9), (rows, cin, f, 1)]
 
 
 def basic_bwd_prev(x, g, out, h1, w1, w2, need_dx=True):
@@ -83,3 +102,25 @@ def block_bwd_recompute_prev(x, g, out, w1, b1, w2, b2, w3, b3, need_dx=True, re
     KERNEL_ID_R.launch(x, g, out, w1, b1, w2, b2, *identity_transposed_weights(w1, w2, w3), dx, h1, h2, m1, m2,
                        *dws, ws, ws_elems, n, h, w, cin, f)
     return (dx, *dws, h1, h2) if recomputed else (dx, *dws)
+
+
+def stage_bwd_prev(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride=2, need_dx=True):
+    """(dx or None, proj dws or None, [identity dws]), as `stage_fused.stage_bwd`."""
+    n, h, w, cin = x.shape
+    has_proj = proj_w is not None
+    s = stride if has_proj else 1
+    f = (proj_w[0] if has_proj else id_w[0][0]).shape[1]
+    cout = proj_w[2].shape[1] if has_proj else cin
+    problems = identity_wgrad_problems(n, h // s, w // s, cout, f)
+    if has_proj:
+        problems += projection_wgrad_problems(n, h, w, cin, f, cout, s)
+    return chain_bwd_launch(KERNEL_STAGE, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx,
+                            wgrad_workspace(*problems))
+
+
+def basic_fwd_prev(x, w1, b1, w2, b2, save=False):
+    """out, or (out, h1) with `save`, as `basic_fused.basic_block(_save)`."""
+    n, h, w, c = x.shape
+    h1, out = torch.empty_like(x), torch.empty_like(x)
+    KERNEL_BASIC_FWD.launch(x, h1, out, w1, b1, w2, b2, n, h, w, c)
+    return (out, h1) if save else out

@@ -151,13 +151,6 @@ def projection_block_save(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
     return _forward(KERNEL_SAVE, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
 
 
-def projection_wgrad_problems(n, h, w, cin, f, cout, stride):
-    """The block's weight gradients as csrc/wgrad.cuh's workspace rule
-    takes them (rows, C, COUT, taps): the stage chain's backward."""
-    rows, rows_o = n * h * w, n * (h // stride) * (w // stride)
-    return [(rows_o, f, cout, 1), (rows_o, cin, cout, 1), (rows_o, f, f, 9), (rows, cin, f, 1)]
-
-
 def projection_wgrad_plans(n, h, w, cin, f, cout, stride):
     """The block's weight gradients as `wgrad_plan` takes them (rows, C,
     COUT, kernel size): dw3, dwsc, dw2, dw1 in launch order."""

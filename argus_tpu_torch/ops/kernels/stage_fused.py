@@ -13,7 +13,12 @@ pair-packed layout are Mosaic constraints and are not ported.
 
 On a CUDA tensor the wrappers launch `csrc/stage_fused.cu` (forwards) and
 `csrc/stage_fused_bwd.cu`, each running the whole chain from one C call; on
-a CPU tensor they run the plain versions. The no-save forward counts its
+a CPU tensor they run the plain versions. The backward runs the Hopper
+compositions of the block backwards from each block's masked cotangent m3:
+the incoming g is masked once, and every other m3 is written by the dx
+launch of the block after it, its epilogue applying the relu mask of that
+block's input (bit-equal to the chain's rounding followed by the next
+block's mask). The no-save forward counts its
 launches in `KERNEL` where argus_tpu takes `_chain_fwd_packed` (stage 0,
 `packed_fwd_ok`) and in `KERNEL_FROZEN` where it takes `_chain_fwd_pallas(
 save=False)` (the whole-stage chains of frozen stages 1-3). `stage_chain(
@@ -28,7 +33,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from argus_tpu_torch.ops.kernels import block_fused, proj_fused
+from argus_tpu_torch.ops.kernels import block_fused, proj_fused, wgrad_plan
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
 from argus_tpu_torch.ops.kernels.block_fused import (
     block_bwd_plain,
@@ -37,16 +42,15 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     check_channels,
     check_cuda,
     check_device,
-    identity_wgrad_problems,
+    identity_wgrad_plans,
     needs_grad,
-    wgrad_workspace,
     zero_grad_of,
 )
 from argus_tpu_torch.ops.kernels.proj_fused import (
     proj_bwd_plain,
     projection_block_plain,
     projection_block_save_plain,
-    projection_wgrad_problems,
+    projection_wgrad_plans,
 )
 
 KERNEL = Kernel("stage_fused", "argus_stage_fwd", [P] * 8 + [I] * 8 + [P])
@@ -205,14 +209,17 @@ def fused_stage_save(x, proj_folded, id_folded, stride=2):
     return out, bnds, h1s, h2s
 
 
-def stage_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride=2, need_dx=True):
-    """The chain backward from the saved residuals: (dx or None, proj dws
-    (dw1, dw2, dw3, dwsc) or None, [(dw1, dw2, dw3), ...]), dw in f32.
-    proj_w is (w1, w2, w3, wsc) or None, id_w [(w1, w2, w3), ...]. The CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    id_w = [tuple(w) for w in id_w]
-    if not check_device(x):
-        return stage_bwd_plain(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx)
+def chain_wgrad_plans(n, h, w, cin, f, cout, stride, k, has_proj):
+    """The chain backward's weight gradients as `wgrad_plan` takes them, in
+    launch order: each identity block's (from the last), then the
+    projection's."""
+    s = stride if has_proj else 1
+    plans = k * identity_wgrad_plans(n, h // s, w // s, cout, f)
+    return plans + (projection_wgrad_plans(n, h, w, cin, f, cout, s) if has_proj else [])
+
+
+def _check_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride):
+    """(n, h, w, cin, f, cout, s) of a chain backward, its operands checked."""
     has_proj = proj_w is not None
     n, h, w, cin = x.shape
     s = stride if has_proj else 1
@@ -234,33 +241,57 @@ def stage_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride=2, need_dx=True):
     for j, ws_ in enumerate(id_w):
         for name, t, shape in zip(("w1", "w2", "w3"), ws_, ((cout, f), (3, 3, f, f), (f, cout))):
             check_cuda(f"identity {j} {name}", t, bf, shape)
+    return n, h, w, cin, f, cout, s
 
+
+def chain_bwd_launch(kernel, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx, ws_elems):
+    """Launch a chain backward's C launcher (`kernel`, argus_stage_bwd's
+    argument order) with its outputs and scratch allocated
+    here; `ws_elems` f32 of weight-gradient workspace. Returns (dx or None,
+    proj dws or None, [identity dws])."""
+    id_w = [tuple(w) for w in id_w]
+    has_proj = proj_w is not None
+    n, h, w, cin, f, cout, s = _check_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride)
+    ho, wo = h // s, w // s
+    bf, dev = torch.bfloat16, x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    problems = identity_wgrad_problems(n, ho, wo, cout, f)
     proj_dws, proj_t = None, []
     if has_proj:
         proj_dws = (torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32),
                     torch.empty((f, cout), **f32), torch.empty((cin, cout), **f32))
         proj_t = proj_fused.transposed_weights(*proj_w, s)
-        problems += projection_wgrad_problems(n, h, w, cin, f, cout, s)
     id_dws = [(torch.empty((cout, f), **f32), torch.empty((3, 3, f, f), **f32),
                torch.empty((f, cout), **f32)) for _ in id_w]
     id_t = [t for ws_ in id_w for t in block_fused.transposed_weights(*ws_)]
-    ws_elems = wgrad_workspace(*problems)
     ws = torch.empty(max(ws_elems, 1), **f32)
     m1 = torch.empty((n, h, w, f), dtype=bf, device=dev)
     m2 = torch.empty((n, ho, wo, f), dtype=bf, device=dev)
-    n_tmp = min(len(id_w), 2) if has_proj else min(len(id_w) - 1, 2)
-    gtmp = [torch.empty_like(out) for _ in range(n_tmp)]
+    gtmp = [torch.empty_like(out) for _ in range(min(has_proj + len(id_w), 2))]
     gtmp += [m2] * (2 - len(gtmp))  # unused slots: any valid pointer
     dx = torch.empty_like(x) if need_dx else None
     arrs = [_ptrs(bnds), _ptrs(h1s), _ptrs(h2s), _ptrs(proj_t) if has_proj else None, _ptrs(id_t),
             _ptrs(proj_dws) if has_proj else None, _ptrs([t for d in id_dws for t in d])]
-    KERNEL_BWD.launch(
+    kernel.launch(
         x, g, out, *[None if a is None else ctypes.addressof(a) for a in arrs],
         dx, m1, m2, gtmp[0], gtmp[1], ws, ws_elems, len(id_w), n, h, w, cin, f, cout, s,
     )
     return dx, proj_dws, id_dws
+
+
+def stage_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride=2, need_dx=True):
+    """The chain backward from the saved residuals: (dx or None, proj dws
+    (dw1, dw2, dw3, dwsc) or None, [(dw1, dw2, dw3), ...]), dw in f32.
+    proj_w is (w1, w2, w3, wsc) or None, id_w [(w1, w2, w3), ...]. The CUDA
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    id_w = [tuple(w) for w in id_w]
+    if not check_device(x):
+        return stage_bwd_plain(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx)
+    n, h, w, cin = x.shape
+    f = (proj_w[0] if proj_w is not None else id_w[0][0]).shape[1]
+    cout = proj_w[2].shape[1] if proj_w is not None else cin
+    plans = chain_wgrad_plans(n, h, w, cin, f, cout, stride, len(id_w), proj_w is not None)
+    return chain_bwd_launch(KERNEL_BWD, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx,
+                            wgrad_plan.workspace(*plans))
 
 
 class _StageChain(torch.autograd.Function):

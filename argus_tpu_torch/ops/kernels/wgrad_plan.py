@@ -21,9 +21,10 @@ pixel rows is cut into:
 in order by a second pass when there is more than one.
 
 Used by the block backwards `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
-`block_fused.block_bwd` and `block_fused.block_bwd_recompute`; the stage
-chain's and the pointwise backwards keep the older engine (`csrc/wgrad.cuh`,
-sized by `block_fused.wgrad_workspace`).
+`block_fused.block_bwd` and `block_fused.block_bwd_recompute`, and by the
+stage chain's `stage_fused.stage_bwd` (over every block's plans,
+`stage_fused.chain_wgrad_plans`); the pointwise backward keeps the older
+engine (`csrc/wgrad.cuh`, sized by `block_fused.wgrad_workspace`).
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ Phases, each fatal on failure (nothing is caught and ignored):
    from `argus_tpu_torch/csrc/` (17 sources, one nvcc each, in parallel) and
    print the seconds and ptxas' register/spill report; `cuobjdump -sass` of
    the BasicBlock, projection and identity backwards' libraries (the
-   identity's saved-residual and recompute backwards) must show wgmma
-   (HGMMA) instructions;
+   identity's saved-residual and recompute backwards), the stage chain's
+   backward and the BasicBlock forward must show wgmma (HGMMA)
+   instructions;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -35,13 +36,15 @@ Phases, each fatal on failure (nothing is caught and ignored):
    with retain_graph); then the three BasicBlock kernels (no-save forward,
    saving forward, one-pass backward) at the four geometries of ResNet-18's
    identity blocks at N = 512 (C/H = 64/64, 128/32, 256/16, 512/8), same
-   tolerance and yardsticks; then the four backwards on the Hopper
-   wgmma/TMA engines (BasicBlock, projection, and the identity block's
-   saved-residual and recompute backwards) beside the mma.sync engine they
-   ran on before (`ops/kernels/bwd_prev.py`), at the seven BasicBlock and
-   projection geometries and the four identity ones, each call broken down
-   by device kernel (data gradient, weight gradient, split sum, mask pass,
-   recompute) from `torch.profiler`, with per-step totals;
+   tolerance and yardsticks; then the six kernels redesigned on the Hopper
+   wgmma/TMA engines (the BasicBlock, projection, and the identity block's
+   saved-residual and recompute backwards, the stage-0 chain's backward and
+   the BasicBlock forward) beside the mma.sync engine they ran on before
+   (`ops/kernels/bwd_prev.py`), at the seven BasicBlock and projection
+   geometries, the four identity ones, the chain's and the four BasicBlock
+   forward ones, each call broken down by device kernel (data gradient,
+   weight gradient, split sum, mask pass, forward conv, forward conv on the
+   TMA engine) from `torch.profiler`, with per-step totals;
 5. the augmentation kernels at the flagship step's shapes (N = 512 camera
    images, 256x256, parameters from the port's samplers): the whole-stack
    kernel against its plain version in bf16 at each of the 4 hue positions
@@ -347,14 +350,15 @@ def build_phase() -> None:
 
 
 def hgmma_check() -> None:
-    """The redesigned backwards run on wgmma: `cuobjdump -sass` of their
+    """The redesigned kernels run on wgmma: `cuobjdump -sass` of their
     libraries must show HGMMA instructions."""
     import shutil
 
     from argus_tpu_torch.ops.kernels import _build
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd"):
+    for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd", "basic_fused",
+                 "stage_fused_bwd"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         n = sass.count("HGMMA")
@@ -748,7 +752,7 @@ def train_kernel_phase() -> dict:
         f"{tuple(x0.shape)} F=64", 1, lambda: _flat(stage_fused.stage_bwd(*bwd_args)),
         lambda: _flat(stage_fused.stage_bwd_plain(*bwd_args)), _lib_bwd(lib_stage, [x0, *wts0], g0),
         2 * flops0, nbytes(x0, g0, out, *bnds, *h1s, *h2s, *dws0) + nbytes(x0) + dw_bytes(*dws0),
-        2 * 9 + 11, 3 * _round_trip_bytes(N_IMG, 64, 64, 64, 1) + 2 * 2 * nbytes(g0),
+        1 + 2 * 6 + 7, 3 * _round_trip_bytes(N_IMG, 64, 64, 64, 1) + 3 * 2 * nbytes(g0),
     )])
     del x0, out, bnds, h1s, h2s, g0, bwd_args
     torch.cuda.empty_cache()
@@ -863,13 +867,15 @@ def basic_kernel_phase() -> dict:
 
 
 def engine_phase() -> None:
-    """The four Hopper backwards (BasicBlock, projection, identity, the
-    identity's recompute) beside the mma.sync engine they ran on before
-    (`ops/kernels/bwd_prev.py`), at the eleven geometries of
+    """The six redesigned kernels on the Hopper engines (the BasicBlock,
+    projection, identity and recompute backwards, the stage-0 chain's
+    backward, the BasicBlock forward) beside the mma.sync engine they ran on
+    before (`ops/kernels/bwd_prev.py`), at the geometries of
     scripts/time_torch_block_bwd.py, in this call: ms per call (CUDA events,
     5 calls) and each call's device kernels by launch (torch.profiler), and
     the ms per train step of each (the recompute's per configuration R
-    step; stage 0's identity geometry runs in the chain, 0 a step)."""
+    step, the forward's per eval forward; stage 0's identity geometry runs
+    in the chain, 0 a step)."""
     import importlib.util
 
     import torch
@@ -895,9 +901,10 @@ def engine_phase() -> None:
             f"({pms / nms:.2f}x)")
         prev, new = step.get(row, (0.0, 0.0))
         step[row] = (prev + count * pms, new + count * nms)
+    per = {"block_fused_rbwd": "R step", "basic_fused": "eval forward"}
     for row, (pms, nms) in step.items():
-        per = "R step" if row == "block_fused_rbwd" else "train step"
-        say(f"{row} per {per}: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms ({pms / nms:.2f}x)")
+        say(f"{row} per {per.get(row, 'train step')}: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms "
+            f"({pms / nms:.2f}x)")
 
 
 def _resnet50_bn_inputs(n: int) -> list:

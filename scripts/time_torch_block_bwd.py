@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Time the block backwards of one tree of the port on one NVIDIA GPU: the
-BasicBlock's and the projection block's (`basic_fused.basic_bwd`,
+"""Time the redesigned kernels of one tree of the port on one NVIDIA GPU: the
+BasicBlock's and the projection block's backwards (`basic_fused.basic_bwd`,
 `proj_fused.proj_bwd`) at the seven geometries of the keypoint and flagship
-train steps, and the identity bottleneck's saved-residual and recompute
+train steps, the identity bottleneck's saved-residual and recompute
 backwards (`block_fused.block_bwd`, `block_fused.block_bwd_recompute`) at its
-four geometries (N = 512 camera images of 256x256, bf16), and break each
-call down by device kernel with `torch.profiler`: data gradient, weight
-gradient, split sum, the relu mask pass, the recompute's forward convs, the
-rest.
+four geometries, the stage-0 chain's backward (`stage_fused.stage_bwd`) and
+the BasicBlock forward (`basic_fused.basic_block`) at ResNet-18's four
+geometries (N = 512 camera images of 256x256, bf16), and break each call
+down by device kernel with `torch.profiler`: data gradient, weight
+gradient, split sum, the relu mask pass, forward convs (the recompute's
+h1/h2, the mma.sync BasicBlock forward), forward convs on the TMA engine,
+the rest.
 
-    python3 scripts/time_torch_block_bwd.py [--root DIR] [--engine new|prev] [--reps 10]
+    python3 scripts/time_torch_block_bwd.py [--root DIR] [--engine new|prev] [--reps 10] [--rows ROW,...]
 
 `--root` is the checkout whose `argus_tpu_torch` is imported (default: this
 one), so a parent commit unpacked with `git archive` under `_trees/parent`
@@ -20,9 +23,10 @@ is timed by the same script in the same call:
     python3 scripts/time_torch_block_bwd.py
     python3 scripts/time_torch_block_bwd.py --root _trees/parent
 
-`--engine prev` times `ops/kernels/bwd_prev.py` (the backwards on the
+`--engine prev` times `ops/kernels/bwd_prev.py` (the kernels on the
 mma.sync engine they ran on before, from this tree) instead of the
-wrappers. Times are the mean of `--reps` calls between CUDA events after a
+wrappers. `--rows` keeps the rows whose name starts with one of the given
+prefixes. Times are the mean of `--reps` calls between CUDA events after a
 warm-up; the breakdown is one profiled call. Prints one line per geometry
 and, last, one JSON object. Needs a CUDA device.
 """
@@ -43,16 +47,20 @@ PROJ = [(64, 256, 128), (32, 512, 256), (16, 1024, 512)]
 # (H = W, CIN, F, blocks per step) of ResNet-50's identity bottlenecks in stages
 # 1-3, and stage 0's (which runs in the stage chain: 0 a step)
 IDENTITY = [(64, 256, 64, 0), (32, 512, 128, 3), (16, 1024, 256, 5), (8, 2048, 512, 2)]
+# the stage-0 chain of ResNet-50 (H = W, CIN, F, COUT, identity blocks), once a step
+CHAIN = (64, 64, 64, 256, 2)
 
 
 def kind(name: str) -> str:
-    """The launch of a backward a device kernel's name belongs to."""
+    """The launch a device kernel's name belongs to."""
     if "sum_splits" in name or "wgrad_sum" in name:
         return "split sum"
     if "wgrad" in name:
         return "weight gradient"
-    if "conv_fwd" in name or "conv_gemm_kernel<false>" in name:  # the recompute's h1/h2
-        return "recompute"
+    if "conv_fwd_tma" in name:  # the BasicBlock forward's producer/consumer kernel
+        return "forward conv (TMA)"
+    if "conv_fwd" in name or "conv_gemm_kernel<false>" in name:  # the recompute's h1/h2, mma.sync forwards
+        return "forward conv"
     if "conv_gemm" in name or "dgrad" in name:
         return "data gradient"
     if "relu_mask" in name:
@@ -106,23 +114,26 @@ def cuda_ms(fn, reps: int):
 
 
 def cases(engine: str = "new"):
-    """Yields (row, label, blocks per step, the call) at the seven
-    BasicBlock and projection geometries, then at the identity block's four
-    (the saved-residual and the recompute backward each); inputs from seed
-    0, h1/h2/out from the tree's saving forwards (the relu masks the
-    backward sees in training)."""
+    """Yields (row, label, blocks per step or eval forward, the call) at the
+    seven BasicBlock and projection geometries, at the identity block's four
+    (the saved-residual and the recompute backward each), for the stage-0
+    chain's backward and for the BasicBlock forward at its four geometries;
+    inputs from seed 0, h1/h2/out from the tree's saving forwards (the relu
+    masks the backward sees in training)."""
     import torch
 
-    from argus_tpu_torch.ops.kernels import basic_fused, block_fused, proj_fused
+    from argus_tpu_torch.ops.kernels import basic_fused, block_fused, proj_fused, stage_fused
 
     if engine == "prev":
         from argus_tpu_torch.ops.kernels import bwd_prev
 
         basic_bwd, proj_bwd = bwd_prev.basic_bwd_prev, bwd_prev.proj_bwd_prev
         block_bwd, block_rbwd = bwd_prev.block_bwd_prev, bwd_prev.block_bwd_recompute_prev
+        stage_bwd, basic_fwd = bwd_prev.stage_bwd_prev, bwd_prev.basic_fwd_prev
     else:
         basic_bwd, proj_bwd = basic_fused.basic_bwd, proj_fused.proj_bwd
         block_bwd, block_rbwd = block_fused.block_bwd, block_fused.block_bwd_recompute
+        stage_bwd, basic_fwd = stage_fused.stage_bwd, basic_fused.basic_block
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def w(*shape):
@@ -164,9 +175,27 @@ def cases(engine: str = "new"):
         yield "block_fused_rbwd", label, count, lambda args=args: block_rbwd(*args)
         del x, out, h1, h2, gr, args
     torch.cuda.empty_cache()
+    h, cin, f, cout, k = CHAIN
+    x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+    pw = (w(cin, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout), w(cin, cout), b(cout))
+    ids = [(w(cout, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout)) for _ in range(k)]
+    out, bnds, h1s, h2s = stage_fused.fused_stage_save(x, pw, ids, 1)
+    args = (x, grad(out), out, bnds, h1s, h2s, (pw[0], pw[2], pw[4], pw[6]), [(t[0], t[2], t[4]) for t in ids], 1)
+    label = f"{tuple(x.shape)} F={f} K={k}"
+    yield "stage_fused_bwd", label, 1, lambda args=args: stage_bwd(*args)
+    del x, out, bnds, h1s, h2s, args
+    torch.cuda.empty_cache()
+    for c, h, count in BASIC:
+        x = torch.rand(N_IMG, h, h, c, generator=g, device="cuda").to(torch.bfloat16)
+        ws = (w(3, 3, c, c), b(c), w(3, 3, c, c), b(c))
+        label = f"{tuple(x.shape)}"
+        yield "basic_fused", label, count, lambda x=x, ws=ws: basic_fwd(x, *ws)
+        del x
+    torch.cuda.empty_cache()
 
 
-KINDS = ("data gradient", "weight gradient", "split sum", "mask pass", "recompute", "other")
+KINDS = ("data gradient", "weight gradient", "split sum", "mask pass", "forward conv", "forward conv (TMA)",
+         "other")
 
 
 def fmt(parts: dict) -> str:
@@ -179,6 +208,7 @@ def main() -> int:
     ap.add_argument("--engine", choices=("new", "prev"), default="new")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--detail", action="store_true", help="also print each device kernel's time")
+    ap.add_argument("--rows", default="", help="comma-separated prefixes of the rows to time (default: all)")
     a = ap.parse_args()
     import torch
 
@@ -194,7 +224,10 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     rows = []
+    keep = tuple(r for r in a.rows.split(",") if r)
     for row, label, count, fn in cases(a.engine):
+        if keep and not row.startswith(keep):
+            continue
         ms, host = cuda_ms(fn, a.reps)
         parts = breakdown(fn, a.detail)
         for key, (kms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):

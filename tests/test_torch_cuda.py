@@ -300,13 +300,82 @@ def test_basic_block_kernels(dev, n, h, w, c):
     _all_close(got[1:], tbf.basic_bwd_plain(*args)[1:])
 
 
-@pytest.mark.parametrize("block", ["basic", "projection", "identity", "recompute"])
+# the chain backward's card cases (n, h, w, stride, identity blocks, with the
+# projection): ragged 9 x 13 blocks (the stride-2 entry halves 18 x 26), one
+# to three identity blocks, and a chain of identity blocks alone
+CHAIN_CASES = [(3, 9, 13, 1, 2, True), (3, 18, 26, 2, 1, True), (3, 18, 26, 2, 3, True), (3, 9, 13, 1, 1, False),
+               (3, 9, 13, 1, 3, False), (2, 8, 8, 1, 0, True)]
+
+
+def _chain_args(g, n, h, w, stride, k, with_proj, dev):
+    cin = 64 if with_proj else 256
+    x = torch.rand(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
+    proj = _proj(g, cin, 64, 256, dev) if with_proj else None
+    ids = [_id(g, 256, 64, dev) for _ in range(k)]
+    out, bnds, h1s, h2s = tst.fused_stage_save(x, proj, ids, stride)
+    pw = (proj[0], proj[2], proj[4], proj[6]) if with_proj else None
+    return (x, _grad(g, out.shape, dev), out, bnds, h1s, h2s, pw, [(t[0], t[2], t[4]) for t in ids], stride)
+
+
+def _chain_flat(res):
+    dx, pd, idd = res
+    return [dx, *(pd or ()), *[d for ds in idd for d in ds]]
+
+
+@pytest.mark.parametrize("n,h,w,stride,k,with_proj", CHAIN_CASES)
+def test_stage_backward_on_hopper_compositions(dev, n, h, w, stride, k, with_proj):
+    """The chain backward on the Hopper compositions (the boundary masks in
+    the dx launches) against its plain version, with and without dx."""
+    g = torch.Generator().manual_seed(13)
+    args = _chain_args(g, n, h, w, stride, k, with_proj, dev)
+    before = tst.KERNEL_BWD.launches
+    got = tst.stage_bwd(*args)
+    _all_close(_chain_flat(got), _chain_flat(tst.stage_bwd_plain(*args)))
+    no_dx = tst.stage_bwd(*args, need_dx=False)
+    assert no_dx[0] is None and tst.KERNEL_BWD.launches == before + 2
+    _all_close(_chain_flat(no_dx)[1:], _chain_flat(tst.stage_bwd_plain(*args, need_dx=False))[1:])
+
+
+# the BasicBlock forward's card cases (n, h, w, c): every C of ResNet-18 with
+# ragged H and W, so that the TMA boxes cross the image edge on every side
+# (16-wide boxes past W, 8-row boxes past H, multi-image boxes past an odd
+# N), and images smaller than 8 x 8 (boxes of their rounded-up size)
+BASIC_FWD_CASES = [(3, 9, 13, 64), (2, 20, 37, 64), (3, 11, 8, 128), (2, 9, 13, 256), (3, 8, 8, 512),
+                   (1, 12, 30, 512), (1, 5, 7, 512), (3, 5, 11, 128), (3, 2, 2, 64), (5, 1, 3, 256), (2, 3, 20, 64)]
+
+
+@pytest.mark.parametrize("n,h,w,c", BASIC_FWD_CASES)
+def test_basic_block_forward_on_tma_boxes(dev, n, h, w, c):
+    """Both variants of the BasicBlock forward against the plain version;
+    two calls give the same bits."""
+    g = torch.Generator().manual_seed(14)
+    x = torch.rand(n, h, w, c, generator=g).to(dev, torch.bfloat16)
+    ws = _basic(g, c, dev)
+    out = tbf.basic_block(x, *ws)
+    _close(out, tbf.basic_fwd_plain(x, *ws, save=False))
+    saved = tbf.basic_block_save(x, *ws)
+    _all_close(saved, tbf.basic_fwd_plain(x, *ws, save=True))
+    assert torch.equal(saved[0], out) and torch.equal(tbf.basic_block(x, *ws), out)
+
+
+def test_basic_block_forward_needs_whole_64_channel_steps(dev):
+    """The forward kernel raises at C % 64 != 0 (no fallback)."""
+    g = torch.Generator().manual_seed(15)
+    x = torch.rand(2, 8, 8, 72, generator=g).to(dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        tbf.basic_block(x, *_basic(g, 72, dev))
+
+
+@pytest.mark.parametrize("block", ["basic", "projection", "identity", "recompute", "chain"])
 def test_block_backward_weight_gradients_are_deterministic(dev, block):
     """Two calls of the redesigned backwards on the same inputs give the
     same bits: the weight gradients' split partials are added in a fixed
     order, with no atomics (shapes whose reductions split)."""
     g = torch.Generator().manual_seed(12)
-    if block == "basic":
+    if block == "chain":
+        args = _chain_args(g, 4, 32, 32, 1, 2, True, dev)
+        first, second = _chain_flat(tst.stage_bwd(*args)), _chain_flat(tst.stage_bwd(*args))
+    elif block == "basic":
         x = torch.rand(4, 32, 32, 128, generator=g).to(dev, torch.bfloat16)
         ws = _basic(g, 128, dev)
         out, h1 = tbf.basic_block_save(x, *ws)

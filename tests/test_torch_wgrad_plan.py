@@ -156,12 +156,13 @@ def test_main_path_plans_fill_whole_waves():
 @pytest.mark.parametrize("n,h,w,cin,f", [(N_IMG, h, h, cin, f) for h, cin, f in IDENTITY_MAIN] + IDENTITY_CARD)
 def test_identity_plans_follow_the_kernel_launches(n, h, w, cin, f):
     """`identity_wgrad_plans` lists the weight-gradient launches of
-    `identity_block_bwd_sm90` in its order, each with its rows, source
-    channels, gradient channels and kernel size (wgrad_sm90(a, H, W, C, ks,
-    stride, pad, b, COUT, N, Ho, Wo, ...), read from the header), so the
-    workspace the wrappers allocate is sized by what the kernel launches."""
+    `identity_block_bwd_m3_sm90` (which `identity_block_bwd_sm90` runs after
+    its mask pass) in its order, each with its rows, source channels,
+    gradient channels and kernel size (wgrad_sm90(a, H, W, C, ks, stride,
+    pad, b, COUT, N, Ho, Wo, ...), read from the header), so the workspace
+    the wrappers allocate is sized by what the kernel launches."""
     src = (Path(wgrad_plan.__file__).resolve().parents[2] / "csrc" / "identity_bwd_sm90.cuh").read_text()
-    body = src[src.index("identity_block_bwd_sm90("):]
+    body = src[src.index("inline cudaError_t identity_block_bwd_m3_sm90("):]
     dims = {"N": n, "H": h, "W": w, "CIN": cin, "F": f}
     launches = []
     for args in re.findall(r"wgrad_sm90\(([^;]*)\);", body):
