@@ -1,14 +1,17 @@
-// The six redesigned kernels composed from the engines they ran on before,
+// The eight redesigned kernels composed from the engines they ran on before,
 // the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient (wgrad.cuh),
-// which the pointwise backward and the bottleneck forwards still use: the
-// block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu, block_fused_bwd.cu,
-// block_fused_rbwd.cu), the stage chain's backward (stage_fused_bwd.cu) and
-// the BasicBlock forward (basic_fused.cu). No wrapper of the port calls this
-// library: chip_smoke.py and scripts/time_torch_block_bwd.py time it beside
-// the Hopper engines (same inputs, same call) and break both down by device
+// which the pointwise forward, the projection forwards and the chain
+// forwards still use: the block backwards (basic_fused_bwd.cu,
+// proj_fused_bwd.cu, block_fused_bwd.cu, block_fused_rbwd.cu), the stage
+// chain's backward (stage_fused_bwd.cu), the BasicBlock and identity
+// bottleneck forwards (basic_fused.cu, block_fused.cu) and the pointwise
+// backward (pointwise_bwd.cu). No wrapper of the port calls this library:
+// chip_smoke.py and scripts/time_torch_block_bwd.py time it beside the
+// Hopper engines (same inputs, same call) and break both down by device
 // kernel.
 
 #include "conv_bwd.cuh"
+#include "conv_dgrad_sm90.cuh"
 
 namespace argus {
 
@@ -36,7 +39,7 @@ inline cudaError_t basic_block_bwd_prev(const void* x, const void* g, const void
 
 }  // namespace argus
 
-// The parent's launchers: the workspace is sized by block_fused.wgrad_workspace.
+// The previous launchers: the workspace is sized by bwd_prev.wgrad_workspace.
 extern "C" int argus_basic_bwd_prev(const void* x, const void* g, const void* out, const void* h1,
                                     const void* w1d, const void* w2d, void* dx, void* m1, void* dw1,
                                     void* dw2, void* ws, int64_t ws_elems, int N, int H, int W, int C,
@@ -103,7 +106,7 @@ extern "C" int argus_basic_fwd_prev(const void* x, void* h1, void* out, const vo
 // (each applying its own relu mask as it loads the cotangent), the
 // cotangent ping-ponging between gtmp0 and gtmp1; arguments as
 // `argus_stage_bwd` (stage_fused_bwd.cu) takes them, the workspace sized by
-// block_fused.wgrad_workspace.
+// bwd_prev.wgrad_workspace.
 extern "C" int argus_stage_bwd_prev(const void* x, const void* g, const void* out, const void* const* bnds,
                                     const void* const* h1s, const void* const* h2s, const void* const* proj,
                                     const void* const* ids, void* const* pdw, void* const* idw, void* dx, void* m1,
@@ -137,4 +140,39 @@ extern "C" int argus_stage_bwd_prev(const void* x, const void* g, const void* ou
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+// The identity bottleneck forward as three launches of the conv-GEMM
+// (conv_gemm.cuh `identity_block`); arguments as `argus_block_fwd`
+// (block_fused.cu) takes them.
+extern "C" int argus_block_fwd_prev(const void* x, void* h1, void* h2, void* out, const void* w1, const void* b1,
+                                    const void* w2, const void* b2, const void* w3, const void* b3, int N, int H,
+                                    int W, int CIN, int F, void* stream) {
+  return static_cast<int>(argus::identity_block(x, h1, h2, out, w1, b1, w2, b2, w3, b3, N, H, W, CIN, F,
+                                                static_cast<cudaStream_t>(stream)));
+}
+
+// The pointwise backward with the relu mask applied as the conv-GEMM and
+// the weight gradient load g (m written by the mask pass only when it is
+// emitted); arguments as `argus_pointwise_bwd` (pointwise_bwd.cu) takes
+// them, m nullptr when not emitted, the workspace sized by
+// bwd_prev.wgrad_workspace.
+extern "C" int argus_pointwise_bwd_prev(const void* g, const void* out, const void* x, const void* wt, void* dx,
+                                        void* dw, void* m, void* ws, int64_t ws_elems, int M, int CIN, int COUT,
+                                        int relu, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* a = g;
+  const void* mask = relu ? out : nullptr;
+  if (m != nullptr && relu) {
+    const cudaError_t e = argus::relu_mask_sm90(g, out, m, static_cast<int64_t>(M) * COUT, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    a = m;
+    mask = nullptr;
+  }
+  if (dx != nullptr) {
+    const argus::ConvSeg s = argus::make_seg(a, wt, 1, 1, COUT, 1, 1, 0, mask);
+    const cudaError_t e = argus::launch_conv_gemm(argus::gemm_args(s, nullptr, M, 1, 1, CIN, dx), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(argus::wgrad(x, 1, 1, CIN, 1, 1, 0, a, mask, COUT, M, 1, 1, dw, ws, ws_elems, st));
 }

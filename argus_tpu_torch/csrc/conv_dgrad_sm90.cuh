@@ -1,7 +1,8 @@
 // The data-gradient engine of the redesigned block and chain backwards
 // (basic_fused_bwd.cu, and proj_fused_bwd.cu, block_fused_bwd.cu,
 // block_fused_rbwd.cu and stage_fused_bwd.cu through proj_bwd_sm90.cuh and
-// identity_bwd_sm90.cuh): an implicit-GEMM
+// identity_bwd_sm90.cuh) and of the pointwise backward (pointwise_bwd.cu,
+// its dx and its mask pass): an implicit-GEMM
 // convolution over NHWC bf16 on Hopper's warpgroup MMA, in the gradient form
 // of conv_gemm.cuh
 //

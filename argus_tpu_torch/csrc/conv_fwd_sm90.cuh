@@ -1,18 +1,22 @@
-// The forward engine of the BasicBlock forward (basic_fused.cu): a stride-1
-// 3x3 convolution with "same" padding over NHWC bf16 on Hopper's warpgroup
-// MMA, every operand arriving by TMA, with the folded forward epilogue
+// The TMA forward engine of the BasicBlock forward (basic_fused.cu) and the
+// identity bottleneck forward (block_fused.cu): a stride-1 convolution with
+// "same" padding, a 3x3 or a 1x1 (template argument KS), over NHWC bf16 on
+// Hopper's warpgroup MMA, every operand arriving by TMA, with the folded
+// forward epilogue
 //
 //   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] + bias[n] (+ f32(residual[m, n]))))
 //
 // (bias f32; the residual, an identity shortcut like out, with kRes), the
 // sum in that order and one rounding, as conv_dgrad_sm90.cuh's forward mode
-// rounds.
+// rounds. Any C and COUT that are multiples of 8.
 //
-// Bound on the H100: tensor-core issue at C >= 128; at C = 64 (ResNet-18's
-// stage 0, K = 576) a tile has only nine 64-k steps, and the gather engine
-// (conv_dgrad_sm90.cuh) pays 1.2-2.3 us a step for its per-thread cp.async
-// gather, its proxy fence and its block barrier whatever the MMA size
-// (PERF.md). Design, for every C % 64 == 0:
+// Bound on the H100: tensor-core issue for the 3x3s at C >= 128 and the
+// 1x1s at K >= 1024; device memory for the 1x1s at the bottleneck's stage 1
+// (conv3 reads x and h2 and writes out, ~1.2 GB at N = 512) and for the 3x3
+// at C = 64 (ResNet-18's stage 0, K = 576), where a tile has only nine
+// 64-k steps and the gather engine (conv_dgrad_sm90.cuh) pays 1.2-2.3 us a
+// step for its per-thread cp.async gather, its proxy fence and its block
+// barrier whatever the MMA size (PERF.md). Design:
 // - an output tile of 128 pixels is a box of `bw` columns x `bh` rows x
 //   `bn` images: W and H rounded up to powers of two, at most 16 and 8,
 //   and bn = 128 / (bw * bh) (16 x 8 x 1 at ResNet-18's stages 0-2, two
@@ -20,11 +24,14 @@
 //   tile;
 // - its A operand for tap (ky, kx) and channels c0..c0+63 is ONE tiled TMA
 //   box of a 4-D tensor map over the source (64 ch x bw x bh x bn) at
-//   (c0, ow0 + kx - 1, oh0 + ky - 1, n0): TMA's zero fill at negative or
-//   overflowing coordinates is the conv's padding, and 64 bf16 channels are
-//   one 128-byte swizzle row per pixel, the K-major layout wgmma's A takes;
-// - B, the (9C, COUT) HWIO weight rows, arrives by 2-D TMA as in the other
-//   engines (64 x 64 boxes, 128-byte swizzle);
+//   (c0, ow0 + kx - KS/2, oh0 + ky - KS/2, n0): TMA's zero fill at negative
+//   or overflowing coordinates is the conv's padding and, where C % 64 != 0,
+//   the channels of the last step past C; 64 bf16 channels are one 128-byte
+//   swizzle row per pixel, the K-major layout wgmma's A takes. A 1x1 is
+//   the single tap at offset (0, 0);
+// - B, the weight rows, arrives by TMA as 64 x 64 boxes (128-byte swizzle)
+//   of a 3-D map over (taps, C, COUT) at (n0, c0, tap), so a short last
+//   channel step reads zeros past C, not the next tap's rows;
 // - warp specialisation: warp 8 issues the boxes into a ring of stages on
 //   "full" mbarriers, warpgroups 0-1 (64 pixels each, wgmma m64nBNk16)
 //   wait only on them and release a stage on its "empty" mbarrier once its
@@ -48,7 +55,7 @@ namespace argus {
 
 struct ConvFwdArgs {
   CUtensorMap amap;  // the source (N, H, W, C), boxes of 64 ch x bw x bh x bn pixels
-  CUtensorMap wmap;  // (9C, COUT) weight rows, 64 x 64 boxes
+  CUtensorMap wmap;  // (taps, C, COUT) weight rows, 64 x 64 x 1 boxes
   int N, H, W, C, COUT;
   int bw, bh, bn;        // a tile's pixel box: bw * bh * bn == 128
   int tw, th, timg;      // tiles along W, along H, and image groups
@@ -74,11 +81,12 @@ struct FwdCfg {
   static constexpr bool kPre = BN * MINB <= 128;                    // the residual prefetched
 };
 
-template <int BN, int MINB, bool kRes>
+template <int KS, int BN, int MINB, bool kRes>
 __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
     conv_fwd_tma_sm90_kernel(const __grid_constant__ ConvFwdArgs p) {
   using Cfg = FwdCfg<BN, MINB>;
   constexpr int S = Cfg::kStages;
+  constexpr int kPad = KS / 2;  // "same" padding
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * Cfg::kStageBytes);
@@ -89,8 +97,8 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int CB = p.C >> 6;  // 64-channel blocks
-  const int T = 9 * CB;     // steps of one tile: tap-major, then channel block
+  const int CB = (p.C + 63) >> 6;  // 64-channel steps, the last zero-filled past C
+  const int T = KS * KS * CB;      // steps of one tile: tap-major, then channel block
   const int ntn = (p.COUT + BN - 1) / BN;
   const int ntiles = p.tw * p.th * p.timg * ntn;
 
@@ -127,12 +135,12 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
           if (gt >= S) mbar_wait(&empty[st], ((gt / S) - 1) & 1);
           const int tap = ts / CB;
           const int cb = ts - tap * CB;
-          const int ky = tap / 3, kx = tap - 3 * (tap / 3);
+          const int ky = tap / KS, kx = tap - KS * ky;
           mbar_expect_tx(&full[st], Cfg::kStageBytes);
-          tma_load_4d(sA(st), &p.amap, &full[st], cb * 64, ow0 + kx - 1, oh0 + ky - 1, n0);
+          tma_load_4d(sA(st), &p.amap, &full[st], cb * 64, ow0 + kx - kPad, oh0 + ky - kPad, n0);
 #pragma unroll
           for (int b = 0; b < BN / 64; ++b)
-            tma_load_2d(sB(st) + b * 8192, &p.wmap, &full[st], c0 + b * 64, tap * p.C + cb * 64);
+            tma_load_3d(sB(st) + b * 8192, &p.wmap, &full[st], c0 + b * 64, cb * 64, tap);
         }
       }
     }
@@ -254,7 +262,7 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
 }
 
 // static: each kernel library keeps its own once-only state
-template <int BN, int MINB, bool kRes>
+template <int KS, int BN, int MINB, bool kRes>
 static inline cudaError_t launch_conv_fwd_tma_cfg(const ConvFwdArgs& p, cudaStream_t stream) {
   using Cfg = FwdCfg<BN, MINB>;
   static int sms = 0;  // set once per instantiation: the SM count and the shared-memory opt-in
@@ -263,24 +271,33 @@ static inline cudaError_t launch_conv_fwd_tma_cfg(const ConvFwdArgs& p, cudaStre
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(conv_fwd_tma_sm90_kernel<BN, MINB, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Cfg::kSmem);
+      e = cudaFuncSetAttribute(conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
     if (e != cudaSuccess) return e;
     sms = n * MINB;
   }
   const int64_t tiles = static_cast<int64_t>(p.tw) * p.th * p.timg * ((p.COUT + BN - 1) / BN);
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  conv_fwd_tma_sm90_kernel<BN, MINB, kRes><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
+  conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// out = bf16(relu(conv3x3(src) + bias (+ f32(residual)))), stride 1, pad 1:
-// src (N, H, W, C), w (3, 3, C, COUT) HWIO read as (9C, COUT) rows, bias
-// (COUT,) f32, residual (like out) or nullptr; C % 64 == 0 (whole 64-channel
-// steps), COUT % 8 == 0.
+template <int KS, int BN, int MINB>
+static inline cudaError_t launch_conv_fwd_tma_res(const ConvFwdArgs& p, cudaStream_t stream) {
+  return p.residual != nullptr ? launch_conv_fwd_tma_cfg<KS, BN, MINB, true>(p, stream)
+                               : launch_conv_fwd_tma_cfg<KS, BN, MINB, false>(p, stream);
+}
+
+// out = bf16(relu(conv(src) + bias (+ f32(residual)))), a KS x KS conv (3 or
+// 1), stride 1, "same" padding: src (N, H, W, C), w (KS, KS, C, COUT) HWIO,
+// bias (COUT,) f32, residual (like out) or nullptr; C % 8 == 0 and
+// COUT % 8 == 0 (the last 64-channel step and the last tile's columns are
+// zero-filled past C and COUT).
+template <int KS>
 inline cudaError_t launch_conv_fwd_tma(const void* src, const void* w, const float* bias, const void* residual,
                                        void* out, int N, int H, int W, int C, int COUT, cudaStream_t stream) {
-  if (C % 64 != 0 || COUT % 8 != 0) return cudaErrorInvalidValue;
+  static_assert(KS == 1 || KS == 3, "a 1x1 or a 3x3");
+  if (C % 8 != 0 || COUT % 8 != 0) return cudaErrorInvalidValue;
   ConvFwdArgs p;
   memset(&p, 0, sizeof(p));
   p.N = N;
@@ -306,13 +323,15 @@ inline cudaError_t launch_conv_fwd_tma(const void* src, const void* w, const flo
   p.out = static_cast<bf16*>(out);
   cudaError_t e = make_tmap_nhwc(&p.amap, src, N, H, W, C, p.bw, p.bh, p.bn);
   if (e != cudaSuccess) return e;
-  if ((e = make_tmap_2d(&p.wmap, w, 9 * static_cast<int64_t>(C), COUT, COUT)) != cudaSuccess) return e;
-  const bool res = residual != nullptr;
-  if (COUT <= 64)
-    return res ? launch_conv_fwd_tma_cfg<64, 2, true>(p, stream) : launch_conv_fwd_tma_cfg<64, 2, false>(p, stream);
-  if (COUT <= 128)
-    return res ? launch_conv_fwd_tma_cfg<128, 1, true>(p, stream) : launch_conv_fwd_tma_cfg<128, 1, false>(p, stream);
-  return res ? launch_conv_fwd_tma_cfg<256, 1, true>(p, stream) : launch_conv_fwd_tma_cfg<256, 1, false>(p, stream);
+  if ((e = make_tmap_wrows(&p.wmap, w, KS * KS, C, COUT)) != cudaSuccess) return e;
+  // a 1x1 with the residual (the identity forward's conv3, K = F: 2-8
+  // k-steps a tile) is paced by its epilogue: 128-wide tiles, whose
+  // residual is prefetched (0.38 against 0.48 ms on 256-wide tiles at
+  // F = 256, PERF.md)
+  const bool res1x1 = KS == 1 && residual != nullptr;
+  if (COUT <= 64) return launch_conv_fwd_tma_res<KS, 64, 2>(p, stream);
+  if (COUT <= 128 || res1x1) return launch_conv_fwd_tma_res<KS, 128, 1>(p, stream);
+  return launch_conv_fwd_tma_res<KS, 256, 1>(p, stream);
 }
 
 }  // namespace argus

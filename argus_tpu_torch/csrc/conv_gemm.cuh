@@ -1,10 +1,13 @@
 // Implicit-GEMM convolution over NHWC bf16 with a fused bias/residual/relu
-// epilogue: the mma.sync tensor-core kernel behind the bottleneck forwards
-// (block, projection, stage) and the pointwise kernels' forward and data
-// gradient, and behind the previous forms that bwd_prev.cu keeps for timing
-// (conv_bwd.cuh's block and chain backwards, the BasicBlock forward). Every
-// block backward, the chain backward and the BasicBlock forward run on the
-// Hopper engines instead (conv_dgrad_sm90.cuh, conv_fwd_sm90.cuh).
+// epilogue: the mma.sync tensor-core kernel behind the projection forwards
+// (proj_fused.cu), the stage chains' forwards (stage_fused.cu, whose
+// identity blocks run `identity_block` below) and the pointwise forward
+// (pointwise.cu), and behind the previous forms that bwd_prev.cu keeps for
+// timing (conv_bwd.cuh's block and chain backwards, the BasicBlock and
+// identity bottleneck forwards, the pointwise backward). Every block
+// backward, the chain backward, the BasicBlock and identity bottleneck
+// forwards and the pointwise backward run on the Hopper engines instead
+// (conv_dgrad_sm90.cuh, conv_fwd_sm90.cuh, wgrad_sm90.cuh).
 //
 //   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] (+ bias0[n]) (+ bias1[n])
 //                         (+ residual[m, n] * (rmask[m, n] > 0))))
@@ -40,9 +43,10 @@
 // form is also the conv's zero padding, ldmatrix from padded (bank-conflict
 // free) shared rows. Each thread gathers one A row and walks k in 8-channel
 // vectors with an incremental (segment, ky, kx, c) decoder: no divisions in
-// the main loop. The wgmma/TMA form of the data gradient is
-// conv_dgrad_sm90.cuh; moving the forwards and the other backwards onto it,
-// and keeping h1/h2 on chip, are later work.
+// the main loop. The wgmma/TMA forms are conv_dgrad_sm90.cuh (data
+// gradient) and conv_fwd_sm90.cuh (stride-1 forwards); moving the
+// projection, chain and pointwise forwards onto them, and keeping h1/h2 on
+// chip, are later work.
 
 #pragma once
 

@@ -2,7 +2,7 @@
 // (conv_dgrad_sm90.cuh, wgrad_sm90.cuh, conv_fwd_sm90.cuh): the
 // shared-memory matrix descriptor of wgmma for the 128-byte swizzle, the
 // warpgroup MMA itself (bf16 in, f32 accumulate), its fences, mbarriers,
-// the 2-D and 4-D TMA loads, and the host-side tensor-map encoders reached
+// the 2-D, 3-D and 4-D TMA loads, and the host-side tensor-map encoders reached
 // through cudaGetDriverEntryPoint (no libcuda link).
 //
 // The 128-byte swizzle: a tile row is 64 bf16 (128 bytes, eight 16-byte
@@ -180,6 +180,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 3-D TMA load of one box at (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // 4-D TMA load of one box at (c0 innermost, c1, c2, c3); coordinates may be
 // negative or run past the tensor, where the box is zero-filled
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
@@ -229,11 +238,32 @@ inline cudaError_t make_tmap_2d(CUtensorMap* map, const void* base, int64_t rows
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Host: a 3-D bf16 tensor map of a conv's weight rows (taps, C, COUT), an
+// HWIO kernel with its taps flattened, dims innermost first (COUT, C, taps),
+// boxes of 64 x 64 x 1 (one tap's 64 input channels x 64 output channels,
+// 128-byte rows), 128-byte swizzle, zero fill out of bounds: a box's rows
+// past C are zeros, not the next tap's rows. COUT % 8 == 0.
+inline cudaError_t make_tmap_wrows(CUtensorMap* map, const void* base, int taps, int C, int COUT) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(COUT), static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(taps)};
+  const cuuint64_t row = static_cast<cuuint64_t>(COUT) * 2;
+  const cuuint64_t strides[2] = {row, row * C};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Host: a 4-D bf16 tensor map of an NHWC (N, H, W, C) activation, dims
 // innermost first (C, W, H, N), boxes of 64 channels x bw x bh x bn pixels
-// (one 128-byte row per pixel), 128-byte swizzle, zero fill out of bounds:
-// the A operand of a stride-1 conv tile, one box per (tap, 64 channels).
-// base and C * 2 must be 16-byte aligned (C % 8 == 0).
+// (one 128-byte row per pixel), 128-byte swizzle, zero fill out of bounds
+// (pixels outside the image, and channels past C where C % 64 != 0): the A
+// operand of a stride-1 conv tile, one box per (tap, 64 channels). base and
+// C * 2 must be 16-byte aligned (C % 8 == 0).
 inline cudaError_t make_tmap_nhwc(CUtensorMap* map, const void* base, int N, int H, int W, int C, int bw, int bh,
                                   int bn) {
   const EncodeTiledFn fn = encode_tiled_fn();

@@ -1,6 +1,6 @@
 // The weight-gradient engine of the redesigned block and chain backwards
-// (basic_fused_bwd.cu, proj_bwd_sm90.cuh, identity_bwd_sm90.cuh) on Hopper's
-// warpgroup MMA:
+// (basic_fused_bwd.cu, proj_bwd_sm90.cuh, identity_bwd_sm90.cuh) and of the
+// pointwise backward (pointwise_bwd.cu) on Hopper's warpgroup MMA:
 //
 //   dW[tap, c, n] = sum_m A_tap[m, c] * B[m, n]
 //
@@ -9,7 +9,7 @@
 // ow*stride - pad + kx; zero in the padding), B the dense (M, COUT)
 // output-side gradient, already masked (`relu_mask_sm90` in
 // conv_dgrad_sm90.cuh writes m3 / m2 once), so no mask is applied here.
-// Same math as wgrad.cuh, which the pointwise backward keeps.
+// Same math as wgrad.cuh, which bwd_prev.cu keeps for timing.
 //
 // Bound on the H100: tensor-core issue (2 * M * C * COUT FLOP per tap).
 // Design:

@@ -89,19 +89,19 @@ POINTWISE_FLAGS = ("off", "on", "dot", "auto")
 # HBM3 at 700.00 W: ms per step or forward saved by turning the function on
 # alone, every other entry off (negative: cuDNN wins), in the workloads named.
 AUTO_FUSE = {
-    ("stem", "forward"): True,  # flagship step 8.60, serving 8.80
-    ("stem", "train"): True,  # stem-trained step 13.53
-    ("stage_chain_packed", "forward"): True,  # serving 9.17; frozen_stages=3 step 17.69 with the packed stem
-    ("stage_chain", "forward"): False,  # frozen_stages=3 step -6.65 (stages 1-2)
-    ("stage_chain", "train"): True,  # flagship step 9.05 (the Hopper chain backward)
-    ("projection", "forward"): True,  # serving 2.05
-    ("projection", "train"): False,  # flagship step -1.13, frozen_stages=3 step -4.58 (Hopper backward)
-    ("identity", "forward"): False,  # serving -3.94
-    ("identity", "train"): False,  # flagship step -12.31, frozen_stages=3 step -5.11 (Hopper backward)
-    ("basic", "forward"): True,  # keypoint eval forward 4.38 (the TMA forward)
-    ("basic", "train"): False,  # keypoint step -0.21 (TMA forward, Hopper backward)
-    ("pointwise", "forward"): True,  # serving 8.20 (fuse_pointwise "auto" in all 16 blocks)
-    ("pointwise", "train"): False,  # flagship step -49.55, frozen_stages=3 step -13.09
+    ("stem", "forward"): True,  # flagship step 8.60, serving 8.89
+    ("stem", "train"): True,  # stem-trained step 13.51
+    ("stage_chain_packed", "forward"): True,  # serving 9.37; frozen_stages=3 step 15.95 with the packed stem
+    ("stage_chain", "forward"): False,  # frozen_stages=3 step -7.99 (stages 1-2)
+    ("stage_chain", "train"): True,  # flagship step 9.29 (the Hopper chain backward)
+    ("projection", "forward"): True,  # serving 0.38
+    ("projection", "train"): False,  # flagship step -1.01, frozen_stages=3 step -4.74 (Hopper backward)
+    ("identity", "forward"): True,  # serving 23.70 (the TMA forward)
+    ("identity", "train"): True,  # flagship step 16.38, frozen_stages=3 step -1.09 (TMA forward, Hopper backward)
+    ("basic", "forward"): True,  # keypoint eval forward 4.47 (the TMA forward)
+    ("basic", "train"): False,  # keypoint step 0.73, within noise (its "all on" ran 0.85 slower than "auto")
+    ("pointwise", "forward"): True,  # serving 8.22, frozen_stages=3 step 9.35 (fuse_pointwise "auto" in all 16 blocks)
+    ("pointwise", "train"): False,  # flagship step -0.56, frozen_stages=3 step -4.31 (Hopper backward)
 }
 
 

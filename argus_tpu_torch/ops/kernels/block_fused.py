@@ -23,12 +23,14 @@ formulas; it reads only x, g, out, the folded weights and the biases.
 Each function has three parts: the plain PyTorch version (`*_plain`), which
 the CPU tests hold against argus_tpu and `chip_smoke.py` holds the kernel
 against on the card; the wrapper, which launches the CUDA kernel on a CUDA
-tensor (`csrc/block_fused.cu`, `csrc/block_fused_bwd.cu`) and runs the plain
-version on a CPU tensor; and `block_saved`, the `torch.autograd.Function`
-that ties the saving forward to the backward.
+tensor (`csrc/block_fused.cu`, three launches of the TMA forward engine;
+`csrc/block_fused_bwd.cu` and `csrc/block_fused_rbwd.cu`, the Hopper
+backward compositions) and runs the plain version on a CPU tensor; and
+`block_saved`, the `torch.autograd.Function` that ties the saving forward to
+the backward.
 
 Also home of the helpers the other block kernels share: the plain conv
-pieces, the wrapper argument checks and the weight-gradient workspace size.
+pieces and the wrapper argument checks.
 """
 
 from __future__ import annotations
@@ -85,26 +87,6 @@ def wgrad_f32(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 def relu_mask(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """v * (ref > 0) in v's dtype: the backward's relu masks."""
     return v * (ref > 0)
-
-
-# ───────────────────── weight-gradient workspace (csrc/wgrad.cuh) ─────────────────────
-
-_WG_TILE, _WG_TARGET_BLOCKS, _WG_MIN_ROWS = 64, 4 * 132, 2048
-
-
-def wgrad_workspace(*problems) -> int:
-    """f32 elements of partials the mma.sync weight-gradient launches of one
-    backward need (the pointwise backward's, and bwd_prev's), for problems
-    (rows, C, COUT, taps): the split rule of `wgrad_splits` in csrc/wgrad.cuh
-    (the launcher takes fewer splits when the workspace is short, so the two
-    cannot overrun each other)."""
-    need = 0
-    for rows, c, cout, taps in problems:
-        tiles = taps * -(-c // _WG_TILE) * -(-cout // _WG_TILE)
-        splits = max(1, min(-(-_WG_TARGET_BLOCKS // tiles), -(-rows // _WG_MIN_ROWS)))
-        if splits > 1:
-            need = max(need, splits * taps * c * cout)
-    return need
 
 
 def identity_wgrad_plans(n, h, w, cin, f):

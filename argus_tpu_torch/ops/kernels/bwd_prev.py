@@ -1,13 +1,15 @@
 """The redesigned kernels on the engine they ran on before their Hopper
 redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and weight gradient
-that the pointwise kernels and the bottleneck forwards keep): the
-BasicBlock, projection-block and identity-block backwards, the identity
-block's recompute backward, the stage chain's backward and the BasicBlock
-forward. No path of the port calls these: `chip_smoke.py` and
+that the pointwise forward, the projection forwards and the chain forwards
+keep): the BasicBlock, projection-block and identity-block backwards, the
+identity block's recompute backward, the stage chain's backward, the
+BasicBlock and identity bottleneck forwards and the pointwise backward. No
+path of the port calls these: `chip_smoke.py` and
 `scripts/time_torch_block_bwd.py` time them beside `basic_fused.basic_bwd`,
 `proj_fused.proj_bwd`, `block_fused.block_bwd`,
-`block_fused.block_bwd_recompute`, `stage_fused.stage_bwd` and
-`basic_fused.basic_block` on the same inputs, in the same call. CUDA tensors
+`block_fused.block_bwd_recompute`, `stage_fused.stage_bwd`,
+`basic_fused.basic_block`, `block_fused.bottleneck_block` and
+`pointwise.pointwise_bwd` on the same inputs, in the same call. CUDA tensors
 only; outputs as the redesigned wrappers give them.
 """
 
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
-from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2, wgrad_workspace
+from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2
 from argus_tpu_torch.ops.kernels.block_fused import transposed_weights as identity_transposed_weights
 from argus_tpu_torch.ops.kernels.proj_fused import transposed_weights
 from argus_tpu_torch.ops.kernels.stage_fused import chain_bwd_launch
@@ -27,6 +29,24 @@ KERNEL_ID = Kernel("bwd_prev", "argus_block_bwd_prev", [P] * 15 + [L] + [I] * 5 
 KERNEL_ID_R = Kernel("bwd_prev", "argus_block_rbwd_prev", [P] * 19 + [L] + [I] * 5 + [P])
 KERNEL_STAGE = Kernel("bwd_prev", "argus_stage_bwd_prev", [P] * 16 + [L] + [I] * 8 + [P])
 KERNEL_BASIC_FWD = Kernel("bwd_prev", "argus_basic_fwd_prev", [P] * 7 + [I] * 4 + [P])
+KERNEL_BLOCK_FWD = Kernel("bwd_prev", "argus_block_fwd_prev", [P] * 10 + [I] * 5 + [P])
+KERNEL_PW_BWD = Kernel("bwd_prev", "argus_pointwise_bwd_prev", [P] * 8 + [L] + [I] * 4 + [P])
+
+_WG_TILE, _WG_TARGET_BLOCKS, _WG_MIN_ROWS = 64, 4 * 132, 2048
+
+
+def wgrad_workspace(*problems) -> int:
+    """f32 elements of partials the mma.sync weight-gradient launches of one
+    backward need, for problems (rows, C, COUT, taps): the split rule of `wgrad_splits` in csrc/wgrad.cuh
+    (the launcher takes fewer splits when the workspace is short, so the two
+    cannot overrun each other)."""
+    need = 0
+    for rows, c, cout, taps in problems:
+        tiles = taps * -(-c // _WG_TILE) * -(-cout // _WG_TILE)
+        splits = max(1, min(-(-_WG_TARGET_BLOCKS // tiles), -(-rows // _WG_MIN_ROWS)))
+        if splits > 1:
+            need = max(need, splits * taps * c * cout)
+    return need
 
 
 def identity_wgrad_problems(n, h, w, cin, f):
@@ -124,3 +144,26 @@ def basic_fwd_prev(x, w1, b1, w2, b2, save=False):
     h1, out = torch.empty_like(x), torch.empty_like(x)
     KERNEL_BASIC_FWD.launch(x, h1, out, w1, b1, w2, b2, n, h, w, c)
     return (out, h1) if save else out
+
+
+def block_fwd_prev(x, w1, b1, w2, b2, w3, b3, save=False):
+    """out, or (out, h1, h2) with `save`, as `block_fused.bottleneck_block(_save)`."""
+    n, h, w, cin = x.shape
+    f = w1.shape[1]
+    h1, h2 = (torch.empty((n, h, w, f), dtype=x.dtype, device=x.device) for _ in range(2))
+    out = torch.empty_like(x)
+    KERNEL_BLOCK_FWD.launch(x, h1, h2, out, w1, b1, w2, b2, w3, b3, n, h, w, cin, f)
+    return (out, h1, h2) if save else out
+
+
+def pointwise_bwd_prev(g2, out2, x2, w, relu=True, emit_m=False, need_dx=True):
+    """(dx or None, dw in f32, m or None), as `pointwise.pointwise_bwd`."""
+    m, cin = x2.shape
+    cout = w.shape[1]
+    dx = torch.empty_like(x2) if need_dx else None
+    dw = torch.empty((cin, cout), dtype=torch.float32, device=x2.device)
+    mm = torch.empty_like(g2) if emit_m and relu else None
+    ws_elems = wgrad_workspace((m, cin, cout, 1))
+    ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=x2.device)
+    KERNEL_PW_BWD.launch(g2, out2, x2, w.t().contiguous(), dx, dw, mm, ws, ws_elems, m, cin, cout, int(relu))
+    return dx, dw, (mm if relu else g2) if emit_m else None

@@ -16,8 +16,9 @@ returns it.
 
 Two implementations of the same function, as argus_tpu has them:
 - "kernel" (`fuse_pointwise="on"`, argus_tpu's Pallas kernels): on a CUDA
-  tensor the hand-written kernels `csrc/pointwise.cu` and
-  `csrc/pointwise_bwd.cu`, on a CPU tensor their plain versions
+  tensor the hand-written kernels `csrc/pointwise.cu` (the mma.sync
+  conv-GEMM) and `csrc/pointwise_bwd.cu` (a mask pass, then dx and dw on
+  the Hopper wgmma/TMA engines), on a CPU tensor their plain versions
   (`pointwise_fwd_plain`, `pointwise_bwd_plain`), which `chip_smoke.py`
   holds the kernels against on the card;
 - "dot" (`fuse_pointwise="dot"`, argus_tpu's `impl="xla"`): the same
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from argus_tpu_torch.ops.kernels import wgrad_plan
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
 from argus_tpu_torch.ops.kernels.block_fused import (
     check_channels,
@@ -45,7 +47,6 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     needs_grad,
     relu_mask,
     wgrad_f32,
-    wgrad_workspace,
     zero_grad_of,
 )
 
@@ -100,9 +101,17 @@ def pointwise_fwd(x2, w, b, res2=None, relu=True):
     return out
 
 
+def pointwise_wgrad_plans(m: int, cin: int, cout: int):
+    """The backward's weight gradient as `wgrad_plan` takes it (rows, C,
+    COUT, kernel size): dw = x2^T m over M rows, one tap
+    (csrc/pointwise_bwd.cu)."""
+    return [(m, cin, cout, 1)]
+
+
 def pointwise_bwd(g2, out2, x2, w, relu=True, emit_m=False, need_dx=True):
     """(dx or None, dw in f32, m or None): the CUDA kernel on a CUDA tensor,
-    the plain version on a CPU tensor."""
+    the plain version on a CPU tensor. On the card, with relu, m is written
+    once (the caller's m, or scratch) and both products read it."""
     if not check_device(x2):
         return pointwise_bwd_plain(g2, out2, x2, w, relu, emit_m, need_dx)
     m, cin, cout = _check(x2, w)
@@ -111,8 +120,8 @@ def pointwise_bwd(g2, out2, x2, w, relu=True, emit_m=False, need_dx=True):
     dev = x2.device
     dx = torch.empty_like(x2) if need_dx else None
     dw = torch.empty((cin, cout), dtype=torch.float32, device=dev)
-    mm = torch.empty_like(g2) if emit_m and relu else None
-    ws_elems = wgrad_workspace((m, cin, cout, 1))
+    mm = torch.empty_like(g2) if relu else None  # m, the caller's when emitted, else scratch
+    ws_elems = wgrad_plan.workspace(*pointwise_wgrad_plans(m, cin, cout))
     ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=dev)
     KERNEL_BWD.launch(g2, out2, x2, w.t().contiguous(), dx, dw, mm, ws, ws_elems, m, cin, cout, int(relu))
     return dx, dw, (mm if relu else g2) if emit_m else None

@@ -21,10 +21,12 @@ pixel rows is cut into:
 in order by a second pass when there is more than one.
 
 Used by the block backwards `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
-`block_fused.block_bwd` and `block_fused.block_bwd_recompute`, and by the
+`block_fused.block_bwd` and `block_fused.block_bwd_recompute`, by the
 stage chain's `stage_fused.stage_bwd` (over every block's plans,
-`stage_fused.chain_wgrad_plans`); the pointwise backward keeps the older
-engine (`csrc/wgrad.cuh`, sized by `block_fused.wgrad_workspace`).
+`stage_fused.chain_wgrad_plans`) and by the pointwise backward
+`pointwise.pointwise_bwd` (one launch: M rows, CIN, COUT, one tap). Only
+the previous forms timed beside them keep the older engine (`csrc/wgrad.cuh`,
+sized by `bwd_prev.wgrad_workspace`).
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ Phases, each fatal on failure (nothing is caught and ignored):
    print the seconds and ptxas' register/spill report; `cuobjdump -sass` of
    the BasicBlock, projection and identity backwards' libraries (the
    identity's saved-residual and recompute backwards), the stage chain's
-   backward and the BasicBlock forward must show wgmma (HGMMA)
-   instructions;
+   backward, the BasicBlock and identity bottleneck forwards and the
+   pointwise backward must show wgmma (HGMMA) instructions;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -36,13 +36,16 @@ Phases, each fatal on failure (nothing is caught and ignored):
    with retain_graph); then the three BasicBlock kernels (no-save forward,
    saving forward, one-pass backward) at the four geometries of ResNet-18's
    identity blocks at N = 512 (C/H = 64/64, 128/32, 256/16, 512/8), same
-   tolerance and yardsticks; then the six kernels redesigned on the Hopper
+   tolerance and yardsticks; then the eight kernels redesigned on the Hopper
    wgmma/TMA engines (the BasicBlock, projection, and the identity block's
-   saved-residual and recompute backwards, the stage-0 chain's backward and
-   the BasicBlock forward) beside the mma.sync engine they ran on before
+   saved-residual and recompute backwards, the stage-0 chain's backward,
+   the BasicBlock and identity bottleneck forwards and the pointwise
+   backward) beside the mma.sync engine they ran on before
    (`ops/kernels/bwd_prev.py`), at the seven BasicBlock and projection
-   geometries, the four identity ones, the chain's and the four BasicBlock
-   forward ones, each call broken down by device kernel (data gradient,
+   geometries, the four identity ones, the chain's, the four BasicBlock
+   forward ones, the three identity forward ones of stages 1-3 and
+   configuration P's twelve pointwise ones, each call broken down by device
+   kernel (data gradient,
    weight gradient, split sum, mask pass, forward conv, forward conv on the
    TMA engine) from `torch.profiler`, with per-step totals;
 5. the augmentation kernels at the flagship step's shapes (N = 512 camera
@@ -358,7 +361,7 @@ def hgmma_check() -> None:
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd", "basic_fused",
-                 "stage_fused_bwd"):
+                 "stage_fused_bwd", "block_fused", "pointwise_bwd"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         n = sass.count("HGMMA")
@@ -867,15 +870,17 @@ def basic_kernel_phase() -> dict:
 
 
 def engine_phase() -> None:
-    """The six redesigned kernels on the Hopper engines (the BasicBlock,
+    """The eight redesigned kernels on the Hopper engines (the BasicBlock,
     projection, identity and recompute backwards, the stage-0 chain's
-    backward, the BasicBlock forward) beside the mma.sync engine they ran on
-    before (`ops/kernels/bwd_prev.py`), at the geometries of
-    scripts/time_torch_block_bwd.py, in this call: ms per call (CUDA events,
-    5 calls) and each call's device kernels by launch (torch.profiler), and
-    the ms per train step of each (the recompute's per configuration R
-    step, the forward's per eval forward; stage 0's identity geometry runs
-    in the chain, 0 a step)."""
+    backward, the BasicBlock and identity forwards, the pointwise backward)
+    beside the mma.sync engine they ran on before (`ops/kernels/bwd_prev.py`),
+    at the geometries of scripts/time_torch_block_bwd.py, in this call: ms
+    per call (CUDA events, 5 calls) and each call's device kernels by launch
+    (torch.profiler), and the ms per train step of each (the recompute's per
+    configuration R step, the BasicBlock forward's per eval forward, the
+    pointwise backward's per configuration P step; stage 0's identity
+    geometry runs in the chain, 0 a step; the identity forward's per step is
+    also its time per predict)."""
     import importlib.util
 
     import torch
@@ -901,7 +906,7 @@ def engine_phase() -> None:
             f"({pms / nms:.2f}x)")
         prev, new = step.get(row, (0.0, 0.0))
         step[row] = (prev + count * pms, new + count * nms)
-    per = {"block_fused_rbwd": "R step", "basic_fused": "eval forward"}
+    per = {"block_fused_rbwd": "R step", "basic_fused": "eval forward", "pointwise_bwd": "P step"}
     for row, (pms, nms) in step.items():
         say(f"{row} per {per.get(row, 'train step')}: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms "
             f"({pms / nms:.2f}x)")

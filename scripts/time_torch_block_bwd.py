@@ -4,13 +4,15 @@ BasicBlock's and the projection block's backwards (`basic_fused.basic_bwd`,
 `proj_fused.proj_bwd`) at the seven geometries of the keypoint and flagship
 train steps, the identity bottleneck's saved-residual and recompute
 backwards (`block_fused.block_bwd`, `block_fused.block_bwd_recompute`) at its
-four geometries, the stage-0 chain's backward (`stage_fused.stage_bwd`) and
+four geometries, the stage-0 chain's backward (`stage_fused.stage_bwd`),
 the BasicBlock forward (`basic_fused.basic_block`) at ResNet-18's four
-geometries (N = 512 camera images of 256x256, bf16), and break each call
-down by device kernel with `torch.profiler`: data gradient, weight
-gradient, split sum, the relu mask pass, forward convs (the recompute's
-h1/h2, the mma.sync BasicBlock forward), forward convs on the TMA engine,
-the rest.
+geometries, the identity bottleneck's forward (`block_fused.bottleneck_block`)
+at its three geometries of stages 1-3 and the pointwise backward
+(`pointwise.pointwise_bwd`) at configuration P's twelve (N = 512 camera
+images of 256x256, bf16), and break each call down by device kernel with
+`torch.profiler`: data gradient, weight gradient, split sum, the relu mask
+pass, forward convs (the recompute's h1/h2, the mma.sync forwards), forward
+convs on the TMA engine, the rest.
 
     python3 scripts/time_torch_block_bwd.py [--root DIR] [--engine new|prev] [--reps 10] [--rows ROW,...]
 
@@ -49,6 +51,13 @@ PROJ = [(64, 256, 128), (32, 512, 256), (16, 1024, 512)]
 IDENTITY = [(64, 256, 64, 0), (32, 512, 128, 3), (16, 1024, 256, 5), (8, 2048, 512, 2)]
 # the stage-0 chain of ResNet-50 (H = W, CIN, F, COUT, identity blocks), once a step
 CHAIN = (64, 64, 64, 256, 2)
+# configuration P's pointwise convs (H = W, CIN, COUT, residual, calls per step):
+# Conv_0 and Conv_2 of the 16 bottlenecks
+POINTWISE = [
+    (64, 64, 64, False, 1), (64, 256, 64, False, 2), (64, 64, 256, True, 3), (64, 256, 128, False, 1),
+    (32, 512, 128, False, 3), (32, 128, 512, True, 4), (32, 512, 256, False, 1), (16, 1024, 256, False, 5),
+    (16, 256, 1024, True, 6), (16, 1024, 512, False, 1), (8, 2048, 512, False, 2), (8, 512, 2048, True, 3),
+]
 
 
 def kind(name: str) -> str:
@@ -57,7 +66,7 @@ def kind(name: str) -> str:
         return "split sum"
     if "wgrad" in name:
         return "weight gradient"
-    if "conv_fwd_tma" in name:  # the BasicBlock forward's producer/consumer kernel
+    if "conv_fwd_tma" in name:  # the BasicBlock and identity forwards: the TMA engine
         return "forward conv (TMA)"
     if "conv_fwd" in name or "conv_gemm_kernel<false>" in name:  # the recompute's h1/h2, mma.sync forwards
         return "forward conv"
@@ -114,15 +123,17 @@ def cuda_ms(fn, reps: int):
 
 
 def cases(engine: str = "new"):
-    """Yields (row, label, blocks per step or eval forward, the call) at the
+    """Yields (row, label, calls per step or eval forward, the call) at the
     seven BasicBlock and projection geometries, at the identity block's four
     (the saved-residual and the recompute backward each), for the stage-0
-    chain's backward and for the BasicBlock forward at its four geometries;
-    inputs from seed 0, h1/h2/out from the tree's saving forwards (the relu
-    masks the backward sees in training)."""
+    chain's backward, for the BasicBlock forward at its four geometries, for
+    the identity forward at its three of stages 1-3 and for the pointwise
+    backward at configuration P's twelve; inputs from seed 0, h1/h2/out from
+    the tree's saving forwards (the relu masks the backward sees in
+    training)."""
     import torch
 
-    from argus_tpu_torch.ops.kernels import basic_fused, block_fused, proj_fused, stage_fused
+    from argus_tpu_torch.ops.kernels import basic_fused, block_fused, pointwise, proj_fused, stage_fused
 
     if engine == "prev":
         from argus_tpu_torch.ops.kernels import bwd_prev
@@ -130,10 +141,12 @@ def cases(engine: str = "new"):
         basic_bwd, proj_bwd = bwd_prev.basic_bwd_prev, bwd_prev.proj_bwd_prev
         block_bwd, block_rbwd = bwd_prev.block_bwd_prev, bwd_prev.block_bwd_recompute_prev
         stage_bwd, basic_fwd = bwd_prev.stage_bwd_prev, bwd_prev.basic_fwd_prev
+        block_fwd, pw_bwd = bwd_prev.block_fwd_prev, bwd_prev.pointwise_bwd_prev
     else:
         basic_bwd, proj_bwd = basic_fused.basic_bwd, proj_fused.proj_bwd
         block_bwd, block_rbwd = block_fused.block_bwd, block_fused.block_bwd_recompute
         stage_bwd, basic_fwd = stage_fused.stage_bwd, basic_fused.basic_block
+        block_fwd, pw_bwd = block_fused.bottleneck_block, pointwise.pointwise_bwd
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def w(*shape):
@@ -191,6 +204,23 @@ def cases(engine: str = "new"):
         label = f"{tuple(x.shape)}"
         yield "basic_fused", label, count, lambda x=x, ws=ws: basic_fwd(x, *ws)
         del x
+    torch.cuda.empty_cache()
+    for h, cin, f, count in IDENTITY[1:]:
+        x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        iw = (w(cin, f), b(f), w(3, 3, f, f), b(f), w(f, cin), b(cin))
+        yield "block_fused", f"{tuple(x.shape)} F={f}", count, lambda x=x, iw=iw: block_fwd(x, *iw)
+        del x
+    torch.cuda.empty_cache()
+    for h, cin, cout, with_res, count in POINTWISE:
+        m = N_IMG * h * h
+        x = torch.randn(m, cin, generator=g, device="cuda").to(torch.bfloat16)
+        pw = (w(cin, cout), b(cout))
+        res = torch.randn(m, cout, generator=g, device="cuda").to(torch.bfloat16) if with_res else None
+        out = pointwise.pointwise_fwd(x, *pw, res)
+        args = (grad(out), out, x, pw[0], True, with_res)
+        label = f"M={m} {cin}->{cout}{' +res' if with_res else ''}"
+        yield "pointwise_bwd", label, count, lambda args=args: pw_bwd(*args)
+        del x, res, out, args
     torch.cuda.empty_cache()
 
 

@@ -16,10 +16,14 @@ kernels compute them, on the CPU.
   partials.
 - The TMA forward engine's residual epilogue (bias, then the f32 residual,
   then relu, then one rounding) over an f32 accumulator is bit-equal to
-  `basic_fused.basic_fwd_plain`.
-- That engine's A operand (`csrc/conv_fwd_sm90.cuh`): one TMA box per tile,
-  tap and 64 channels, in the launcher's box shape, zero-filled outside the
-  tensor, computes the padded 3x3 conv, each output pixel once.
+  `basic_fused.basic_fwd_plain`; the identity bottleneck forward's three
+  launches of that engine (read from `csrc/block_fused.cu`), each with its
+  epilogue, are bit-equal to `block_fused.bottleneck_block_save_plain`.
+- That engine's operands (`csrc/conv_fwd_sm90.cuh`): per tile, tap and 64
+  channels, one TMA box of A in the launcher's box shape and boxes of the
+  3-D weight map, both zero-filled outside their tensors (past C too),
+  compute the padded 3x3 conv and the 1x1, each output pixel once, at any
+  C and COUT that are multiples of 8.
 
 Inputs are made with numpy from a seed; the chain is held to argus_tpu as
 tests/test_torch_kernels.py holds it: within 2e-4 (f32) or 2e-2 (bf16) of
@@ -37,9 +41,10 @@ import torch
 
 from argus_tpu.ops.pallas import stage_fused as jst
 from argus_tpu_torch.ops.kernels import basic_fused as tbf
+from argus_tpu_torch.ops.kernels import block_fused as tbk
 from argus_tpu_torch.ops.kernels import stage_fused as tst
 from argus_tpu_torch.ops.kernels import wgrad_plan
-from argus_tpu_torch.ops.kernels.block_fused import conv3x3_f32, conv3x3_grads_f32, relu_mask, wgrad_f32
+from argus_tpu_torch.ops.kernels.block_fused import conv3x3_f32, conv3x3_grads_f32, matmul_f32, relu_mask, wgrad_f32
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 REL = {"float32": 2e-4, "bfloat16": 2e-2}
@@ -237,9 +242,11 @@ def test_chain_workspace_holds_every_hopper_weight_gradient(n, h, w, cin, f, cou
 
 def _epilogue(acc, bias, residual, dtype, residual_first=False):
     """The TMA forward engine's epilogue on an f32 accumulator: + bias, then +
-    f32(residual), relu, one rounding (or the residual first, to show the
-    order matters)."""
+    f32(residual) where there is one, relu, one rounding (or the residual
+    first, to show the order matters)."""
     b = bias.float().reshape(-1)
+    if residual is None:
+        return torch.clamp_min(acc + b, 0.0).to(dtype)
     r = residual.float()
     v = (acc + r) + b if residual_first else (acc + b) + r
     return torch.clamp_min(v, 0.0).to(dtype)
@@ -262,15 +269,61 @@ def test_residual_epilogue_matches_the_plain_forward(dtype):
         assert not torch.equal(_epilogue(acc, b2, x, dtype, residual_first=True), out)
 
 
-# ───────────────────── the forward's A operand as TMA boxes ─────────────────────
+# ───────────────────── the identity forward's three launches ─────────────────────
+
+
+def _fwd_launches():
+    """(KS, src, w, bias, residual, out, C, COUT) of each
+    `launch_conv_fwd_tma<KS>(src, w, bias, residual, out, N, H, W, C, COUT,
+    stream)` call of csrc/block_fused.cu, in order."""
+    src = (CSRC / "block_fused.cu").read_text()
+    calls = re.findall(r"launch_conv_fwd_tma<(\d)>\(([^;]*)\);", src)
+    return [(int(ks), *[t.strip() for t in args.split(",")][:5], *[t.strip() for t in args.split(",")][8:10])
+            for ks, args in calls]
+
+
+# (n, h, w, cin, f): a main-path width at a small size, F below 64, and
+# CIN 72 with F 24 (no launch in whole 64-channel steps)
+ID_FWD_CASES = [(2, 8, 8, 256, 64), (2, 9, 7, 64, 16), (2, 6, 5, 72, 24)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,cin,f", ID_FWD_CASES)
+def test_identity_forward_launches_match_the_plain_block(n, h, w, cin, f, dtype):
+    """The launches of argus_block_fwd as the engine computes them: a conv of
+    kernel size KS over src into an f32 accumulator, then its epilogue
+    (bias, the residual, relu, one rounding), h1 and h2 through memory; bit
+    for bit the plain saving forward (out, h1, h2)."""
+    rng = np.random.default_rng(32)
+    ws = _folded(rng, cin, f, cin, False)
+    names = ("w1", "bias1", "w2", "bias2", "w3", "bias3")  # block_fused.cu's names
+    t = {name: torch.from_numpy(a).to(dtype) if i % 2 == 0 else torch.from_numpy(a)
+         for i, (name, a) in enumerate(zip(names, ws))}
+    t["x"] = torch.from_numpy(np.abs(rng.normal(0, 1, (n, h, w, cin))).astype(np.float32)).to(dtype)
+    dims = {"CIN": cin, "F": f}
+    launches = _fwd_launches()
+    assert [(ks, a[-2], a[-1]) for ks, *a in launches] == [(1, "CIN", "F"), (3, "F", "F"), (1, "F", "CIN")]
+    for ks, src, wname, bias, res, out, c, cout in launches:
+        a, wt = t[src], t[wname]
+        assert a.shape[-1] == dims[c] and wt.shape[-1] == dims[cout]
+        acc = conv3x3_f32(a, wt, 1) if ks == 3 else matmul_f32(a, wt)
+        resid = None if res == "nullptr" else t[res]
+        t[out] = _epilogue(acc, t[bias], resid, dtype)
+    want = tbk.bottleneck_block_save_plain(t["x"], *(t[k] for k in names))
+    for got, ref in zip((t["out"], t["h1"], t["h2"]), want):
+        assert torch.equal(got, ref)
+
+
+# ───────────────────── the forward's operands as TMA boxes ─────────────────────
+
+FWD_SRC = (CSRC / "conv_fwd_sm90.cuh").read_text()
 
 
 def _launcher_box(h: int, w: int):
     """(bw, bh, bn) of a tile as csrc/conv_fwd_sm90.cuh's launcher picks it:
     W and H rounded up to powers of two under the caps read from the
     header, bn = 128 / (bw * bh)."""
-    src = (CSRC / "conv_fwd_sm90.cuh").read_text()
-    caps = {d: int(re.search(rf"p\.b{d} = pow2\({d.upper()}, (\d+)\);", src).group(1)) for d in ("w", "h")}
+    caps = {d: int(re.search(rf"p\.b{d} = pow2\({d.upper()}, (\d+)\);", FWD_SRC).group(1)) for d in ("w", "h")}
 
     def pow2(v, cap):
         b = 1
@@ -283,16 +336,90 @@ def _launcher_box(h: int, w: int):
     return bw, bh, 128 // (bw * bh)
 
 
-def _tma_box(x, c0, w0, h0, n0, bw, bh, bn):
-    """A tiled TMA box of the NHWC tensor x: 64 channels x bw x bh x bn
-    pixels at (c0, w0, h0, n0), zero where the coordinates fall outside x."""
+def _c_expr(pattern: str):
+    """The C++ integer expression(s) the pattern captures in the engine's
+    header, as Python functions of their variables (/ is integer division
+    of non-negative ints here, `p.` dropped)."""
+    m = re.search(pattern, FWD_SRC)
+    assert m, pattern
+    return [eval("lambda **v: " + re.sub(r"\b([A-Za-z_]\w*)\b", r"v['\1']", e.strip().replace("p.", "").replace("/", "//")))
+            for e in m.groups()]
+
+
+def _engine_steps(ks: int, c: int):
+    """The producer's walk of one tile, read from the header: for each step
+    (tap, 64-channel block), the A box's offsets from the tile's corner
+    (channel, column, row, image) and the weight box's (gradient channel
+    offset from n0, channel, tap) as functions of the block b of 64
+    gradient channels."""
+    (cb_of,) = _c_expr(r"const int CB = ([^;]*);")
+    (t_of,) = _c_expr(r"const int T = ([^;]*);")
+    (pad,) = _c_expr(r"constexpr int kPad = ([^;]*);")
+    (tap_of,), (cbk_of,) = _c_expr(r"const int tap = ([^;]*);"), _c_expr(r"const int cb = ([^;]*);")
+    ky_of, kx_of = _c_expr(r"const int ky = ([^,]*), kx = ([^;]*);")
+    a_box = _c_expr(r"tma_load_4d\(sA\(st\), &p\.amap, &full\[st\], ([^,]*), ([^,]*), ([^,]*), ([^;]*)\);")
+    b_box = _c_expr(r"tma_load_3d\(sB\(st\) \+ b \* 8192, &p\.wmap, &full\[st\], ([^,]*), ([^,]*), ([^;]*)\);")
+    (taps,) = _c_expr(r"make_tmap_wrows\(&p\.wmap, w, ([^,]*), C, COUT\)")
+    assert taps(KS=ks) == ks * ks
+    cbs = cb_of(C=c)
+    kpad = pad(KS=ks)
+    for ts in range(t_of(KS=ks, CB=cbs)):
+        tap = tap_of(ts=ts, CB=cbs)
+        cb = cbk_of(ts=ts, tap=tap, CB=cbs)
+        ky = ky_of(tap=tap, KS=ks)
+        kx = kx_of(tap=tap, KS=ks, ky=ky)
+        env = dict(cb=cb, kx=kx, ky=ky, kPad=kpad, tap=tap, ow0=0, oh0=0, n0=0)
+        yield ([f(**env) for f in a_box], lambda b, env=env: [f(**env, c0=0, b=b) for f in b_box])
+
+
+def _tma_box(t, start, box):
+    """A tiled TMA box of tensor t (dims outermost first) at `start` with
+    extents `box`: the elements inside t, zeros where the box runs past it
+    on any side."""
+    out = torch.zeros(*box, dtype=t.dtype)
+    src, dst = [], []
+    for o, b, d in zip(start, box, t.shape):
+        lo, hi = max(o, 0), min(o + b, d)
+        if lo >= hi:
+            return out
+        src.append(slice(lo, hi))
+        dst.append(slice(lo - o, hi - o))
+    out[tuple(dst)] = t[tuple(src)]
+    return out
+
+
+def _engine_conv(x, wt, ks: int, bn: int = 128):
+    """The TMA forward engine's decomposition of a KS x KS "same" conv: per
+    tile of 128 output pixels (the launcher's box) and `bn` gradient
+    channels, per step of the header's walk, A is one box of the NHWC source
+    at the tile's corner plus the step's offsets, B the bn/64 boxes of the
+    (taps, C, COUT) weight map; the rows inside the tensor, each written
+    once, are the output. Returns (out, writes per output pixel)."""
     n, h, w, c = x.shape
-    out = torch.zeros(bn, bh, bw, 64, dtype=x.dtype)
-    ns, hs, ws = (range(max(o, 0), min(o + b, d)) for o, b, d in ((n0, bn, n), (h0, bh, h), (w0, bw, w)))
-    if len(ns) and len(hs) and len(ws):
-        out[ns.start - n0:ns.stop - n0, hs.start - h0:hs.stop - h0, ws.start - w0:ws.stop - w0] = \
-            x[ns.start:ns.stop, hs.start:hs.stop, ws.start:ws.stop, c0:c0 + 64]
-    return out.reshape(128, 64)
+    cout = wt.shape[-1]
+    wmap = wt.reshape(ks * ks, c, cout)
+    bw, bh, bnimg = _launcher_box(h, w)
+    steps = list(_engine_steps(ks, c))
+    out = torch.zeros(n, h, w, cout)
+    hits = torch.zeros(n, h, w, cout, dtype=torch.int64)
+    r = torch.arange(128)
+    ni, hi, wi = r // (bw * bh), (r % (bw * bh)) // bw, r % bw
+    for n0 in range(0, n, bnimg):
+        for oh0 in range(0, h, bh):
+            for ow0 in range(0, w, bw):
+                for c0 in range(0, cout, bn):
+                    acc = torch.zeros(128, bn)
+                    for (ca, da, dh, dn), b_of in steps:
+                        a = _tma_box(x, (n0 + dn, oh0 + dh, ow0 + da, ca), (bnimg, bh, bw, 64)).reshape(128, 64)
+                        b = torch.cat([_tma_box(wmap, (tap, cw, c0 + nb), (1, 64, 64))[0]
+                                       for nb, cw, tap in (b_of(j) for j in range(bn // 64))], dim=1)
+                        acc += a.float() @ b.float()
+                    keep = (n0 + ni < n) & (oh0 + hi < h) & (ow0 + wi < w)
+                    idx = (n0 + ni[keep], oh0 + hi[keep], ow0 + wi[keep])
+                    cols = slice(c0, min(c0 + bn, cout))
+                    out[idx + (cols,)] = acc[keep][:, :cols.stop - c0]
+                    hits[idx + (cols,)] += 1
+    return out, hits
 
 
 # (n, h, w, c, cout): ResNet-18's stage-3 tile (two 8 x 8 images) and
@@ -303,31 +430,38 @@ TMA_CASES = [(3, 8, 8, 64, 64), (1, 5, 7, 128, 64), (3, 5, 11, 64, 72), (2, 9, 1
 
 @pytest.mark.parametrize("n,h,w,c,cout", TMA_CASES)
 def test_tma_box_tiles_compute_the_padded_conv(n, h, w, c, cout):
-    """The TMA forward engine's decomposition: per tile of 128 output pixels
-    (the launcher's box), per tap (ky, kx) and 64 channels, A is one box at
-    (c0, ow0 + kx - 1, oh0 + ky - 1, n0) whose out-of-bounds zero fill is
-    the padding; the rows inside the tensor, each written once, are the
-    3x3 same conv. Small integers make every f32 sum exact."""
+    """The TMA forward engine's decomposition of the 3x3: per tile of 128
+    output pixels (the launcher's box), per tap (ky, kx) and 64 channels, A
+    is one box at (c0, ow0 + kx - 1, oh0 + ky - 1, n0) whose out-of-bounds
+    zero fill is the padding; the rows inside the tensor, each written once,
+    are the 3x3 same conv. Small integers make every f32 sum exact."""
     rng = np.random.default_rng(31)
     x = torch.from_numpy(rng.integers(-2, 3, (n, h, w, c)).astype(np.float32))
     wt = torch.from_numpy(rng.integers(-1, 2, (3, 3, c, cout)).astype(np.float32))
-    bw, bh, bn = _launcher_box(h, w)
-    out = torch.zeros(n, h, w, cout)
-    hits = torch.zeros(n, h, w, dtype=torch.int64)
-    r = torch.arange(128)
-    ni, hi, wi = r // (bw * bh), (r % (bw * bh)) // bw, r % bw
-    for n0 in range(0, n, bn):
-        for oh0 in range(0, h, bh):
-            for ow0 in range(0, w, bw):
-                acc = torch.zeros(128, cout)
-                for ky in range(3):
-                    for kx in range(3):
-                        for c0 in range(0, c, 64):
-                            a = _tma_box(x, c0, ow0 + kx - 1, oh0 + ky - 1, n0, bw, bh, bn)
-                            acc += a @ wt[ky, kx, c0:c0 + 64]
-                keep = (n0 + ni < n) & (oh0 + hi < h) & (ow0 + wi < w)
-                idx = (n0 + ni[keep], oh0 + hi[keep], ow0 + wi[keep])
-                out[idx] = acc[keep]
-                hits[idx] += 1
+    out, hits = _engine_conv(x, wt, 3)
     assert bool((hits == 1).all())
     assert torch.equal(out, conv3x3_f32(x, wt, 1))
+
+
+# (ks, n, h, w, c, cout): the 1x1 mode at a main-path tile and at ragged
+# images down to 1 x 3, and channel counts that are not whole 64-channel
+# steps (16, 24, 72, 136) in both modes: the last step's A and B boxes
+# zero-fill past C, the last tile's columns past COUT
+ENGINE_CASES = [(1, 3, 8, 8, 128, 64), (1, 1, 5, 7, 64, 200), (1, 1, 1, 3, 72, 64), (1, 2, 9, 13, 136, 24),
+                (1, 3, 2, 2, 16, 16), (3, 1, 1, 3, 16, 16), (3, 2, 6, 5, 24, 24), (3, 3, 5, 11, 72, 64),
+                (3, 1, 9, 7, 136, 72)]
+
+
+@pytest.mark.parametrize("ks,n,h,w,c,cout", ENGINE_CASES)
+def test_tma_engine_computes_the_1x1_and_ragged_channels(ks, n, h, w, c, cout):
+    """As above, for the engine's 1x1 mode (one tap at offset (0, 0)) and
+    for C and COUT that are multiples of 8 but not of 64: a short last
+    channel step reads zeros past C from both the source and the 3-D
+    weight map (not the next tap's weight rows), and each output pixel and
+    channel is written once."""
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.integers(-2, 3, (n, h, w, c)).astype(np.float32))
+    wt = torch.from_numpy(rng.integers(-1, 2, (ks, ks, c, cout)).astype(np.float32))
+    out, hits = _engine_conv(x, wt, ks)
+    assert bool((hits == 1).all())
+    assert torch.equal(out, conv3x3_f32(x, wt, 1) if ks == 3 else matmul_f32(x, wt[0, 0]))

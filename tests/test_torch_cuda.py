@@ -169,6 +169,28 @@ def test_identity_block_save_and_backward_kernels(dev, n, h, w, cin, f):
     _all_close(got[1:], tb.block_bwd_plain(*args)[1:])
 
 
+# the identity bottleneck's three main-path widths of stages 1-3 (CIN, F) at a
+# small N: conv1 over 8-32 k-steps, the 3x3 at F = 128-512, conv3 on
+# 128-wide tiles with the residual
+IDENTITY_MAIN_CASES = [(2, 32, 32, 512, 128), (2, 16, 16, 1024, 256), (2, 8, 8, 2048, 512)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,f", IDENTITY_MAIN_CASES)
+def test_identity_block_forward_at_main_path_widths(dev, n, h, w, cin, f):
+    """Both variants of the identity forward (the TMA engine's three
+    launches) against the plain version; two calls give the same bits."""
+    g = torch.Generator().manual_seed(16)
+    x = torch.rand(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
+    ws = _id(g, cin, f, dev)
+    before = (tb.KERNEL.launches, tb.KERNEL_SAVE.launches)
+    out = tb.bottleneck_block(x, *ws)
+    _close(out, tb.bottleneck_block_plain(x, *ws))
+    saved = tb.bottleneck_block_save(x, *ws)
+    _all_close(saved, tb.bottleneck_block_save_plain(x, *ws))
+    assert torch.equal(saved[0], out) and torch.equal(tb.bottleneck_block(x, *ws), out)
+    assert (tb.KERNEL.launches, tb.KERNEL_SAVE.launches) == (before[0] + 2, before[1] + 1)
+
+
 @pytest.mark.parametrize("n,h,w", [(2, 10, 6), (4, 32, 32)])
 @pytest.mark.parametrize("cin,f,cout", [(64, 32, 128), (256, 64, 256), (256, 128, 512)])
 @pytest.mark.parametrize("stride", [1, 2])
@@ -366,13 +388,27 @@ def test_basic_block_forward_needs_whole_64_channel_steps(dev):
         tbf.basic_block(x, *_basic(g, 72, dev))
 
 
-@pytest.mark.parametrize("block", ["basic", "projection", "identity", "recompute", "chain"])
+@pytest.mark.parametrize("block", ["basic", "projection", "identity", "recompute", "chain", "pointwise",
+                                   "identity_forward"])
 def test_block_backward_weight_gradients_are_deterministic(dev, block):
-    """Two calls of the redesigned backwards on the same inputs give the
-    same bits: the weight gradients' split partials are added in a fixed
-    order, with no atomics (shapes whose reductions split)."""
+    """Two calls of the redesigned backwards (and of the identity forward)
+    on the same inputs give the same bits: the weight gradients' split
+    partials are added in a fixed order, with no atomics (shapes whose
+    reductions split)."""
     g = torch.Generator().manual_seed(12)
-    if block == "chain":
+    if block == "pointwise":
+        from argus_tpu_torch.ops.kernels import pointwise as tpw
+
+        x = torch.randn(8192, 256, generator=g).to(dev, torch.bfloat16)
+        w, b = _w(g, 256, 64, dev=dev), _b(g, 64, dev)
+        out = tpw.pointwise_fwd(x, w, b)
+        args = (_grad(g, out.shape, dev), out, x, w, True, True)
+        first, second = tpw.pointwise_bwd(*args), tpw.pointwise_bwd(*args)
+    elif block == "identity_forward":
+        x = torch.rand(4, 16, 16, 1024, generator=g).to(dev, torch.bfloat16)
+        ws = _id(g, 1024, 256, dev)
+        first, second = tb.bottleneck_block_save(x, *ws), tb.bottleneck_block_save(x, *ws)
+    elif block == "chain":
         args = _chain_args(g, 4, 32, 32, 1, 2, True, dev)
         first, second = _chain_flat(tst.stage_bwd(*args)), _chain_flat(tst.stage_bwd(*args))
     elif block == "basic":
@@ -723,6 +759,24 @@ def test_pointwise_kernels(dev, m, cin, cout, residual):
     assert got[0] is None
     _all_close(got, tpw.pointwise_bwd_plain(gr, out, x, w, False, residual, need_dx=False))
     assert (tpw.KERNEL.launches, tpw.KERNEL_BWD.launches) == (before[0] + 3, before[1] + 2)
+
+
+def test_pointwise_backward_at_two_million_rows(dev):
+    """The pointwise backward over M = 2,097,152 rows (configuration P's
+    largest, 512 images of 64 x 64) at CIN = COUT = 64, with and without
+    emitting m, against the plain version."""
+    from argus_tpu_torch.ops.kernels import pointwise as tpw
+
+    g = torch.Generator().manual_seed(17)
+    m = 512 * 64 * 64
+    x = torch.randn(m, 64, generator=g).to(dev, torch.bfloat16)
+    w, b = _w(g, 64, 64, dev=dev), _b(g, 64, dev)
+    out = tpw.pointwise_fwd(x, w, b)
+    gr = _grad(g, out.shape, dev)
+    for emit in (False, True):
+        got = tpw.pointwise_bwd(gr, out, x, w, True, emit)
+        assert (got[2] is None) == (not emit)
+        _all_close(got, tpw.pointwise_bwd_plain(gr, out, x, w, True, emit))
 
 
 @pytest.mark.parametrize("n,h,w,cin,f", IDENTITY_CASES)

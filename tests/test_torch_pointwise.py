@@ -7,6 +7,10 @@
   and off, residual on and off, forward and the gradients of x, kernel and
   residual, on argus_tpu's `_mk` inputs (`tests/test_pointwise.py`), and an
   odd M (1 x 7 x 7).
+- The backward's composition on the card (`csrc/pointwise_bwd.cu`: the mask
+  pass, dx from m on the data-gradient engine, dw from x2 and m on the
+  weight-gradient engine) in plain torch: bit for bit the plain backward,
+  and, as the op's kernel backward, within the op's tolerance of argus_tpu.
 - A tiny ResNet-50 (`stage_sizes=(1, 1)`, 8 filters, frozen BN and affine)
   with `fuse_pointwise` "on" and "dot" against argus_tpu's same model with
   its Pallas kernel in interpret mode, outputs and gradients.
@@ -40,6 +44,7 @@ from argus_tpu.ops.pallas import pointwise as jpw
 from argus_tpu_torch.models.jax_import import state_dict_from_variables, variables_from_state_dict
 from argus_tpu_torch.models.resnet import BottleneckBlock, ResNet
 from argus_tpu_torch.ops.kernels import pointwise as tpw
+from argus_tpu_torch.ops.kernels.block_fused import relu_mask, wgrad_f32
 
 from test_torch_train import TOL, _check_leaves, _pallas_everywhere, _randomize_
 
@@ -138,6 +143,57 @@ def test_op_takes_the_no_save_forward_without_gradients():
     assert y.grad_fn is None
     y = tpw.pointwise_conv_frozen_bn(x.requires_grad_(), k, s, b, m, v)
     assert "PwNoRes" in type(y.grad_fn.next_functions[0][0]).__name__
+
+
+# ───────────────────────── the backward's composition ─────────────────────────
+
+
+def pointwise_bwd_twin(g2, out2, x2, w, relu=True, emit_m=False, need_dx=True):
+    """csrc/pointwise_bwd.cu's launches in plain torch: the mask pass writes
+    m = g * (out > 0) once (g itself without relu), the 1x1 data gradient
+    takes m as A and w^T (COUT, CIN) as B and rounds dx once, the weight
+    gradient sums x2^T m in f32."""
+    m = relu_mask(g2, out2) if relu else g2
+    dx = (m.float() @ w.t().contiguous().float()).to(x2.dtype) if need_dx else None
+    return dx, wgrad_f32(x2, m), m if emit_m else None
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("relu,emit_m,need_dx", [(True, False, True), (True, True, True), (False, True, True),
+                                                 (True, True, False), (False, False, False)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16, 32), (1, 7, 7, 16, 32), (3, 5, 7, 72, 24)], ids=["M128", "M49", "M105"])
+def test_backward_composition_matches_the_plain_backward(shape, relu, emit_m, need_dx, dt):
+    """The pass, dx from m and dw from x2 and m: bit for bit
+    `pointwise_bwd_plain`, relu on and off, m emitted or not, dx asked for
+    or not, at odd M."""
+    x, k, s, b, mu, v, _ = _mk(*shape)
+    tdt = DTYPES[dt][1]
+    x2 = torch.from_numpy(x).to(tdt).reshape(-1, x.shape[-1])
+    w, bias = tpw.fold_affine(torch.from_numpy(k).reshape(k.shape[-2:]), *(torch.from_numpy(t) for t in (s, b, mu, v)),
+                              1e-5, tdt)
+    out2 = tpw.pointwise_fwd_plain(x2, w, bias, None, relu)
+    g2 = torch.from_numpy(np.random.default_rng(7).normal(0, 1, tuple(out2.shape)).astype(np.float32)).to(tdt)
+    got = pointwise_bwd_twin(g2, out2, x2, w, relu, emit_m, need_dx)
+    want = tpw.pointwise_bwd_plain(g2, out2, x2, w, relu, emit_m, need_dx)
+    for a, r in zip(got, want):
+        assert (a is None and r is None) or torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("residual", [False, True])
+def test_backward_composition_matches_argus_tpu_pallas(argus_op, monkeypatch, residual, relu, dt):
+    """The op with the composition as its kernel backward against argus_tpu's
+    Pallas op (`_pw_bwd_pallas` in interpret mode) under the op's tolerance:
+    dx, dk and the residual's cotangent m; an odd M beside it in f32."""
+    monkeypatch.setitem(tpw._BWD, "kernel", pointwise_bwd_twin)
+    shape = (2, 8, 8, 16, 32)
+    _assert_op(_port_op(residual, relu, dt, shape, "kernel"), argus_op(residual, relu, dt, shape), dt, 1e-5,
+               f"composition residual={residual} relu={relu}")
+    if relu and dt == "f32":
+        odd = (1, 7, 7, 16, 32)
+        _assert_op(_port_op(residual, True, "f32", odd, "kernel"), argus_op(residual, True, "f32", odd), "f32", 1e-5,
+                   "composition odd M")
 
 
 # ───────────────────────── models ─────────────────────────

@@ -6,9 +6,11 @@ region is written once, the split rule keeps its limits, and the workspace
 the wrappers allocate holds every partial the launches write. The problems
 are those of the eleven main-path geometries (the keypoint step's
 BasicBlocks, the flagship's stride-2 projection blocks and its identity
-bottlenecks at N = 512, 256x256 frames) and of the card tests
+bottlenecks at N = 512, 256x256 frames), of configuration P's twelve
+pointwise convs and an odd M, and of the card tests
 (`tests/test_torch_cuda.py`); the identity block's plans follow the launch
-order of `csrc/identity_bwd_sm90.cuh`.
+order of `csrc/identity_bwd_sm90.cuh`, the pointwise backward's its launch
+in `csrc/pointwise_bwd.cu`.
 """
 
 import re
@@ -18,6 +20,7 @@ import pytest
 
 from argus_tpu_torch.ops.kernels import wgrad_plan
 from argus_tpu_torch.ops.kernels.block_fused import identity_wgrad_plans
+from argus_tpu_torch.ops.kernels.pointwise import pointwise_wgrad_plans
 from argus_tpu_torch.ops.kernels.proj_fused import projection_wgrad_plans
 
 N_IMG = 512
@@ -51,6 +54,21 @@ CARD = sorted({
     *[p for shape in IDENTITY_CARD for p in identity_wgrad_plans(*shape)],
 })
 CARD = [p for p in CARD if p not in MAIN]
+# configuration P's pointwise convs (H = W, CIN, COUT): Conv_0 and Conv_2 of
+# ResNet-50's bottlenecks, at n images
+P_GEOMETRIES = [(64, 64, 64), (64, 256, 64), (64, 64, 256), (64, 256, 128), (32, 512, 128), (32, 128, 512),
+                (32, 512, 256), (16, 1024, 256), (16, 256, 1024), (16, 1024, 512), (8, 2048, 512), (8, 512, 2048)]
+
+
+def _pointwise(n):
+    """The pointwise backward's plans at configuration P's twelve geometries
+    over n images, and at an odd M of (n + 1) images of 7 x 7 (CIN 256,
+    COUT 64)."""
+    return [p for h, cin, cout in P_GEOMETRIES for p in pointwise_wgrad_plans(n * h * h, cin, cout)] + \
+        pointwise_wgrad_plans((n + 1) * 7 * 7, 256, 64)
+
+
+POINTWISE = sorted({p for p in _pointwise(N_IMG) + _pointwise(2) if p not in MAIN and p not in CARD})
 
 
 def work_items(p, rows: int, c: int, cout: int, ks: int):
@@ -84,7 +102,7 @@ def _ids(problems):
     return [f"M{m}-C{c}-N{n}-k{k}" for m, c, n, k in problems]
 
 
-@pytest.mark.parametrize("rows,c,cout,ks", MAIN + CARD, ids=_ids(MAIN + CARD))
+@pytest.mark.parametrize("rows,c,cout,ks", MAIN + CARD + POINTWISE, ids=_ids(MAIN + CARD + POINTWISE))
 def test_plan_covers_every_tap_channel_and_row_once(rows, c, cout, ks):
     p = wgrad_plan.plan(rows, c, cout, ks)
     taps = ks * ks
@@ -111,7 +129,7 @@ def test_plan_covers_every_tap_channel_and_row_once(rows, c, cout, ks):
     assert {k[2] for k in rows_of} == set(range(0, cout, p.bn))
 
 
-@pytest.mark.parametrize("rows,c,cout,ks", MAIN + CARD, ids=_ids(MAIN + CARD))
+@pytest.mark.parametrize("rows,c,cout,ks", MAIN + CARD + POINTWISE, ids=_ids(MAIN + CARD + POINTWISE))
 def test_plan_keeps_its_limits(rows, c, cout, ks):
     p = wgrad_plan.plan(rows, c, cout, ks)
     slots = wgrad_plan.SMS * p.minb
@@ -124,13 +142,21 @@ def test_plan_keeps_its_limits(rows, c, cout, ks):
     assert (p.taps_per_job, p.bn, p.rowsplit, p.minb) in {(3, 64, 1, 1), (1, 64, 0, 2), (1, 64, 1, 2), (1, 128, 0, 2)}
 
 
-@pytest.mark.parametrize("geometry", ["basic", "projection", "identity"])
+@pytest.mark.parametrize("geometry", ["basic", "projection", "identity", "pointwise"])
 @pytest.mark.parametrize("shape", [(N_IMG, 64, 64, 64), (N_IMG, 8, 8, 512), (2, 9, 7, 64), (4, 32, 32, 128)])
 def test_workspace_holds_every_launch(geometry, shape):
     """The wrappers' workspace (the largest partial set of the backward's
     weight gradients) holds what each of its launches writes, and the main
-    path's stays within a few tens of MB."""
+    path's stays within a few tens of MB. The pointwise backward's: each of
+    its one launch at configuration P's twelve geometries and the odd M over
+    the shape's n images (N = 512: P's step and chip_smoke.py's 513 x 7 x 7),
+    each sized on its own."""
     n, h, w, c = shape
+    if geometry == "pointwise":
+        for prob in _pointwise(n):
+            ws = wgrad_plan.workspace(*pointwise_wgrad_plans(*prob[:3]))
+            assert wgrad_plan.plan(*prob).partial_elems <= ws and ws * 4 < 256 * 2**20
+        return
     if geometry == "basic":
         problems = _basic(n, h, w, c)
     elif geometry == "identity":
@@ -171,6 +197,22 @@ def test_identity_plans_follow_the_kernel_launches(n, h, w, cin, f):
         assert (a[5], a[6]) == ("1", "0" if ks == 1 else "1")  # stride 1, "same" padding
         launches.append((rows, c, cout, ks))
     assert launches == identity_wgrad_plans(n, h, w, cin, f)
+
+
+@pytest.mark.parametrize("m,cin,cout", [(N_IMG * 64 * 64, 64, 256), (513 * 7 * 7, 256, 64), (49, 512, 2048)])
+def test_pointwise_plans_follow_the_kernel_launch(m, cin, cout):
+    """`pointwise_wgrad_plans` lists the `wgrad_sm90(` launch of
+    csrc/pointwise_bwd.cu (M rows as N = M images of 1 x 1, one tap over
+    x2 and m), so the workspace the wrapper allocates is sized by what the
+    kernel launches."""
+    src = (Path(wgrad_plan.__file__).resolve().parents[2] / "csrc" / "pointwise_bwd.cu").read_text()
+    dims = {"M": m, "CIN": cin, "COUT": cout, "1": 1}
+    launches = []
+    for args in re.findall(r"wgrad_sm90\(([^;]*)\);", src):
+        a = [t.strip() for t in args.split(",")]
+        assert (a[1], a[2], a[5], a[6]) == ("1", "1", "1", "0")  # 1 x 1 source pixels, stride 1, no padding
+        launches.append((dims[a[9]] * dims[a[10]] * dims[a[11]], dims[a[3]], dims[a[8]], int(a[4])))
+    assert launches == pointwise_wgrad_plans(m, cin, cout)
 
 
 def test_mirror_constants_match_the_kernel_header():
