@@ -37,8 +37,9 @@ extern "C" int argus_basic_fwd(const void* x, void* h1, void* out, const void* w
                                const void* b2, int N, int H, int W, int C, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // h1 = bf16(relu(conv3x3(x) + b1)); out = bf16(relu(conv3x3(h1) + b2 + f32(x)))
-  cudaError_t e = argus::launch_conv_fwd_tma<3>(x, w1, static_cast<const float*>(b1), nullptr, h1, N, H, W, C, C, st);
+  cudaError_t e =
+      argus::launch_conv_fwd_tma<3>(x, w1, static_cast<const float*>(b1), nullptr, h1, N, H, W, C, C, 1, st);
   if (e == cudaSuccess)
-    e = argus::launch_conv_fwd_tma<3>(h1, w2, static_cast<const float*>(b2), x, out, N, H, W, C, C, st);
+    e = argus::launch_conv_fwd_tma<3>(h1, w2, static_cast<const float*>(b2), x, out, N, H, W, C, C, 1, st);
   return static_cast<int>(e);
 }

@@ -17,8 +17,9 @@
 // Design: three launches of the TMA forward engine (conv_fwd_sm90.cuh), a
 // 1x1, the 3x3 and a 1x1, each with its bias and relu (the last with the
 // residual x) in the epilogue, so every rounding point matches the TPU
-// kernel; h1/h2 go through device memory (the no-save variant writes them
-// to scratch, so one launcher serves both). The 1x1s are the engine's
+// kernel (bottleneck_fwd_sm90.cuh `identity_block_fwd_sm90`, which the stage
+// chains run too); h1/h2 go through device memory (the no-save variant
+// writes them to scratch, so one launcher serves both). The 1x1s are the engine's
 // single-tap mode: conv1 has K = CIN (8-32 k-steps) and COUT = F, conv3
 // K = F and COUT = CIN on 128-wide tiles with the residual prefetched (its
 // epilogue is its pace). Any CIN and F that are multiples of 8: the last
@@ -27,21 +28,13 @@
 // launches of the mma.sync conv-GEMM (conv_gemm.cuh `identity_block`), is
 // `argus_block_fwd_prev` in bwd_prev.cu.
 
-#include "conv_fwd_sm90.cuh"
+#include "bottleneck_fwd_sm90.cuh"
 
 // x, out (N, H, W, CIN); h1, h2 (N, H, W, F) bf16; w1 (CIN, F), w2 (3, 3, F,
 // F) HWIO, w3 (F, CIN) bf16; b1, b2 (F,), b3 (CIN,) f32.
 extern "C" int argus_block_fwd(const void* x, void* h1, void* h2, void* out, const void* w1, const void* b1,
                                const void* w2, const void* b2, const void* w3, const void* b3, int N, int H, int W,
                                int CIN, int F, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float *bias1 = static_cast<const float*>(b1), *bias2 = static_cast<const float*>(b2),
-              *bias3 = static_cast<const float*>(b3);
-  // h1 = bf16(relu(x @ w1 + b1))
-  cudaError_t e = argus::launch_conv_fwd_tma<1>(x, w1, bias1, nullptr, h1, N, H, W, CIN, F, st);
-  // h2 = bf16(relu(conv3x3(h1) + b2))
-  if (e == cudaSuccess) e = argus::launch_conv_fwd_tma<3>(h1, w2, bias2, nullptr, h2, N, H, W, F, F, st);
-  // out = bf16(relu(h2 @ w3 + b3 + f32(x)))
-  if (e == cudaSuccess) e = argus::launch_conv_fwd_tma<1>(h2, w3, bias3, x, out, N, H, W, F, CIN, st);
-  return static_cast<int>(e);
+  return static_cast<int>(argus::identity_block_fwd_sm90(x, h1, h2, out, w1, b1, w2, b2, w3, b3, N, H, W, CIN, F,
+                                                         static_cast<cudaStream_t>(stream)));
 }

@@ -1,17 +1,18 @@
-// The eight redesigned kernels composed from the engines they ran on before,
+// The ten redesigned kernels composed from the engines they ran on before,
 // the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient (wgrad.cuh),
-// which the pointwise forward, the projection forwards and the chain
-// forwards still use: the block backwards (basic_fused_bwd.cu,
-// proj_fused_bwd.cu, block_fused_bwd.cu, block_fused_rbwd.cu), the stage
-// chain's backward (stage_fused_bwd.cu), the BasicBlock and identity
-// bottleneck forwards (basic_fused.cu, block_fused.cu) and the pointwise
-// backward (pointwise_bwd.cu). No wrapper of the port calls this library:
-// chip_smoke.py and scripts/time_torch_block_bwd.py time it beside the
-// Hopper engines (same inputs, same call) and break both down by device
+// which the pointwise forward still uses: the block backwards
+// (basic_fused_bwd.cu, proj_fused_bwd.cu, block_fused_bwd.cu,
+// block_fused_rbwd.cu), the stage chain's backward (stage_fused_bwd.cu), the
+// BasicBlock, identity bottleneck and projection forwards (basic_fused.cu,
+// block_fused.cu, proj_fused.cu), the chain forwards (stage_fused.cu) and the
+// pointwise backward (pointwise_bwd.cu). No wrapper of the port calls this
+// library: chip_smoke.py and scripts/time_torch_block_bwd.py time it beside
+// the Hopper engines (same inputs, same call) and break both down by device
 // kernel.
 
 #include "conv_bwd.cuh"
 #include "conv_dgrad_sm90.cuh"
+#include "stage_fwd.cuh"
 
 namespace argus {
 
@@ -175,4 +176,33 @@ extern "C" int argus_pointwise_bwd_prev(const void* g, const void* out, const vo
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return static_cast<int>(argus::wgrad(x, 1, 1, CIN, 1, 1, 0, a, mask, COUT, M, 1, 1, dw, ws, ws_elems, st));
+}
+
+// The projection forward as three launches of the conv-GEMM (conv_gemm.cuh
+// `projection_block`, the shortcut a second segment of the last); arguments
+// as `argus_proj_fwd` (proj_fused.cu) takes them.
+extern "C" int argus_proj_fwd_prev(const void* x, void* h1, void* h2, void* out, const void* w1, const void* b1,
+                                   const void* w2, const void* b2, const void* w3, const void* b3, const void* wsc,
+                                   const void* bsc, int N, int H, int W, int CIN, int F, int COUT, int S,
+                                   void* stream) {
+  return static_cast<int>(argus::projection_block(x, h1, h2, out, w1, b1, w2, b2, w3, b3, wsc, bsc, N, H, W, CIN, F,
+                                                  COUT, S, static_cast<cudaStream_t>(stream)));
+}
+
+// The chain forwards (stage_fwd.cuh) over the conv-GEMM's block forwards;
+// arguments as `argus_stage_fwd` / `argus_stage_fwd_save` (stage_fused.cu)
+// take them.
+extern "C" int argus_stage_fwd_prev(const void* x, void* out, void* h1, void* h2, void* tmp0, void* tmp1,
+                                    const void* const* proj, const void* const* ids, int K, int N, int H, int W,
+                                    int CIN, int F, int COUT, int S, void* stream) {
+  return static_cast<int>(argus::stage_fwd(argus::projection_block, argus::identity_block, x, out, h1, h2, tmp0, tmp1,
+                                           proj, ids, K, N, H, W, CIN, F, COUT, S, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int argus_stage_fwd_save_prev(const void* x, void* out, void* const* bnds, void* const* h1s,
+                                         void* const* h2s, const void* const* proj, const void* const* ids, int K,
+                                         int N, int H, int W, int CIN, int F, int COUT, int S, void* stream) {
+  return static_cast<int>(argus::stage_fwd_save(argus::projection_block, argus::identity_block, x, out, bnds, h1s,
+                                                h2s, proj, ids, K, N, H, W, CIN, F, COUT, S,
+                                                static_cast<cudaStream_t>(stream)));
 }

@@ -1,14 +1,19 @@
 // The TMA forward engine of the BasicBlock forward (basic_fused.cu) and the
-// identity bottleneck forward (block_fused.cu): a stride-1 convolution with
-// "same" padding, a 3x3 or a 1x1 (template argument KS), over NHWC bf16 on
-// Hopper's warpgroup MMA, every operand arriving by TMA, with the folded
-// forward epilogue
+// bottleneck forwards (bottleneck_fwd_sm90.cuh: the identity and projection
+// blocks of block_fused.cu, proj_fused.cu and stage_fused.cu): a
+// convolution at stride S in {1, 2} with padding KS/2, a 3x3 or a 1x1
+// (template argument KS), over NHWC bf16 on Hopper's warpgroup MMA, every
+// operand arriving by TMA, with an optional second K segment (a 1x1 over
+// another source at its own stride) in the same f32 accumulator, and the
+// folded forward epilogue
 //
-//   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] + bias[n] (+ f32(residual[m, n]))))
+//   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] + bias[n] (+ bias2[n])
+//                         (+ f32(residual[m, n]))))
 //
-// (bias f32; the residual, an identity shortcut like out, with kRes), the
-// sum in that order and one rounding, as conv_dgrad_sm90.cuh's forward mode
-// rounds. Any C and COUT that are multiples of 8.
+// (biases f32; bias2 the second segment's, with kSc; the residual, an
+// identity shortcut like out, with kRes), the sum in that order and one
+// rounding, as conv_dgrad_sm90.cuh's forward mode rounds. Any C and COUT
+// that are multiples of 8.
 //
 // Bound on the H100: tensor-core issue for the 3x3s at C >= 128 and the
 // 1x1s at K >= 1024; device memory for the 1x1s at the bottleneck's stage 1
@@ -18,20 +23,27 @@
 // step for its per-thread cp.async gather, its proxy fence and its block
 // barrier whatever the MMA size (PERF.md). Design:
 // - an output tile of 128 pixels is a box of `bw` columns x `bh` rows x
-//   `bn` images: W and H rounded up to powers of two, at most 16 and 8,
-//   and bn = 128 / (bw * bh) (16 x 8 x 1 at ResNet-18's stages 0-2, two
-//   whole 8 x 8 images at stage 3), so a small image wastes little of a
-//   tile;
+//   `bn` images of the OUTPUT: Wo and Ho rounded up to powers of two, at
+//   most 16 and 8, and bn = 128 / (bw * bh) (16 x 8 x 1 at ResNet-18's
+//   stages 0-2, two whole 8 x 8 images at stage 3), so a small image wastes
+//   little of a tile;
 // - its A operand for tap (ky, kx) and channels c0..c0+63 is ONE tiled TMA
-//   box of a 4-D tensor map over the source (64 ch x bw x bh x bn) at
-//   (c0, ow0 + kx - KS/2, oh0 + ky - KS/2, n0): TMA's zero fill at negative
-//   or overflowing coordinates is the conv's padding and, where C % 64 != 0,
-//   the channels of the last step past C; 64 bf16 channels are one 128-byte
-//   swizzle row per pixel, the K-major layout wgmma's A takes. A 1x1 is
-//   the single tap at offset (0, 0);
+//   box of a 4-D tensor map over the source (64 ch x bw x bh x bn pixels)
+//   at (c0, S * ow0 + kx - KS/2, S * oh0 + ky - KS/2, n0): at stride 2 the
+//   map's traversal stride along W and H (sm90.cuh `make_tmap_nhwc`) takes
+//   every other source pixel, so the box lands the same bw x bh x bn rows;
+//   TMA's zero fill at negative or overflowing coordinates is the conv's
+//   padding and, where C % 64 != 0, the channels of the last step past C;
+//   64 bf16 channels are one 128-byte swizzle row per pixel, the K-major
+//   layout wgmma's A takes. A 1x1 is the single tap at offset (0, 0);
 // - B, the weight rows, arrives by TMA as 64 x 64 boxes (128-byte swizzle)
 //   of a 3-D map over (taps, C, COUT) at (n0, c0, tap), so a short last
 //   channel step reads zeros past C, not the next tap's rows;
+// - a second K segment (the projection block's shortcut, x[::S, ::S] @ wsc
+//   after conv3's h2 @ w3): steps T1.. of a tile read the second source
+//   through its own strided map, a 1x1 at (c0, S2 * ow0, S2 * oh0, n0),
+//   against its own weight map, into the same accumulator: no subsampled
+//   copy of x and no concatenated weights;
 // - warp specialisation: warp 8 issues the boxes into a ring of stages on
 //   "full" mbarriers, warpgroups 0-1 (64 pixels each, wgmma m64nBNk16)
 //   wait only on them and release a stage on its "empty" mbarrier once its
@@ -41,7 +53,7 @@
 //   128 accumulators a thread do not spill;
 // - a persistent grid walks the tiles (n fastest), so the producer loads the
 //   next tile's steps during an epilogue.
-// The epilogue reads the bias (and the residual as 16-byte vectors,
+// The epilogue reads the biases (and the residual as 16-byte vectors,
 // prefetched into registers during the tile's first step where they allow)
 // and writes 16-byte vectors (sm90.cuh `quad_split`, `quad_join`).
 
@@ -54,14 +66,19 @@
 namespace argus {
 
 struct ConvFwdArgs {
-  CUtensorMap amap;  // the source (N, H, W, C), boxes of 64 ch x bw x bh x bn pixels
-  CUtensorMap wmap;  // (taps, C, COUT) weight rows, 64 x 64 x 1 boxes
-  int N, H, W, C, COUT;
-  int bw, bh, bn;        // a tile's pixel box: bw * bh * bn == 128
-  int tw, th, timg;      // tiles along W, along H, and image groups
-  const float* bias;     // (COUT,) f32
-  const bf16* residual;  // like out (kRes), or nullptr
-  bf16* out;             // (N, H, W, COUT)
+  CUtensorMap amap;   // the source at its stride, boxes of 64 ch x bw x bh x bn pixels
+  CUtensorMap wmap;   // (taps, C, COUT) weight rows, 64 x 64 x 1 boxes
+  CUtensorMap amap2;  // the second segment's source at stride2 (kSc)
+  CUtensorMap wmap2;  // its (1, C2, COUT) weight rows
+  int N, H, W, C, COUT;   // H, W: the output's
+  int stride;             // of the first segment
+  int C2, stride2;        // the second segment's channels and stride (kSc)
+  int bw, bh, bn;         // a tile's pixel box: bw * bh * bn == 128
+  int tw, th, timg;       // tiles along W, along H, and image groups
+  const float* bias;      // (COUT,) f32
+  const float* bias2;     // (COUT,) f32, added after bias (kSc)
+  const bf16* residual;   // like out (kRes), or nullptr
+  bf16* out;              // (N, H, W, COUT)
 };
 
 constexpr int kFwConsumers = 256;  // two warpgroups of 64 output pixels
@@ -81,12 +98,12 @@ struct FwdCfg {
   static constexpr bool kPre = BN * MINB <= 128;                    // the residual prefetched
 };
 
-template <int KS, int BN, int MINB, bool kRes>
+template <int KS, int BN, int MINB, bool kRes, bool kSc>
 __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
     conv_fwd_tma_sm90_kernel(const __grid_constant__ ConvFwdArgs p) {
   using Cfg = FwdCfg<BN, MINB>;
   constexpr int S = Cfg::kStages;
-  constexpr int kPad = KS / 2;  // "same" padding
+  constexpr int kPad = KS / 2;  // the padding
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * Cfg::kStageBytes);
@@ -97,8 +114,9 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int CB = (p.C + 63) >> 6;  // 64-channel steps, the last zero-filled past C
-  const int T = KS * KS * CB;      // steps of one tile: tap-major, then channel block
+  const int CB = (p.C + 63) >> 6;          // 64-channel steps, the last zero-filled past C
+  const int T1 = KS * KS * CB;             // the first segment's steps: tap-major, then channel block
+  const int T = T1 + kSc * ((p.C2 + 63) >> 6);  // + the second segment's (a 1x1)
   const int ntn = (p.COUT + BN - 1) / BN;
   const int ntiles = p.tw * p.th * p.timg * ntn;
 
@@ -133,14 +151,23 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
         for (int ts = 0; ts < T; ++ts, ++gt) {
           const int st = gt % S;
           if (gt >= S) mbar_wait(&empty[st], ((gt / S) - 1) & 1);
-          const int tap = ts / CB;
-          const int cb = ts - tap * CB;
-          const int ky = tap / KS, kx = tap - KS * ky;
           mbar_expect_tx(&full[st], Cfg::kStageBytes);
-          tma_load_4d(sA(st), &p.amap, &full[st], cb * 64, ow0 + kx - kPad, oh0 + ky - kPad, n0);
+          if (ts < T1) {  // the first segment: tap (ky, kx), channel block cb
+            const int tap = ts / CB;
+            const int cb = ts - tap * CB;
+            const int ky = tap / KS, kx = tap - KS * ky;
+            tma_load_4d(sA(st), &p.amap, &full[st], cb * 64, p.stride * ow0 + kx - kPad,
+                        p.stride * oh0 + ky - kPad, n0);
 #pragma unroll
-          for (int b = 0; b < BN / 64; ++b)
-            tma_load_3d(sB(st) + b * 8192, &p.wmap, &full[st], c0 + b * 64, cb * 64, tap);
+            for (int b = 0; b < BN / 64; ++b)
+              tma_load_3d(sB(st) + b * 8192, &p.wmap, &full[st], c0 + b * 64, cb * 64, tap);
+          } else {  // the second: a 1x1 at stride2, channel block cb2
+            const int cb2 = ts - T1;
+            tma_load_4d(sA(st), &p.amap2, &full[st], cb2 * 64, p.stride2 * ow0, p.stride2 * oh0, n0);
+#pragma unroll
+            for (int b = 0; b < BN / 64; ++b)
+              tma_load_3d(sB(st) + b * 8192, &p.wmap2, &full[st], c0 + b * 64, cb2 * 64, 0);
+          }
         }
       }
     }
@@ -242,6 +269,12 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
             const float2 bv =
                 n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias + n)) : make_float2(0.f, 0.f);
             float vx = acc[j * 4 + i * 2] + bv.x, vy = acc[j * 4 + i * 2 + 1] + bv.y;
+            if (kSc) {  // the second segment's bias, after the first's
+              const float2 b2 =
+                  n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias2 + n)) : make_float2(0.f, 0.f);
+              vx += b2.x;
+              vy += b2.y;
+            }
             if (kRes) {
               const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rw[g]);
               vx += __bfloat162float(r.x);
@@ -262,7 +295,7 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
 }
 
 // static: each kernel library keeps its own once-only state
-template <int KS, int BN, int MINB, bool kRes>
+template <int KS, int BN, int MINB, bool kRes, bool kSc>
 static inline cudaError_t launch_conv_fwd_tma_cfg(const ConvFwdArgs& p, cudaStream_t stream) {
   using Cfg = FwdCfg<BN, MINB>;
   static int sms = 0;  // set once per instantiation: the SM count and the shared-memory opt-in
@@ -271,67 +304,114 @@ static inline cudaError_t launch_conv_fwd_tma_cfg(const ConvFwdArgs& p, cudaStre
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes>,
+      e = cudaFuncSetAttribute(conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes, kSc>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
     if (e != cudaSuccess) return e;
     sms = n * MINB;
   }
   const int64_t tiles = static_cast<int64_t>(p.tw) * p.th * p.timg * ((p.COUT + BN - 1) / BN);
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
+  conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes, kSc><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int KS, int BN, int MINB>
+// the instantiation: the residual, or the second segment (never both); the
+// second segment is a template flag because a runtime test of it in the
+// producer and epilogue made every forward launch 1.4-1.8x slower (PERF.md)
+template <int KS, int BN, int MINB, bool kSc>
 static inline cudaError_t launch_conv_fwd_tma_res(const ConvFwdArgs& p, cudaStream_t stream) {
-  return p.residual != nullptr ? launch_conv_fwd_tma_cfg<KS, BN, MINB, true>(p, stream)
-                               : launch_conv_fwd_tma_cfg<KS, BN, MINB, false>(p, stream);
+  if constexpr (kSc)
+    return launch_conv_fwd_tma_cfg<KS, BN, MINB, false, true>(p, stream);
+  else
+    return p.residual != nullptr ? launch_conv_fwd_tma_cfg<KS, BN, MINB, true, false>(p, stream)
+                                 : launch_conv_fwd_tma_cfg<KS, BN, MINB, false, false>(p, stream);
 }
 
-// out = bf16(relu(conv(src) + bias (+ f32(residual)))), a KS x KS conv (3 or
-// 1), stride 1, "same" padding: src (N, H, W, C), w (KS, KS, C, COUT) HWIO,
-// bias (COUT,) f32, residual (like out) or nullptr; C % 8 == 0 and
-// COUT % 8 == 0 (the last 64-channel step and the last tile's columns are
-// zero-filled past C and COUT).
-template <int KS>
-inline cudaError_t launch_conv_fwd_tma(const void* src, const void* w, const float* bias, const void* residual,
-                                       void* out, int N, int H, int W, int C, int COUT, cudaStream_t stream) {
-  static_assert(KS == 1 || KS == 3, "a 1x1 or a 3x3");
-  if (C % 8 != 0 || COUT % 8 != 0) return cudaErrorInvalidValue;
-  ConvFwdArgs p;
-  memset(&p, 0, sizeof(p));
-  p.N = N;
-  p.H = H;
-  p.W = W;
-  p.C = C;
-  p.COUT = COUT;
-  // the box: powers of two, bw * bh * bn == 128; a box may overrun the
-  // tensor on any side, where TMA zero-fills and the epilogue stores nothing
+// The tile box and tiles of an output (N, Ho, Wo, COUT): powers of two,
+// bw * bh * bn == 128; a box may overrun the tensor on any side, where TMA
+// zero-fills and the epilogue stores nothing.
+inline void conv_fwd_tiles(ConvFwdArgs& p, int N, int Ho, int Wo, int COUT) {
   auto pow2 = [](int v, int cap) {
     int b = 1;
     while (b < v && b < cap) b *= 2;
     return b;
   };
-  p.bw = pow2(W, 16);
-  p.bh = pow2(H, 8);
+  p.N = N;
+  p.H = Ho;
+  p.W = Wo;
+  p.COUT = COUT;
+  p.bw = pow2(Wo, 16);
+  p.bh = pow2(Ho, 8);
   p.bn = kFwBM / (p.bw * p.bh);
-  p.tw = (W + p.bw - 1) / p.bw;
-  p.th = (H + p.bh - 1) / p.bh;
+  p.tw = (Wo + p.bw - 1) / p.bw;
+  p.th = (Ho + p.bh - 1) / p.bh;
   p.timg = (N + p.bn - 1) / p.bn;
+}
+
+// The tile width: 64 (two blocks an SM) for COUT <= 64, 128 for COUT <= 128
+// and for a 1x1 with the residual (the identity forward's conv3, K = F: 2-8
+// k-steps a tile, is paced by its epilogue: 128-wide tiles, whose residual
+// is prefetched, 0.38 against 0.48 ms on 256-wide tiles at F = 256,
+// PERF.md), else 256 (the projection's conv3 and shortcut, K = F + CIN).
+template <int KS, bool kSc>
+static inline cudaError_t launch_conv_fwd_tiles(const ConvFwdArgs& p, cudaStream_t stream) {
+  const bool res1x1 = KS == 1 && p.residual != nullptr;
+  if (p.COUT <= 64) return launch_conv_fwd_tma_res<KS, 64, 2, kSc>(p, stream);
+  if (p.COUT <= 128 || res1x1) return launch_conv_fwd_tma_res<KS, 128, 1, kSc>(p, stream);
+  return launch_conv_fwd_tma_res<KS, 256, 1, kSc>(p, stream);
+}
+
+// out = bf16(relu(conv_S(src) + bias (+ f32(residual)))), a KS x KS conv (3
+// or 1) at stride S (1 or 2), padding KS/2: src (N, H, W, C), w (KS, KS, C,
+// COUT) HWIO, bias (COUT,) f32, residual (like out) or nullptr, out (N, Ho,
+// Wo, COUT) with Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1; C % 8 == 0 and
+// COUT % 8 == 0 (the last 64-channel step and the last tile's columns are
+// zero-filled past C and COUT).
+template <int KS>
+inline cudaError_t launch_conv_fwd_tma(const void* src, const void* w, const float* bias, const void* residual,
+                                       void* out, int N, int H, int W, int C, int COUT, int S, cudaStream_t stream) {
+  static_assert(KS == 1 || KS == 3, "a 1x1 or a 3x3");
+  if (C % 8 != 0 || COUT % 8 != 0 || S < 1 || S > 2) return cudaErrorInvalidValue;
+  ConvFwdArgs p;
+  memset(&p, 0, sizeof(p));
+  conv_fwd_tiles(p, N, (H - 1) / S + 1, (W - 1) / S + 1, COUT);
+  p.C = C;
+  p.stride = S;
   p.bias = bias;
   p.residual = static_cast<const bf16*>(residual);
   p.out = static_cast<bf16*>(out);
-  cudaError_t e = make_tmap_nhwc(&p.amap, src, N, H, W, C, p.bw, p.bh, p.bn);
-  if (e != cudaSuccess) return e;
-  if ((e = make_tmap_wrows(&p.wmap, w, KS * KS, C, COUT)) != cudaSuccess) return e;
-  // a 1x1 with the residual (the identity forward's conv3, K = F: 2-8
-  // k-steps a tile) is paced by its epilogue: 128-wide tiles, whose
-  // residual is prefetched (0.38 against 0.48 ms on 256-wide tiles at
-  // F = 256, PERF.md)
-  const bool res1x1 = KS == 1 && residual != nullptr;
-  if (COUT <= 64) return launch_conv_fwd_tma_res<KS, 64, 2>(p, stream);
-  if (COUT <= 128 || res1x1) return launch_conv_fwd_tma_res<KS, 128, 1>(p, stream);
-  return launch_conv_fwd_tma_res<KS, 256, 1>(p, stream);
+  cudaError_t e = make_tmap_nhwc(&p.amap, src, N, H, W, C, S, p.bw, p.bh, p.bn);
+  if (e == cudaSuccess) e = make_tmap_wrows(&p.wmap, w, KS * KS, C, COUT);
+  return e == cudaSuccess ? launch_conv_fwd_tiles<KS, false>(p, stream) : e;
+}
+
+// out = bf16(relu(src @ w + src2[:, ::S, ::S] @ w2 + bias + bias2)): the
+// projection block's conv3 and its shortcut as two 1x1 K segments of ONE
+// f32 accumulator, the biases added in that order (projection_block_plain's),
+// then relu and one rounding. src (N, Ho, Wo, C) against w (C, COUT), src2
+// (N, H, W, C2) read at stride S (1 or 2) against w2 (C2, COUT), out (N, Ho,
+// Wo, COUT) with Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1; C, C2 and COUT
+// multiples of 8.
+inline cudaError_t launch_conv_fwd_tma_sc(const void* src, const void* w, const float* bias, const void* src2,
+                                          const void* w2, const float* bias2, void* out, int N, int H, int W, int C,
+                                          int C2, int COUT, int S, cudaStream_t stream) {
+  if (C % 8 != 0 || C2 % 8 != 0 || COUT % 8 != 0 || S < 1 || S > 2) return cudaErrorInvalidValue;
+  ConvFwdArgs p;
+  memset(&p, 0, sizeof(p));
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  conv_fwd_tiles(p, N, Ho, Wo, COUT);
+  p.C = C;
+  p.stride = 1;
+  p.C2 = C2;
+  p.stride2 = S;
+  p.bias = bias;
+  p.bias2 = bias2;
+  p.out = static_cast<bf16*>(out);
+  cudaError_t e = make_tmap_nhwc(&p.amap, src, N, Ho, Wo, C, 1, p.bw, p.bh, p.bn);
+  if (e == cudaSuccess) e = make_tmap_wrows(&p.wmap, w, 1, C, COUT);
+  if (e == cudaSuccess) e = make_tmap_nhwc(&p.amap2, src2, N, H, W, C2, S, p.bw, p.bh, p.bn);
+  if (e == cudaSuccess) e = make_tmap_wrows(&p.wmap2, w2, 1, C2, COUT);
+  return e == cudaSuccess ? launch_conv_fwd_tiles<1, true>(p, stream) : e;
 }
 
 }  // namespace argus

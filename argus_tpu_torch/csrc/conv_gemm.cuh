@@ -1,12 +1,11 @@
 // Implicit-GEMM convolution over NHWC bf16 with a fused bias/residual/relu
-// epilogue: the mma.sync tensor-core kernel behind the projection forwards
-// (proj_fused.cu), the stage chains' forwards (stage_fused.cu, whose
-// identity blocks run `identity_block` below) and the pointwise forward
+// epilogue: the mma.sync tensor-core kernel behind the pointwise forward
 // (pointwise.cu), and behind the previous forms that bwd_prev.cu keeps for
-// timing (conv_bwd.cuh's block and chain backwards, the BasicBlock and
-// identity bottleneck forwards, the pointwise backward). Every block
-// backward, the chain backward, the BasicBlock and identity bottleneck
-// forwards and the pointwise backward run on the Hopper engines instead
+// timing (conv_bwd.cuh's block and chain backwards, the BasicBlock,
+// identity bottleneck and projection forwards through `identity_block` and
+// `projection_block` below, the chain forwards, the pointwise backward).
+// Every block backward, the chain backward, every block and chain forward
+// and the pointwise backward run on the Hopper engines instead
 // (conv_dgrad_sm90.cuh, conv_fwd_sm90.cuh, wgrad_sm90.cuh).
 //
 //   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] (+ bias0[n]) (+ bias1[n])
@@ -44,9 +43,9 @@
 // free) shared rows. Each thread gathers one A row and walks k in 8-channel
 // vectors with an incremental (segment, ky, kx, c) decoder: no divisions in
 // the main loop. The wgmma/TMA forms are conv_dgrad_sm90.cuh (data
-// gradient) and conv_fwd_sm90.cuh (stride-1 forwards); moving the
-// projection, chain and pointwise forwards onto them, and keeping h1/h2 on
-// chip, are later work.
+// gradient) and conv_fwd_sm90.cuh (forwards at stride 1 and 2, with the
+// projection's shortcut as a second K segment); moving the pointwise
+// forward onto them, and keeping h1/h2 on chip, are later work.
 
 #pragma once
 

@@ -12,23 +12,26 @@
 //   h2  = bf16(relu(conv3x3_s(h1) + b2))                   stride S, pad 1
 //   out = bf16(relu(h2 @ w3 + x[::S, ::S] @ wsc + b3 + bsc))
 //
-// Bound on the H100: tensor-core issue (the last GEMM has K = F + CIN, up to
-// 1536 at stage 3); h1 at full input resolution is the largest device-memory
-// round trip of the block. Design: three launches of the implicit-GEMM kernel
-// (conv_gemm.cuh). The strided shortcut is a second K segment of the last
-// GEMM, read straight from x with stride S against its own weight matrix, so
-// it needs no subsampled copy and no concatenated weights, and shares the f32
-// accumulator with h2 @ w3. The lane-merged stride-2 views of the TPU kernel
-// (_LANE_MERGE_MAX) exist for Mosaic and are not ported: the gather computes
-// strided addresses directly.
+// Bound on the H100: tensor-core issue (206 GFLOP a block at N = 512, the
+// last GEMM with K = F + CIN, up to 1536 at stage 3); h1 at full input
+// resolution is the largest device-memory round trip of the block. Design:
+// three launches of the TMA forward engine (bottleneck_fwd_sm90.cuh
+// `projection_block_fwd_sm90`): conv1 in its 1x1 mode at the input's
+// resolution; the 3x3 at stride S, its A boxes taken through a tensor map
+// that traverses h1 at stride S (so the box lands the output tile's pixels,
+// and TMA's zero fill is the padding); conv3 and the shortcut as one launch
+// with two K segments, h2 @ w3 then x through a stride-S map @ wsc, in one
+// f32 accumulator, so no subsampled copy of x and no concatenated weights,
+// b3 then bsc in the epilogue. The lane-merged stride-2 views of the TPU
+// kernel (_LANE_MERGE_MAX) exist for Mosaic and are not ported. The previous
+// form, three launches of the mma.sync conv-GEMM (conv_gemm.cuh
+// `projection_block`), is `argus_proj_fwd_prev` in bwd_prev.cu.
 
-#include "conv_gemm.cuh"
+#include "bottleneck_fwd_sm90.cuh"
 
-extern "C" int argus_proj_fwd(const void* x, void* h1, void* h2, void* out, const void* w1,
-                              const void* b1, const void* w2, const void* b2, const void* w3,
-                              const void* b3, const void* wsc, const void* bsc, int N, int H,
-                              int W, int CIN, int F, int COUT, int S, void* stream) {
-  return static_cast<int>(argus::projection_block(x, h1, h2, out, w1, b1, w2, b2, w3, b3, wsc, bsc,
-                                                  N, H, W, CIN, F, COUT, S,
-                                                  static_cast<cudaStream_t>(stream)));
+extern "C" int argus_proj_fwd(const void* x, void* h1, void* h2, void* out, const void* w1, const void* b1,
+                              const void* w2, const void* b2, const void* w3, const void* b3, const void* wsc,
+                              const void* bsc, int N, int H, int W, int CIN, int F, int COUT, int S, void* stream) {
+  return static_cast<int>(argus::projection_block_fwd_sm90(x, h1, h2, out, w1, b1, w2, b2, w3, b3, wsc, bsc, N, H, W,
+                                                           CIN, F, COUT, S, static_cast<cudaStream_t>(stream)));
 }

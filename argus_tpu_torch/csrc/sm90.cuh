@@ -259,22 +259,26 @@ inline cudaError_t make_tmap_wrows(CUtensorMap* map, const void* base, int taps,
 }
 
 // Host: a 4-D bf16 tensor map of an NHWC (N, H, W, C) activation, dims
-// innermost first (C, W, H, N), boxes of 64 channels x bw x bh x bn pixels
-// (one 128-byte row per pixel), 128-byte swizzle, zero fill out of bounds
+// innermost first (C, W, H, N), traversed at stride S along W and H (the
+// map's element strides), boxes of 64 channels x bw x bh x bn pixels (one
+// 128-byte row per pixel), 128-byte swizzle, zero fill out of bounds
 // (pixels outside the image, and channels past C where C % 64 != 0): the A
-// operand of a stride-1 conv tile, one box per (tap, 64 channels). base and
-// C * 2 must be 16-byte aligned (C % 8 == 0).
-inline cudaError_t make_tmap_nhwc(CUtensorMap* map, const void* base, int N, int H, int W, int C, int bw, int bh,
-                                  int bn) {
+// operand of a conv tile at stride S, one box per (tap, 64 channels). A box
+// dimension counts elements of the tensor and the map takes every S-th, so
+// a box of S * bw columns lands bw pixels: bw x bh x bn x 128 bytes in
+// shared memory at any S. base and C * 2 must be 16-byte aligned
+// (C % 8 == 0); S * bw and S * bh at most 256, S at most 8.
+inline cudaError_t make_tmap_nhwc(CUtensorMap* map, const void* base, int N, int H, int W, int C, int S, int bw,
+                                  int bh, int bn) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(N)};
   const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;
   const cuuint64_t strides[3] = {row, row * W, row * W * H};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh),
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(S * bw), static_cast<cuuint32_t>(S * bh),
                              static_cast<cuuint32_t>(bn)};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const cuuint32_t estr[4] = {1, static_cast<cuuint32_t>(S), static_cast<cuuint32_t>(S), 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

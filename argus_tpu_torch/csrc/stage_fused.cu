@@ -3,83 +3,48 @@
 //
 // Replaces: argus_tpu/ops/pallas/stage_fused.py `_chain_fwd_packed` (:527,
 // body `_make_fwd_kernel_packed` :501), the forward chain that eval and
-// serving run for stage 0 (projection at stride 1 + 2 identity blocks), and
-// `_chain_fwd_pallas(save=True)` (:364, body `_make_fwd_kernel` :235), the
-// training forward that keeps every block's output, h1 and h2 for the chain
-// backward (stage_fused_bwd.cu).
+// serving run for stage 0 (projection at stride 1 + 2 identity blocks),
+// `_chain_fwd_pallas(save=False)` (:364, body `_make_fwd_kernel` :235), the
+// whole-stage chains of frozen stages 1-2 (projection at stride 2 + 3 or 5
+// identity blocks), and `_chain_fwd_pallas(save=True)`, the training
+// forward that keeps every block's output, h1 and h2 for the chain backward
+// (stage_fused_bwd.cu).
 //
 // Bound on the H100: stage 0 has F = 64, so its 1x1s (K = 64 or 256) sit near
 // the bf16 ridge and device-memory traffic matters as much as tensor-core
 // issue: h1/h2 and each block boundary round trip through memory at 64x64
-// resolution. Design: the chain runs the block bodies of conv_gemm.cuh in
-// turn on one stream (3 launches per block), ping-ponging block outputs
-// between two scratch buffers. The TPU's pair-packed, block-diagonal layout
-// (stage_fused.py:415-438) only existed to fill a 128-wide MXU at F = 64 and
-// is not ported. Keeping the running activation on chip across the chain is
-// the redesign item.
+// resolution (~4.3 GB a block at N = 512); the frozen stages' chains are
+// tensor-core bound (the 3x3s and the 1x1s at K >= 512). Design: the chain
+// (stage_fwd.cuh) runs the block forwards of bottleneck_fwd_sm90.cuh in turn
+// on one stream, three launches of the TMA forward engine per block (the
+// projection's conv3 and shortcut one launch with two K segments),
+// ping-ponging block outputs between two scratch buffers. The TPU's
+// pair-packed, block-diagonal layout (stage_fused.py:415-438) only existed to
+// fill a 128-wide MXU at F = 64 and is not ported. Keeping the running
+// activation on chip across the chain is later work. The previous form, the
+// same chain over the mma.sync conv-GEMM (conv_gemm.cuh), is
+// `argus_stage_fwd_prev` / `argus_stage_fwd_save_prev` in bwd_prev.cu.
 
-#include "conv_gemm.cuh"
+#include "bottleneck_fwd_sm90.cuh"
+#include "stage_fwd.cuh"
 
 // proj[8]: w1, b1, w2, b2, w3, b3, wsc, bsc, or nullptr for an identity-only
 // chain; ids[6*K]: w1, b1, w2, b2, w3, b3 per identity block. h1 holds
 // N*H*W*F elements, h2 and tmp0/tmp1 one block output each.
-extern "C" int argus_stage_fwd(const void* x, void* out, void* h1, void* h2, void* tmp0,
-                               void* tmp1, const void* const* proj, const void* const* ids, int K,
-                               int N, int H, int W, int CIN, int F, int COUT, int S,
-                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Ho = H / S, Wo = W / S;
-  void* tmp[2] = {tmp0, tmp1};
-  const void* cur = x;
-  int slot = 0;
-  if (proj != nullptr) {
-    void* dst = K == 0 ? out : tmp[slot];
-    const cudaError_t e =
-        argus::projection_block(x, h1, h2, dst, proj[0], proj[1], proj[2], proj[3], proj[4],
-                                proj[5], proj[6], proj[7], N, H, W, CIN, F, COUT, S, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cur = dst;
-    slot = 1;
-  }
-  for (int j = 0; j < K; ++j) {
-    void* dst = (j == K - 1) ? out : tmp[slot];
-    const void* const* w = ids + 6 * j;
-    const cudaError_t e = argus::identity_block(cur, h1, h2, dst, w[0], w[1], w[2], w[3], w[4],
-                                                w[5], N, Ho, Wo, COUT, F, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cur = dst;
-    slot ^= 1;
-  }
-  return static_cast<int>(cudaSuccess);
+extern "C" int argus_stage_fwd(const void* x, void* out, void* h1, void* h2, void* tmp0, void* tmp1,
+                               const void* const* proj, const void* const* ids, int K, int N, int H, int W, int CIN,
+                               int F, int COUT, int S, void* stream) {
+  return static_cast<int>(argus::stage_fwd(argus::projection_block_fwd_sm90, argus::identity_block_fwd_sm90, x, out,
+                                           h1, h2, tmp0, tmp1, proj, ids, K, N, H, W, CIN, F, COUT, S,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 // The training forward: block b writes its output to bnds[b] (the last block
 // to `out`) and its h1/h2 to h1s[b]/h2s[b]; no buffer is reused.
-extern "C" int argus_stage_fwd_save(const void* x, void* out, void* const* bnds,
-                                    void* const* h1s, void* const* h2s, const void* const* proj,
-                                    const void* const* ids, int K, int N, int H, int W, int CIN,
-                                    int F, int COUT, int S, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Ho = H / S, Wo = W / S;
-  const int nblocks = (proj != nullptr ? 1 : 0) + K;
-  const void* cur = x;
-  int b = 0;
-  if (proj != nullptr) {
-    void* dst = nblocks == 1 ? out : bnds[0];
-    const cudaError_t e =
-        argus::projection_block(x, h1s[0], h2s[0], dst, proj[0], proj[1], proj[2], proj[3],
-                                proj[4], proj[5], proj[6], proj[7], N, H, W, CIN, F, COUT, S, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cur = dst;
-    b = 1;
-  }
-  for (int j = 0; j < K; ++j, ++b) {
-    void* dst = b == nblocks - 1 ? out : bnds[b];
-    const void* const* w = ids + 6 * j;
-    const cudaError_t e = argus::identity_block(cur, h1s[b], h2s[b], dst, w[0], w[1], w[2], w[3],
-                                                w[4], w[5], N, Ho, Wo, COUT, F, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cur = dst;
-  }
-  return static_cast<int>(cudaSuccess);
+extern "C" int argus_stage_fwd_save(const void* x, void* out, void* const* bnds, void* const* h1s, void* const* h2s,
+                                    const void* const* proj, const void* const* ids, int K, int N, int H, int W,
+                                    int CIN, int F, int COUT, int S, void* stream) {
+  return static_cast<int>(argus::stage_fwd_save(argus::projection_block_fwd_sm90, argus::identity_block_fwd_sm90, x,
+                                                out, bnds, h1s, h2s, proj, ids, K, N, H, W, CIN, F, COUT, S,
+                                                static_cast<cudaStream_t>(stream)));
 }

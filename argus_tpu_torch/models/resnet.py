@@ -89,19 +89,19 @@ POINTWISE_FLAGS = ("off", "on", "dot", "auto")
 # HBM3 at 700.00 W: ms per step or forward saved by turning the function on
 # alone, every other entry off (negative: cuDNN wins), in the workloads named.
 AUTO_FUSE = {
-    ("stem", "forward"): True,  # flagship step 8.60, serving 8.89
-    ("stem", "train"): True,  # stem-trained step 13.51
-    ("stage_chain_packed", "forward"): True,  # serving 9.37; frozen_stages=3 step 15.95 with the packed stem
-    ("stage_chain", "forward"): False,  # frozen_stages=3 step -7.99 (stages 1-2)
-    ("stage_chain", "train"): True,  # flagship step 9.29 (the Hopper chain backward)
-    ("projection", "forward"): True,  # serving 0.38
-    ("projection", "train"): False,  # flagship step -1.01, frozen_stages=3 step -4.74 (Hopper backward)
-    ("identity", "forward"): True,  # serving 23.70 (the TMA forward)
-    ("identity", "train"): True,  # flagship step 16.38, frozen_stages=3 step -1.09 (TMA forward, Hopper backward)
-    ("basic", "forward"): True,  # keypoint eval forward 4.47 (the TMA forward)
-    ("basic", "train"): False,  # keypoint step 0.73, within noise (its "all on" ran 0.85 slower than "auto")
-    ("pointwise", "forward"): True,  # serving 8.22, frozen_stages=3 step 9.35 (fuse_pointwise "auto" in all 16 blocks)
-    ("pointwise", "train"): False,  # flagship step -0.56, frozen_stages=3 step -4.31 (Hopper backward)
+    ("stem", "forward"): True,  # flagship step 8.51, serving 8.87
+    ("stem", "train"): True,  # stem-trained step 13.67
+    ("stage_chain_packed", "forward"): True,  # serving 17.87; frozen_stages=3 step 26.15 with the packed stem
+    ("stage_chain", "forward"): True,  # frozen_stages=3 step 19.77 (stages 1-2, the TMA forward)
+    ("stage_chain", "train"): True,  # flagship step 17.85 (the TMA forward, the Hopper chain backward)
+    ("projection", "forward"): True,  # serving 17.24 (the TMA forward)
+    ("projection", "train"): True,  # flagship step 14.23, frozen_stages=3 step -0.16 (TMA forward, Hopper backward)
+    ("identity", "forward"): True,  # serving 24.54 (the TMA forward)
+    ("identity", "train"): True,  # flagship step 16.63, frozen_stages=3 step -0.15 (TMA forward, Hopper backward)
+    ("basic", "forward"): True,  # keypoint eval forward 4.41 (the TMA forward)
+    ("basic", "train"): False,  # keypoint step -0.13
+    ("pointwise", "forward"): True,  # serving 8.15, frozen_stages=3 step 8.86 (fuse_pointwise "auto" in all 16 blocks)
+    ("pointwise", "train"): False,  # flagship step -0.52, frozen_stages=3 step -3.29 (Hopper backward)
 }
 
 

@@ -1,16 +1,17 @@
 """The redesigned kernels on the engine they ran on before their Hopper
 redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and weight gradient
-that the pointwise forward, the projection forwards and the chain forwards
-keep): the BasicBlock, projection-block and identity-block backwards, the
-identity block's recompute backward, the stage chain's backward, the
-BasicBlock and identity bottleneck forwards and the pointwise backward. No
-path of the port calls these: `chip_smoke.py` and
-`scripts/time_torch_block_bwd.py` time them beside `basic_fused.basic_bwd`,
-`proj_fused.proj_bwd`, `block_fused.block_bwd`,
-`block_fused.block_bwd_recompute`, `stage_fused.stage_bwd`,
-`basic_fused.basic_block`, `block_fused.bottleneck_block` and
-`pointwise.pointwise_bwd` on the same inputs, in the same call. CUDA tensors
-only; outputs as the redesigned wrappers give them.
+that the pointwise forward keeps): the BasicBlock, projection-block and
+identity-block backwards, the identity block's recompute backward, the
+stage chain's backward, the BasicBlock, identity bottleneck and projection
+forwards, the chain forwards and the pointwise backward. No path of the
+port calls these: `chip_smoke.py` and `scripts/time_torch_block_bwd.py`
+time them beside `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
+`block_fused.block_bwd`, `block_fused.block_bwd_recompute`,
+`stage_fused.stage_bwd`, `basic_fused.basic_block`,
+`block_fused.bottleneck_block`, `proj_fused.projection_block(_save)`,
+`stage_fused.fused_stage(_save)` and `pointwise.pointwise_bwd` on the same
+inputs, in the same call. CUDA tensors only; outputs as the redesigned
+wrappers give them.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ import torch
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
 from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2
 from argus_tpu_torch.ops.kernels.block_fused import transposed_weights as identity_transposed_weights
-from argus_tpu_torch.ops.kernels.proj_fused import transposed_weights
-from argus_tpu_torch.ops.kernels.stage_fused import chain_bwd_launch
+from argus_tpu_torch.ops.kernels.proj_fused import forward_launch, transposed_weights
+from argus_tpu_torch.ops.kernels.stage_fused import chain_bwd_launch, chain_fwd_launch, chain_fwd_save_launch
 
 KERNEL_BASIC = Kernel("bwd_prev", "argus_basic_bwd_prev", [P] * 11 + [L] + [I] * 4 + [P])
 KERNEL_PROJ = Kernel("bwd_prev", "argus_proj_bwd_prev", [P] * 17 + [L] + [I] * 7 + [P])
@@ -31,6 +32,9 @@ KERNEL_STAGE = Kernel("bwd_prev", "argus_stage_bwd_prev", [P] * 16 + [L] + [I] *
 KERNEL_BASIC_FWD = Kernel("bwd_prev", "argus_basic_fwd_prev", [P] * 7 + [I] * 4 + [P])
 KERNEL_BLOCK_FWD = Kernel("bwd_prev", "argus_block_fwd_prev", [P] * 10 + [I] * 5 + [P])
 KERNEL_PW_BWD = Kernel("bwd_prev", "argus_pointwise_bwd_prev", [P] * 8 + [L] + [I] * 4 + [P])
+KERNEL_PROJ_FWD = Kernel("bwd_prev", "argus_proj_fwd_prev", [P] * 12 + [I] * 7 + [P])
+KERNEL_STAGE_FWD = Kernel("bwd_prev", "argus_stage_fwd_prev", [P] * 8 + [I] * 8 + [P])
+KERNEL_STAGE_FWD_SAVE = Kernel("bwd_prev", "argus_stage_fwd_save_prev", [P] * 7 + [I] * 8 + [P])
 
 _WG_TILE, _WG_TARGET_BLOCKS, _WG_MIN_ROWS = 64, 4 * 132, 2048
 
@@ -154,6 +158,22 @@ def block_fwd_prev(x, w1, b1, w2, b2, w3, b3, save=False):
     out = torch.empty_like(x)
     KERNEL_BLOCK_FWD.launch(x, h1, h2, out, w1, b1, w2, b2, w3, b3, n, h, w, cin, f)
     return (out, h1, h2) if save else out
+
+
+def proj_fwd_prev(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride, save=False):
+    """out, or (out, h1, h2) with `save`, as `proj_fused.projection_block(_save)`."""
+    got = forward_launch(KERNEL_PROJ_FWD, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
+    return got if save else got[0]
+
+
+def stage_fwd_prev(x, proj_folded, id_folded, stride=2):
+    """out, as `stage_fused.fused_stage`."""
+    return chain_fwd_launch(KERNEL_STAGE_FWD, x, proj_folded, [tuple(w) for w in id_folded], stride)
+
+
+def stage_fwd_save_prev(x, proj_folded, id_folded, stride=2):
+    """(out, bnds, h1s, h2s), as `stage_fused.fused_stage_save`."""
+    return chain_fwd_save_launch(KERNEL_STAGE_FWD_SAVE, x, proj_folded, [tuple(w) for w in id_folded], stride)
 
 
 def pointwise_bwd_prev(g2, out2, x2, w, relu=True, emit_m=False, need_dx=True):

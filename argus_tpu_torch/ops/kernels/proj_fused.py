@@ -16,8 +16,10 @@ and the backward from the saved h1/h2 (`_proj_bwd_kernel`):
     dx = bf16(m1 @ w1^T + scatter_S(m3 @ wsc^T))
     dw1 = x^T m1, dw2 = shift_S(h1)^T m2, dw3 = h2^T m3, dwsc = x[::S, ::S]^T m3
 
-On a CUDA tensor the wrappers launch `csrc/proj_fused.cu` and
-`csrc/proj_fused_bwd.cu`; on a CPU tensor they run the plain versions.
+On a CUDA tensor the wrappers launch `csrc/proj_fused.cu` (three launches
+of the TMA forward engine: conv1, the 3x3 at stride S, conv3 and the
+shortcut as one launch with two K segments) and `csrc/proj_fused_bwd.cu`;
+on a CPU tensor they run the plain versions.
 """
 
 from __future__ import annotations
@@ -120,7 +122,9 @@ def _check_block(x, w1, w2, w3, wsc, stride, biases=None):
     return n, h, w, cin, f, cout
 
 
-def _forward(kernel, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
+def forward_launch(kernel, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
+    """Launch a projection forward's C launcher (`kernel`, argus_proj_fwd's
+    argument order) with its outputs allocated here: (out, h1, h2)."""
     n, h, w, cin, f, cout = _check_block(x, w1, w2, w3, wsc, stride, (b1, b2, b3, bsc))
     ho, wo = h // stride, w // stride
     bf = torch.bfloat16
@@ -138,7 +142,7 @@ def projection_block(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if not check_device(x):
         return projection_block_plain(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
-    return _forward(KERNEL, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)[0]
+    return forward_launch(KERNEL, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)[0]
 
 
 def projection_block_save(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
@@ -148,7 +152,7 @@ def projection_block_save(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if not check_device(x):
         return projection_block_save_plain(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
-    return _forward(KERNEL_SAVE, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
+    return forward_launch(KERNEL_SAVE, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
 
 
 def projection_wgrad_plans(n, h, w, cin, f, cout, stride):

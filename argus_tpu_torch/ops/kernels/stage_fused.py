@@ -13,8 +13,11 @@ pair-packed layout are Mosaic constraints and are not ported.
 
 On a CUDA tensor the wrappers launch `csrc/stage_fused.cu` (forwards) and
 `csrc/stage_fused_bwd.cu`, each running the whole chain from one C call; on
-a CPU tensor they run the plain versions. The backward runs the Hopper
-compositions of the block backwards from each block's masked cotangent m3:
+a CPU tensor they run the plain versions. The forwards run the block
+forwards on the TMA forward engine (three launches a block, the
+projection's conv3 and shortcut one launch with two K segments). The
+backward runs the Hopper compositions of the block backwards from each
+block's masked cotangent m3:
 the incoming g is masked once, and every other m3 is written by the dx
 launch of the block after it, its epilogue applying the relu mask of that
 block's input (bit-equal to the chain's rounding followed by the next
@@ -143,6 +146,34 @@ def _ptrs(ts):
     return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
 
 
+def chain_fwd_launch(kernel, x, proj_folded, ids, stride):
+    """Launch a no-save chain's C launcher (`kernel`, argus_stage_fwd's
+    argument order) with its output and scratch allocated here; None: the
+    stage-0 form (`KERNEL`) where argus_tpu takes `_chain_fwd_packed`,
+    `KERNEL_FROZEN` elsewhere."""
+    n, h, w, cin, f, cout, s = _geometry(x, proj_folded, ids, stride)
+    ho, wo = h // s, w // s
+    bf, dev = torch.bfloat16, x.device
+    h1 = torch.empty((n, h, w, f), dtype=bf, device=dev)
+    h2 = torch.empty((n, ho, wo, f), dtype=bf, device=dev)
+    n_tmp = len(ids) if proj_folded is not None else len(ids) - 1
+    tmp = [torch.empty((n, ho, wo, cout), dtype=bf, device=dev) for _ in range(min(n_tmp, 2))]
+    tmp += [h2] * (2 - len(tmp))  # unused slots: any valid pointer
+    out = torch.empty((n, ho, wo, cout), dtype=bf, device=dev)
+
+    # host arrays of weight pointers, alive until the launcher returns
+    proj_arr = _ptrs(proj_folded) if proj_folded is not None else None
+    id_arr = _ptrs([t for idw in ids for t in idw])
+    if kernel is None:
+        kernel = KERNEL if packed_fwd_ok(f, s, w // s, cin, cout) else KERNEL_FROZEN
+    kernel.launch(
+        x, out, h1, h2, tmp[0], tmp[1],
+        ctypes.addressof(proj_arr) if proj_arr is not None else None,
+        ctypes.addressof(id_arr), len(ids), n, h, w, cin, f, cout, s,
+    )
+    return out
+
+
 def fused_stage(
     x: torch.Tensor,
     proj_folded: Optional[Sequence[torch.Tensor]],
@@ -156,40 +187,13 @@ def fused_stage(
         raise ValueError("a stage needs at least one block")
     if not check_device(x):
         return stage_plain(x, proj_folded, ids, stride)
-    n, h, w, cin, f, cout, s = _geometry(x, proj_folded, ids, stride)
-    ho, wo = h // s, w // s
-    bf, dev = torch.bfloat16, x.device
-    h1 = torch.empty((n, h, w, f), dtype=bf, device=dev)
-    h2 = torch.empty((n, ho, wo, f), dtype=bf, device=dev)
-    n_tmp = len(ids) if proj_folded is not None else len(ids) - 1
-    tmp = [torch.empty((n, ho, wo, cout), dtype=bf, device=dev) for _ in range(min(n_tmp, 2))]
-    tmp += [h2] * (2 - len(tmp))  # unused slots: any valid pointer
-    out = torch.empty((n, ho, wo, cout), dtype=bf, device=dev)
-
-    # host arrays of weight pointers, alive until the launcher returns
-    proj_arr = None
-    if proj_folded is not None:
-        proj_arr = (ctypes.c_void_p * 8)(*[t.data_ptr() for t in proj_folded])
-    id_ptrs = [t.data_ptr() for idw in ids for t in idw]
-    id_arr = (ctypes.c_void_p * max(len(id_ptrs), 1))(*id_ptrs)
-    kernel = KERNEL if packed_fwd_ok(f, s, w // s, cin, cout) else KERNEL_FROZEN
-    kernel.launch(
-        x, out, h1, h2, tmp[0], tmp[1],
-        ctypes.addressof(proj_arr) if proj_arr is not None else None,
-        ctypes.addressof(id_arr), len(ids), n, h, w, cin, f, cout, s,
-    )
-    return out
+    return chain_fwd_launch(None, x, proj_folded, ids, stride)
 
 
-def fused_stage_save(x, proj_folded, id_folded, stride=2):
-    """The training chain: (out, bnds, h1s, h2s), every block's output (the
-    last is `out`), h1 and h2 kept for the backward. The CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
-    ids = [tuple(w) for w in id_folded]
-    if proj_folded is None and not ids:
-        raise ValueError("a stage needs at least one block")
-    if not check_device(x):
-        return stage_save_plain(x, proj_folded, ids, stride)
+def chain_fwd_save_launch(kernel, x, proj_folded, ids, stride):
+    """Launch a saving chain's C launcher (`kernel`, argus_stage_fwd_save's
+    argument order) with its outputs allocated here: (out, bnds, h1s,
+    h2s)."""
     n, h, w, cin, f, cout, s = _geometry(x, proj_folded, ids, stride)
     ho, wo = h // s, w // s
     bf, dev = torch.bfloat16, x.device
@@ -202,11 +206,23 @@ def fused_stage_save(x, proj_folded, id_folded, stride=2):
     h2s = [torch.empty((n, ho, wo, f), dtype=bf, device=dev) for _ in range(nblocks)]
     arrs = [_ptrs(bnds), _ptrs(h1s), _ptrs(h2s), _ptrs(proj_folded) if has_proj else None,
             _ptrs([t for idw in ids for t in idw])]
-    KERNEL_SAVE.launch(
+    kernel.launch(
         x, out, *[None if a is None else ctypes.addressof(a) for a in arrs],
         len(ids), n, h, w, cin, f, cout, s,
     )
     return out, bnds, h1s, h2s
+
+
+def fused_stage_save(x, proj_folded, id_folded, stride=2):
+    """The training chain: (out, bnds, h1s, h2s), every block's output (the
+    last is `out`), h1 and h2 kept for the backward. The CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    ids = [tuple(w) for w in id_folded]
+    if proj_folded is None and not ids:
+        raise ValueError("a stage needs at least one block")
+    if not check_device(x):
+        return stage_save_plain(x, proj_folded, ids, stride)
+    return chain_fwd_save_launch(KERNEL_SAVE, x, proj_folded, ids, stride)
 
 
 def chain_wgrad_plans(n, h, w, cin, f, cout, stride, k, has_proj):

@@ -11,8 +11,9 @@ Phases, each fatal on failure (nothing is caught and ignored):
    print the seconds and ptxas' register/spill report; `cuobjdump -sass` of
    the BasicBlock, projection and identity backwards' libraries (the
    identity's saved-residual and recompute backwards), the stage chain's
-   backward, the BasicBlock and identity bottleneck forwards and the
-   pointwise backward must show wgmma (HGMMA) instructions;
+   backward, the BasicBlock, identity bottleneck and projection forwards,
+   the chain forwards and the pointwise backward must show wgmma (HGMMA)
+   instructions;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -36,16 +37,17 @@ Phases, each fatal on failure (nothing is caught and ignored):
    with retain_graph); then the three BasicBlock kernels (no-save forward,
    saving forward, one-pass backward) at the four geometries of ResNet-18's
    identity blocks at N = 512 (C/H = 64/64, 128/32, 256/16, 512/8), same
-   tolerance and yardsticks; then the eight kernels redesigned on the Hopper
+   tolerance and yardsticks; then the kernels redesigned on the Hopper
    wgmma/TMA engines (the BasicBlock, projection, and the identity block's
    saved-residual and recompute backwards, the stage-0 chain's backward,
-   the BasicBlock and identity bottleneck forwards and the pointwise
-   backward) beside the mma.sync engine they ran on before
-   (`ops/kernels/bwd_prev.py`), at the seven BasicBlock and projection
-   geometries, the four identity ones, the chain's, the four BasicBlock
-   forward ones, the three identity forward ones of stages 1-3 and
-   configuration P's twelve pointwise ones, each call broken down by device
-   kernel (data gradient,
+   the BasicBlock, identity bottleneck and projection forwards, the chain
+   forwards and the pointwise backward) beside the mma.sync engine they
+   ran on before (`ops/kernels/bwd_prev.py`), at the seven BasicBlock and
+   projection geometries, the four identity ones, the chain's, the four
+   BasicBlock forward ones, the three identity forward ones of stages 1-3,
+   configuration P's twelve pointwise ones, the three projection forward
+   ones, the frozen stages' two chains and the stage-0 chain's saving
+   forward, each call broken down by device kernel (data gradient,
    weight gradient, split sum, mask pass, forward conv, forward conv on the
    TMA engine) from `torch.profiler`, with per-step totals;
 5. the augmentation kernels at the flagship step's shapes (N = 512 camera
@@ -135,9 +137,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
    stem / 1 / 2 / 1+1 / 2+2, 6 timed steps fused and 6 unfused;
 10. what "auto" chooses (`models.resnet.AUTO_FUSE`, printed): the fuse
    flags all "on", all "off" and all "auto" for the flagship step, the
-   `frozen_stages=3` step and batch-256 serving, in this call; an "auto"
-   step launches exactly what the table names, and is no slower than the
-   faster of "on" and "off" by more than 2%;
+   `frozen_stages=3` step and batch-256 serving, in this call, the three
+   settings interleaved (the fastest of 24 steps or predicts each); an
+   "auto" step launches exactly what the table names, and is no slower
+   than the faster of "on" and "off" by more than 2%;
 11. `train()` end to end: the `frozen_stages=3` fine-tune at full width
    (fuse "auto", `device_resident_mb=0`, augmentation on) on 1024 + 160
    frames rendered by the port's synthetic renderer into an in-memory
@@ -288,8 +291,8 @@ EXPECTED_FROZEN_LAUNCHES = {
 EXPECTED_FROZEN_EVAL_LAUNCHES = {
     **_NONE, "stem_fused_packed": 1, "stage_fused": 1, "stage_fused_frozen": 2, "proj_fused": 1, "block_fused": 2,
 }
-C1_STEPS = 5  # timed steps per fuse setting in the auto phase; the median is kept
-C1_ROUNDS = 12  # interleaved predicts per fuse setting in the auto phase, in rotated orders; the fastest is kept
+C1_STEPS = 5  # timed steps of the loop phase's compute-only step; the median is kept
+C1_ROUNDS = 24  # interleaved steps or predicts per fuse setting in the auto phase, in rotated orders; the fastest is kept
 LOOP_TRAIN, LOOP_VAL = 1024, 160  # rendered examples of the loop phase: 4 train batches, 1 padded val batch
 LOOP_VAL_BATCHES = 1
 AUTO_SLACK = 0.02  # "auto" may be this much slower than the faster of all "on" and all "off"
@@ -361,7 +364,7 @@ def hgmma_check() -> None:
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd", "basic_fused",
-                 "stage_fused_bwd", "block_fused", "pointwise_bwd"):
+                 "stage_fused_bwd", "block_fused", "pointwise_bwd", "proj_fused", "stage_fused"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         n = sass.count("HGMMA")
@@ -870,17 +873,18 @@ def basic_kernel_phase() -> dict:
 
 
 def engine_phase() -> None:
-    """The eight redesigned kernels on the Hopper engines (the BasicBlock,
+    """The redesigned kernels on the Hopper engines (the BasicBlock,
     projection, identity and recompute backwards, the stage-0 chain's
-    backward, the BasicBlock and identity forwards, the pointwise backward)
-    beside the mma.sync engine they ran on before (`ops/kernels/bwd_prev.py`),
-    at the geometries of scripts/time_torch_block_bwd.py, in this call: ms
-    per call (CUDA events, 5 calls) and each call's device kernels by launch
-    (torch.profiler), and the ms per train step of each (the recompute's per
-    configuration R step, the BasicBlock forward's per eval forward, the
-    pointwise backward's per configuration P step; stage 0's identity
-    geometry runs in the chain, 0 a step; the identity forward's per step is
-    also its time per predict)."""
+    backward, the BasicBlock, identity and projection forwards, the chain
+    forwards, the pointwise backward) beside the mma.sync engine they ran on
+    before (`ops/kernels/bwd_prev.py`), at the geometries of
+    scripts/time_torch_block_bwd.py, in this call: ms per call (CUDA events,
+    5 calls) and each call's device kernels by launch (torch.profiler), and
+    the ms per train step of each (the recompute's per configuration R step,
+    the BasicBlock forward's per eval forward, the pointwise backward's per
+    configuration P step, the frozen chains' per frozen_stages=3 step; stage
+    0's identity geometry runs in the chain, 0 a step; the identity and
+    projection forwards' per step is also their time per predict)."""
     import importlib.util
 
     import torch
@@ -906,7 +910,8 @@ def engine_phase() -> None:
             f"({pms / nms:.2f}x)")
         prev, new = step.get(row, (0.0, 0.0))
         step[row] = (prev + count * pms, new + count * nms)
-    per = {"block_fused_rbwd": "R step", "basic_fused": "eval forward", "pointwise_bwd": "P step"}
+    per = {"block_fused_rbwd": "R step", "basic_fused": "eval forward", "pointwise_bwd": "P step",
+           "stage_fused_frozen": "frozen_stages=3 step"}
     for row, (pms, nms) in step.items():
         say(f"{row} per {per.get(row, 'train step')}: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms "
             f"({pms / nms:.2f}x)")
@@ -1962,13 +1967,16 @@ def _median_step_ms(step, state, batch, n: int = C1_STEPS):
 
 def auto_phase(tmpdir: str) -> dict:
     """The fuse flags all "on", all "off" and all "auto" in one call, for the
-    flagship step, the `frozen_stages=3` step (both batch 256, the median
-    of C1_STEPS timed steps by CUDA events after a warm-up) and batch-256
-    serving (the fastest of C1_ROUNDS `Estimator.predict` calls by host
-    clock, the three settings interleaved in rotated orders on one
-    estimator with its flags switched: "auto" and "on" are one
-    configuration there, and the upload from pageable memory varies more
-    from call to call than the 2% gate). Prints `AUTO_FUSE`'s choice for each function and mode; an
+    flagship step, the `frozen_stages=3` step (both batch 256, the fastest
+    of C1_ROUNDS steps by CUDA events after a warm-up step each) and
+    batch-256 serving (the fastest of C1_ROUNDS `Estimator.predict` calls by
+    host clock), the three settings interleaved in rotated orders on one
+    model or estimator with its flags switched: a step samples the next
+    step's augmentation parameters and uploads them from pageable memory,
+    which waits for the device, so the step's time carries the host's
+    jitter (10-25% between steps of one setting at the fine-tune's ~45 ms,
+    where "auto" and "on" launch the same kernels), and the upload of the
+    frames varies a predict's more than the 2% gate. Prints `AUTO_FUSE`'s choice for each function and mode; an
     "auto" step must launch exactly what the table names, and be no slower
     than the faster of "on" and "off" by more than AUTO_SLACK. Returns
     {workload: {flags: ms}}."""
@@ -1990,19 +1998,38 @@ def auto_phase(tmpdir: str) -> dict:
         for k in (*FUSE_ON, "fuse_pointwise") if pointwise else FUSE_ON:
             setattr(backbone, k, flags)
 
+    settings = ("on", "off", "auto")
     for workload, frozen_stages in (("flagship", 0), ("frozen_stages=3", 3)):
         cfg, model, state, batch = flagship_train_setup(frozen_stages=frozen_stages)
         step = make_train_step(model, cfg)
-        for flags in ("on", "off", "auto"):
+        launched = {}
+        for flags in settings:  # a warm-up step each, then the launches of one step
             switch(model.backbone, flags)
-            ms, launches, state = _median_step_ms(step, state, batch)
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            launched[flags] = kernels.launch_counts()
+        want = _expected_launches(frozen_stages, stem_trained=False, pointwise=True)
+        if launched["auto"] != want:
+            raise AssertionError(f"auto {workload}: launches {launched['auto']} != the table's {want}")
+        steps = {}
+        for r in range(C1_ROUNDS):
+            for flags in settings[r % 3:] + settings[:r % 3]:
+                switch(model.backbone, flags)
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                state, _ = step(state, batch)
+                e1.record()
+                torch.cuda.synchronize()
+                steps.setdefault(flags, []).append(e0.elapsed_time(e1))
+        for flags in settings:
+            ms = min(steps[flags])
             timings.setdefault(workload, {})[flags] = ms
-            if flags == "auto":
-                want = _expected_launches(frozen_stages, stem_trained=False, pointwise=True)
-                if launches != want:
-                    raise AssertionError(f"auto {workload}: launches {launches} != the table's {want}")
-            say(f"auto: {workload} step, flags {flags}: {ms:.2f} ms/step "
-                f"({N_IMG / ms * 1e3:.1f} camera-images/s; launches {({k: v for k, v in launches.items() if v})})")
+            say(f"auto: {workload} step, flags {flags}: fastest of {C1_ROUNDS} {ms:.2f} ms/step, median "
+                f"{sorted(steps[flags])[C1_ROUNDS // 2]:.2f} ({N_IMG / ms * 1e3:.1f} camera-images/s; launches "
+                f"{({k: v for k, v in launched[flags].items() if v})})")
         del model, state, batch, step
         torch.cuda.empty_cache()
 
@@ -2032,7 +2059,6 @@ def auto_phase(tmpdir: str) -> dict:
         say(f"auto: serving, flags {flags}: launches {({k: v for k, v in launches.items() if v})}")
     # the settings interleaved, and each round's order rotated, so that the
     # host's load and the one before fall on all three alike
-    settings = ("on", "off", "auto")
     for r in range(C1_ROUNDS):
         for flags in settings[r % 3:] + settings[:r % 3]:
             switch(est.model.backbone, flags, pointwise=False)

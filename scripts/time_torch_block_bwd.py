@@ -7,9 +7,13 @@ backwards (`block_fused.block_bwd`, `block_fused.block_bwd_recompute`) at its
 four geometries, the stage-0 chain's backward (`stage_fused.stage_bwd`),
 the BasicBlock forward (`basic_fused.basic_block`) at ResNet-18's four
 geometries, the identity bottleneck's forward (`block_fused.bottleneck_block`)
-at its three geometries of stages 1-3 and the pointwise backward
-(`pointwise.pointwise_bwd`) at configuration P's twelve (N = 512 camera
-images of 256x256, bf16), and break each call down by device kernel with
+at its three geometries of stages 1-3, the pointwise backward
+(`pointwise.pointwise_bwd`) at configuration P's twelve, the projection
+block's saving forward (`proj_fused.projection_block_save`) at its three
+stride-2 geometries, the frozen stages' whole-stage chains
+(`stage_fused.fused_stage`, stages 1 and 2) and the stage-0 chain's saving
+forward (`stage_fused.fused_stage_save`) (N = 512 camera images of
+256x256, bf16), and break each call down by device kernel with
 `torch.profiler`: data gradient, weight gradient, split sum, the relu mask
 pass, forward convs (the recompute's h1/h2, the mma.sync forwards), forward
 convs on the TMA engine, the rest.
@@ -36,6 +40,7 @@ and, last, one JSON object. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -51,6 +56,9 @@ PROJ = [(64, 256, 128), (32, 512, 256), (16, 1024, 512)]
 IDENTITY = [(64, 256, 64, 0), (32, 512, 128, 3), (16, 1024, 256, 5), (8, 2048, 512, 2)]
 # the stage-0 chain of ResNet-50 (H = W, CIN, F, COUT, identity blocks), once a step
 CHAIN = (64, 64, 64, 256, 2)
+# the whole-stage chains of frozen stages 1-2 (H = W, CIN, F, COUT, identity
+# blocks), stride 2, once each per frozen_stages=3 fine-tune step
+FROZEN_CHAINS = [(64, 256, 128, 512, 3), (32, 512, 256, 1024, 5)]
 # configuration P's pointwise convs (H = W, CIN, COUT, residual, calls per step):
 # Conv_0 and Conv_2 of the 16 bottlenecks
 POINTWISE = [
@@ -66,7 +74,7 @@ def kind(name: str) -> str:
         return "split sum"
     if "wgrad" in name:
         return "weight gradient"
-    if "conv_fwd_tma" in name:  # the BasicBlock and identity forwards: the TMA engine
+    if "conv_fwd_tma" in name:  # the block and chain forwards: the TMA engine
         return "forward conv (TMA)"
     if "conv_fwd" in name or "conv_gemm_kernel<false>" in name:  # the recompute's h1/h2, mma.sync forwards
         return "forward conv"
@@ -127,9 +135,11 @@ def cases(engine: str = "new"):
     seven BasicBlock and projection geometries, at the identity block's four
     (the saved-residual and the recompute backward each), for the stage-0
     chain's backward, for the BasicBlock forward at its four geometries, for
-    the identity forward at its three of stages 1-3 and for the pointwise
-    backward at configuration P's twelve; inputs from seed 0, h1/h2/out from
-    the tree's saving forwards (the relu masks the backward sees in
+    the identity forward at its three of stages 1-3, for the pointwise
+    backward at configuration P's twelve, for the projection's saving
+    forward at its three stride-2 geometries, the frozen stages' two chains
+    and the stage-0 chain's saving forward; inputs from seed 0, h1/h2/out
+    from the tree's saving forwards (the relu masks the backward sees in
     training)."""
     import torch
 
@@ -142,11 +152,15 @@ def cases(engine: str = "new"):
         block_bwd, block_rbwd = bwd_prev.block_bwd_prev, bwd_prev.block_bwd_recompute_prev
         stage_bwd, basic_fwd = bwd_prev.stage_bwd_prev, bwd_prev.basic_fwd_prev
         block_fwd, pw_bwd = bwd_prev.block_fwd_prev, bwd_prev.pointwise_bwd_prev
+        proj_fwd_save = functools.partial(bwd_prev.proj_fwd_prev, save=True)
+        stage_fwd, stage_fwd_save = bwd_prev.stage_fwd_prev, bwd_prev.stage_fwd_save_prev
     else:
         basic_bwd, proj_bwd = basic_fused.basic_bwd, proj_fused.proj_bwd
         block_bwd, block_rbwd = block_fused.block_bwd, block_fused.block_bwd_recompute
         stage_bwd, basic_fwd = stage_fused.stage_bwd, basic_fused.basic_block
         block_fwd, pw_bwd = block_fused.bottleneck_block, pointwise.pointwise_bwd
+        proj_fwd_save = proj_fused.projection_block_save
+        stage_fwd, stage_fwd_save = stage_fused.fused_stage, stage_fused.fused_stage_save
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def w(*shape):
@@ -221,6 +235,29 @@ def cases(engine: str = "new"):
         label = f"M={m} {cin}->{cout}{' +res' if with_res else ''}"
         yield "pointwise_bwd", label, count, lambda args=args: pw_bwd(*args)
         del x, res, out, args
+    torch.cuda.empty_cache()
+    for h, cin, f in PROJ:
+        cout = 4 * f
+        x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        pw = (w(cin, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout), w(cin, cout), b(cout))
+        yield "proj_fused_save", f"{tuple(x.shape)} F={f} S=2", 1, lambda x=x, pw=pw: proj_fwd_save(x, *pw, 2)
+        del x
+    torch.cuda.empty_cache()
+    for h, cin, f, cout, k in FROZEN_CHAINS:
+        x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        pw = (w(cin, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout), w(cin, cout), b(cout))
+        ids = [(w(cout, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout)) for _ in range(k)]
+        label = f"{tuple(x.shape)} F={f} S=2 K={k}"
+        yield "stage_fused_frozen", label, 1, lambda x=x, pw=pw, ids=ids: stage_fwd(x, pw, ids, 2)
+        del x
+    torch.cuda.empty_cache()
+    h, cin, f, cout, k = CHAIN
+    x = torch.rand(N_IMG, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+    pw = (w(cin, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout), w(cin, cout), b(cout))
+    ids = [(w(cout, f), b(f), w(3, 3, f, f), b(f), w(f, cout), b(cout)) for _ in range(k)]
+    label = f"{tuple(x.shape)} F={f} K={k}"
+    yield "stage_fused_save", label, 1, lambda x=x, pw=pw, ids=ids: stage_fwd_save(x, pw, ids, 1)
+    del x
     torch.cuda.empty_cache()
 
 

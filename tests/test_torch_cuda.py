@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the forwards, the saving forwards and the one-pass backwards (bottleneck and
-BasicBlock), the two augmentation kernels, the trained stem's saving
+BasicBlock; the projection and chain forwards at their main-path widths), the two augmentation kernels, the trained stem's saving
 forward and weight gradient, BatchNorm's two reductions, the packed stem
 and the frozen stages' no-save chains, the pointwise forward and backward
 and the identity block's recompute backward, and the training steps
@@ -191,6 +191,62 @@ def test_identity_block_forward_at_main_path_widths(dev, n, h, w, cin, f):
     assert (tb.KERNEL.launches, tb.KERNEL_SAVE.launches) == (before[0] + 2, before[1] + 1)
 
 
+# the projection forward's card cases (n, h, w, cin, f, cout, stride): the
+# stride-2 entries of ResNet-50's stages 1-3 and stage 0's stride-1 block at
+# their main-path widths and input sizes (small N), then the engine's
+# stride-2 edges: outputs of 1 x 1, 2 x 2, 5 x 7 and 9 x 17 (not powers of
+# two), channels that are not whole 64-channel steps
+PROJ_MAIN_CASES = [(2, 64, 64, 256, 128, 512, 2), (2, 32, 32, 512, 256, 1024, 2), (2, 16, 16, 1024, 512, 2048, 2),
+                   (2, 64, 64, 64, 64, 256, 1), (3, 2, 2, 1024, 512, 2048, 2), (2, 4, 4, 512, 256, 1024, 2),
+                   (3, 10, 14, 256, 128, 512, 2), (2, 18, 34, 72, 24, 64, 2)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,f,cout,stride", PROJ_MAIN_CASES)
+def test_projection_block_forward_at_main_path_widths(dev, n, h, w, cin, f, cout, stride):
+    """Both variants of the projection forward (the TMA engine's three
+    launches: conv1, the 3x3 at stride S through a strided tensor map, conv3
+    and the shortcut as two K segments) against the plain version; two
+    calls give the same bits."""
+    g = torch.Generator().manual_seed(17)
+    x = torch.rand(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
+    ws = _proj(g, cin, f, cout, dev)
+    before = (tp.KERNEL.launches, tp.KERNEL_SAVE.launches)
+    out = tp.projection_block(x, *ws, stride)
+    _close(out, tp.projection_block_plain(x, *ws, stride))
+    saved = tp.projection_block_save(x, *ws, stride)
+    _all_close(saved, tp.projection_block_save_plain(x, *ws, stride))
+    assert torch.equal(saved[0], out) and torch.equal(tp.projection_block(x, *ws, stride), out)
+    assert (tp.KERNEL.launches, tp.KERNEL_SAVE.launches) == (before[0] + 2, before[1] + 1)
+
+
+# the three chain forms at their main-path shapes (small N): stage 0 (x of
+# 64x64x64, the projection at stride 1 + 2 identity blocks, F = 64) and the
+# frozen stages' whole-stage chains 1 (64x64x256, F = 128, stride 2, 3
+# identity blocks) and 2 (32x32x512, F = 256, stride 2, 5)
+CHAIN_MAIN_CASES = [(64, 64, 64, 256, 1, 2), (64, 256, 128, 512, 2, 3), (32, 512, 256, 1024, 2, 5)]
+
+
+@pytest.mark.parametrize("h,cin,f,cout,stride,k", CHAIN_MAIN_CASES)
+def test_stage_chain_forwards_at_main_path_widths(dev, h, cin, f, cout, stride, k):
+    """The no-save chain (counted as `stage_fused` at stage 0 and as
+    `stage_fused_frozen` for the whole-stage chains) and the saving chain
+    against their plain versions; two calls give the same bits."""
+    g = torch.Generator().manual_seed(18)
+    x = torch.rand(2, h, h, cin, generator=g).to(dev, torch.bfloat16)
+    proj = _proj(g, cin, f, cout, dev)
+    ids = [_id(g, cout, f, dev) for _ in range(k)]
+    counts = (tst.KERNEL, tst.KERNEL_FROZEN, tst.KERNEL_SAVE)
+    before = [c.launches for c in counts]
+    out = tst.fused_stage(x, proj, ids, stride)
+    _close(out, tst.stage_plain(x, proj, ids, stride))
+    saved = tst.fused_stage_save(x, proj, ids, stride)
+    got, want = saved, tst.stage_save_plain(x, proj, ids, stride)
+    _all_close([got[0], *got[1], *got[2], *got[3]], [want[0], *want[1], *want[2], *want[3]])
+    assert torch.equal(saved[0], out) and torch.equal(tst.fused_stage(x, proj, ids, stride), out)
+    packed = stride == 1
+    assert [c.launches - b for c, b in zip(counts, before)] == [2 * packed, 2 * (not packed), 1]
+
+
 @pytest.mark.parametrize("n,h,w", [(2, 10, 6), (4, 32, 32)])
 @pytest.mark.parametrize("cin,f,cout", [(64, 32, 128), (256, 64, 256), (256, 128, 512)])
 @pytest.mark.parametrize("stride", [1, 2])
@@ -344,6 +400,11 @@ def _chain_flat(res):
     return [dx, *(pd or ()), *[d for ds in idd for d in ds]]
 
 
+def _chain_flat_fwd(res):
+    out, bnds, h1s, h2s = res
+    return [out, *bnds, *h1s, *h2s]
+
+
 @pytest.mark.parametrize("n,h,w,stride,k,with_proj", CHAIN_CASES)
 def test_stage_backward_on_hopper_compositions(dev, n, h, w, stride, k, with_proj):
     """The chain backward on the Hopper compositions (the boundary masks in
@@ -389,14 +450,22 @@ def test_basic_block_forward_needs_whole_64_channel_steps(dev):
 
 
 @pytest.mark.parametrize("block", ["basic", "projection", "identity", "recompute", "chain", "pointwise",
-                                   "identity_forward"])
+                                   "identity_forward", "projection_forward", "chain_forward"])
 def test_block_backward_weight_gradients_are_deterministic(dev, block):
-    """Two calls of the redesigned backwards (and of the identity forward)
-    on the same inputs give the same bits: the weight gradients' split
-    partials are added in a fixed order, with no atomics (shapes whose
-    reductions split)."""
+    """Two calls of the redesigned backwards (and of the identity,
+    projection and chain forwards) on the same inputs give the same bits:
+    the weight gradients' split partials are added in a fixed order, with
+    no atomics (shapes whose reductions split)."""
     g = torch.Generator().manual_seed(12)
-    if block == "pointwise":
+    if block == "projection_forward":
+        x = torch.rand(4, 32, 32, 512, generator=g).to(dev, torch.bfloat16)
+        ws = _proj(g, 512, 256, 1024, dev)
+        first, second = tp.projection_block_save(x, *ws, 2), tp.projection_block_save(x, *ws, 2)
+    elif block == "chain_forward":
+        x = torch.rand(4, 32, 32, 64, generator=g).to(dev, torch.bfloat16)
+        proj, ids = _proj(g, 64, 64, 256, dev), [_id(g, 256, 64, dev) for _ in range(2)]
+        first, second = (_chain_flat_fwd(tst.fused_stage_save(x, proj, ids, 1)) for _ in range(2))
+    elif block == "pointwise":
         from argus_tpu_torch.ops.kernels import pointwise as tpw
 
         x = torch.randn(8192, 256, generator=g).to(dev, torch.bfloat16)
