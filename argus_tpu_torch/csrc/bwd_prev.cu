@@ -1,11 +1,11 @@
-// The ten redesigned kernels composed from the engines they ran on before,
-// the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient (wgrad.cuh),
-// which the pointwise forward still uses: the block backwards
-// (basic_fused_bwd.cu, proj_fused_bwd.cu, block_fused_bwd.cu,
-// block_fused_rbwd.cu), the stage chain's backward (stage_fused_bwd.cu), the
-// BasicBlock, identity bottleneck and projection forwards (basic_fused.cu,
-// block_fused.cu, proj_fused.cu), the chain forwards (stage_fused.cu) and the
-// pointwise backward (pointwise_bwd.cu). No wrapper of the port calls this
+// The eleven redesigned kernels composed from the engines they ran on
+// before, the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient
+// (wgrad.cuh): the block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu,
+// block_fused_bwd.cu, block_fused_rbwd.cu), the stage chain's backward
+// (stage_fused_bwd.cu), the BasicBlock, identity bottleneck and projection
+// forwards (basic_fused.cu, block_fused.cu, proj_fused.cu), the chain
+// forwards (stage_fused.cu) and the pointwise backward and forward
+// (pointwise_bwd.cu, pointwise.cu). No wrapper of the port calls this
 // library: chip_smoke.py and scripts/time_torch_block_bwd.py time it beside
 // the Hopper engines (same inputs, same call) and break both down by device
 // kernel.
@@ -205,4 +205,18 @@ extern "C" int argus_stage_fwd_save_prev(const void* x, void* out, void* const* 
   return static_cast<int>(argus::stage_fwd_save(argus::projection_block, argus::identity_block, x, out, bnds, h1s,
                                                 h2s, proj, ids, K, N, H, W, CIN, F, COUT, S,
                                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The pointwise forward as one launch of the conv-GEMM over a 1x1 grid of M
+// "images" (relu == 0: the gradient instantiation, the bias and residual
+// without a relu); arguments as `argus_pointwise_fwd` (pointwise.cu) takes
+// them.
+extern "C" int argus_pointwise_fwd_prev(const void* x, const void* w, const void* b, const void* res, void* out,
+                                        int M, int CIN, int COUT, int relu, void* stream) {
+  const argus::ConvSeg s = argus::make_seg(x, w, 1, 1, CIN, 1, 1, 0);
+  argus::ConvGemmArgs p = argus::gemm_args(s, nullptr, M, 1, 1, COUT, out);
+  p.bias0 = static_cast<const float*>(b);
+  p.residual = static_cast<const argus::bf16*>(res);
+  p.relu = relu;
+  return static_cast<int>(argus::launch_conv_gemm(p, static_cast<cudaStream_t>(stream)));
 }

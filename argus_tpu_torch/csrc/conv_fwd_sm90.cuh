@@ -11,9 +11,11 @@
 //                         (+ f32(residual[m, n]))))
 //
 // (biases f32; bias2 the second segment's, with kSc; the residual, an
-// identity shortcut like out, with kRes), the sum in that order and one
+// identity shortcut like out, with kRes; the relu left out with !kRelu, the
+// pointwise op's relu=False, a 1x1 only), the sum in that order and one
 // rounding, as conv_dgrad_sm90.cuh's forward mode rounds. Any C and COUT
-// that are multiples of 8.
+// that are multiples of 8. The pointwise op (pointwise.cu) is the 1x1 mode
+// over M images of 1 x 1 pixel: a tile is 128 consecutive rows.
 //
 // Bound on the H100: tensor-core issue for the 3x3s at C >= 128 and the
 // 1x1s at K >= 1024; device memory for the 1x1s at the bottleneck's stage 1
@@ -55,7 +57,16 @@
 //   next tile's steps during an epilogue.
 // The epilogue reads the biases (and the residual as 16-byte vectors,
 // prefetched into registers during the tile's first step where they allow)
-// and writes 16-byte vectors (sm90.cuh `quad_split`, `quad_join`).
+// and writes 16-byte vectors (sm90.cuh `quad_split`, `quad_join`). A 1x1
+// with the residual (kTma: conv3 of the identity block, the pointwise op's
+// Conv_2) instead moves both tiles by TMA: at a tile's start one consumer
+// thread loads the residual tile (BN/64 boxes of 128 pixels x 64 channels,
+// a 4-D map over the residual with the A operand's box) into one of two
+// epilogue buffers on its own mbarrier; the epilogue adds it from shared
+// memory, writes the rounded output over it in place, and the same thread
+// stores the buffer with TMA (rows and columns outside the tensor are not
+// written), waiting for a buffer's store to have read it only two tiles
+// later, before it loads into it again.
 
 #pragma once
 
@@ -70,6 +81,8 @@ struct ConvFwdArgs {
   CUtensorMap wmap;   // (taps, C, COUT) weight rows, 64 x 64 x 1 boxes
   CUtensorMap amap2;  // the second segment's source at stride2 (kSc)
   CUtensorMap wmap2;  // its (1, C2, COUT) weight rows
+  CUtensorMap rmap;   // the residual (kTma), boxes of 64 ch x bw x bh x bn pixels
+  CUtensorMap omap;   // the output (kTma), the same boxes
   int N, H, W, C, COUT;   // H, W: the output's
   int stride;             // of the first segment
   int C2, stride2;        // the second segment's channels and stride (kSc)
@@ -84,30 +97,37 @@ struct ConvFwdArgs {
 constexpr int kFwConsumers = 256;  // two warpgroups of 64 output pixels
 constexpr int kFwBM = 128;         // output pixels of a tile
 
-template <int BN, int MINB>
+template <int BN, int MINB, bool kTma>
 struct FwdCfg {
   // + the producer: a warp at two blocks per SM, a warpgroup (its registers
   // handed to the consumers) at one
   static constexpr int kThreads = kFwConsumers + (MINB == 1 ? 128 : 32);
   static constexpr int kTileA = kFwBM * 128;                    // one box: 128 pixels x 64 channels
   static constexpr int kStageBytes = kTileA + BN * 128;         // + BN/64 weight boxes
-  static constexpr int kBudget = (MINB == 1 ? 232448 : 113 * 1024) - 1024 - 128;
+  static constexpr int kEpiBytes = kTma ? 2 * kFwBM * BN * 2 : 0;  // two bf16 tiles of the residual / output
+  static constexpr int kBudget = (MINB == 1 ? 232448 : 113 * 1024) - 1024 - 256 - kEpiBytes;
   static constexpr int kStagesRaw = kBudget / kStageBytes;
   static constexpr int kStages = kStagesRaw > 8 ? 8 : kStagesRaw;  // >= 3
-  static constexpr int kSmem = kStages * kStageBytes + 1024 + 128;  // + alignment + barriers
-  static constexpr bool kPre = BN * MINB <= 128;                    // the residual prefetched
+  static constexpr int kSmem = kStages * kStageBytes + kEpiBytes + 1024 + 256;  // + alignment + barriers
+  static constexpr bool kPre = !kTma && BN * MINB <= 128;                       // the residual prefetched
+  static_assert(kStages >= 3, "a ring of at least three stages");
 };
 
-template <int KS, int BN, int MINB, bool kRes, bool kSc>
-__global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
+template <int KS, int BN, int MINB, bool kRes, bool kSc, bool kRelu, bool kTma>
+__global__ void __launch_bounds__(FwdCfg<BN, MINB, kTma>::kThreads, MINB)
     conv_fwd_tma_sm90_kernel(const __grid_constant__ ConvFwdArgs p) {
-  using Cfg = FwdCfg<BN, MINB>;
+  static_assert(!kTma || (kRes && !kSc && KS == 1), "the TMA epilogue is the residual 1x1's");
+  static_assert(kRelu || KS == 1, "the relu-off form is the 1x1's");
+  using Cfg = FwdCfg<BN, MINB, kTma>;
   constexpr int S = Cfg::kStages;
   constexpr int kPad = KS / 2;  // the padding
+  constexpr int kBox = kFwBM * 128;  // one epilogue box: 128 pixels x 64 bf16 channels, 128-byte swizzle
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * Cfg::kStageBytes);
+  uint8_t* epi = smem + S * Cfg::kStageBytes;  // kTma: two tiles of BN/64 boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + Cfg::kEpiBytes);
   uint64_t* empty = full + S;
+  uint64_t* efull = empty + S;  // kTma: the residual tile of epilogue buffer u has landed
   auto sA = [&](int st) { return smem + st * Cfg::kStageBytes; };
   auto sB = [&](int st) { return smem + st * Cfg::kStageBytes + Cfg::kTileA; };
 
@@ -124,6 +144,10 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kFwConsumers / 32);  // one arrival per consumer warp
+    }
+    if (kTma) {
+      mbar_init(&efull[0], 1);
+      mbar_init(&efull[1], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -205,10 +229,19 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
   for (int i = 0; i < R; ++i) acc[i] = 0.f;
 
   int gt = 0;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  int lt = 0;  // this block's tiles so far: kTma's epilogue buffer lt & 1
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++lt) {
     int n0, oh0, ow0;
     corner(tile, n0, oh0, ow0);
     const int c0 = (tile % ntn) * BN;
+    uint8_t* eb = epi + (lt & 1) * (Cfg::kEpiBytes / 2);
+    if (kTma && tid == 0) {
+      // the buffer's last store (two tiles ago) has read it: load this tile's residual
+      bulk_wait_read<1>();
+      mbar_expect_tx(&efull[lt & 1], kFwBM * BN * 2);
+#pragma unroll
+      for (int b = 0; b < BN / 64; ++b) tma_load_4d(eb + b * kBox, &p.rmap, &efull[lt & 1], c0 + b * 64, ow0, oh0, n0);
+    }
     for (int ts = 0; ts < T; ++ts, ++gt) {
       const int st = gt % S;
       mbar_wait(&full[st], (gt / S) & 1);
@@ -241,90 +274,137 @@ __global__ void __launch_bounds__(FwdCfg<BN, MINB>::kThreads, MINB)
     if (lane == 0) mbar_arrive(&empty[(gt - 1) % S]);
 
     // the epilogue: + bias (+ residual), relu, one rounding; the producer
-    // is loading the next tile's first steps meanwhile. The residual
-    // arrives and the output leaves as 16-byte vectors (quad_split /
-    // quad_join in sm90.cuh).
+    // is loading the next tile's first steps meanwhile.
+    if constexpr (kTma) {
+      // the residual tile from shared memory, the output over it: this
+      // thread's pair of columns 8j + 2q of row r is one 4-byte word of the
+      // swizzled box j / 8 (sm90.cuh `swz`)
+      mbar_wait(&efull[lt & 1], (lt >> 1) & 1);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int64_t ro = row_off(n0, oh0, ow0, i);
-      constexpr int JB = Cfg::kPre ? NB : (NB < 4 ? NB : 4);  // vectors of loads in flight together
+      for (int i = 0; i < 2; ++i) {
+        const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2) + 8 * i;
 #pragma unroll
-      for (int jb0 = 0; jb0 < NB; jb0 += JB) {
-        uint4 rv[JB];
-#pragma unroll
-        for (int jj = 0; jj < JB; ++jj) {
-          if (kRes && Cfg::kPre)
-            rv[jj] = pre[(kRes && Cfg::kPre) ? i * NB + jb0 + jj : 0];
-          else if (kRes)
-            fetch(ro, group_col(c0, jb0 + jj), rv[jj]);
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = c0 + 8 * j + (lane & 3) * 2;
+          const float2 bv =
+              n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias + n)) : make_float2(0.f, 0.f);
+          uint32_t* word = reinterpret_cast<uint32_t*>(eb + (j >> 3) * kBox + swz(r, j & 7) + (lane & 3) * 4);
+          const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(word);
+          float vx = acc[j * 4 + i * 2] + bv.x, vy = acc[j * 4 + i * 2 + 1] + bv.y;
+          vx += __bfloat162float(rv.x);
+          vy += __bfloat162float(rv.y);
+          __nv_bfloat162 o;
+          o.x = __float2bfloat16(kRelu ? fmaxf(vx, 0.f) : vx);
+          o.y = __float2bfloat16(kRelu ? fmaxf(vy, 0.f) : vy);
+          *word = *reinterpret_cast<const uint32_t*>(&o);
         }
+      }
+      fence_proxy_async();  // the output words -> visible to the TMA store
+      named_barrier(1, kFwConsumers);
+      if (tid == 0) {
 #pragma unroll
-        for (int jj = 0; jj < JB; ++jj) {
-          uint32_t rw[4] = {0u, 0u, 0u, 0u}, ow[4];
-          if (kRes) quad_split(rv[jj], rw);
+        for (int b = 0; b < BN / 64; ++b) tma_store_4d(&p.omap, eb + b * kBox, c0 + b * 64, ow0, oh0, n0);
+        bulk_commit();
+      }
+    } else {
+      // The residual arrives and the output leaves as 16-byte vectors
+      // (quad_split / quad_join in sm90.cuh).
 #pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            const int j = (jb0 + jj) * 4 + g;
-            const int n = c0 + 8 * j + (lane & 3) * 2;
-            const float2 bv =
-                n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias + n)) : make_float2(0.f, 0.f);
-            float vx = acc[j * 4 + i * 2] + bv.x, vy = acc[j * 4 + i * 2 + 1] + bv.y;
-            if (kSc) {  // the second segment's bias, after the first's
-              const float2 b2 =
-                  n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias2 + n)) : make_float2(0.f, 0.f);
-              vx += b2.x;
-              vy += b2.y;
-            }
-            if (kRes) {
-              const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rw[g]);
-              vx += __bfloat162float(r.x);
-              vy += __bfloat162float(r.y);
-            }
-            __nv_bfloat162 o;
-            o.x = __float2bfloat16(fmaxf(vx, 0.f));
-            o.y = __float2bfloat16(fmaxf(vy, 0.f));
-            ow[g] = *reinterpret_cast<const uint32_t*>(&o);
+      for (int i = 0; i < 2; ++i) {
+        const int64_t ro = row_off(n0, oh0, ow0, i);
+        constexpr int JB = Cfg::kPre ? NB : (NB < 4 ? NB : 4);  // vectors of loads in flight together
+#pragma unroll
+        for (int jb0 = 0; jb0 < NB; jb0 += JB) {
+          uint4 rv[JB];
+#pragma unroll
+          for (int jj = 0; jj < JB; ++jj) {
+            if (kRes && Cfg::kPre)
+              rv[jj] = pre[(kRes && Cfg::kPre) ? i * NB + jb0 + jj : 0];
+            else if (kRes)
+              fetch(ro, group_col(c0, jb0 + jj), rv[jj]);
           }
-          const uint4 o4 = quad_join(ow);
-          const int c = group_col(c0, jb0 + jj);
-          if (ro >= 0 && c < p.COUT) *reinterpret_cast<uint4*>(p.out + ro + c) = o4;
+#pragma unroll
+          for (int jj = 0; jj < JB; ++jj) {
+            uint32_t rw[4] = {0u, 0u, 0u, 0u}, ow[4];
+            if (kRes) quad_split(rv[jj], rw);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              const int j = (jb0 + jj) * 4 + g;
+              const int n = c0 + 8 * j + (lane & 3) * 2;
+              const float2 bv =
+                  n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias + n)) : make_float2(0.f, 0.f);
+              float vx = acc[j * 4 + i * 2] + bv.x, vy = acc[j * 4 + i * 2 + 1] + bv.y;
+              if (kSc) {  // the second segment's bias, after the first's
+                const float2 b2 =
+                    n < p.COUT ? __ldg(reinterpret_cast<const float2*>(p.bias2 + n)) : make_float2(0.f, 0.f);
+                vx += b2.x;
+                vy += b2.y;
+              }
+              if (kRes) {
+                const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rw[g]);
+                vx += __bfloat162float(r.x);
+                vy += __bfloat162float(r.y);
+              }
+              __nv_bfloat162 o;
+              o.x = __float2bfloat16(kRelu ? fmaxf(vx, 0.f) : vx);
+              o.y = __float2bfloat16(kRelu ? fmaxf(vy, 0.f) : vy);
+              ow[g] = *reinterpret_cast<const uint32_t*>(&o);
+            }
+            const uint4 o4 = quad_join(ow);
+            const int c = group_col(c0, jb0 + jj);
+            if (ro >= 0 && c < p.COUT) *reinterpret_cast<uint4*>(p.out + ro + c) = o4;
+          }
         }
       }
     }
   }
+  if (kTma && tid == 0) bulk_wait<0>();  // the last stores have left shared memory
 }
 
 // static: each kernel library keeps its own once-only state
-template <int KS, int BN, int MINB, bool kRes, bool kSc>
+template <int KS, int BN, int MINB, bool kRes, bool kSc, bool kRelu, bool kTma>
 static inline cudaError_t launch_conv_fwd_tma_cfg(const ConvFwdArgs& p, cudaStream_t stream) {
-  using Cfg = FwdCfg<BN, MINB>;
+  using Cfg = FwdCfg<BN, MINB, kTma>;
   static int sms = 0;  // set once per instantiation: the SM count and the shared-memory opt-in
   if (sms == 0) {
     int dev = 0, n = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes, kSc>,
+      e = cudaFuncSetAttribute(conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes, kSc, kRelu, kTma>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
     if (e != cudaSuccess) return e;
     sms = n * MINB;
   }
   const int64_t tiles = static_cast<int64_t>(p.tw) * p.th * p.timg * ((p.COUT + BN - 1) / BN);
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes, kSc><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
+  if constexpr (kTma) {  // the residual's and the output's maps, with the A operand's pixel box
+    ConvFwdArgs q = p;
+    cudaError_t e = make_tmap_nhwc(&q.rmap, p.residual, p.N, p.H, p.W, p.COUT, 1, p.bw, p.bh, p.bn);
+    if (e == cudaSuccess) e = make_tmap_nhwc(&q.omap, p.out, p.N, p.H, p.W, p.COUT, 1, p.bw, p.bh, p.bn);
+    if (e != cudaSuccess) return e;
+    conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes, kSc, kRelu, kTma><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(q);
+  } else {
+    conv_fwd_tma_sm90_kernel<KS, BN, MINB, kRes, kSc, kRelu, kTma><<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
 // the instantiation: the residual, or the second segment (never both); the
 // second segment is a template flag because a runtime test of it in the
-// producer and epilogue made every forward launch 1.4-1.8x slower (PERF.md)
-template <int KS, int BN, int MINB, bool kSc>
+// producer and epilogue made every forward launch 1.4-1.8x slower (PERF.md),
+// and so is the relu; a 1x1 with the residual takes the TMA epilogue (on
+// tiles of at most 128 columns, which launch_conv_fwd_tiles gives it: 1.10-
+// 1.38x faster than the register epilogue at the pointwise op's four
+// geometries with the residual, PERF.md)
+template <int KS, int BN, int MINB, bool kSc, bool kRelu>
 static inline cudaError_t launch_conv_fwd_tma_res(const ConvFwdArgs& p, cudaStream_t stream) {
   if constexpr (kSc)
-    return launch_conv_fwd_tma_cfg<KS, BN, MINB, false, true>(p, stream);
+    return launch_conv_fwd_tma_cfg<KS, BN, MINB, false, true, kRelu, false>(p, stream);
   else
-    return p.residual != nullptr ? launch_conv_fwd_tma_cfg<KS, BN, MINB, true, false>(p, stream)
-                                 : launch_conv_fwd_tma_cfg<KS, BN, MINB, false, false>(p, stream);
+    return p.residual != nullptr
+               ? launch_conv_fwd_tma_cfg<KS, BN, MINB, true, false, kRelu, KS == 1 && BN <= 128>(p, stream)
+               : launch_conv_fwd_tma_cfg<KS, BN, MINB, false, false, kRelu, false>(p, stream);
 }
 
 // The tile box and tiles of an output (N, Ho, Wo, COUT): powers of two,
@@ -350,15 +430,15 @@ inline void conv_fwd_tiles(ConvFwdArgs& p, int N, int Ho, int Wo, int COUT) {
 
 // The tile width: 64 (two blocks an SM) for COUT <= 64, 128 for COUT <= 128
 // and for a 1x1 with the residual (the identity forward's conv3, K = F: 2-8
-// k-steps a tile, is paced by its epilogue: 128-wide tiles, whose residual
-// is prefetched, 0.38 against 0.48 ms on 256-wide tiles at F = 256,
+// k-steps a tile, is paced by its epilogue: 128-wide tiles, 0.38 against
+// 0.48 ms on 256-wide tiles at F = 256 with the register epilogue,
 // PERF.md), else 256 (the projection's conv3 and shortcut, K = F + CIN).
-template <int KS, bool kSc>
+template <int KS, bool kSc, bool kRelu = true>
 static inline cudaError_t launch_conv_fwd_tiles(const ConvFwdArgs& p, cudaStream_t stream) {
   const bool res1x1 = KS == 1 && p.residual != nullptr;
-  if (p.COUT <= 64) return launch_conv_fwd_tma_res<KS, 64, 2, kSc>(p, stream);
-  if (p.COUT <= 128 || res1x1) return launch_conv_fwd_tma_res<KS, 128, 1, kSc>(p, stream);
-  return launch_conv_fwd_tma_res<KS, 256, 1, kSc>(p, stream);
+  if (p.COUT <= 64) return launch_conv_fwd_tma_res<KS, 64, 2, kSc, kRelu>(p, stream);
+  if (p.COUT <= 128 || res1x1) return launch_conv_fwd_tma_res<KS, 128, 1, kSc, kRelu>(p, stream);
+  return launch_conv_fwd_tma_res<KS, 256, 1, kSc, kRelu>(p, stream);
 }
 
 // out = bf16(relu(conv_S(src) + bias (+ f32(residual)))), a KS x KS conv (3
@@ -366,8 +446,9 @@ static inline cudaError_t launch_conv_fwd_tiles(const ConvFwdArgs& p, cudaStream
 // COUT) HWIO, bias (COUT,) f32, residual (like out) or nullptr, out (N, Ho,
 // Wo, COUT) with Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1; C % 8 == 0 and
 // COUT % 8 == 0 (the last 64-channel step and the last tile's columns are
-// zero-filled past C and COUT).
-template <int KS>
+// zero-filled past C and COUT). kRelu false (a 1x1 only): no relu. A 1x1
+// with the residual takes the TMA epilogue.
+template <int KS, bool kRelu = true>
 inline cudaError_t launch_conv_fwd_tma(const void* src, const void* w, const float* bias, const void* residual,
                                        void* out, int N, int H, int W, int C, int COUT, int S, cudaStream_t stream) {
   static_assert(KS == 1 || KS == 3, "a 1x1 or a 3x3");
@@ -382,7 +463,7 @@ inline cudaError_t launch_conv_fwd_tma(const void* src, const void* w, const flo
   p.out = static_cast<bf16*>(out);
   cudaError_t e = make_tmap_nhwc(&p.amap, src, N, H, W, C, S, p.bw, p.bh, p.bn);
   if (e == cudaSuccess) e = make_tmap_wrows(&p.wmap, w, KS * KS, C, COUT);
-  return e == cudaSuccess ? launch_conv_fwd_tiles<KS, false>(p, stream) : e;
+  return e == cudaSuccess ? launch_conv_fwd_tiles<KS, false, kRelu>(p, stream) : e;
 }
 
 // out = bf16(relu(src @ w + src2[:, ::S, ::S] @ w2 + bias + bias2)): the

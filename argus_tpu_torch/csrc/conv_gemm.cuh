@@ -1,11 +1,11 @@
 // Implicit-GEMM convolution over NHWC bf16 with a fused bias/residual/relu
-// epilogue: the mma.sync tensor-core kernel behind the pointwise forward
-// (pointwise.cu), and behind the previous forms that bwd_prev.cu keeps for
-// timing (conv_bwd.cuh's block and chain backwards, the BasicBlock,
-// identity bottleneck and projection forwards through `identity_block` and
-// `projection_block` below, the chain forwards, the pointwise backward).
-// Every block backward, the chain backward, every block and chain forward
-// and the pointwise backward run on the Hopper engines instead
+// epilogue: the mma.sync tensor-core kernel behind the previous forms that
+// bwd_prev.cu keeps for timing (conv_bwd.cuh's block and chain backwards,
+// the BasicBlock, identity bottleneck and projection forwards through
+// `identity_block` and `projection_block` below, the chain forwards, the
+// pointwise backward and forward). No main path launches it: every block
+// backward, the chain backward, every block and chain forward and the
+// pointwise forward and backward run on the Hopper engines
 // (conv_dgrad_sm90.cuh, conv_fwd_sm90.cuh, wgrad_sm90.cuh).
 //
 //   out[m, n] = bf16(relu(sum_k A[m, k] * B[k, n] (+ bias0[n]) (+ bias1[n])

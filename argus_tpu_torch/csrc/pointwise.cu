@@ -9,24 +9,29 @@
 //
 //   out = bf16(relu(x2 @ w_eff + b_eff [+ res2]))      sums in f32, one rounding
 //
+// (relu=False: the same without the relu).
+//
 // Bound on the H100: at ResNet-50's widths (K or COUT = 64 to 2048) the op
 // does 2*M*CIN*COUT FLOPs on (CIN + COUT [+ COUT]) * 2 bytes a row, 64 to
 // 680 FLOP per byte: device memory bounds the stage-0 and narrow cases, the
-// tensor cores the 1024/2048-channel ones. Design: one launch of the
-// implicit-GEMM kernel (conv_gemm.cuh) over a 1x1 grid of M "images", the
-// bias, residual and relu in its epilogue, so x is read once and out written
-// once, each rounding where the TPU kernel rounds. relu == 0 takes the
-// gradient instantiation, which adds the bias and residual without a relu.
+// tensor cores the 1024/2048-channel ones. Design: one launch of the TMA
+// forward engine's 1x1 mode (conv_fwd_sm90.cuh) over the rows as M images of
+// 1 x 1 pixel, so a tile is 128 consecutive rows (one TMA box of 64 channels
+// a k-step, zero-filled past M and past CIN), wgmma on two consumer
+// warpgroups, the bias, residual and relu in its epilogue (with the
+// residual: both tiles through TMA and shared memory), x read once and out
+// written once, each rounding where the TPU kernel rounds. relu is a
+// template flag of the engine: relu=False takes its own instantiation. The
+// previous form, one launch of the mma.sync conv-GEMM (conv_gemm.cuh), is
+// `argus_pointwise_fwd_prev` in bwd_prev.cu.
 
-#include "conv_gemm.cuh"
+#include "conv_fwd_sm90.cuh"
 
 // x (M, CIN), w (CIN, COUT), b (COUT,) f32, res (M, COUT) or nullptr, out (M, COUT).
 extern "C" int argus_pointwise_fwd(const void* x, const void* w, const void* b, const void* res,
                                    void* out, int M, int CIN, int COUT, int relu, void* stream) {
-  const argus::ConvSeg s = argus::make_seg(x, w, 1, 1, CIN, 1, 1, 0);
-  argus::ConvGemmArgs p = argus::gemm_args(s, nullptr, M, 1, 1, COUT, out);
-  p.bias0 = static_cast<const float*>(b);
-  p.residual = static_cast<const argus::bf16*>(res);
-  p.relu = relu;
-  return static_cast<int>(argus::launch_conv_gemm(p, static_cast<cudaStream_t>(stream)));
+  const float* bias = static_cast<const float*>(b);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(relu ? argus::launch_conv_fwd_tma<1>(x, w, bias, res, out, M, 1, 1, CIN, COUT, 1, st)
+                               : argus::launch_conv_fwd_tma<1, false>(x, w, bias, res, out, M, 1, 1, CIN, COUT, 1, st));
 }

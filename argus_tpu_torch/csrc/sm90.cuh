@@ -2,7 +2,8 @@
 // (conv_dgrad_sm90.cuh, wgrad_sm90.cuh, conv_fwd_sm90.cuh): the
 // shared-memory matrix descriptor of wgmma for the 128-byte swizzle, the
 // warpgroup MMA itself (bf16 in, f32 accumulate), its fences, mbarriers,
-// the 2-D, 3-D and 4-D TMA loads, and the host-side tensor-map encoders reached
+// the 2-D, 3-D and 4-D TMA loads, the 4-D TMA store and its bulk groups, a
+// named barrier, and the host-side tensor-map encoders reached
 // through cudaGetDriverEntryPoint (no libcuda link).
 //
 // The 128-byte swizzle: a tile row is 64 bf16 (128 bytes, eight 16-byte
@@ -198,6 +199,38 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 4-D TMA store of one box from shared memory at (c0 innermost, c1, c2, c3)
+// into the tensor; elements outside the tensor are not written. The box
+// leaves in the bulk group that `bulk_commit` closes.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// waits until at most N of this thread's bulk groups are still reading their
+// shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// waits until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier `id`
+// (1-15; 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Host: a 2-D bf16 tensor map of a row-major (rows, cols) matrix with a

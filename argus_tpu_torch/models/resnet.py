@@ -100,8 +100,8 @@ AUTO_FUSE = {
     ("identity", "train"): True,  # flagship step 16.63, frozen_stages=3 step -0.15 (TMA forward, Hopper backward)
     ("basic", "forward"): True,  # keypoint eval forward 4.41 (the TMA forward)
     ("basic", "train"): False,  # keypoint step -0.13
-    ("pointwise", "forward"): True,  # serving 8.15, frozen_stages=3 step 8.86 (fuse_pointwise "auto" in all 16 blocks)
-    ("pointwise", "train"): False,  # flagship step -0.52, frozen_stages=3 step -3.29 (Hopper backward)
+    ("pointwise", "forward"): True,  # serving 31.60, frozen_stages=3 step 30.99 (fuse_pointwise "auto" in all 16 blocks)
+    ("pointwise", "train"): True,  # flagship step 22.88, frozen_stages=3 step 1.16 (TMA forward, Hopper backward)
 }
 
 

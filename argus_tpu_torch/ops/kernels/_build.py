@@ -105,6 +105,25 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _stream_api():
+    """(the current raw CUDA stream of a device index, the current device
+    index): torch's private calls where this torch has them (~8 us of host
+    time a launch less than a Stream object and a device switch, which the
+    small BN reductions feel), else the public ones."""
+    import torch
+
+    fast = getattr(torch._C, "_cuda_getCurrentRawStream", None), getattr(torch._C, "_cuda_getDevice", None)
+    if all(fast):
+        return fast
+    return (lambda index: torch.cuda.current_stream(index).cuda_stream), torch.cuda.current_device
+
+
+def current_stream(index: int) -> int:
+    """The current CUDA stream of device `index`, as a raw handle."""
+    return _stream_api()[0](index)
+
+
 class Kernel:
     """One C launcher of a kernel library, with its launch count."""
 
@@ -124,13 +143,20 @@ class Kernel:
     def launch(self, *args) -> None:
         """Call the launcher with `args` (tensors as their device pointers,
         ints as ints) and, last, the current CUDA stream of the first
-        tensor's device, the argument order every launcher follows."""
+        tensor's device, the argument order every launcher follows. The
+        launch goes to the current device: it is switched to the tensor's
+        only when they differ (host time, `_stream_api`)."""
         import torch
 
-        device = next(a.device for a in args if isinstance(a, torch.Tensor))
+        index = next(a.device for a in args if isinstance(a, torch.Tensor)).index
         cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        with torch.cuda.device(device):  # the launch goes to the current device
-            err = self._fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
+        stream_of, device = _stream_api()
+        stream = stream_of(index)
+        if index == device():
+            err = self._fn(*cargs, stream)
+        else:
+            with torch.cuda.device(index):
+                err = self._fn(*cargs, stream)
         if err != 0:
             msg = _library(self.source).argus_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err} ({msg})")

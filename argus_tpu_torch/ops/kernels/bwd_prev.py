@@ -1,17 +1,19 @@
-"""The redesigned kernels on the engine they ran on before their Hopper
-redesign (`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and weight gradient
-that the pointwise forward keeps): the BasicBlock, projection-block and
-identity-block backwards, the identity block's recompute backward, the
-stage chain's backward, the BasicBlock, identity bottleneck and projection
-forwards, the chain forwards and the pointwise backward. No path of the
-port calls these: `chip_smoke.py` and `scripts/time_torch_block_bwd.py`
-time them beside `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
-`block_fused.block_bwd`, `block_fused.block_bwd_recompute`,
-`stage_fused.stage_bwd`, `basic_fused.basic_block`,
-`block_fused.bottleneck_block`, `proj_fused.projection_block(_save)`,
-`stage_fused.fused_stage(_save)` and `pointwise.pointwise_bwd` on the same
-inputs, in the same call. CUDA tensors only; outputs as the redesigned
-wrappers give them.
+"""The redesigned kernels in the form they had before their redesign
+(`csrc/bwd_prev.cu`: the mma.sync conv-GEMM and weight gradient;
+`csrc/bn_reduce.cu`'s `_prev` launchers: the two-launch BN reduction): the
+BasicBlock, projection-block and identity-block backwards, the identity
+block's recompute backward, the stage chain's backward, the BasicBlock,
+identity bottleneck and projection forwards, the chain forwards, the
+pointwise backward and forward, and BatchNorm's statistics (and the
+backward reduction, `bn_bwd_reduce_prev`). No path of the port calls
+these: `chip_smoke.py` and `scripts/time_torch_block_bwd.py` time them beside
+`basic_fused.basic_bwd`, `proj_fused.proj_bwd`, `block_fused.block_bwd`,
+`block_fused.block_bwd_recompute`, `stage_fused.stage_bwd`,
+`basic_fused.basic_block`, `block_fused.bottleneck_block`,
+`proj_fused.projection_block(_save)`, `stage_fused.fused_stage(_save)`,
+`pointwise.pointwise_bwd`, `pointwise.pointwise_fwd` and
+`bn_reduce.fused_stats` on the same inputs, in the same call. CUDA tensors
+only; outputs as the redesigned wrappers give them.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
 from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2
 from argus_tpu_torch.ops.kernels.block_fused import transposed_weights as identity_transposed_weights
+from argus_tpu_torch.ops.kernels.bn_reduce import visited_rows
 from argus_tpu_torch.ops.kernels.proj_fused import forward_launch, transposed_weights
 from argus_tpu_torch.ops.kernels.stage_fused import chain_bwd_launch, chain_fwd_launch, chain_fwd_save_launch
 
@@ -35,6 +38,9 @@ KERNEL_PW_BWD = Kernel("bwd_prev", "argus_pointwise_bwd_prev", [P] * 8 + [L] + [
 KERNEL_PROJ_FWD = Kernel("bwd_prev", "argus_proj_fwd_prev", [P] * 12 + [I] * 7 + [P])
 KERNEL_STAGE_FWD = Kernel("bwd_prev", "argus_stage_fwd_prev", [P] * 8 + [I] * 8 + [P])
 KERNEL_STAGE_FWD_SAVE = Kernel("bwd_prev", "argus_stage_fwd_save_prev", [P] * 7 + [I] * 8 + [P])
+KERNEL_PW_FWD = Kernel("bwd_prev", "argus_pointwise_fwd_prev", [P] * 5 + [I] * 4 + [P])
+KERNEL_BN_STATS = Kernel("bn_reduce", "argus_bn_stats_prev", [P, P, P, L, L, L, I, I, I, P])
+KERNEL_BN_BWD = Kernel("bn_reduce", "argus_bn_bwd_reduce_prev", [P] * 6 + [L, L, L, I, I, I, P])
 
 _WG_TILE, _WG_TARGET_BLOCKS, _WG_MIN_ROWS = 64, 4 * 132, 2048
 
@@ -187,3 +193,41 @@ def pointwise_bwd_prev(g2, out2, x2, w, relu=True, emit_m=False, need_dx=True):
     ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=x2.device)
     KERNEL_PW_BWD.launch(g2, out2, x2, w.t().contiguous(), dx, dw, mm, ws, ws_elems, m, cin, cout, int(relu))
     return dx, dw, (mm if relu else g2) if emit_m else None
+
+
+def pointwise_fwd_prev(x2, w, b, res2=None, relu=True):
+    """out (M, COUT), as `pointwise.pointwise_fwd`."""
+    m, cin = x2.shape
+    cout = w.shape[1]
+    out = torch.empty((m, cout), dtype=torch.bfloat16, device=x2.device)
+    KERNEL_PW_FWD.launch(x2, w, b, res2, out, m, cin, cout, int(relu))
+    return out
+
+
+_BN_TARGET_BLOCKS, _BN_MIN_ROWS = 4 * 132, 1024  # the two-launch reduction's split rule
+
+
+def _bn_prev_args(x, stride):
+    C = x.shape[-1]
+    R, S, n = visited_rows(x.numel() // C, C, stride)
+    vec = 16 // x.element_size()
+    slabs = -(-C // (32 * vec))
+    splits = max(1, min(-(-n // _BN_MIN_ROWS), _BN_TARGET_BLOCKS // slabs))
+    ws = torch.empty((splits, 2, C), dtype=torch.float32, device=x.device)
+    out = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    return ws, out, (n, R, S, C, int(x.dtype == torch.float32), splits), n
+
+
+def bn_stats_prev(x, stride=1):
+    """(sum x, sum x^2, n_rows), as `bn_reduce.fused_stats`: the fixed grid of
+    register loads, then a second launch adding the partials."""
+    ws, out, ints, n = _bn_prev_args(x, stride)
+    KERNEL_BN_STATS.launch(x, ws, out, *ints)
+    return out[0], out[1], n
+
+
+def bn_bwd_reduce_prev(x, dy, mean, rstd, stride=1):
+    """(sum dy, sum dy * xhat, n_rows), as `bn_reduce.fused_bn_bwd_reduce`."""
+    ws, out, ints, n = _bn_prev_args(x, stride)
+    KERNEL_BN_BWD.launch(x, dy, mean, rstd, ws, out, *ints)
+    return out[0], out[1], n

@@ -16,9 +16,10 @@ returns it.
 
 Two implementations of the same function, as argus_tpu has them:
 - "kernel" (`fuse_pointwise="on"`, argus_tpu's Pallas kernels): on a CUDA
-  tensor the hand-written kernels `csrc/pointwise.cu` (the mma.sync
-  conv-GEMM) and `csrc/pointwise_bwd.cu` (a mask pass, then dx and dw on
-  the Hopper wgmma/TMA engines), on a CPU tensor their plain versions
+  tensor the hand-written kernels `csrc/pointwise.cu` (the TMA forward
+  engine's 1x1 mode over M images of 1 x 1 pixel) and
+  `csrc/pointwise_bwd.cu` (a mask pass, then dx and dw on the Hopper
+  wgmma/TMA engines), on a CPU tensor their plain versions
   (`pointwise_fwd_plain`, `pointwise_bwd_plain`), which `chip_smoke.py`
   holds the kernels against on the card;
 - "dot" (`fuse_pointwise="dot"`, argus_tpu's `impl="xla"`): the same

@@ -12,8 +12,8 @@ Phases, each fatal on failure (nothing is caught and ignored):
    the BasicBlock, projection and identity backwards' libraries (the
    identity's saved-residual and recompute backwards), the stage chain's
    backward, the BasicBlock, identity bottleneck and projection forwards,
-   the chain forwards and the pointwise backward must show wgmma (HGMMA)
-   instructions;
+   the chain forwards and the pointwise backward and forward must show
+   wgmma (HGMMA) instructions;
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -41,15 +41,17 @@ Phases, each fatal on failure (nothing is caught and ignored):
    wgmma/TMA engines (the BasicBlock, projection, and the identity block's
    saved-residual and recompute backwards, the stage-0 chain's backward,
    the BasicBlock, identity bottleneck and projection forwards, the chain
-   forwards and the pointwise backward) beside the mma.sync engine they
-   ran on before (`ops/kernels/bwd_prev.py`), at the seven BasicBlock and
-   projection geometries, the four identity ones, the chain's, the four
-   BasicBlock forward ones, the three identity forward ones of stages 1-3,
-   configuration P's twelve pointwise ones, the three projection forward
-   ones, the frozen stages' two chains and the stage-0 chain's saving
-   forward, each call broken down by device kernel (data gradient,
-   weight gradient, split sum, mask pass, forward conv, forward conv on the
-   TMA engine) from `torch.profiler`, with per-step totals;
+   forwards, the pointwise backward and forward) and the one-launch BN
+   reductions beside the form they had before (the mma.sync engine, the
+   two-launch reduction: `ops/kernels/bwd_prev.py`), at the seven
+   BasicBlock and projection geometries, the four identity ones, the
+   chain's, the four BasicBlock forward ones, the three identity forward
+   ones of stages 1-3, configuration P's twelve pointwise ones (backward
+   and forward), the three projection forward ones, the frozen stages' two
+   chains, the stage-0 chain's saving forward and ResNet-50's 24 BN cases,
+   each call broken down by device kernel (data gradient, weight gradient,
+   split sum, mask pass, forward conv, forward conv on the TMA engine, BN
+   stream, BN reduce) from `torch.profiler`, with per-step totals;
 5. the augmentation kernels at the flagship step's shapes (N = 512 camera
    images, 256x256, parameters from the port's samplers): the whole-stack
    kernel against its plain version in bf16 at each of the 4 hue positions
@@ -112,8 +114,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
    images and over the first 128 (2e-2 * max |plain| + 1e-2); BatchNorm's
    statistics and backward reductions at every distinct (M, C) of ResNet-50's
    53 BN inputs at N = 512, strides 1 and 4 (n_rows equal, sums within 1e-4
-   of each channel's sum of magnitudes), timed beside `torch.batch_norm_stats`
-   and `torch.batch_norm_backward_reduce`; then Path A, the flagship step
+   of each channel's sum of magnitudes, one device kernel a call, two calls
+   bit-equal), timed beside `torch.batch_norm_stats` and
+   `torch.batch_norm_backward_reduce` (CUDA events over 10 calls, the device
+   time from torch.profiler, the host's enqueue time); then Path A, the flagship step
    with the fused stem trained (fuse flags "on"): against the unfused cuDNN
    step on 8 augmented rows within phase 6's gates (conv_init's gradient
    included), launches 1 augment / 1 stem save / 1 stem backward / 1 + 1 /
@@ -138,7 +142,7 @@ Phases, each fatal on failure (nothing is caught and ignored):
 10. what "auto" chooses (`models.resnet.AUTO_FUSE`, printed): the fuse
    flags all "on", all "off" and all "auto" for the flagship step, the
    `frozen_stages=3` step and batch-256 serving, in this call, the three
-   settings interleaved (the fastest of 24 steps or predicts each); an
+   settings interleaved (the fastest of 288 steps or predicts each); an
    "auto" step launches exactly what the table names, and is no slower
    than the faster of "on" and "off" by more than 2%;
 11. `train()` end to end: the `frozen_stages=3` fine-tune at full width
@@ -153,9 +157,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
 12. the pointwise kernels (`fuse_pointwise`, B11) at every (M, CIN, COUT,
    residual) of configuration P's step (N = 512 camera images, 256x256:
    Conv_0 and Conv_2 of the 16 bottlenecks) and at an odd M (513 x 7 x 7):
-   the forward with and without the residual, the backward with and
-   without emitting m, against their plain versions under the conv gate
-   (out, dx, m, dw); timed beside the plain version and "dot" (cuBLAS's bf16
+   the forward with and without the residual (and with relu off at the odd
+   M and at one P geometry of each kind), the backward with and without
+   emitting m, against their plain versions under the conv gate (out, dx,
+   m, dw); timed beside the plain version and "dot" (cuBLAS's bf16
    GEMMs with f32 outputs and PyTorch's epilogue passes, `library_ms`);
 13. configuration P, the flagship step with `fuse_pointwise="on"` and the
    block, projection and chain flags off: loss and gradients on 8
@@ -194,6 +199,7 @@ package beside it. Imports nothing of JAX or argus_tpu.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -292,7 +298,18 @@ EXPECTED_FROZEN_EVAL_LAUNCHES = {
     **_NONE, "stem_fused_packed": 1, "stage_fused": 1, "stage_fused_frozen": 2, "proj_fused": 1, "block_fused": 2,
 }
 C1_STEPS = 5  # timed steps of the loop phase's compute-only step; the median is kept
-C1_ROUNDS = 24  # interleaved steps or predicts per fuse setting in the auto phase, in rotated orders; the fastest is kept
+# interleaved steps or predicts per fuse setting in the auto phase, in the
+# orders of AUTO_ORDERS; the fastest is kept (the steps carry the host's
+# jitter: the fine-tune's enqueue takes about as long as its device time,
+# and the fastest of 24, and once of 96, came 3-11% apart between settings
+# that launch the same kernels)
+C1_ROUNDS = 288
+# the order of ("on", "off", "auto") in auto-phase round r is
+# AUTO_ORDERS[r % 6]: over six rounds each setting runs twice in each
+# position and three times after each other setting (a step or predict
+# after an "off" one tends to be slower, and rotating one order put "auto"
+# after "off" twice as often as "on")
+AUTO_ORDERS = ((0, 1, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0), (1, 0, 2), (0, 2, 1))
 LOOP_TRAIN, LOOP_VAL = 1024, 160  # rendered examples of the loop phase: 4 train batches, 1 padded val batch
 LOOP_VAL_BATCHES = 1
 AUTO_SLACK = 0.02  # "auto" may be this much slower than the faster of all "on" and all "off"
@@ -364,7 +381,7 @@ def hgmma_check() -> None:
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd", "basic_fused",
-                 "stage_fused_bwd", "block_fused", "pointwise_bwd", "proj_fused", "stage_fused"):
+                 "stage_fused_bwd", "block_fused", "pointwise_bwd", "proj_fused", "stage_fused", "pointwise"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         n = sass.count("HGMMA")
@@ -872,27 +889,36 @@ def basic_kernel_phase() -> dict:
     return results
 
 
-def engine_phase() -> None:
-    """The redesigned kernels on the Hopper engines (the BasicBlock,
-    projection, identity and recompute backwards, the stage-0 chain's
-    backward, the BasicBlock, identity and projection forwards, the chain
-    forwards, the pointwise backward) beside the mma.sync engine they ran on
-    before (`ops/kernels/bwd_prev.py`), at the geometries of
-    scripts/time_torch_block_bwd.py, in this call: ms per call (CUDA events,
-    5 calls) and each call's device kernels by launch (torch.profiler), and
-    the ms per train step of each (the recompute's per configuration R step,
-    the BasicBlock forward's per eval forward, the pointwise backward's per
-    configuration P step, the frozen chains' per frozen_stages=3 step; stage
-    0's identity geometry runs in the chain, 0 a step; the identity and
-    projection forwards' per step is also their time per predict)."""
+@functools.cache
+def _timing_script():
+    """scripts/time_torch_block_bwd.py as a module (its cases, breakdown and
+    ResNet-50's BN inputs), scripts/ kept off sys.path."""
     import importlib.util
-
-    import torch
 
     spec = importlib.util.spec_from_file_location("time_torch_block_bwd",
                                                   os.path.join(REPO, "scripts", "time_torch_block_bwd.py"))
-    tbb = importlib.util.module_from_spec(spec)  # the script's cases and breakdown, scripts/ kept off sys.path
-    spec.loader.exec_module(tbb)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def engine_phase() -> None:
+    """The redesigned kernels (the BasicBlock, projection, identity and
+    recompute backwards, the stage-0 chain's backward, the BasicBlock,
+    identity and projection forwards, the chain forwards, the pointwise
+    backward and forward on the Hopper engines; the BN reductions as one
+    launch) beside the form they had before (`ops/kernels/bwd_prev.py`), at
+    the geometries of scripts/time_torch_block_bwd.py, in this call: ms per
+    call (CUDA events, 5 calls) and each call's device kernels by launch
+    (torch.profiler), and the ms per train step of each (the recompute's per
+    configuration R step, the BasicBlock forward's per eval forward, the
+    pointwise kernels' per configuration P step, the frozen chains' per
+    frozen_stages=3 step, the BN reductions' per Path B step; stage 0's
+    identity geometry runs in the chain, 0 a step; the identity and
+    projection forwards' per step is also their time per predict)."""
+    import torch
+
+    tbb = _timing_script()
 
     got = {}
     for engine in ("prev", "new"):
@@ -900,39 +926,67 @@ def engine_phase() -> None:
             ms, _ = tbb.cuda_ms(fn, 5)
             parts = tbb.breakdown(fn)
             got.setdefault((row, label), {})[engine] = (ms, count)
-            say(f"{'mma.sync' if engine == 'prev' else 'Hopper'} engine {row} {label} x{count}: {ms:.3f} ms per call; "
+            say(f"{'previous' if engine == 'prev' else 'redesigned'} {row} {label} x{count}: {ms:.3f} ms per call; "
                 f"{tbb.fmt(parts)}")
         torch.cuda.empty_cache()
     step = {}
     for (row, label), d in got.items():
         (pms, count), (nms, _) = d["prev"], d["new"]
-        say(f"{row} {label}: {nms:.3f} ms on the Hopper engine against {pms:.3f} ms on the mma.sync engine "
-            f"({pms / nms:.2f}x)")
+        say(f"{row} {label}: {nms:.3f} ms redesigned against {pms:.3f} ms in the previous form ({pms / nms:.2f}x)")
         prev, new = step.get(row, (0.0, 0.0))
         step[row] = (prev + count * pms, new + count * nms)
     per = {"block_fused_rbwd": "R step", "basic_fused": "eval forward", "pointwise_bwd": "P step",
-           "stage_fused_frozen": "frozen_stages=3 step"}
+           "pointwise": "P step", "stage_fused_frozen": "frozen_stages=3 step", "bn_stats": "Path B step",
+           "bn_bwd_reduce": "Path B step"}
     for row, (pms, nms) in step.items():
-        say(f"{row} per {per.get(row, 'train step')}: {nms:.2f} ms on the Hopper engine against {pms:.2f} ms "
+        say(f"{row} per {per.get(row, 'train step')}: {nms:.2f} ms redesigned against {pms:.2f} ms "
             f"({pms / nms:.2f}x)")
 
 
-def _resnet50_bn_inputs(n: int) -> list:
-    """(M, C, count) of the inputs of ResNet-50's 53 BatchNorms for n
-    256x256 images, grouped by shape: the stem's, then per stage the entry
-    block's BN0 (before the stride), BN1, BN2 and projection, and the
-    identity blocks' BN0-2."""
-    shapes = {(n * (HW // 2) ** 2, 64): 1}
-    side = HW // 4
-    for i, blocks in enumerate((3, 4, 6, 3)):
-        f = 64 * 2**i
-        out = side if i == 0 else side // 2
-        for m, c, k in ((n * side * side, f, 1), (n * out * out, f, 1 + 2 * (blocks - 1)),
-                        (n * out * out, 4 * f, 2 + (blocks - 1))):
-            shapes[(m, c)] = shapes.get((m, c), 0) + k
-        side = out
-    assert sum(shapes.values()) == 53
-    return [(m, c, k) for (m, c), k in shapes.items()]
+def device_ms(fn, reps: int):
+    """(device ms per launch or None, {device kernel: launches}) of `reps`
+    calls of `fn` after a warm-up, from torch.profiler's kernel records. On
+    this card's PyTorch a profiled window now and then loses records (a
+    launch, or the whole window, sometimes several windows in a row): the
+    time is per recorded launch, and a window with no record is read again,
+    up to five times; None when none had a record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, counts = 0.0, {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            t = getattr(ev, "self_cuda_time_total", 0.0) if t is None else t
+            if t > 0:
+                us += t
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+        if counts:
+            return us / 1e3 / sum(counts.values()), counts
+    return None, {}
+
+
+def host_us(fn, reps: int) -> float:
+    """µs of the host per call of `fn`, `reps` calls enqueued back to back
+    after ten (the device kept busy by the first ones; synchronized
+    after)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
 
 
 def _ulp_compare(name, got, want) -> float:
@@ -964,8 +1018,11 @@ def stem_bn_kernel_phase() -> dict:
     reductions at stride 1 and 4: n_rows equal, sums within BN_RTOL of each
     channel's sum of magnitudes; library_ms `torch.batch_norm_stats` and
     `torch.batch_norm_backward_reduce` on the channels-last view (stride 1;
-    mean/invstd and sum dy, sum dy*(x-mean)). Times per train step: one
-    stem each way, each BN shape times its count."""
+    mean/invstd and sum dy, sum dy*(x-mean)); each reduction one device
+    kernel a call and two calls bit-equal; beside the CUDA-event time (10
+    calls) the device time (torch.profiler, 10 calls) and the host's
+    enqueue time per call (100 calls). Times per train step: one stem each
+    way, each BN shape times its count."""
     import torch
     import torch.nn.functional as F
 
@@ -1032,8 +1089,9 @@ def stem_bn_kernel_phase() -> dict:
         return (err / scale.clamp(min=1e-30)).max().item(), err.max().item()
 
     stats = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, peak=PEAK_F32)
+    one_kernel = {"bn_stats": 0, "bn_bwd_reduce": 0}  # cases whose profiled calls showed one stream kernel each
     bwd = dict(stats)
-    for m, c, count in _resnet50_bn_inputs(N_IMG):
+    for m, c, count in _timing_script().bn_inputs(N_IMG, HW):
         side = int(round((m // N_IMG) ** 0.5))
         xb = torch.randn(m, c, generator=g, device="cuda").to(bf)
         dy = torch.randn(m, c, generator=g, device="cuda").to(bf)
@@ -1062,6 +1120,9 @@ def stem_bn_kernel_phase() -> dict:
             (r1, a1), (r2, a2) = bn_close("bn_bwd_reduce sum dy", k_d, p_d, da.sum(0)), \
                 bn_close("bn_bwd_reduce sum dy*xhat", k_dx, p_dx, (da * xh).sum(0))
             e2, e2_abs = max(r1, r2), max(a1, a2)
+            again = bn_reduce.fused_stats(xb, stride), bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride)
+            if not all(torch.equal(a, b) for a, b in zip((k_s, k_q, k_d, k_dx), again[0][:2] + again[1][:2])):
+                raise AssertionError(f"bn ({m}, {c}) stride {stride}: two calls on the same input differ")
             stats["max_abs_err"] = max(stats["max_abs_err"], e1_abs)
             bwd["max_abs_err"] = max(bwd["max_abs_err"], e2_abs)
             del rows, drows, xa, da, xh
@@ -1069,6 +1130,16 @@ def stem_bn_kernel_phase() -> dict:
                  cuda_ms(lambda: bn_reduce.fused_stats_plain(xb, stride), 3),
                  cuda_ms(lambda: bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride), 10),
                  cuda_ms(lambda: bn_reduce.fused_bn_bwd_reduce_plain(xb, dy, mean, rstd, stride), 3)]
+            dev = [device_ms(lambda: bn_reduce.fused_stats(xb, stride), 10),
+                   device_ms(lambda: bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride), 10)]
+            for name, (_, counts) in zip(("bn_stats", "bn_bwd_reduce"), dev):  # one device kernel a call
+                if not counts:  # the profiler recorded nothing: not measured here
+                    continue
+                if len(counts) != 1 or "stream_kernel" not in next(iter(counts)) or sum(counts.values()) > 10:
+                    raise AssertionError(f"bn ({m}, {c}) stride {stride} {name}: device kernels of 10 calls {counts}")
+                one_kernel[name] += 1
+            host = [host_us(lambda: bn_reduce.fused_stats(xb, stride), 100),
+                    host_us(lambda: bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride), 100)]
             nb_s, nb_b = n_rows * c * BF + 2 * c * 4, 2 * n_rows * c * BF + 4 * c * 4
             if stride == 1:
                 lib_s = cuda_ms(lambda: torch.batch_norm_stats(x4, 1e-5), 10)
@@ -1082,12 +1153,19 @@ def stem_bn_kernel_phase() -> dict:
                         d[k] += count * v
             else:
                 lib_s = lib_b = None
-            say(f"bn ({m}, {c}) x{count} stride {stride}: n_rows {k_n}; bn_stats {t[0]:.3f} ms (plain {t[1]:.3f}, "
-                f"library {'-' if lib_s is None else f'{lib_s:.3f}'}, bound {bound_ms(0, nb_s)[0]:.3f}), "
-                f"bn_bwd_reduce {t[2]:.3f} ms (plain {t[3]:.3f}, library {'-' if lib_b is None else f'{lib_b:.3f}'}, "
-                f"bound {bound_ms(0, nb_b)[0]:.3f}); max rel err {e1:.3g}, {e2:.3g} (abs {e1_abs:.3g}, {e2_abs:.3g})")
+            dms = ["not measured" if d[0] is None else f"{d[0]:.4f}" for d in dev]
+            say(f"bn ({m}, {c}) x{count} stride {stride}: n_rows {k_n}; bn_stats {t[0]:.3f} ms (device "
+                f"{dms[0]}, host {host[0]:.1f} us a call; plain {t[1]:.3f}, library "
+                f"{'-' if lib_s is None else f'{lib_s:.3f}'}, bound {bound_ms(0, nb_s)[0]:.4f}), bn_bwd_reduce "
+                f"{t[2]:.3f} ms (device {dms[1]}, host {host[1]:.1f} us; plain {t[3]:.3f}, library "
+                f"{'-' if lib_b is None else f'{lib_b:.3f}'}, bound {bound_ms(0, nb_b)[0]:.4f}); "
+                f"{nb_s / 1e6:.1f} MB, max rel err {e1:.3g}, {e2:.3g} (abs {e1_abs:.3g}, {e2_abs:.3g})")
         del xb, dy, x4, dy4
         torch.cuda.empty_cache()
+    say(f"bn: one stream kernel a call in the profiled calls of {one_kernel['bn_stats']} / "
+        f"{one_kernel['bn_bwd_reduce']} of the 24 cases (the others' windows came back empty)")
+    if min(one_kernel.values()) < 12:
+        raise AssertionError(f"bn: one kernel a call shown in too few cases {one_kernel}: the profiler recorded little")
     results["bn_stats"], results["bn_bwd_reduce"] = stats, bwd
     say(f"bn per step (53 BNs, stride 1): bn_stats {stats['ms']:.2f} ms (library {stats['library_ms']:.2f}, bound "
         f"{bound_ms(0, stats['bytes'])[0]:.2f}), bn_bwd_reduce {bwd['ms']:.2f} ms (library {bwd['library_ms']:.2f}, "
@@ -1970,7 +2048,7 @@ def auto_phase(tmpdir: str) -> dict:
     flagship step, the `frozen_stages=3` step (both batch 256, the fastest
     of C1_ROUNDS steps by CUDA events after a warm-up step each) and
     batch-256 serving (the fastest of C1_ROUNDS `Estimator.predict` calls by
-    host clock), the three settings interleaved in rotated orders on one
+    host clock), the three settings interleaved in AUTO_ORDERS on one
     model or estimator with its flags switched: a step samples the next
     step's augmentation parameters and uploads them from pageable memory,
     which waits for the device, so the step's time carries the host's
@@ -2016,7 +2094,7 @@ def auto_phase(tmpdir: str) -> dict:
             raise AssertionError(f"auto {workload}: launches {launched['auto']} != the table's {want}")
         steps = {}
         for r in range(C1_ROUNDS):
-            for flags in settings[r % 3:] + settings[:r % 3]:
+            for flags in (settings[i] for i in AUTO_ORDERS[r % 6]):
                 switch(model.backbone, flags)
                 e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -2057,10 +2135,10 @@ def auto_phase(tmpdir: str) -> dict:
             if launches != want:
                 raise AssertionError(f"auto serving: launches {launches} != the table's {want}")
         say(f"auto: serving, flags {flags}: launches {({k: v for k, v in launches.items() if v})}")
-    # the settings interleaved, and each round's order rotated, so that the
-    # host's load and the one before fall on all three alike
+    # the settings interleaved in AUTO_ORDERS, so that the host's load and
+    # the one before fall on all three alike
     for r in range(C1_ROUNDS):
-        for flags in settings[r % 3:] + settings[:r % 3]:
+        for flags in (settings[i] for i in AUTO_ORDERS[r % 6]):
             switch(est.model.backbone, flags, pointwise=False)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2290,6 +2368,8 @@ def pointwise_kernel_phase() -> dict:
     for r in (None, res):
         out = pointwise.pointwise_fwd(x, w, b, r)
         e = _compare(f"pointwise M={m_odd}", out, pointwise.pointwise_fwd_plain(x, w, b, r))
+        e = max(e, _compare(f"pointwise M={m_odd} relu off", pointwise.pointwise_fwd(x, w, b, r, False),
+                            pointwise.pointwise_fwd_plain(x, w, b, r, False)))
         args = (gr, out, x, w, True, r is not None)
         e = max(e, _compare(f"pointwise_bwd M={m_odd}", [t for t in pointwise.pointwise_bwd(*args) if t is not None],
                             [t for t in pointwise.pointwise_bwd_plain(*args) if t is not None]))
@@ -2298,12 +2378,18 @@ def pointwise_kernel_phase() -> dict:
     del x, w, b, res, gr
 
     fwd, bwd = [], []
+    relu_off = {False: "512x32x32 512->128", True: "512x32x32 128->512 +res"}  # a geometry of each kind
     for h, cin, cout, with_res, calls in POINTWISE_GEOMETRIES:
         m = N_IMG * h * h
         x, w, b = rand(m, cin), _w(g, cin, cout), _b(g, cout)
         res = rand(m, cout) if with_res else None
         args = (x, w, b, res)
         out = pointwise.pointwise_fwd(*args)
+        name = f"{N_IMG}x{h}x{h} {cin}->{cout}{' +res' if with_res else ''}"
+        if relu_off[with_res] == name:
+            e = _compare(f"pointwise {name} relu off", pointwise.pointwise_fwd(*args, False),
+                         pointwise.pointwise_fwd_plain(*args, False))
+            say(f"pointwise {name} relu off: within the gate, max_abs_err {e:.4g}")
         label = f"M={m} ({N_IMG}x{h}x{h}) {cin}->{cout}{' +res' if with_res else ''}"
         fl = 2 * m * cin * cout
         fwd.append((

@@ -11,12 +11,16 @@ at its three geometries of stages 1-3, the pointwise backward
 (`pointwise.pointwise_bwd`) at configuration P's twelve, the projection
 block's saving forward (`proj_fused.projection_block_save`) at its three
 stride-2 geometries, the frozen stages' whole-stage chains
-(`stage_fused.fused_stage`, stages 1 and 2) and the stage-0 chain's saving
-forward (`stage_fused.fused_stage_save`) (N = 512 camera images of
-256x256, bf16), and break each call down by device kernel with
-`torch.profiler`: data gradient, weight gradient, split sum, the relu mask
-pass, forward convs (the recompute's h1/h2, the mma.sync forwards), forward
-convs on the TMA engine, the rest.
+(`stage_fused.fused_stage`, stages 1 and 2), the stage-0 chain's saving
+forward (`stage_fused.fused_stage_save`), the pointwise forward
+(`pointwise.pointwise_fwd`) at configuration P's twelve geometries and
+BatchNorm's two reductions (`bn_reduce.fused_stats`,
+`bn_reduce.fused_bn_bwd_reduce`) at ResNet-50's twelve (M, C) at strides 1
+and 4 (N = 512 camera images of 256x256, bf16), and break each call down by
+device kernel with `torch.profiler`: data gradient, weight gradient, split
+sum, the relu mask pass, forward convs (the recompute's h1/h2, the mma.sync
+forwards), forward convs on the TMA engine, the BN reductions (the
+one-launch stream, the previous reduction), the rest.
 
     python3 scripts/time_torch_block_bwd.py [--root DIR] [--engine new|prev] [--reps 10] [--rows ROW,...]
 
@@ -29,9 +33,8 @@ is timed by the same script in the same call:
     python3 scripts/time_torch_block_bwd.py
     python3 scripts/time_torch_block_bwd.py --root _trees/parent
 
-`--engine prev` times `ops/kernels/bwd_prev.py` (the kernels on the
-mma.sync engine they ran on before, from this tree) instead of the
-wrappers. `--rows` keeps the rows whose name starts with one of the given
+`--engine prev` times `ops/kernels/bwd_prev.py` (the kernels in the form
+they had before their redesign, from this tree) instead of the wrappers. `--rows` keeps the rows whose name starts with one of the given
 prefixes. Times are the mean of `--reps` calls between CUDA events after a
 warm-up; the breakdown is one profiled call. Prints one line per geometry
 and, last, one JSON object. Needs a CUDA device.
@@ -68,6 +71,24 @@ POINTWISE = [
 ]
 
 
+def bn_inputs(n: int = N_IMG, hw: int = 256) -> list:
+    """(M, C, count) of the inputs of ResNet-50's 53 BatchNorms for n
+    images of hw x hw, grouped by shape: the stem's, then per stage the entry
+    block's BN0 (before the stride), BN1, BN2 and projection, and the
+    identity blocks' BN0-2."""
+    shapes = {(n * (hw // 2) ** 2, 64): 1}
+    side = hw // 4
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        f = 64 * 2**i
+        out = side if i == 0 else side // 2
+        for m, c, k in ((n * side * side, f, 1), (n * out * out, f, 1 + 2 * (blocks - 1)),
+                        (n * out * out, 4 * f, 2 + (blocks - 1))):
+            shapes[(m, c)] = shapes.get((m, c), 0) + k
+        side = out
+    assert sum(shapes.values()) == 53
+    return [(m, c, k) for (m, c), k in shapes.items()]
+
+
 def kind(name: str) -> str:
     """The launch a device kernel's name belongs to."""
     if "sum_splits" in name or "wgrad_sum" in name:
@@ -82,6 +103,10 @@ def kind(name: str) -> str:
         return "data gradient"
     if "relu_mask" in name:
         return "mask pass"
+    if "stream_kernel" in name:  # the BN reductions' one-launch stream
+        return "BN stream"
+    if "reduce_kernel" in name or "reduce_splits" in name:  # their previous two launches
+        return "BN reduce"
     return "other"
 
 
@@ -138,12 +163,14 @@ def cases(engine: str = "new"):
     the identity forward at its three of stages 1-3, for the pointwise
     backward at configuration P's twelve, for the projection's saving
     forward at its three stride-2 geometries, the frozen stages' two chains
-    and the stage-0 chain's saving forward; inputs from seed 0, h1/h2/out
-    from the tree's saving forwards (the relu masks the backward sees in
-    training)."""
+    and the stage-0 chain's saving forward, the pointwise forward at
+    configuration P's twelve, and the BN reductions at ResNet-50's twelve
+    (M, C) at strides 1 and 4 (per Path B step: stride 1 times its count,
+    stride 4 none); inputs from seed 0, h1/h2/out from the tree's saving
+    forwards (the relu masks the backward sees in training)."""
     import torch
 
-    from argus_tpu_torch.ops.kernels import basic_fused, block_fused, pointwise, proj_fused, stage_fused
+    from argus_tpu_torch.ops.kernels import basic_fused, block_fused, bn_reduce, pointwise, proj_fused, stage_fused
 
     if engine == "prev":
         from argus_tpu_torch.ops.kernels import bwd_prev
@@ -154,6 +181,7 @@ def cases(engine: str = "new"):
         block_fwd, pw_bwd = bwd_prev.block_fwd_prev, bwd_prev.pointwise_bwd_prev
         proj_fwd_save = functools.partial(bwd_prev.proj_fwd_prev, save=True)
         stage_fwd, stage_fwd_save = bwd_prev.stage_fwd_prev, bwd_prev.stage_fwd_save_prev
+        pw_fwd, bn_stats, bn_bwd = bwd_prev.pointwise_fwd_prev, bwd_prev.bn_stats_prev, bwd_prev.bn_bwd_reduce_prev
     else:
         basic_bwd, proj_bwd = basic_fused.basic_bwd, proj_fused.proj_bwd
         block_bwd, block_rbwd = block_fused.block_bwd, block_fused.block_bwd_recompute
@@ -161,6 +189,7 @@ def cases(engine: str = "new"):
         block_fwd, pw_bwd = block_fused.bottleneck_block, pointwise.pointwise_bwd
         proj_fwd_save = proj_fused.projection_block_save
         stage_fwd, stage_fwd_save = stage_fused.fused_stage, stage_fused.fused_stage_save
+        pw_fwd, bn_stats, bn_bwd = pointwise.pointwise_fwd, bn_reduce.fused_stats, bn_reduce.fused_bn_bwd_reduce
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def w(*shape):
@@ -259,10 +288,32 @@ def cases(engine: str = "new"):
     yield "stage_fused_save", label, 1, lambda x=x, pw=pw, ids=ids: stage_fwd_save(x, pw, ids, 1)
     del x
     torch.cuda.empty_cache()
+    for h, cin, cout, with_res, count in POINTWISE:
+        m = N_IMG * h * h
+        x = torch.randn(m, cin, generator=g, device="cuda").to(torch.bfloat16)
+        pw = (w(cin, cout), b(cout))
+        res = torch.randn(m, cout, generator=g, device="cuda").to(torch.bfloat16) if with_res else None
+        label = f"M={m} {cin}->{cout}{' +res' if with_res else ''}"
+        yield "pointwise", label, count, lambda x=x, pw=pw, res=res: pw_fwd(x, *pw, res)
+        del x, res
+    torch.cuda.empty_cache()
+    for m, c, count in bn_inputs():
+        x = torch.randn(m, c, generator=g, device="cuda").to(torch.bfloat16)
+        dy = torch.randn(m, c, generator=g, device="cuda").to(torch.bfloat16)
+        mean = 0.1 * torch.randn(c, generator=g, device="cuda")
+        rstd = 0.5 + torch.rand(c, generator=g, device="cuda")
+        for stride in (1, 4):
+            label = f"({m}, {c}) stride {stride}"
+            calls = count if stride == 1 else 0
+            yield "bn_stats", label, calls, lambda x=x, s=stride: bn_stats(x, s)
+            yield "bn_bwd_reduce", label, calls, lambda x=x, dy=dy, mean=mean, rstd=rstd, s=stride: bn_bwd(
+                x, dy, mean, rstd, s)
+        del x, dy
+    torch.cuda.empty_cache()
 
 
 KINDS = ("data gradient", "weight gradient", "split sum", "mask pass", "forward conv", "forward conv (TMA)",
-         "other")
+         "BN stream", "BN reduce", "other")
 
 
 def fmt(parts: dict) -> str:

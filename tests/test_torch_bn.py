@@ -8,6 +8,17 @@ CPU, with the same numpy inputs.
   (tests/test_norm.py's 49-row case): `n_rows` equal, the sums within 1e-5
   relative to each channel's sum of magnitudes (the same f32 sums in another
   order).
+- the one-launch reduction's plan (`bn_reduce.stats_plan`, the cut
+  csrc/bn_reduce.cu's `stream_kernel` walks), simulated in numpy: the
+  blocks' runs of boxes, the strided box coordinates (a block of R rows
+  every S), TMA's zero fill past M and past C, each consumer thread's rows
+  of a box, the row groups added in order, the last block's ordered sum of
+  the partials in runs; at strides 1 and 4, M that no box or block divides,
+  C not a power of two, bf16 and f32, the statistics and the backward: every
+  visited row read exactly once and no other, the sums bit for bit a
+  scalar f32 sum in the same nested order, and within the tolerance above
+  of argus_tpu's kernels in interpret mode. The plan is cached per (M, C,
+  stride, dtype, streams) and visits the rows `visited_rows` gives.
 - `BatchNorm` in train mode against argus_tpu's, engines "xla" and "pallas"
   (argus_tpu's kernels in interpret mode), strides (stats, grad) in {(1, 1),
   (2, 1), (1, 2), (2, 2)}, f32 and bf16: the output, the updated running
@@ -118,6 +129,208 @@ def test_bn_reduce_rows_that_do_not_tile():
             np.testing.assert_allclose(s.numpy(), np.asarray(js_), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         tbr.fused_stats(torch.zeros(1, 7, 7, 64), 2)  # argus_tpu cannot fold 49 rows of 64 channels
+
+
+# ─────────────────────── the one-launch reduction's plan ───────────────────────
+
+F32 = np.float32
+
+
+def _stream_sums(x, plan, itemsize, bwd=None):
+    """csrc/bn_reduce.cu `stream_kernel` on the plan, in numpy f32: (the two
+    sums (2, C), reads per (row, channel) of x). x (M, C) float32 values;
+    bwd = (dy, mean, rstd) for the backward's sums."""
+    M, C = x.shape
+    VR = plan.slab // (16 // itemsize)  # a box row's 16-byte vectors
+    G = 256 // VR  # row groups
+    reads = np.zeros((M, C), np.int64)
+    partial = np.zeros((plan.grid, 2, plan.slab), F32)
+    for b in range(plan.grid):
+        slab, split = b % plan.nslab, b // plan.nslab
+        cols = slab * plan.slab + np.arange(plan.slab)
+        cin = cols < C
+        mu = np.where(cin, bwd[1][np.minimum(cols, C - 1)], 0).astype(F32) if bwd else None
+        rs = np.where(cin, bwd[2][np.minimum(cols, C - 1)], 0).astype(F32) if bwd else None
+        s0, s1 = np.zeros((G, plan.slab), F32), np.zeros((G, plan.slab), F32)
+        i0, i1 = split * plan.per, min(split * plan.per + plan.per, plan.boxes)
+        blk, rb = divmod(i0, plan.bpr)  # the producer's walk: one division, then steps
+        for _ in range(i0, i1):
+            rows = rb * plan.box_rows + np.arange(plan.box_rows)  # rows of the visited block
+            rin = (rows < plan.R) & (blk < plan.nblk)  # TMA's zero fill outside the map
+            phys = blk * plan.S + rows
+            box = np.zeros((plan.box_rows, plan.slab), F32)
+            box[np.ix_(rin, cin)] = x[np.ix_(phys[rin], cols[cin])]
+            reads[np.ix_(phys[rin], cols[cin])] += 1
+            if bwd:
+                dbox = np.zeros_like(box)
+                dbox[np.ix_(rin, cin)] = bwd[0][np.ix_(phys[rin], cols[cin])]
+            for k0 in range(0, plan.box_rows, G):  # thread g adds row k0 + g
+                n = min(G, plan.box_rows - k0)
+                xv = box[k0:k0 + n]
+                if bwd:
+                    gv = dbox[k0:k0 + n]
+                    s0[:n] = s0[:n] + gv
+                    s1[:n] = s1[:n] + gv * ((xv - mu) * rs)
+                else:
+                    s0[:n] = s0[:n] + xv
+                    s1[:n] = s1[:n] + xv * xv
+            rb += 1
+            if rb == plan.bpr:
+                rb, blk = 0, blk + 1
+        for q, sq in enumerate((s0, s1)):  # the row groups in group order
+            t = np.zeros(plan.slab, F32)
+            for g in range(G):
+                t = t + sq[g]
+            partial[b, q] = t
+    out = np.zeros((2, C), F32)
+    L = -(-plan.splits // plan.runs)
+    c = np.arange(C)
+    for q in range(2):
+        runs = []
+        for k in range(plan.runs):
+            t = np.zeros(C, F32)
+            for sp in range(k * L, min((k + 1) * L, plan.splits)):
+                t = t + partial[sp * plan.nslab + c // plan.slab, q, c % plan.slab]
+            runs.append(t)
+        t = np.zeros(C, F32)
+        for r in runs:
+            t = t + r
+        out[q] = t
+    return out, reads
+
+
+def _ordered_sum(x, plan, itemsize, c, q, bwd=None):
+    """Channel c's sum q as one scalar f32 sum in the kernel's nested order:
+    runs of splits, row groups, then each group's rows box by box."""
+    VR = plan.slab // (16 // itemsize)
+    G = 256 // VR
+    slab = c // plan.slab
+
+    def term(row):
+        if bwd is None:
+            v = F32(x[row, c])
+            return v if q == 0 else F32(v * v)
+        g = F32(bwd[0][row, c])
+        return g if q == 0 else F32(g * F32(F32(F32(x[row, c]) - F32(bwd[1][c])) * F32(bwd[2][c])))
+
+    def block_sum(split):
+        groups = []
+        for g in range(G):
+            t = F32(0)
+            for i in range(split * plan.per, min(split * plan.per + plan.per, plan.boxes)):
+                blk, rb = divmod(i, plan.bpr)
+                for r in range(g, plan.box_rows, G):
+                    row = rb * plan.box_rows + r
+                    if row < plan.R:
+                        t = F32(t + term(blk * plan.S + row))
+                    else:
+                        t = F32(t + F32(0))
+            groups.append(t)
+        t = F32(0)
+        for v in groups:
+            t = F32(t + v)
+        return t
+
+    L = -(-plan.splits // plan.runs)
+    total = F32(0)
+    for k in range(plan.runs):
+        t = F32(0)
+        for sp in range(k * L, min((k + 1) * L, plan.splits)):
+            t = F32(t + block_sum(sp))
+        total = F32(total + t)
+    return total
+
+
+# (M, C, stride): M that no box and no block divides (2500 rows), C below
+# and above a 256-byte slab and not a power of two (72, 136), argus_tpu's
+# row blocks at stride 4 (R = 1024 of every 4096 rows at C = 64), and C =
+# 4096, where the last block's sum is one run a column (C / 2 > 256)
+PLAN_CASES = [(2500, 64, 1), (2500, 256, 1), (2500, 72, 1), (2504, 136, 1), (8192, 64, 4), (4096, 256, 4),
+              (520, 4096, 1), (1024, 4096, 4)]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("m,c,stride", PLAN_CASES)
+def test_bn_stream_plan_reads_each_visited_row_once_in_a_fixed_order(m, c, stride, dt):
+    rng = np.random.default_rng(m + c + stride)
+    jx, tx = _pair(rng.normal(0.5, 2.0, (m, c)), dt)
+    jdy, tdy = _pair(rng.normal(0, 1, (m, c)), dt)
+    mean = rng.normal(0, 1, c).astype(np.float32)
+    rstd = rng.uniform(0.5, 2, c).astype(np.float32)
+    x, dy = tx.float().numpy(), tdy.float().numpy()
+    itemsize = tx.element_size()
+    R, S, n = tbr.visited_rows(m, c, stride)
+    visited = np.zeros(m, bool)
+    for blk in range(n // R):
+        visited[blk * S: blk * S + R] = True
+    mag = np.abs(x[visited])
+    for tensors, bwd in ((1, None), (2, (dy, mean, rstd))):
+        plan = tbr.stats_plan(m, c, stride, itemsize, tensors)
+        assert (plan.R, plan.S, plan.n_rows) == (R, S, n) and plan.nblk * R == n
+        assert plan.grid > 1  # several blocks, and the last one's ordered sum
+        assert tensors * plan.box_rows * plan.slab * itemsize <= 16384 and plan.slab * itemsize <= 256
+        got, reads = _stream_sums(x, plan, itemsize, bwd)
+        assert (reads[visited] == 1).all() and (reads[~visited] == 0).all()
+        for cc in sorted({0, c // 2, c - 1}):
+            for q in (0, 1):
+                assert got[q, cc] == _ordered_sum(x, plan, itemsize, cc, q, bwd)
+        if bwd is None:
+            js_, jq, jn = jbr.fused_stats(jx, stride=stride, interpret=True)
+            scales = (mag.sum(0), (mag * mag).sum(0))
+        else:
+            js_, jq, jn = jbr.fused_bn_bwd_reduce(jx, jdy, jnp.asarray(mean), jnp.asarray(rstd), stride=stride,
+                                                  interpret=True)
+            dmag = np.abs(dy[visited])
+            scales = (dmag.sum(0), (dmag * np.abs((mag + np.abs(mean)) * rstd)).sum(0))
+        assert jn == n
+        _sums_close(got[0], js_, scales[0])
+        _sums_close(got[1], jq, scales[1])
+
+
+def test_bn_stream_plan_is_cached_per_shape_and_visits_visited_rows():
+    for m, c, stride in PLAN_CASES:
+        for itemsize in (2, 4):
+            plan = tbr.stats_plan(m, c, stride, itemsize)
+            assert plan is tbr.stats_plan(m, c, stride, itemsize)
+            assert (plan.R, plan.S, plan.n_rows) == tbr.visited_rows(m, c, stride)
+            assert plan.boxes == plan.nblk * plan.bpr and (plan.splits - 1) * plan.per < plan.boxes
+    # ResNet-50's largest: one block an SM, boxes of 16 KB
+    plan = tbr.stats_plan(512 * 128 * 128, 64, 1, 2)
+    assert (plan.grid, plan.box_rows * plan.slab * 2) == (132, 16384)
+    # any width: past 512 channels the final sum is one run a column, so the
+    # launcher's bound on the staged runs (2 C runs <= 4096 floats) does not
+    # apply, and C = 4096 or more is planned like any other
+    for c in (1024, 2048, 4096, 8192):
+        for itemsize in (2, 4):
+            for tensors in (1, 2):
+                plan = tbr.stats_plan(8192, c, 1, itemsize, tensors)
+                assert plan.runs == 1 if c > 512 else 2 * c * plan.runs <= 4096
+                assert plan.nslab * plan.slab >= c and plan.slab * itemsize <= 256
+
+
+@pytest.mark.parametrize("private", [True, False], ids=["private", "public"])
+def test_launch_stream_lookup_uses_the_public_api_where_the_private_is_missing(monkeypatch, private):
+    """Every launch (the BN reductions' tickets too) reads the current stream
+    through `_build._stream_api`: torch's private calls where this torch has
+    them, else `torch.cuda.current_stream` and `current_device`."""
+    from argus_tpu_torch.ops.kernels import _build
+
+    class Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda index: Stream())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for name, fake in (("_cuda_getCurrentRawStream", lambda index: 5678), ("_cuda_getDevice", lambda: 0)):
+        if private:
+            monkeypatch.setattr(torch._C, name, fake, raising=False)
+        else:
+            monkeypatch.delattr(torch._C, name, raising=False)
+    _build._stream_api.cache_clear()
+    try:
+        stream_of, device = _build._stream_api()
+        assert (_build.current_stream(0), device()) == ((5678 if private else 1234), 0)
+    finally:
+        _build._stream_api.cache_clear()
 
 
 # ─────────────────────────────── BatchNorm ───────────────────────────────

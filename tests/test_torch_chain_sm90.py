@@ -355,7 +355,7 @@ def _launcher(signature: str):
     ho, wo = _c_expr(r"conv_fwd_tiles\(p, N, ([^,]*), ([^,]*), COUT\);", body)
     fields = {f: _lam(m.group(1)) for f in ("stride", "C", "C2", "stride2")
               if (m := re.search(rf"\bp\.{f} = ([^;]*);", body))}
-    ksc = re.search(r"launch_conv_fwd_tiles<\w+, (true|false)>\(p, stream\)", body).group(1) == "true"
+    ksc = re.search(r"launch_conv_fwd_tiles<\w+, (true|false)(?:, \w+)*>\(p, stream\)", body).group(1) == "true"
     fields["kSc"] = lambda **v: ksc
     amaps = {name: (a[0], *[_lam(e) for e in a[2:6]])
              for name, rest in re.findall(r"make_tmap_nhwc\(&p\.(\w+), ([^;]*)\);", body)

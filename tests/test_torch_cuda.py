@@ -56,6 +56,30 @@ def _close(got, want):
     assert err <= 2e-2 * want.float().abs().max().item() + 1e-2, err
 
 
+def _device_kernels(fn, calls: int = 1):
+    """[(device kernel name, launches)] of `calls` calls of `fn`, from
+    torch.profiler (the attribute of a record's device time differs between
+    PyTorch versions). A profiled window now and then loses records, a
+    launch or all of them: a window with none is read again, up to three
+    times, and a count may fall short of the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        t = getattr(e, "self_device_time_total", None)
+        return getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.count) for e in prof.key_averages() if device_us(e) > 0]
+        if kernels:
+            break
+    return kernels
+
+
 def _w(g, *shape, dev):
     return (torch.randn(*shape, generator=g) / shape[-2] ** 0.5).to(dev, torch.bfloat16)
 
@@ -631,7 +655,7 @@ def test_stem_save_and_weight_gradient_kernels(dev, n, h, w):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("m,c", [(1000, 64), (4 * 17 * 13, 256), (8192, 2048)])
+@pytest.mark.parametrize("m,c", [(1000, 64), (4 * 17 * 13, 256), (8192, 2048), (8192, 4096)])
 @pytest.mark.parametrize("stride", [1, 4])
 def test_bn_reduce_kernels(dev, m, c, stride, dtype):
     """Ragged row counts (no power of two), stride 1 and argus_tpu's row
@@ -655,6 +679,57 @@ def test_bn_reduce_kernels(dev, m, c, stride, dtype):
     scales = (xa.sum(0), (xa * xa).sum(0), da.sum(0), (da * (xa + mean.abs()) * rstd).sum(0))
     for a, b, sc in zip(got[:2] + got[3:5], want[:2] + want[3:5], scales):
         assert ((a - b).abs() <= 1e-4 * sc + 1e-6).all()
+    again = tbn.fused_stats(x, stride) + tbn.fused_bn_bwd_reduce(x, dy, mean, rstd, stride)
+    for a, b in zip(got[:2] + got[3:5], again[:2] + again[3:5]):  # the same bits from call to call
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,c,stride", [(512 * 16 * 16, 1024, 1), (512 * 32 * 32, 128, 4), (1000, 64, 1)])
+def test_bn_reduce_kernels_are_one_launch(dev, m, c, stride):
+    """Each reduction is one device kernel a call (the last block adds the
+    partials), and a call after it finds the ticket reset."""
+    x = torch.randn(m, c, device=dev).to(torch.bfloat16)
+    dy = torch.randn(m, c, device=dev).to(torch.bfloat16)
+    mean, rstd = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    tbn.fused_stats(x, stride)
+    torch.cuda.synchronize()
+    for fn in (lambda: tbn.fused_stats(x, stride), lambda: tbn.fused_bn_bwd_reduce(x, dy, mean, rstd, stride)):
+        kernels = _device_kernels(fn)
+        assert len(kernels) == 1 and kernels[0][1] == 1 and "stream_kernel" in kernels[0][0], kernels
+        assert all(torch.equal(a, b) for a, b in zip(fn()[:2], fn()[:2]))
+
+
+def test_bn_reduce_kernels_on_two_streams_at_once(dev):
+    """Reductions launched on two streams at once each draw the last-block
+    ticket of their own stream: every result is the same bits as the same
+    call alone, which is within 1e-4 of each channel's sum of magnitudes of
+    the plain sums."""
+    g = torch.Generator().manual_seed(13)
+    m, c = 512 * 32 * 32, 256
+    xs = [torch.randn(m, c, generator=g).to(dev, torch.bfloat16) for _ in range(2)]
+    dys = [torch.randn(m, c, generator=g).to(dev, torch.bfloat16) for _ in range(2)]
+    mean, rstd = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    calls = [(lambda i=i: tbn.fused_stats(xs[i])[:2]) for i in range(2)] + \
+        [(lambda i=i: tbn.fused_bn_bwd_reduce(xs[i], dys[i], mean, rstd)[:2]) for i in range(2)]
+    alone = [fn() for fn in calls]
+    want = [tbn.fused_stats_plain(x)[:2] for x in xs] + \
+        [tbn.fused_bn_bwd_reduce_plain(x, dy, mean, rstd)[:2] for x, dy in zip(xs, dys)]
+    xa, da = [x.float().abs() for x in xs], [dy.float().abs() for dy in dys]
+    scales = [(a.sum(0), (a * a).sum(0)) for a in xa] + [(d.sum(0), (d * a).sum(0)) for a, d in zip(xa, da)]
+    for got, w, sc in zip(alone, want, scales):
+        for q in range(2):
+            assert ((got[q] - w[q]).abs() <= 1e-4 * sc[q] + 1e-6).all()
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[] for _ in calls]
+    for _ in range(20):
+        for k, fn in enumerate(calls):  # stream k % 2: the two streams' launches overlap
+            with torch.cuda.stream(streams[k % 2]):
+                got[k].append(fn())
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(alone):
+        for ga, gb in got[k]:
+            assert torch.equal(ga, a) and torch.equal(gb, b), k
 
 
 @pytest.mark.parametrize("model", ["stem", "exact"])
@@ -806,7 +881,8 @@ def test_auto_launches_what_the_table_names(dev, frozen_stages):
     assert kernels.launch_counts() == expect(lambda i: "forward")
 
 
-@pytest.mark.parametrize("m,cin,cout", [(2 * 9 * 7, 64, 64), (4608, 256, 64), (1000, 64, 256), (49, 512, 2048)])
+@pytest.mark.parametrize("m,cin,cout", [(2 * 9 * 7, 64, 64), (4608, 256, 64), (1000, 64, 256), (49, 512, 2048),
+                                         (513 * 7 * 7, 256, 64), (49, 72, 136)])
 @pytest.mark.parametrize("residual", [False, True])
 def test_pointwise_kernels(dev, m, cin, cout, residual):
     """The pointwise forward and backward (m emitted with a residual) against
@@ -828,6 +904,27 @@ def test_pointwise_kernels(dev, m, cin, cout, residual):
     assert got[0] is None
     _all_close(got, tpw.pointwise_bwd_plain(gr, out, x, w, False, residual, need_dx=False))
     assert (tpw.KERNEL.launches, tpw.KERNEL_BWD.launches) == (before[0] + 3, before[1] + 2)
+
+
+@pytest.mark.parametrize("cin,cout,residual", [(64, 64, False), (64, 256, True)])
+def test_pointwise_forward_at_two_million_rows(dev, cin, cout, residual):
+    """The pointwise forward on the TMA engine over M = 2,097,152 rows
+    (configuration P's largest: 16384 image groups of 128 rows, up to 32768
+    tiles), relu on and off, one device kernel a call, against the plain
+    version."""
+    from argus_tpu_torch.ops.kernels import pointwise as tpw
+
+    g = torch.Generator().manual_seed(18)
+    m = 512 * 64 * 64
+    x = torch.randn(m, cin, generator=g).to(dev, torch.bfloat16)
+    w, b = _w(g, cin, cout, dev=dev), _b(g, cout, dev)
+    res = torch.randn(m, cout, generator=g).to(dev, torch.bfloat16) if residual else None
+    for relu in (True, False):
+        _close(tpw.pointwise_fwd(x, w, b, res, relu), tpw.pointwise_fwd_plain(x, w, b, res, relu))
+    before = tpw.KERNEL.launches
+    kernels = _device_kernels(lambda: tpw.pointwise_fwd(x, w, b, res), 3)
+    assert tpw.KERNEL.launches == before + 3
+    assert len(kernels) == 1 and "conv_fwd_tma_sm90_kernel" in kernels[0][0] and 1 <= kernels[0][1] <= 3, kernels
 
 
 def test_pointwise_backward_at_two_million_rows(dev):
