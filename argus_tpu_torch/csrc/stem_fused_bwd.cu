@@ -18,232 +18,479 @@
 // Bound on the H100: bytes at full width. 2 * 147 * 64 FLOP per conv pixel
 // (1.58e11 at N = 512, 256x256: 0.16 ms on the tensor cores) against the
 // reads of x, g, out and y (1.81 GB: 0.54 ms); a subsampled gradient reads
-// n_images / N of it. Design: a block walks a contiguous range of 16x16 conv
-// pixel tiles. Per tile it stages the (37 x 37 x 3) input patch, finds the
-// first maximum of each of the 9 x 9 pool windows that touch the tile (y
-// read through L1, compared with out), gates its cotangent by out > 0 (the
-// winner's y is out, so this is the relu mask), then forms each pixel's
-// dacc from the up to four windows it wins, in argus_tpu's order
-// (window rows 2u+1 before 2u-1, likewise columns), into shared memory. The
-// reduction dW^T (taps x channels) += A (taps x pixels) * dacc (pixels x
-// channels) runs on the tensor cores (mma.sync m16n8k16; ten warps, one
-// m16 tile of taps each, K = 147 padded to 160 with A gathered from the
-// patch through per-tap offsets, as the forward gathers it). Each block
-// writes its own f32 partial and a second kernel adds the partials in block
-// order: the result is deterministic (no atomics). The TPU's 4x4
-// space-to-depth feed and parity packing are not carried over.
+// n_images / N of it. Design: a persistent grid, one block an SM, walks a
+// contiguous range of 16x16 conv-pixel tiles, warp-specialised:
+// - a producer warp keeps the next tiles' operands in flight through a ring
+//   of kStages shared-memory stages on mbarriers: y as one TMA box of 19 x 19
+//   conv pixels x 64 channels (conv rows and columns i0-1 .. i0+17, the pool
+//   windows' reach), out and g as 9 x 9 boxes of the windows that touch the
+//   tile, and the 37 x 37 x 3 input patch as a box of 37 rows x 128
+//   elements of x viewed as (N, H, W * 3), from column 2 j0 - 8 (its 3
+//   channels cannot be a TMA dimension of their own: a global stride must
+//   be a multiple of 16 bytes, and so must the box's innermost start, or
+//   the copy faults); where W % 8 != 0 the view's row stride is not one
+//   either, and the producer's lanes copy the patch by 4-byte cp.async.
+//   Zero fill past the tensors is the conv's and the pool's padding, and a
+//   tile past the edge;
+// - twelve search warps find each window's first maximum in the staged y,
+//   four channels an item (compared with out as bits: only out > 0 passes
+//   its cotangent on, and a positive bf16 equals another exactly when its
+//   bits do), gate its cotangent by out > 0 (the winner's y is out, so this
+//   is the relu mask), then form each pixel's dacc from the up to four
+//   windows it wins, in argus_tpu's order (window rows 2u+1 before 2u-1,
+//   likewise columns), into shared memory in the 128-byte-swizzled layout
+//   of a wgmma B operand;
+// - three product warpgroups run dW^T (taps x channels) += A (taps x 256
+//   pixels) * dacc (pixels x channels) on wgmma: M = taps in three 64-row
+//   slices (147 real of 192), one a warpgroup, A in registers (the m16n8k16
+//   fragment of each warp's 16 taps, gathered from the staged patch), B =
+//   dacc from shared memory, 16 k-steps of 16 pixels (one tile row each).
+//   One tile's product runs while the search warps find the next tile's
+//   windows; two hardware barriers hand dacc over (full, free). The product
+//   alone on staged data is about half the time of the mma.sync form it
+//   replaces (PERF.md §6, scripts/time_torch_kernel_phases.py).
+// Each block's f32 partial goes to the workspace; the last block of each
+// group of blocks to finish (a ticket) adds its group's partials in block
+// order, and the last group to finish adds the group sums in order: one
+// launch, no atomics on dW, the same bits from run to run. The tickets are
+// the host's, one set a CUDA stream, left 0 by their last blocks. The TPU's
+// 4x4 space-to-depth feed and parity packing are not carried over.
 
-#include "common.cuh"
+#include <cstring>
+
+#include "sm90.cuh"
+
+// Phase cuts for scripts/time_torch_kernel_phases.py (all 0: the kernel):
+// no window search and dacc, no product, only the patch staged, the
+// partials added by one last block instead of the two-level tree
+#ifndef STEM_NOSEARCH
+#define STEM_NOSEARCH 0
+#endif
+#ifndef STEM_NOMMA
+#define STEM_NOMMA 0
+#endif
+#ifndef STEM_XONLY
+#define STEM_XONLY 0
+#endif
+#ifndef STEM_ONE_LEVEL
+#define STEM_ONE_LEVEL 0
+#endif
 
 namespace argus {
 
 constexpr int kBT = 16;                    // conv pixels per tile edge
-constexpr int kBPix = kBT * kBT;           // pixels per tile: the MMA's K per tile
+constexpr int kBPix = kBT * kBT;           // pixels per tile: the product's K per tile
 constexpr int kBW = kBT / 2 + 1;           // pool windows per tile edge that touch it (9)
+constexpr int kYE = kBT + 3;               // y box edge: conv rows i0-1 .. i0+17 (19)
 constexpr int kBPE = 2 * (kBT - 1) + 7;    // input patch edge (37)
 constexpr int kBCIN = 3;
 constexpr int kBCOUT = 64;
 constexpr int kBKR = 7 * 7 * kBCIN;        // real taps (147)
-constexpr int kBLdD = kBCOUT + 8;          // padded shared rows: conflict-free ldmatrix
-constexpr int kBThreads = 320;             // ten warps: taps 0..159
-constexpr int kBPatch = kBPE * kBPE * kBCIN;
+constexpr int kXCol0 = 8;                  // the patch starts at column 2 j0 - kXCol0 (the taps' is 2 j0 - 3)
+constexpr int kXRow = 128;                 // patch row: 42 columns x 3 channels and 2 elements
+constexpr int kXWords = 63;                // 4-byte words a patch row copies by cp.async (42 columns)
+constexpr int kStages = 2;
+constexpr int kARing = 4;                  // register sets of A fragments in flight
+constexpr int kMma = 384;                  // three product warpgroups: taps 0..191
+constexpr int kSearch = 384;               // twelve search warps
+constexpr int kBThreads = kMma + kSearch + 32;  // + the producer warp
+constexpr int kBarSearch = 1, kBarDaccFull = 2, kBarDaccFree = 3;  // hardware barriers
 
-constexpr int kSmemD = kBPix * kBLdD * 2;                        // dacc tile
-constexpr int kSmemG = kBW * kBW * kBCOUT * 2;                   // gated window cotangents
-constexpr int kSmemX = ((kBPatch * 2 + 15) / 16) * 16;           // input patch
-constexpr int kSmemWin = kBW * kBW * kBCOUT;                     // window winners (0..8, 9 none)
-constexpr int kSmemPB = kBPix * 4;                               // pixel -> patch offset
-constexpr int kBwdSmem = kSmemD + kSmemG + kSmemX + kSmemWin + kSmemPB;
+constexpr int kYBytes = kYE * kYE * kBCOUT * 2;   // 46208
+constexpr int kWinBytes = kBW * kBW * kBCOUT * 2; // 10368 (out, g)
+constexpr int kXBytes = ((kBPE * kXRow * 2 + 127) / 128) * 128;
+constexpr int kStageBytes = kYBytes + 2 * kWinBytes + kXBytes;  // multiple of 128
+constexpr int kDaccBytes = kBPix * 128;           // 256 pixel rows of 64 channels, swizzled
+constexpr int kGBytes = kBW * kBW * kBCOUT * 2;   // gated window cotangents
+constexpr int kWBytes = kBW * kBW * kBCOUT;       // window winners (0..8, 9 none)
+constexpr int kBwdSmem = 1024 + kStages * kStageBytes + kDaccBytes + kGBytes + kWBytes + 4 * kStages * 8;
 
 struct StemBwdArgs {
-  const bf16* x;    // (N, H, W, 3)
-  const bf16* g;    // (N, Hp, Wp, 64)
-  const bf16* out;  // (N, Hp, Wp, 64)
-  const bf16* y;    // (N, Hc, Wc, 64)
-  float* partial;   // (blocks, 147, 64)
-  int H, W, Hc, Wc, Hp, Wp, tiles_y, tiles_x;
-  int64_t tiles;    // n_images * tiles_y * tiles_x
+  CUtensorMap ymap;    // y (N, Hc, Wc, 64): boxes of 64 x 19 x 19 x 1
+  CUtensorMap omap;    // out (N, Hp, Wp, 64): boxes of 64 x 9 x 9 x 1
+  CUtensorMap gmap;    // g, as out
+  CUtensorMap xmap;    // x as (N, H, W * 3): boxes of 128 x 37 x 1 (xtma)
+  const bf16* x;       // (N, H, W, 3)
+  int xtma;            // the patch by TMA (W % 8 == 0), else by cp.async
+  float* partial;      // (blocks + groups, 147, 64)
+  float* dw;           // (147, 64)
+  unsigned int* ticket;  // groups + 1 counters, 0 before the launch; the last blocks reset them
+  int H, W, Hc, Wc, tiles_y, tiles_x, per, groups, gsize;
+  int64_t tiles;       // n_images * tiles_y * tiles_x
 };
 
-__global__ void __launch_bounds__(kBThreads) stem_bwd_kernel(const __grid_constant__ StemBwdArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sD = reinterpret_cast<bf16*>(smem);
-  bf16* sG = reinterpret_cast<bf16*>(smem + kSmemD);
-  bf16* sX = reinterpret_cast<bf16*>(smem + kSmemD + kSmemG);
-  uint8_t* sWin = smem + kSmemD + kSmemG + kSmemX;
-  int* sPB = reinterpret_cast<int*>(smem + kSmemD + kSmemG + kSmemX + kSmemWin);
+// D (64 x 64 f32, one warpgroup) += A (64 x 16, registers: each warp's 16
+// rows as the m16n8k16 A fragment) * B (16 x 64, shared memory, N-major)
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bf16 zero = __float2bfloat16(0.f);
+// 4-byte async copy global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
 
-  // this thread's two A rows (taps ka, kb) as patch offsets; the K padding
-  // (taps 147..159) reads any valid cell, and its rows are never written
-  const int ka = warp * 16 + (lane >> 2), kb = ka + 8;
-  auto tap_off = [](int k) {
-    if (k >= kBKR) return 0;
-    const int ky = k / (7 * kBCIN), rem = k % (7 * kBCIN);
-    return (ky * kBPE + rem / kBCIN) * kBCIN + rem % kBCIN;
-  };
-  const int oa = tap_off(ka), ob = tap_off(kb);
-  for (int i = tid; i < kBPix; i += kBThreads) sPB[i] = (2 * (i / kBT) * kBPE + 2 * (i % kBT)) * kBCIN;
+// the barrier's arrival when this thread's earlier cp.asyncs have landed (the
+// barrier's count includes it)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+// the search warps' barrier
+__device__ __forceinline__ void search_sync() { named_barrier(kBarSearch, kSearch); }
 
-  const int64_t per = (p.tiles + gridDim.x - 1) / gridDim.x;
-  const int64_t t_beg = static_cast<int64_t>(blockIdx.x) * per;
-  const int64_t t_end = t_beg + per < p.tiles ? t_beg + per : p.tiles;
-  for (int64_t t = t_beg; t < t_end; ++t) {
-    const int tx = static_cast<int>(t % p.tiles_x);
-    const int ty = static_cast<int>((t / p.tiles_x) % p.tiles_y);
-    const int n = static_cast<int>(t / (static_cast<int64_t>(p.tiles_x) * p.tiles_y));
-    const int i0 = ty * kBT, j0 = tx * kBT;  // first conv pixel of the tile
-    const int u0 = i0 / 2, v0 = j0 / 2;      // first pool window touching it
-    const int iy0 = 2 * i0 - 3, ix0 = 2 * j0 - 3;
-    __syncthreads();  // the previous tile's readers are done
+// an arrival at hardware barrier `id` of `threads`, without waiting
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
-    for (int i = tid; i < kBPatch; i += kBThreads) {
-      const int r = i / (kBPE * kBCIN), rem = i % (kBPE * kBCIN);
-      const int iy = iy0 + r, ix = ix0 + rem / kBCIN;
-      bf16 v = zero;
-      if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
-        v = p.x[((static_cast<int64_t>(n) * p.H + iy) * p.W + ix) * kBCIN + rem % kBCIN];
-      sX[i] = v;
-    }
-    // each window's first maximum (9: none) and its cotangent where out > 0
-    for (int e = tid; e < kBW * kBW * (kBCOUT / 2); e += kBThreads) {
-      const int cp = e % (kBCOUT / 2), wpos = e / (kBCOUT / 2);
-      const int u = u0 + wpos / kBW, v = v0 + wpos % kBW;
-      uint8_t w0 = 9, w1 = 9;
-      __nv_bfloat162 gg = __halves2bfloat162(zero, zero);
-      if (u < p.Hp && v < p.Wp) {
-        const int64_t po = ((static_cast<int64_t>(n) * p.Hp + u) * p.Wp + v) * kBCOUT + 2 * cp;
-        const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p.out[po]));
-        const __nv_bfloat162 gv = *reinterpret_cast<const __nv_bfloat162*>(&p.g[po]);
-        // scanned backwards, so the last match kept is the first in row-major order;
-        // cells outside the conv output are the pool's zero padding
-        for (int k = 8; k >= 0; --k) {
-          const int cy = 2 * u - 1 + k / 3, cx = 2 * v - 1 + k % 3;
-          float2 yv = make_float2(0.f, 0.f);
-          if (cy >= 0 && cy < p.Hc && cx >= 0 && cx < p.Wc)
-            yv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                &p.y[((static_cast<int64_t>(n) * p.Hc + cy) * p.Wc + cx) * kBCOUT + 2 * cp]));
-          if (yv.x == o.x) w0 = static_cast<uint8_t>(k);
-          if (yv.y == o.y) w1 = static_cast<uint8_t>(k);
-        }
-        gg = __halves2bfloat162(o.x > 0.f ? gv.x : zero, o.y > 0.f ? gv.y : zero);
-      }
-      sWin[wpos * kBCOUT + 2 * cp] = w0;
-      sWin[wpos * kBCOUT + 2 * cp + 1] = w1;
-      *reinterpret_cast<__nv_bfloat162*>(&sG[wpos * kBCOUT + 2 * cp]) = gg;
-    }
-    __syncthreads();
-
-    // dacc of each pixel: the windows it wins, rows 2u+1 (window row 0) before
-    // 2u-1 (window row 2), likewise columns, summed in f32 and rounded once
-    for (int e = tid; e < kBPix * (kBCOUT / 2); e += kBThreads) {
-      const int cp = e % (kBCOUT / 2), pix = e / (kBCOUT / 2);
-      const int li = pix / kBT, lj = pix % kBT;
-      float d0 = 0.f, d1 = 0.f;
-      if (i0 + li < p.Hc && j0 + lj < p.Wc) {
-        int wu[2], ru[2], wv[2], rv[2];
-        const int nu = (li & 1) ? 2 : 1, nv = (lj & 1) ? 2 : 1;
-        if (li & 1) { wu[0] = li / 2 + 1; ru[0] = 0; wu[1] = li / 2; ru[1] = 2; } else { wu[0] = li / 2; ru[0] = 1; }
-        if (lj & 1) { wv[0] = lj / 2 + 1; rv[0] = 0; wv[1] = lj / 2; rv[1] = 2; } else { wv[0] = lj / 2; rv[0] = 1; }
-        for (int a = 0; a < nu; ++a)
-          for (int b = 0; b < nv; ++b) {
-            const int idx = (wu[a] * kBW + wv[b]) * kBCOUT + 2 * cp;
-            const int k = ru[a] * 3 + rv[b];
-            const float2 gf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sG[idx]));
-            if (sWin[idx] == k) d0 += gf.x;
-            if (sWin[idx + 1] == k) d1 += gf.y;
-          }
-      }
-      __nv_bfloat162 o;
-      o.x = __float2bfloat16(d0);
-      o.y = __float2bfloat16(d1);
-      *reinterpret_cast<__nv_bfloat162*>(&sD[pix * kBLdD + 2 * cp]) = o;
-    }
-    __syncthreads();
-
-    // dW^T (160 x 64) += A (taps x 256 pixels) * dacc (256 pixels x 64)
-#pragma unroll 2
-    for (int ks = 0; ks < kBPix / 16; ++ks) {
-      const int p0 = ks * 16 + (lane & 3) * 2;
-      const int b0 = sPB[p0], b1 = sPB[p0 + 1], b8 = sPB[p0 + 8], b9 = sPB[p0 + 9];
-      uint32_t a[4];
-      a[0] = pack_bf16x2(sX[b0 + oa], sX[b1 + oa]);
-      a[1] = pack_bf16x2(sX[b0 + ob], sX[b1 + ob]);
-      a[2] = pack_bf16x2(sX[b8 + oa], sX[b9 + oa]);
-      a[3] = pack_bf16x2(sX[b8 + ob], sX[b9 + ob]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &sD[(ks * 16 + (lane & 15)) * kBLdD + jj * 16 + (lane >> 4) * 8]);
-        mma_bf16(acc[2 * jj], a, r[0], r[1]);
-        mma_bf16(acc[2 * jj + 1], a, r[2], r[3]);
-      }
-    }
+// the last of `count` blocks to arrive at *t (after a __threadfence of their
+// writes) gets true and resets *t
+__device__ __forceinline__ bool last_of(unsigned int* t, unsigned int count, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(t, 1u) == count - 1;
+    if (last) *t = 0u;
+    *flag = last;
   }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
 
-  float* dst = p.partial + static_cast<int64_t>(blockIdx.x) * kBKR * kBCOUT;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = j * 8 + (lane & 3) * 2;
-    if (ka < kBKR) {
-      dst[ka * kBCOUT + c] = acc[j][0];
-      dst[ka * kBCOUT + c + 1] = acc[j][1];
+// dst[e] = sum over k < n of src[k * stride + e] in k order, e < 147 * 64, as float4 columns
+__device__ void sum_partials(const float* src, int64_t stride, int n, float* dst) {
+  constexpr int kCols = kBKR * kBCOUT / 4;
+  for (int c = threadIdx.x; c < kCols; c += kBThreads) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      const float4 u = __ldcg(reinterpret_cast<const float4*>(src + k * stride) + c);
+      v.x = __fadd_rn(v.x, u.x);
+      v.y = __fadd_rn(v.y, u.y);
+      v.z = __fadd_rn(v.z, u.z);
+      v.w = __fadd_rn(v.w, u.w);
     }
-    if (kb < kBKR) {
-      dst[kb * kBCOUT + c] = acc[j][2];
-      dst[kb * kBCOUT + c + 1] = acc[j][3];
-    }
+    reinterpret_cast<float4*>(dst)[c] = v;
   }
 }
 
-// dW[e] = sum over blocks of partial[b, e], in block order
-__global__ void stem_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ dw, int blocks) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= kBKR * kBCOUT) return;
-  float t = 0.f;
-  for (int b = 0; b < blocks; ++b) t += partial[static_cast<int64_t>(b) * kBKR * kBCOUT + e];
-  dw[e] = t;
+__global__ void __launch_bounds__(kBThreads, 1) stem_bwd_kernel(const __grid_constant__ StemBwdArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sDacc = smem;                                   // 1024-aligned: the wgmma B tile
+  uint8_t* ring = smem + kDaccBytes;                       // kStages x [y | out | g | x]
+  uint2* sG = reinterpret_cast<uint2*>(ring + kStages * kStageBytes);  // four channels' gated cotangents
+  uint32_t* sWin = reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(sG) + kGBytes);  // four winners
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(sWin) + kWBytes);
+  uint64_t* empty = full + kStages;
+  __shared__ int flag;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t t_beg = static_cast<int64_t>(blockIdx.x) * p.per;
+  const int64_t t_end = t_beg + p.per < p.tiles ? t_beg + p.per : p.tiles;
+  const int ntile = static_cast<int>(t_end - t_beg);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], p.xtma ? 1 : 1 + 32);  // the TMA's expect_tx (and the producer lanes' cp.asyncs)
+      mbar_init(&empty[s], (kMma + kSearch) / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kBThreads / 32 - 1) {
+    // the producer
+    for (int k = 0; k < ntile; ++k) {
+      const int64_t t = t_beg + k;
+      const int tx = static_cast<int>(t % p.tiles_x);
+      const int ty = static_cast<int>((t / p.tiles_x) % p.tiles_y);
+      const int n = static_cast<int>(t / (static_cast<int64_t>(p.tiles_x) * p.tiles_y));
+      const int i0 = ty * kBT, j0 = tx * kBT;
+      const int st = k % kStages;
+      uint8_t* stage = ring + st * kStageBytes;
+      if (k >= kStages) mbar_wait(&empty[st], ((k / kStages) - 1) & 1);
+      // the patch: input rows 2 i0 - 3 .., columns from 2 j0 - 8 (3 ix0 a
+      // multiple of 8 elements: 16 bytes)
+      bf16* xs = reinterpret_cast<bf16*>(stage + kYBytes + 2 * kWinBytes);
+      const int iy0 = 2 * i0 - 3, ix0 = 2 * j0 - kXCol0;
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], (STEM_XONLY ? 0 : kYBytes + 2 * kWinBytes) + (p.xtma ? kBPE * kXRow * 2 : 0));
+#if !STEM_XONLY
+        tma_load_4d(stage, &p.ymap, &full[st], 0, j0 - 1, i0 - 1, n);
+        tma_load_4d(stage + kYBytes, &p.omap, &full[st], 0, j0 / 2, i0 / 2, n);
+        tma_load_4d(stage + kYBytes + kWinBytes, &p.gmap, &full[st], 0, j0 / 2, i0 / 2, n);
+#endif
+        if (p.xtma) tma_load_3d(xs, &p.xmap, &full[st], 3 * ix0, iy0, n);
+      }
+      if (p.xtma) continue;
+      // by cp.async: the column ix0 is even, so a word never straddles the
+      // image's edge (W % 4 == 0)
+      for (int e = lane; e < kBPE * kXWords; e += 32) {
+        const int r = e / kXWords, wd = e % kXWords;
+        const int iy = iy0 + r, ix = ix0 + (2 * wd) / 3;  // the word's first element's column
+        const bool ok = iy >= 0 && iy < p.H && ix >= 0 && ix < p.W;
+        const bf16* src = ok ? p.x + ((static_cast<int64_t>(n) * p.H + iy) * p.W + ix0) * kBCIN + 2 * wd : p.x;
+        cp_async4(xs + r * kXRow + 2 * wd, src, ok);
+      }
+      cp_async_arrive(&full[st]);
+    }
+  } else if (warp >= kMma / 32) {
+    // the search warps: each window's first maximum, then dacc
+    const int sid = tid - kMma;
+    for (int k = 0; k < ntile; ++k) {
+      const int64_t t = t_beg + k;
+      const int tx = static_cast<int>(t % p.tiles_x);
+      const int ty = static_cast<int>((t / p.tiles_x) % p.tiles_y);
+      const int i0 = ty * kBT, j0 = tx * kBT;
+      const int st = k % kStages;
+      const uint8_t* stage = ring + st * kStageBytes;
+      const uint2* sy = reinterpret_cast<const uint2*>(stage);
+      const uint2* so = reinterpret_cast<const uint2*>(stage + kYBytes);
+      const uint2* sg = reinterpret_cast<const uint2*>(stage + kYBytes + kWinBytes);
+      mbar_wait(&full[st], (k / kStages) & 1);
+
+#if !STEM_NOSEARCH
+      // each window's first maximum (9: none) and its cotangent where out > 0:
+      // item (window, four channels), y box rows 2 wu + k / 3, columns 2 wv + k % 3
+      for (int e = sid; e < kBW * kBW * (kBCOUT / 4); e += kSearch) {
+        const int cq = e & 15, wpos = e >> 4;
+        const int wu = wpos / kBW, wv = wpos % kBW;
+        const uint2 o = so[wpos * 16 + cq];
+        const uint2* yw = sy + (2 * wu * kYE + 2 * wv) * 16 + cq;
+        uint32_t win[4] = {9, 9, 9, 9};
+#pragma unroll
+        for (int kk = 8; kk >= 0; --kk) {  // scanned backwards: the last match kept is the first
+          const uint2 yv = yw[((kk / 3) * kYE + kk % 3) * 16];
+          const uint32_t d0 = yv.x ^ o.x, d1 = yv.y ^ o.y;
+          win[0] = (d0 & 0xffffu) == 0 ? kk : win[0];
+          win[1] = (d0 >> 16) == 0 ? kk : win[1];
+          win[2] = (d1 & 0xffffu) == 0 ? kk : win[2];
+          win[3] = (d1 >> 16) == 0 ? kk : win[3];
+        }
+        // out > 0: a positive bf16 (sign clear, not zero)
+        const uint2 gv = sg[wpos * 16 + cq];
+        const uint32_t m0 = (static_cast<int16_t>(o.x & 0xffffu) > 0 ? 0xffffu : 0u) |
+                            (static_cast<int16_t>(o.x >> 16) > 0 ? 0xffff0000u : 0u);
+        const uint32_t m1 = (static_cast<int16_t>(o.y & 0xffffu) > 0 ? 0xffffu : 0u) |
+                            (static_cast<int16_t>(o.y >> 16) > 0 ? 0xffff0000u : 0u);
+        sG[wpos * 16 + cq] = make_uint2(gv.x & m0, gv.y & m1);
+        sWin[wpos * 16 + cq] = win[0] | (win[1] << 8) | (win[2] << 16) | (win[3] << 24);
+      }
+#endif
+      search_sync();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // y, out and g are read (the patch waits for the product)
+      named_barrier(kBarDaccFree, kMma + kSearch);  // the previous tile's product has read dacc
+
+#if !STEM_NOSEARCH
+      // dacc of the 2 x 2 pixels of window cell (a, b): windows (a, b), (a+1,
+      // b), (a, b+1), (a+1, b+1), rows 2u+1 before 2u-1, likewise columns,
+      // summed in f32 and rounded once; pixels past the conv output get 0;
+      // item (cell, four channels)
+      for (int e = sid; e < (kBT / 2) * (kBT / 2) * (kBCOUT / 4); e += kSearch) {
+        const int cq = e & 15, cell = e >> 4;
+        const int a = cell >> 3, b = cell & 7;
+        const int w00 = a * kBW + b, w10 = w00 + kBW, w01 = w00 + 1, w11 = w10 + 1;
+        const uint2 g00 = sG[w00 * 16 + cq], g10 = sG[w10 * 16 + cq], g01 = sG[w01 * 16 + cq],
+                    g11 = sG[w11 * 16 + cq];
+        const uint32_t n00 = sWin[w00 * 16 + cq], n10 = sWin[w10 * 16 + cq], n01 = sWin[w01 * 16 + cq],
+                       n11 = sWin[w11 * 16 + cq];
+        // channel h's cotangent where the window's winner is kk, else 0
+        auto take = [](uint32_t win, uint2 g, int h, int kk) {
+          const uint32_t bits = ((h < 2 ? g.x : g.y) >> (16 * (h & 1))) << 16;
+          return ((win >> (8 * h)) & 0xffu) == static_cast<uint32_t>(kk) ? __uint_as_float(bits) : 0.f;
+        };
+        float d[4][4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          d[0][h] = 0.f + take(n00, g00, h, 4);                                          // (2a, 2b)
+          d[1][h] = (0.f + take(n01, g01, h, 3)) + take(n00, g00, h, 5);                 // (2a, 2b+1)
+          d[2][h] = (0.f + take(n10, g10, h, 1)) + take(n00, g00, h, 7);                 // (2a+1, 2b)
+          d[3][h] = (((0.f + take(n11, g11, h, 0)) + take(n10, g10, h, 2)) + take(n01, g01, h, 6)) +
+                    take(n00, g00, h, 8);                                                // (2a+1, 2b+1)
+        }
+#pragma unroll
+        for (int px = 0; px < 4; ++px) {
+          const int li = 2 * a + (px >> 1), lj = 2 * b + (px & 1);
+          const bool in = i0 + li < p.Hc && j0 + lj < p.Wc;
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(in ? d[px][0] : 0.f, in ? d[px][1] : 0.f);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(in ? d[px][2] : 0.f, in ? d[px][3] : 0.f);
+          *reinterpret_cast<uint2*>(sDacc + swz(li * kBT + lj, cq >> 1) + (cq & 1) * 8) =
+              make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+        }
+      }
+#endif
+      fence_proxy_async();  // dacc's generic stores -> the wgmma's reads
+      named_arrive(kBarDaccFull, kMma + kSearch);
+      search_sync();  // sG and sWin are read: the next tile's search may write them
+    }
+  } else {
+    // the product warpgroups: tile k's product runs while the search warps
+    // find tile k + 1's windows
+    const int wg = warp >> 2;  // warpgroup: taps 64 wg .. 64 wg + 63
+    const int ka = wg * 64 + (warp & 3) * 16 + (lane >> 2), kb = ka + 8;
+    // a tap's offset in the patch: row ky, column kx + kXCol0 - 3, channel ci
+    auto tap_off = [](int k) {
+      if (k >= kBKR) return 0;
+      const int ky = k / (7 * kBCIN), rem = k % (7 * kBCIN);
+      return ky * kXRow + (rem / kBCIN + kXCol0 - 3) * kBCIN + rem % kBCIN;
+    };
+    const int oa = tap_off(ka), ob = tap_off(kb);
+    const int q2 = (lane & 3) * 2;  // the fragment's first pixel (column) of a k-step
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    uint32_t af[kARing][4];
+    const uint32_t dacc_u32 = smem_u32(sDacc);
+    named_arrive(kBarDaccFree, kMma + kSearch);  // dacc starts free
+    for (int k = 0; k < ntile; ++k) {
+      const int st = k % kStages;
+      const bf16* xs = reinterpret_cast<const bf16*>(ring + st * kStageBytes + kYBytes + 2 * kWinBytes);
+      mbar_wait(&full[st], (k / kStages) & 1);  // the patch
+      named_barrier(kBarDaccFull, kMma + kSearch);
+
+      // dW^T (taps x 64) += A (taps x 256 pixels) * dacc, a warpgroup's 64 taps,
+      // k-step ks = tile row ks; A[tap][pixel (ks, j)] = patch[2 ks][6 j + off(tap)]
+      // The A fragments go through a ring of kARing register sets: set ks %
+      // kARing is written once the product that last read it (k-step ks -
+      // kARing, one commit group a k-step) has completed, and each write is
+      // fenced before the product that reads it.
+#if !STEM_NOMMA
+#pragma unroll
+      for (int ks = 0; ks < kBT; ++ks) {
+        uint32_t* a = af[ks % kARing];
+        if (ks >= kARing) wgmma_wait<kARing - 1>();
+        const bf16* xr = xs + 2 * ks * kXRow + 6 * q2;
+        a[0] = pack_bf16x2(xr[oa], xr[oa + 6]);
+        a[1] = pack_bf16x2(xr[ob], xr[ob + 6]);
+        a[2] = pack_bf16x2(xr[oa + 48], xr[oa + 54]);
+        a[3] = pack_bf16x2(xr[ob + 48], xr[ob + 54]);
+        wgmma_fence();
+        wgmma_m64n64_rs(acc, af[ks % kARing], sw128_desc(dacc_u32 + ks * kBT * 128, 0));
+        wgmma_commit();
+      }
+#endif
+      wgmma_wait<0>();
+      if (k + 1 < ntile) named_arrive(kBarDaccFree, kMma + kSearch);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // the patch is read
+    }
+    fence_regs(acc);
+    // this block's partial, rows < 147 of the warpgroup's D: d[4j + e] is
+    // (tap 16 w + lane / 4 + 8 (e / 2), channel 8 j + 2 (lane % 4) + e % 2)
+    float* dst = p.partial + static_cast<int64_t>(blockIdx.x) * kBKR * kBCOUT;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j * 8 + q2;
+      if (ka < kBKR) *reinterpret_cast<float2*>(dst + ka * kBCOUT + c) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (kb < kBKR) *reinterpret_cast<float2*>(dst + kb * kBCOUT + c) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+
+#if STEM_ONE_LEVEL
+  if (!last_of(p.ticket, gridDim.x, &flag)) return;
+  sum_partials(p.partial, kBKR * kBCOUT, gridDim.x, p.dw);
+  return;
+#endif
+  // the group's sum by its last block, then the groups' by the last group
+  const int grp = blockIdx.x / p.gsize;
+  const int g0 = grp * p.gsize, gn = min(p.gsize, static_cast<int>(gridDim.x) - g0);
+  if (!last_of(p.ticket + grp, gn, &flag)) return;
+  const int64_t part = kBKR * kBCOUT;
+  float* gsum = p.partial + (static_cast<int64_t>(gridDim.x) + grp) * part;
+  sum_partials(p.partial + g0 * part, part, gn, gsum);
+  if (!last_of(p.ticket + p.groups, p.groups, &flag)) return;
+  sum_partials(p.partial + static_cast<int64_t>(gridDim.x) * part, part, p.groups, p.dw);
+}
+
+// Host: a 3-D bf16 tensor map of x (N, H, W, 3) viewed as (N, H, W * 3),
+// boxes of 128 elements x 37 rows x 1 landing row-major, zero fill outside;
+// W % 8 == 0 (a row's bytes a multiple of 16)
+inline cudaError_t make_tmap_patch(CUtensorMap* map, const void* base, int N, int H, int W) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(3 * W), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t row = static_cast<cuuint64_t>(3 * W) * 2;
+  const cuuint64_t strides[2] = {row, row * H};
+  const cuuint32_t box[3] = {kXRow, kBPE, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Host: a 4-D bf16 tensor map of an NHWC (N, H, W, 64) tensor, boxes of 64
+// channels x bw x bh x 1 pixels landing row-major (no swizzle), zero fill
+// outside the tensor
+inline cudaError_t make_tmap_box(CUtensorMap* map, const void* base, int N, int H, int W, int bw, int bh) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {kBCOUT, static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t row = kBCOUT * 2;
+  const cuuint64_t strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t box[4] = {kBCOUT, static_cast<cuuint32_t>(bw), static_cast<cuuint32_t>(bh), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace argus
 
-// dW (7, 7, 3, 64) f32 over the first n_images images; `blocks` (at most the
-// tile count) blocks each write a (147, 64) f32 partial into `partial`
+// dW (7, 7, 3, 64) f32 over the first n_images images: `blocks` (at most the
+// tile count) persistent blocks in groups of `gsize`; partial: (blocks +
+// groups, 147, 64) f32; ticket: groups + 1 uint32, 0, of the stream's own
+// (the launch leaves them 0)
 extern "C" int argus_stem_bwd(const void* x, const void* g, const void* out, const void* y, void* partial,
-                              void* dw, int n_images, int H, int W, int blocks, void* stream) {
+                              void* dw, void* ticket, int n_images, int H, int W, int blocks, int gsize,
+                              void* stream) {
   using namespace argus;
   StemBwdArgs p;
+  memset(&p, 0, sizeof(p));
   p.x = static_cast<const bf16*>(x);
-  p.g = static_cast<const bf16*>(g);
-  p.out = static_cast<const bf16*>(out);
-  p.y = static_cast<const bf16*>(y);
   p.partial = static_cast<float*>(partial);
+  p.dw = static_cast<float*>(dw);
+  p.ticket = static_cast<unsigned int*>(ticket);
   p.H = H;
   p.W = W;
   p.Hc = (H - 1) / 2 + 1;
   p.Wc = (W - 1) / 2 + 1;
-  p.Hp = (p.Hc - 1) / 2 + 1;
-  p.Wp = (p.Wc - 1) / 2 + 1;
+  const int Hp = (p.Hc - 1) / 2 + 1, Wp = (p.Wc - 1) / 2 + 1;
   p.tiles_y = (p.Hc + kBT - 1) / kBT;
   p.tiles_x = (p.Wc + kBT - 1) / kBT;
   p.tiles = static_cast<int64_t>(n_images) * p.tiles_y * p.tiles_x;
-  if (blocks < 1 || blocks > p.tiles) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks < 1 || blocks > p.tiles || gsize < 1 || H % 4 || W % 4 || ticket == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.per = static_cast<int>((p.tiles + blocks - 1) / blocks);
+  blocks = static_cast<int>((p.tiles + p.per - 1) / p.per);  // every block has a tile
+  p.gsize = gsize;
+  p.groups = (blocks + gsize - 1) / gsize;
+  cudaError_t e = make_tmap_box(&p.ymap, y, n_images, p.Hc, p.Wc, kYE, kYE);
+  if (e == cudaSuccess) e = make_tmap_box(&p.omap, out, n_images, Hp, Wp, kBW, kBW);
+  if (e == cudaSuccess) e = make_tmap_box(&p.gmap, g, n_images, Hp, Wp, kBW, kBW);
+  p.xtma = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (e == cudaSuccess && p.xtma) e = make_tmap_patch(&p.xmap, x, n_images, H, W);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(stem_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  static bool ready = false;  // once: the shared-memory opt-in
+  if (!ready) {
+    e = cudaFuncSetAttribute(stem_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
   stem_bwd_kernel<<<blocks, kBThreads, kBwdSmem, s>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  stem_bwd_sum_kernel<<<(kBKR * kBCOUT + 255) / 256, 256, 0, s>>>(p.partial, static_cast<float*>(dw), blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -124,6 +124,27 @@ def current_stream(index: int) -> int:
     return _stream_api()[0](index)
 
 
+TICKET_WORDS = 64
+_TICKETS: dict = {}  # (device index, raw stream) -> the stream's ticket counters
+
+
+def tickets(x):
+    """The ticket counters of the one-launch reductions (the last block to
+    draw a ticket adds the blocks' partial sums) on x's device and its
+    current stream: TICKET_WORDS 32-bit words, zeroed when made (on that
+    stream, before the first launch) and left 0 by every launch's last
+    blocks. Launches on one stream run one after another, so they may share
+    them; two streams never do."""
+    import torch
+
+    index = x.device.index
+    key = (index, current_stream(index))
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(TICKET_WORDS, dtype=torch.int32, device=x.device)
+    return t
+
+
 class Kernel:
     """One C launcher of a kernel library, with its launch count."""
 

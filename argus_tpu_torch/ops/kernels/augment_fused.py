@@ -20,7 +20,11 @@ Per-image scalars ride in one packed f32 row (argus_tpu's layout):
 
 On a CUDA tensor `fused_augment` launches `csrc/augment_fused.cu` with the
 jiggle plan as device data (no host read of the order); on a CPU tensor it
-runs the plain version `fused_augment_plain`.
+runs the plain version `fused_augment_plain`. The kernel holds an image in
+a cluster of `CLUSTER` blocks, a band of ceil(H / CLUSTER) rows each with a
+3-row halo (`band_rows`), and reads the batch once and writes it once.
+Where that band does not fit in a block's shared memory, each block walks
+its band in chunks (`chunk_rows`) and reads the image twice.
 """
 
 from __future__ import annotations
@@ -32,15 +36,63 @@ from argus_tpu_torch.ops.kernels.augment_common import adjust_hue, arc_mask
 from argus_tpu_torch.ops.kernels.blur import DTYPES, clamp_shift
 from argus_tpu_torch.ops.kernels.block_fused import check_cuda, check_device
 
-KERNEL = Kernel("augment_fused", "argus_augment_fused", [P] * 8 + [I] * 6 + [P])
+KERNEL = Kernel("augment_fused", "argus_augment_fused", [P] * 8 + [I] * 7 + [P])
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+CLUSTER = 8  # blocks of a cluster: one image (csrc/augment_fused.cu kCl)
+HALO = 3  # rows of halo each side of a band: the gaussian's 2 and the motion blur's 1
 
 
-def smem_bytes(h: int, w: int, s: int, n_arcs: int, itemsize: int) -> int:
-    """The kernel's shared memory (csrc/augment_fused.cu `smem_bytes`):
-    mh @ field (h x s f32), the shade tile, reductions, ring bounds, nonzero
-    ranges, and the three-channel blur buffers in the image dtype."""
-    return 4 * (h * s + 32 * 32 + 64 + 2 * n_arcs + 2 * h + 2 * w) + 3 * (38 * 38 + 34 * 38 + 34 * 34) * itemsize
+def band_rows(h: int) -> int:
+    """Rows of an image a block owns."""
+    return -(-h // CLUSTER)
+
+
+def smem_bytes(h: int, w: int, s: int, n_arcs: int, itemsize: int, rc: int | None = None) -> int:
+    """A block's shared memory (csrc/augment_fused.cu `AugSmem`) for chunks
+    of rc rows (default: the whole band): the chunk with its halo (three
+    channels), one channel's vertical gaussian, mh @ field over the own
+    rows, the arc tables (the per-column one only for the whole band), the
+    nonzero ranges, the shade bits, the reductions and a barrier, each
+    rounded up to 16 bytes."""
+    r, wp = band_rows(h), w + w % 2
+    rc = r if rc is None else rc
+    up = lambda v: -(-v // 16) * 16  # noqa: E731
+    return (up(3 * (rc + 2 * HALO) * wp * itemsize) + up((rc + 2) * wp * itemsize) + up(r * s * 4)
+            + up(0 if rc < r else n_arcs * wp * 4) + up((r + 2 * HALO) * n_arcs * 16) + up(n_arcs * 32) + up(wp * 8) + up(r * 8)
+            + up(rc * (wp // 2)) + up(52 * 4) + 16)
+
+
+def chunk_rows(h: int, w: int, s: int, n_arcs: int, itemsize: int) -> int:
+    """Rows of a chunk: the whole band where it fits in shared memory (the
+    image read once), else the most that fit (read twice), 0 if not one."""
+    rc = band_rows(h)
+    while rc > 0 and smem_bytes(h, w, s, n_arcs, itemsize, rc) > SMEM_LIMIT:
+        rc -= 1
+    return rc
+
+
+_RANGES = {}  # (id(mh), id(mwt)) -> (mh, mwt, their versions, ranges)
+
+
+def nonzero_ranges(mh: torch.Tensor, mwt: torch.Tensor) -> torch.Tensor:
+    """(H + W, 2) int32 on the matrices' device: the first and last index of
+    a nonzero in each row of mh, then in each column of mwt ([S, -1] where
+    all are zero). Found on the device once for a pair of matrices (the
+    resize matrices are uploaded once, so every step passes the same pair;
+    an in-place change of either is seen by its version counter)."""
+    key = (id(mh), id(mwt))
+    hit = _RANGES.get(key)
+    if hit is not None and hit[0] is mh and hit[1] is mwt and hit[2] == (mh._version, mwt._version):
+        return hit[3]
+    nz = torch.cat([mh, mwt.t()]) != 0
+    s = nz.shape[1]
+    idx = torch.arange(s, device=nz.device)
+    ranges = torch.stack([torch.where(nz, idx, s).amin(1), torch.where(nz, idx, -1).amax(1)], 1)
+    ranges = ranges.to(torch.int32).contiguous()
+    if len(_RANGES) >= 8:
+        _RANGES.clear()
+    _RANGES[key] = (mh, mwt, (mh._version, mwt._version), ranges)
+    return ranges
 
 
 def jiggle_plan(order: torch.Tensor):
@@ -142,8 +194,10 @@ def fused_augment(images, field, mh, mwt, packed, order, n_arcs: int) -> torch.T
     if c != 3 or images.dtype not in DTYPES or n <= 0:
         raise ValueError(f"augment kernel takes (N, 3, H, W) f32 or bf16, got {tuple(images.shape)} "
                          f"{images.dtype}")
-    if smem_bytes(h, w, s, n_arcs, images.element_size()) > SMEM_LIMIT:
-        raise ValueError(f"augment kernel keeps mh @ field ({h}x{s} f32) in shared memory: too large")
+    rc = chunk_rows(h, w, s, n_arcs, images.element_size())
+    if rc == 0:
+        raise ValueError(f"augment kernel keeps a chunk of 1 + {2 * HALO} rows of {w} pixels in shared memory: "
+                         f"{tuple(images.shape)} {images.dtype} is too wide")
     check_cuda("images", images, images.dtype)
     check_cuda("field", field, torch.float32, (n, s, s))
     check_cuda("mh", mh, torch.float32, (h, s))
@@ -151,8 +205,7 @@ def fused_augment(images, field, mh, mwt, packed, order, n_arcs: int) -> torch.T
     check_cuda("packed", packed, torch.float32, (n, 10 * n_arcs + 25))
     hue_pos, aff = jiggle_plan(order.reshape(4))
     plan = torch.cat([hue_pos[None], aff[0]]).contiguous()
-    scratch = torch.empty_like(images)
     out = torch.empty_like(images)
-    KERNEL.launch(images, field, mh, mwt, packed, plan, scratch, out, n, h, w, s, n_arcs,
+    KERNEL.launch(images, field, mh, mwt, packed, plan, nonzero_ranges(mh, mwt), out, n, h, w, s, n_arcs, rc,
                   DTYPES[images.dtype])
     return out

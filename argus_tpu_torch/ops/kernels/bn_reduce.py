@@ -27,8 +27,8 @@ slab b % nslab over its run of `per` boxes (split b // nslab) through a ring
 of shared-memory stages, writes its partial sums, and the last block to
 finish adds the partials in split order (in `runs` runs a channel, then the
 runs in order). The last block is the one that draws the grid's last
-ticket from a counter (`_ticket`), one a CUDA stream, so that launches on
-two streams never share one. One tensor holds the partials and the output;
+ticket from a counter (`_build.tickets`, word 0), one a CUDA stream, so
+that launches on two streams never share one. One tensor holds the partials and the output;
 the plan and the launcher's ints are cached per (M, C, stride, itemsize,
 streams).
 """
@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from argus_tpu_torch.ops.kernels._build import P, Kernel, current_stream
+from argus_tpu_torch.ops.kernels._build import P, Kernel, tickets
 from argus_tpu_torch.ops.kernels.block_fused import check_cuda, check_device
 
 KERNEL_STATS = Kernel("bn_reduce", "argus_bn_stats", [P] * 6)
@@ -192,23 +192,6 @@ def _launch_plan(M: int, C: int, stride: int, itemsize: int, tensors: int):
     return -(-p.grid * 2 * p.slab // C), ints, ctypes.addressof(ints), p.n_rows
 
 
-_TICKETS: dict = {}  # (device index, raw stream) -> the stream's ticket
-
-
-def _ticket(x: torch.Tensor) -> torch.Tensor:
-    """The ticket counter of the one-launch reduction on x's device and its
-    current stream: one 32-bit word, zeroed when made (on that stream,
-    before the first launch) and left 0 by every launch's last block.
-    Launches on one stream run one after another, so they may share it;
-    two streams never do."""
-    index = x.device.index
-    key = (index, current_stream(index))
-    t = _TICKETS.get(key)
-    if t is None:
-        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=x.device)
-    return t
-
-
 def _launch_args(x: torch.Tensor, stride: int, tensors: int):
     """(workspace (k + 2, C), the output's address (its rows k and k + 1),
     the plan's address, the stream's ticket, k, n_rows): one allocation
@@ -227,7 +210,7 @@ def _launch_args(x: torch.Tensor, stride: int, tensors: int):
         raise ValueError(f"the BN reduction kernels take fewer than 2^31 rows, got {M}")
     k, _, plan, n = _launch_plan(M, C, stride, e, tensors)
     ws = torch.empty((k + 2, C), dtype=torch.float32, device=x.device)
-    return ws, ws.data_ptr() + 4 * k * C, plan, _ticket(x), k, n
+    return ws, ws.data_ptr() + 4 * k * C, plan, tickets(x), k, n
 
 
 def fused_stats(x: torch.Tensor, stride: int = 1):

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from argus_tpu_torch.ops.kernels._build import I, P, Kernel
+from argus_tpu_torch.ops.kernels._build import I, P, Kernel, tickets
 from argus_tpu_torch.ops.kernels.block_fused import (
     check_cuda,
     check_device,
@@ -45,10 +45,9 @@ KERNEL = Kernel("stem_fused", "argus_stem_fwd", [P] * 4 + [I] * 3 + [P])
 KERNEL_SAVE = Kernel("stem_fused", "argus_stem_fwd_save", [P] * 5 + [I] * 3 + [P])
 # the packed-output stem launches the same kernel, counted apart
 KERNEL_PACKED = Kernel("stem_fused", "argus_stem_fwd", [P] * 4 + [I] * 3 + [P])
-KERNEL_BWD = Kernel("stem_fused_bwd", "argus_stem_bwd", [P] * 6 + [I] * 4 + [P])
+KERNEL_BWD = Kernel("stem_fused_bwd", "argus_stem_bwd", [P] * 7 + [I] * 5 + [P])
 
 _BWD_TILE = 16  # conv pixels per tile edge of csrc/stem_fused_bwd.cu
-_BWD_BLOCKS = 2 * 132  # two blocks on each of the H100's SMs
 
 
 def fold_stem_params(k7, scale, bias, mean, var, eps: float, dtype):
@@ -176,12 +175,23 @@ def stem_bwd(x, g, out, y, n_images: int) -> torch.Tensor:
     for name, t, shape in (("g", g, (n, h // 4, wd // 4, 64)), ("out", out, (n, h // 4, wd // 4, 64)),
                            ("y", y, (n, h // 2, wd // 2, 64))):
         check_cuda(name, t, torch.bfloat16, shape)
-    tiles = n_images * -(-(h // 2) // _BWD_TILE) * -(-(wd // 2) // _BWD_TILE)
-    blocks = min(tiles, _BWD_BLOCKS)
-    ws = torch.empty((blocks, 147, 64), dtype=torch.float32, device=x.device)
+    blocks, gsize = bwd_grid(n_images * -(-(h // 2) // _BWD_TILE) * -(-(wd // 2) // _BWD_TILE),
+                             torch.cuda.get_device_properties(x.device).multi_processor_count)
+    ws = torch.empty((blocks + -(-blocks // gsize), 147, 64), dtype=torch.float32, device=x.device)
     dw = torch.empty((7, 7, 3, 64), dtype=torch.float32, device=x.device)
-    KERNEL_BWD.launch(x, g, out, y, ws, dw, n_images, h, wd, blocks)
+    KERNEL_BWD.launch(x, g, out, y, ws, dw, tickets(x), n_images, h, wd, blocks, gsize)
     return dw
+
+
+def bwd_grid(tiles: int, sms: int):
+    """(blocks, group size) of the weight-gradient kernel: one persistent
+    block an SM (at most one a tile), each block's partial added by the last
+    block of its group of about sqrt(blocks), the groups' sums by the last
+    group; a ticket counter a group and one for the groups
+    (`_build.tickets`)."""
+    blocks = min(tiles, sms)
+    return blocks, max(1, round(blocks ** 0.5))
+
 
 
 class _StemSaved(torch.autograd.Function):

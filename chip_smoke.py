@@ -12,8 +12,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
    the BasicBlock, projection and identity backwards' libraries (the
    identity's saved-residual and recompute backwards), the stage chain's
    backward, the BasicBlock, identity bottleneck and projection forwards,
-   the chain forwards and the pointwise backward and forward must show
-   wgmma (HGMMA) instructions;
+   the chain forwards, the pointwise backward and forward and the stem's
+   weight gradient must show wgmma (HGMMA) instructions, and the
+   augmentation kernel's bf16 instantiation packed bf16x2 products and sums
+   (its conversions counted beside them);
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -59,7 +61,11 @@ Phases, each fatal on failure (nothing is caught and ignored):
    in bf16 and f32; max |kernel - plain| <= 1.6e-2 and mean <= 1e-3 in bf16
    (both round every op to bf16 at the same points; the contrast's luma mean
    and the hue's divisions differ by an f32 ulp, which can move a bf16
-   rounding by one ulp, 2^-8 in [0.5, 1)), <= 1e-5 in f32. Then the two
+   rounding by one ulp, 2^-8 in [0.5, 1)), <= 1e-5 in f32; two calls of the
+   whole-stack kernel bit-equal, and the stack at 16 x 203x137 (a height
+   its bands do not divide, an odd width), 8 x 512x512 and 4 x 128x1920
+   (bands too large for shared memory: the streamed form) in bf16 and f32,
+   each two calls bit-equal. Then the two
    paths through `apply_augmentation` on one bf16 batch, launches counted:
    the fused path 1 `augment_fused`, the per-op path 1 `blur`; and the fused
    path against the per-op path on the same parameters, in f32 and bf16,
@@ -111,7 +117,9 @@ Phases, each fatal on failure (nothing is caught and ignored):
    trained stem's saving forward (out and y within one bf16 ulp of the plain
    version, or within 1e-5 of the largest value where relu keeps a sum that
    sits within f32 rounding of zero) and its weight gradient over all 512
-   images and over the first 128 (2e-2 * max |plain| + 1e-2); BatchNorm's
+   images and over the first 128 (2e-2 * max |plain| + 1e-2; two calls
+   bit-equal), and at 16 x 200x136 and 16 x 200x132 (not whole tiles; the
+   second's patch rows by cp.async) over 16 and 4 images; BatchNorm's
    statistics and backward reductions at every distinct (M, C) of ResNet-50's
    53 BN inputs at N = 512, strides 1 and 4 (n_rows equal, sums within 1e-4
    of each channel's sum of magnitudes, one device kernel a call, two calls
@@ -190,7 +198,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
 17. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
-   67 TFLOP/s (f32 on the CUDA cores) for the augmentation kernels.
+   67 TFLOP/s (f32 on the CUDA cores) for the blur and the augmentation
+   kernel's f32 work, 133.8 TFLOP/s (packed bf16x2 on the CUDA cores) for
+   its image-dtype work on bf16 images; where a kernel's work runs at two
+   rates, the times of the two parts add.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 package beside it. Imports nothing of JAX or argus_tpu.
@@ -215,6 +226,7 @@ TOL_REL, TOL_ABS = 2e-2, 1e-2  # kernel vs plain, bf16 outputs
 POSE_ATOL = 0.05  # GPU bf16 serving vs CPU bf16 serving
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_F32 = 67e12  # H100 SXM f32 on the CUDA cores (NVIDIA's data sheet)
+PEAK_BF16X2 = 133.8e12  # H100 SXM bf16 outside the tensor cores (NVIDIA's H100 architecture whitepaper)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 BF = 2  # bytes per bf16
 
@@ -345,8 +357,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(flops, nbytes: float, peak: float = PEAK_FLOPS):
+    """(ms, what bounds it): the larger of the operations' time at their
+    peak and the bytes' at PEAK_BYTES. `flops` is a count at `peak`, or a
+    {peak: count} of work that runs at several rates (the times add)."""
+    work = flops if isinstance(flops, dict) else {peak: flops}
+    t_ops, t_bytes = sum(n / pk for pk, n in work.items()) * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -381,13 +397,44 @@ def hgmma_check() -> None:
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd", "basic_fused",
-                 "stage_fused_bwd", "block_fused", "pointwise_bwd", "proj_fused", "stage_fused", "pointwise"):
+                 "stage_fused_bwd", "block_fused", "pointwise_bwd", "proj_fused", "stage_fused", "pointwise",
+                 "stem_fused_bwd"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         n = sass.count("HGMMA")
         say(f"cuobjdump -sass {name}: {n} HGMMA instructions")
         if n == 0:
             raise AssertionError(f"{name}: no wgmma (HGMMA) instruction in its library")
+
+
+def bf16x2_check() -> None:
+    """The augmentation kernel's bf16 instantiations (the resident and the
+    streamed form) do their image-dtype ops as packed bf16x2 instructions:
+    `cuobjdump -sass` of its library must show them in each (printed beside
+    its f32 -> bf16 conversions, one per rounding in the parent's form)."""
+    import re
+    import shutil
+    from collections import Counter
+
+    from argus_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("augment_fused"))], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = [f for f in re.split(r"\n\s+Function : ", sass)[1:] if "augment_kernel" in f.split("\n", 1)[0]]
+    bf = [f for f in funcs if "bfloat16" in f.split("\n", 1)[0]]
+    if len(bf) != 2:  # the resident and the streamed form
+        raise AssertionError(f"augment_fused: {len(bf)} bf16 instantiations of augment_kernel in its library")
+    for f in bf:
+        ops = Counter(m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", f))
+        packed = {k: v for k, v in ops.items() if k.startswith(("HMUL2", "HADD2", "HFMA2", "HMNMX2")) and "BF16" in k}
+        conv = {k: v for k, v in ops.items() if k.startswith("F2F")}
+        head = f.split("\n", 1)[0]  # the mangled name: kStream is its Lb0E / Lb1E
+        form = "streamed" if "Lb1E" in head or "true" in head else "resident"
+        say(f"cuobjdump -sass augment_fused bf16 ({form}): {sum(ops.values())} instructions, packed bf16x2 "
+            f"{packed}, conversions {conv}")
+        if not any(k.startswith("HMUL2") for k in packed) or not any(k.startswith(("HADD2", "HFMA2")) for k in packed):
+            raise AssertionError(f"augment_fused: no packed bf16x2 product or sum in its bf16 {form} instantiation")
 
 
 # ─────────────────────────── phase 2: kernels ───────────────────────────
@@ -1060,7 +1107,10 @@ def stem_bn_kernel_phase() -> dict:
     for n_images in (N_IMG, N_IMG // 4):
         kern = lambda n=n_images: stem_fused.stem_bwd(x, gr, out, y, n)  # noqa: E731
         plain = lambda n=n_images: stem_fused.stem_bwd_plain(x, gr, out, y, n)  # noqa: E731
-        e = _compare(f"stem_fused_bwd n_images={n_images}", kern(), plain())
+        got = kern()
+        e = _compare(f"stem_fused_bwd n_images={n_images}", got, plain())
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"stem_fused_bwd n_images={n_images}: two calls on the same input differ")
         ms, pms = cuda_ms(kern, 5), cuda_ms(plain, 2)
         if n_images == N_IMG:
             lib = lambda: torch.autograd.grad(lib_out, [wl], gr, retain_graph=True)  # noqa: E731
@@ -1078,6 +1128,19 @@ def stem_bn_kernel_phase() -> dict:
             entry.update(ms=ms, plain_ms=pms, library_ms=lms, flops=fl, bytes=nb)
     results["stem_fused_bwd"] = entry
     del x, out, y, gr, lib_out, wl
+    # a size that is not a whole number of the kernel's 16 x 16 tiles (conv
+    # output 100 x 68), and a width whose patch rows go by cp.async (W % 8 != 0)
+    for shape in ((16, 200, 136), (16, 200, 132)):
+        xs = torch.rand(*shape, 3, generator=g, device="cuda").to(bf)
+        os_, ys = stem_fused.stem_fwd_save(xs, w7, b7)
+        gs = torch.randn(os_.shape, generator=g, device="cuda").to(bf)
+        for n_images in (shape[0], shape[0] // 4):
+            got = stem_fused.stem_bwd(xs, gs, os_, ys, n_images)
+            entry["max_abs_err"] = max(entry["max_abs_err"], _compare(
+                f"stem_fused_bwd {shape} n_images={n_images}", got, stem_fused.stem_bwd_plain(xs, gs, os_, ys, n_images)))
+            if not torch.equal(got, stem_fused.stem_bwd(xs, gs, os_, ys, n_images)):
+                raise AssertionError(f"stem_fused_bwd {shape} n_images={n_images}: two calls on the same input differ")
+    del xs, os_, ys, gs
     torch.cuda.empty_cache()
 
     def bn_close(name, got, want, scale):
@@ -1190,6 +1253,13 @@ BLUR_OPS = 41
 # BLUR_OPS; the field's min and max 2; its normalisation, threshold and
 # shade 7 (a difference, a quotient, a comparison, a product, a sum, a clip).
 AUG_PIXEL_OPS = 9 + (9 + 12 + 6 + 20 + 45) + 3 * BLUR_OPS + 2 + 7
+# Of those, the ones in the image dtype (the kernel's packed bf16x2
+# instructions on bf16 images): the gains, brightness, contrast and
+# saturation, the luma of the contrast's sum (5 of its 6: the sum is f32),
+# the blurs, and the shade's sum and clip (3 of its 7). The hue, the luma
+# sum, the field's min and max and the plasma's normalisation, threshold and
+# shade product stay f32, as do the arcs and the upsample.
+AUG_IMAGE_OPS = 9 + (9 + 12 + 5 + 20) + 3 * BLUR_OPS + 3
 
 
 def arc_ops(arcs, H: int, W: int) -> int:
@@ -1216,16 +1286,18 @@ def arc_ops(arcs, H: int, W: int) -> int:
     return ops
 
 
-def aug_ops(field, mh, mwt, packed, n_arcs: int) -> int:
-    """f32 operations the whole stack needs on this run's operands:
-    AUG_PIXEL_OPS a pixel, the arcs (`arc_ops`), and the bilinear upsample
-    mh @ field @ mwt over the nonzero entries of mh's rows and mwt's columns
-    (two at most: a product each, one sum fewer)."""
+def aug_ops(field, mh, mwt, packed, n_arcs: int) -> tuple:
+    """(image-dtype, f32) operations the whole stack needs on this run's
+    operands: AUG_PIXEL_OPS a pixel (AUG_IMAGE_OPS of them in the image
+    dtype), the arcs (`arc_ops`), and the bilinear upsample mh @ field @ mwt
+    over the nonzero entries of mh's rows and mwt's columns (two at most: a
+    product each, one sum fewer)."""
     n, H, W, S = field.shape[0], mh.shape[0], mwt.shape[1], field.shape[-1]
     taps = lambda nz: int((2 * nz - 1).clamp(min=0).sum())  # noqa: E731
     upsample = n * (S * taps((mh != 0).sum(1)) + H * taps((mwt != 0).sum(0)))
     arcs = packed[:, :10 * n_arcs].reshape(n, n_arcs, 10)
-    return n * H * W * AUG_PIXEL_OPS + upsample + arc_ops(arcs, H, W)
+    image = n * H * W * AUG_IMAGE_OPS
+    return image, n * H * W * (AUG_PIXEL_OPS - AUG_IMAGE_OPS) + upsample + arc_ops(arcs, H, W)
 
 
 def _aug_compare(label: str, got, want, dt: str) -> float:
@@ -1284,15 +1356,37 @@ def augment_phase() -> tuple:
     worst = max(worst, _aug_compare(f"augment_fused f32 order {params['f32'].order.tolist()} 10 arcs", kern(),
                                     plain(), "f32"))
     kern, plain, args = fused_case("bf16", 10)  # the train step's case
-    flops = aug_ops(*args[:4], 10)
+    if not torch.equal(kern(), kern()):
+        raise AssertionError("augment_fused: two calls on the same input differ")
+    # a size the kernel's bands do not divide (203 rows: bands of 26, the last
+    # one 21) and an odd width (the shared rows' pad column, the cooperative
+    # load); a 512 crop and 1920-wide frames, whose bands do not fit in shared
+    # memory (the streamed form: chunks of 41 and 18 rows of 64 at 512x512 in
+    # bf16 and f32, the image read twice)
+    for dt in ("bf16", "f32"):
+        for n, h, w in ((16, 203, 137), (8, 512, 512), (4, 128, 1920)):
+            xr = torch.rand(n, 3, h, w, generator=g, device="cuda").to(x[dt].dtype)
+            pr = TA.sample_params(cfg, 12, n // 2, 2, h, w, "cuda", xr.dtype)
+            ar = TA.pack_fused(pr, n, h, w, 10, "cuda")
+            rc = kaf.chunk_rows(h, w, ar[0].shape[-1], 10, xr.element_size())
+            got = kaf.fused_augment(xr, *ar, 10)
+            if not torch.equal(got, kaf.fused_augment(xr, *ar, 10)):
+                raise AssertionError(f"augment_fused {dt} {n} x {h}x{w}: two calls on the same input differ")
+            worst = max(worst, _aug_compare(f"augment_fused {dt} {n} x {h}x{w} 10 arcs (chunks of {rc} of "
+                                            f"{kaf.band_rows(h)} rows)", got, kaf.fused_augment_plain(xr, *ar, 10),
+                                            dt))
+    image_ops, f32_ops = aug_ops(*args[:4], 10)
+    flops = {PEAK_BF16X2: image_ops, PEAK_F32: f32_ops}  # bf16 images: the image-dtype ops as bf16x2
     nb = 2 * nbytes(x["bf16"]) + nbytes(*args)
     ms, pms = cuda_ms(kern, 10), cuda_ms(plain, 2)
-    b, by = bound_ms(flops, nb, PEAK_F32)
+    b, by = bound_ms(flops, nb)
     say(f"augment_fused {tuple(x['bf16'].shape)} bf16 x1: kernel {ms:.3f} ms, plain {pms:.3f} ms, no library "
-        f"call, bound {b:.3f} ms ({by}, f32 CUDA-core peak), {flops / ms / 1e9:.1f} TFLOP/s f32, "
+        f"call, bound {b:.3f} ms ({by}: {image_ops / PEAK_BF16X2 * 1e3:.3f} ms of {image_ops:.3g} image-dtype "
+        f"operations at the bf16x2 peak and {f32_ops / PEAK_F32 * 1e3:.3f} ms of {f32_ops:.3g} f32 ones, "
+        f"{nb / PEAK_BYTES * 1e3:.3f} ms of bytes), {(image_ops + f32_ops) / ms / 1e9:.1f} TFLOP/s, "
         f"{nb / ms / 1e6:.0f} GB/s")
     results["augment_fused"] = dict(max_abs_err=worst, ms=ms, plain_ms=pms, library_ms=None, flops=flops,
-                                    bytes=nb, peak=PEAK_F32)
+                                    bytes=nb)
 
     def blur_args(dt):
         (gw, gg), (mk, mg) = params[dt].gauss, params[dt].motion
@@ -2676,6 +2770,7 @@ def main() -> int:
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     build_phase()
     hgmma_check()
+    bf16x2_check()
     measured = kernel_phase()
     from argus_tpu_torch.ops.kernels import _build
 
