@@ -93,59 +93,6 @@ struct AugArgs {
   int bulk;  // the band arrives by bulk copy (W * itemsize % 16 == 0, img 16-byte aligned)
 };
 
-// ───────────── image-dtype arithmetic on pairs of pixels ─────────────
-
-template <typename T>
-struct Pair;
-
-// bf16: one packed instruction for both pixels, correctly rounded
-template <>
-struct Pair<bf16> {
-  typedef __nv_bfloat162 V;
-  // mul.rn / add.rn.bf16x2 (sm_90): what __hmul2_rn and __hadd2_rn emit there
-  __device__ static __forceinline__ V mul(V a, V b) {
-    uint32_t d;
-    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
-    return *reinterpret_cast<const V*>(&d);
-  }
-  __device__ static __forceinline__ V add(V a, V b) {
-    uint32_t d;
-    asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(bits(a)), "r"(bits(b)));
-    return *reinterpret_cast<const V*>(&d);
-  }
-  __device__ static __forceinline__ uint32_t bits(V v) { return *reinterpret_cast<const uint32_t*>(&v); }
-  __device__ static __forceinline__ V clip01(V v) {
-    return __hmin2(__hmax2(v, __float2bfloat162_rn(0.f)), __float2bfloat162_rn(1.f));
-  }
-  __device__ static __forceinline__ V splat(float s) { return __float2bfloat162_rn(s); }
-  __device__ static __forceinline__ V make(float lo, float hi) { return __floats2bfloat162_rn(lo, hi); }
-  __device__ static __forceinline__ float lo(V v) { return __low2float(v); }
-  __device__ static __forceinline__ float hi(V v) { return __high2float(v); }
-  // (a.hi, b.lo): the pair one pixel to the right of a
-  __device__ static __forceinline__ V shift(V a, V b) {
-    const uint32_t r = __byte_perm(bits(a), bits(b), 0x5432);
-    return *reinterpret_cast<const V*>(&r);
-  }
-  __device__ static __forceinline__ V dup_lo(V v) { return __low2bfloat162(v); }
-  __device__ static __forceinline__ V dup_hi(V v) { return __high2bfloat162(v); }
-};
-
-// f32: two scalar ops
-template <>
-struct Pair<float> {
-  typedef float2 V;
-  __device__ static __forceinline__ V mul(V a, V b) { return make_float2(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)); }
-  __device__ static __forceinline__ V add(V a, V b) { return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y)); }
-  __device__ static __forceinline__ V clip01(V v) { return make_float2(argus::clip01(v.x), argus::clip01(v.y)); }
-  __device__ static __forceinline__ V splat(float s) { return make_float2(s, s); }
-  __device__ static __forceinline__ V make(float lo, float hi) { return make_float2(lo, hi); }
-  __device__ static __forceinline__ float lo(V v) { return v.x; }
-  __device__ static __forceinline__ float hi(V v) { return v.y; }
-  __device__ static __forceinline__ V shift(V a, V b) { return make_float2(a.y, b.x); }
-  __device__ static __forceinline__ V dup_lo(V v) { return make_float2(v.x, v.x); }
-  __device__ static __forceinline__ V dup_hi(V v) { return make_float2(v.y, v.y); }
-};
-
 __device__ __forceinline__ float fm(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fa(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float fs(float a, float b) { return __fsub_rn(a, b); }
@@ -315,15 +262,6 @@ __device__ __forceinline__ void next_item(int& r, int& q, int dr, int dq, int PR
     q -= PR;
     ++r;
   }
-}
-
-// 1-D bulk copy global -> shared, completing on `bar` (bytes and both
-// addresses multiples of 16)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
 }
 
 // ───────────── shared memory ─────────────
@@ -632,10 +570,7 @@ __global__ void __cluster_dims__(kCl, 1, 1) __launch_bounds__(kAugThreads, 2)
         for (int t = 0; t < 4; ++t) win[t] = Xc[at(ra - 2 + t) + q];
         for (int r = ra; r < rb; ++r) {
           win[4] = Xc[at(r + 2) + q];
-          V acc = P::mul(w5[0], win[0]);
-#pragma unroll
-          for (int t = 1; t < 5; ++t) acc = P::add(acc, P::mul(w5[t], win[t]));
-          G[(r - gb) * PR + q] = acc;
+          G[(r - gb) * PR + q] = tap5<T, false>(w5, win[0], win[1], win[2], win[3], win[4]);
 #pragma unroll
           for (int t = 0; t < 4; ++t) win[t] = win[t + 1];
         }
@@ -648,13 +583,8 @@ __global__ void __cluster_dims__(kCl, 1, 1) __launch_bounds__(kAugThreads, 2)
         const V cc = gr[q];
         const V lf = q > 0 ? gr[q - 1] : P::dup_lo(cc);
         const V rt = q + 1 < PR ? gr[q + 1] : P::dup_hi(cc);
-        V acc = P::mul(w5[0], lf);
-        acc = P::add(acc, P::mul(w5[1], P::shift(lf, cc)));
-        acc = P::add(acc, P::mul(w5[2], cc));
-        acc = P::add(acc, P::mul(w5[3], P::shift(cc, rt)));
-        acc = P::add(acc, P::mul(w5[4], rt));
         V* px = X + c * CH + (r - b0) * PR + q;
-        V v = P::add(P::mul(gg, acc), P::mul(gg1, *px));
+        V v = gate<T>(gg, gg1, hgauss<T, false>(w5, lf, cc, rt), *px);
         if (odd && q + 1 == PR) v = P::dup_lo(v);  // the pad repeats column W - 1
         *px = v;
       }
@@ -662,22 +592,17 @@ __global__ void __cluster_dims__(kCl, 1, 1) __launch_bounds__(kAugThreads, 2)
       // the motion blur, its gate, the shade, out
       T* oc = out + static_cast<size_t>(c) * HW;
       for (int r = c0 + tid / PR, q = tid % PR; r < c1; next_item(r, q, dr, dq, PR)) {
-        V acc;
+        V lf[3], cc[3], rt[3];
 #pragma unroll
         for (int ky = 0; ky < 3; ++ky) {
           const V* gr = Xc + at(r + ky - 1);
-          const V cc = gr[q];
-          const V lf = q > 0 ? gr[q - 1] : P::dup_lo(cc);
-          const V rt = q + 1 < PR ? gr[q + 1] : P::dup_hi(cc);
-          const V t0 = P::mul(m9[3 * ky], P::shift(lf, cc));
-          acc = ky == 0 ? t0 : P::add(acc, t0);
-          acc = P::add(acc, P::mul(m9[3 * ky + 1], cc));
-          acc = P::add(acc, P::mul(m9[3 * ky + 2], P::shift(cc, rt)));
+          cc[ky] = gr[q];
+          lf[ky] = q > 0 ? gr[q - 1] : P::dup_lo(cc[ky]);
+          rt[ky] = q + 1 < PR ? gr[q + 1] : P::dup_hi(cc[ky]);
         }
-        const V v2 = Xc[at(r) + q];
         const uint8_t b = shb[(r - c0) * PR + q];
         const V sh = P::make(b & 1 ? s1 : s0, b & 2 ? s1 : s0);
-        const V v = P::clip01(P::add(P::add(P::mul(mg, acc), P::mul(mg1, v2)), sh));
+        const V v = P::clip01(P::add(gate<T>(mg, mg1, motion9<T, false>(m9, lf, cc, rt), cc[1]), sh));
         T* dst = oc + static_cast<size_t>(r) * W + 2 * q;
         if (!odd) {
           *reinterpret_cast<V*>(dst) = v;

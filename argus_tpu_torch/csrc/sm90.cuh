@@ -2,9 +2,10 @@
 // (conv_dgrad_sm90.cuh, wgrad_sm90.cuh, conv_fwd_sm90.cuh): the
 // shared-memory matrix descriptor of wgmma for the 128-byte swizzle, the
 // warpgroup MMA itself (bf16 in, f32 accumulate), its fences, mbarriers,
-// the 2-D, 3-D and 4-D TMA loads, the 4-D TMA store and its bulk groups, a
-// named barrier, and the host-side tensor-map encoders reached
-// through cudaGetDriverEntryPoint (no libcuda link).
+// the 4-byte cp.async with its mbarrier arrival, the 1-D bulk copy, the
+// 2-D, 3-D and 4-D TMA loads, the 4-D TMA store and its bulk groups, a
+// named barrier and its arrival, and the host-side tensor-map encoders
+// reached through cudaGetDriverEntryPoint (no libcuda link).
 //
 // The 128-byte swizzle: a tile row is 64 bf16 (128 bytes, eight 16-byte
 // chunks) and chunk j of row r sits at chunk j ^ (r % 8); TMA's
@@ -172,6 +173,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
+// 4-byte async copy global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+// the barrier's arrival when this thread's earlier cp.asyncs have landed (the
+// barrier's count includes it)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// 1-D bulk copy global -> shared, completing on `bar` (bytes and both
+// addresses multiples of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
 // 2-D TMA load of one box at (c0 innermost, c1) into shared memory
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -231,6 +253,11 @@ __device__ __forceinline__ void bulk_wait() {
 // (1-15; 0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// an arrival at hardware barrier `id` of `threads`, without waiting
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Host: a 2-D bf16 tensor map of a row-major (rows, cols) matrix with a

@@ -6,232 +6,512 @@
 //
 // Replaces: argus_tpu/ops/pallas/stem_fused.py `_stem_fwd_pallas` (:244,
 // body `_stem_fwd_kernel` :174), the no-save stem forward of eval and
-// serving, and `_stem_fwd_save_pallas` (:280, body `_stem_fwd_save_kernel`
-// :185), whose parity-packed yg (N, H/4, W/4, 256) holds the same values:
-// yg[n, u, v, (p*2 + q)*64 + c] = y[n, 2u + p, 2v + q, c].
+// serving, `_stem_fwd_packed_pallas` (:262, the same kernel: the pair-packed
+// output is NHWC's byte order), and `_stem_fwd_save_pallas` (:280, body
+// `_stem_fwd_save_kernel` :185), whose parity-packed yg (N, H/4, W/4, 256)
+// holds the same values: yg[n, u, v, (p*2 + q)*64 + c] = y[n, 2u + p, 2v + q, c].
 //
-// Bound on the H100: at 256x256 input the conv is ~2*147*64 FLOP per conv
-// pixel against 6 input bytes per conv pixel and 2 output bytes per pooled
-// channel, so operations and bytes are about balanced near the bf16 ridge;
-// what a naive kernel pays is the K = 147 contraction over 3 channels, which
-// does not vectorise, and the 4x larger conv output written and read back.
-// Design: one block computes a TP x TP tile of pooled outputs for all 64
-// channels. It stages the (4 TP + 7)^2 x 3 input patch and the (160, 64)
-// folded weights in shared memory, runs the (2 TP + 1)^2 conv outputs that the
-// pool window needs as an implicit GEMM on the tensor cores (mma.sync
-// m16n8k16, K = 147 padded to 160; A fragments gathered from the patch with a
-// per-k offset table, since A[m, k] = patch[base(m) + off(k)]), keeps the
-// bf16 conv tile in shared memory and pools from there: the conv output never
-// touches device memory. Conv positions outside the image are stored as 0,
-// which is exact for the pool because relu output is >= 0
-// (stem_fused.py:24-28). The TPU's 4x4 space-to-depth feed and parity-packed
-// weights exist for the MXU and are not ported. Neighbouring tiles overlap
-// by one conv row and column (the window's first); the saving variant writes
-// a conv position only from the tile whose interior (local row and column
-// 1..16) holds it, so each position of y is written by exactly one block,
-// 16-byte vectors from the shared conv tile.
+// Bound on the H100 at N = 512, 256x256: operations for the no-save forward,
+// 2 * 147 * 64 FLOP per conv pixel (1.58e11: 0.160 ms at 989 TFLOP/s, against
+// 0.47 GB of x and out, 0.14 ms), bytes for the saving one (+ 1.07 GB of y:
+// 0.461 ms). The form before this one ran a block per 8 x 8 pooled tile: it
+// restaged the 20 KB of weights and the K-offset table in every one of its
+// 32,768 blocks, gathered A one 16-bit element at a time behind a branch for
+// mma.sync, and recomputed 13% of the conv at tile edges (1.40-1.57 ms).
+//
+// Design: a persistent grid, one block an SM, 512 threads: a producer
+// warpgroup and three consumer warpgroups, each consumer with its own stream
+// of work, a contiguous range of pooled rows (image, 64-column segment, row).
+// - The product is transposed: D (64 channels x 136 conv positions of one
+//   conv row) = W (64 x K) * patch (K x 136) on wgmma m64n136k16, f32, both
+//   operands from shared memory. The folded weights are staged once a block
+//   (28 KB, never restaged). B comes straight from the staged input rows,
+//   with no im2col and no gather: a stride-2 conv over column pairs. A 16-byte
+//   "pair slot" holds input columns 2P and 2P + 1 (6 bf16) and two zeros; conv
+//   column j, kernel column kx = 2b + q - 1 reads pair j - 2 + b, element
+//   3q + c. K runs kernel row ky (7), pair b (4), element (8: 6 real):
+//   14 k-steps of two pairs. In wgmma's K-major no-swizzle layout (8 rows of
+//   16 bytes a core matrix) position n's 8 k of pair b + h sit at slot n + b + h,
+//   so one conv row's B for (ky, b) is a descriptor into the staged input row
+//   2i - 3 + ky at slot b: rows 16 bytes apart, the second k chunk 16 bytes on
+//   (LBO), eight positions 128 bytes on (SBO). K = 224 for 147 real taps
+//   (the zeros: kx = -1 and the 2 pad elements a pair), 14 k16 steps against
+//   the 160 (10) of an im2col, but nothing is copied per conv position and
+//   A is never gathered. (A in registers, 56 a thread, left the epilogue no
+//   room at 128 registers and was no faster with two consumers.)
+// - A segment computes conv columns 2 px0 - 1 .. 2 px0 + 134 (136: the 129
+//   that its 64 pooled columns read, rounded up to wgmma's N), so only the
+//   window's first column is computed twice between segments, and a 256-wide
+//   image is one segment. Rows are not recomputed at all: a consumer walks the
+//   conv rows of its range in order and carries the last one, so only a job's
+//   first row (its range's start) is computed twice.
+// - Rows by TMA: the producer warp of a stream keeps 8 input rows in flight,
+//   each one bulk copy of its part of elements 6 (2 px0 - 3) - 6 .. + 1023 of
+//   x viewed as (N, H, 3W) (a 16-byte boundary; 3W 16-byte multiples), or,
+//   where W % 8 != 0, 4-byte cp.async words with zero fill. A conv row needs 7
+//   input rows, the next one 2 more: the consumer stages the rows it reads
+//   first into 139 pair slots each in a ring of 10 (zeros outside the image:
+//   the conv's padding), then releases the raw rows.
+// - The consumers take turns on the tensor cores (hardware barriers in a
+//   ring): one's product runs while the others run their epilogues.
+// - Epilogue in registers: a thread holds 2 channels x 34 positions. The
+//   pool's max commutes with x -> bf16(relu(x + b)) (monotone), so the
+//   horizontal 3-max is taken on the f32 sums (one shuffle inside the quad),
+//   then bias, relu and one rounding per pooled value; the vertical 3-max
+//   runs over conv rows in packed bf16x2 registers (row 2py - 1 carried from
+//   the last pooled row). out equals the window max of y bit for bit. The
+//   pooled row leaves through a 128-byte-swizzled staging tile by one TMA
+//   store; in save mode y's 128 own columns of the row likewise (two boxes),
+//   each conv position written by exactly one consumer (its pooled row's).
+//   Conv position -1 (the pool's padding) enters the max as -inf; columns and
+//   rows past the image are never read by a pooled output (Hc = 2 Hp, Wc =
+//   2 Wp) and TMA drops their stores.
+// What holds it back (scripts/time_torch_kernel_phases.py, PERF.md §6): the
+// product on the padded K, both operands from shared memory (~0.39 ms of
+// the ~0.50 at N = 512, 256x256), the epilogue exposed for the rest; the
+// saving form's per-row y work (~0.58 of its ~0.63 without the product).
+// The staging tiles are written by st.shared: pointers derived from the
+// generic address of the shared array made them generic stores, which
+// cost the saving form ~0.25 ms.
+// The TPU's 4x4 space-to-depth feed and parity-packed weights exist for the
+// MXU and are not ported.
 
-#include "common.cuh"
+#include <algorithm>
+#include <cstring>
+
+#include "sm90.cuh"
+
+// Phase cuts for scripts/time_torch_kernel_phases.py (0: the kernel): the
+// consumers only wait for and release their rows (STEM_FWD_CUT 1), + the
+// product (2), + the horizontal and vertical maxima but no stores (3);
+// STEM_FWD_NOMMA: the whole epilogue without the product
+#ifndef STEM_FWD_CUT
+#define STEM_FWD_CUT 0
+#endif
+#ifndef STEM_FWD_NOMMA
+#define STEM_FWD_NOMMA 0
+#endif
 
 namespace argus {
 
-constexpr int kTP = 8;                 // pooled tile edge
-constexpr int kCT = 2 * kTP + 1;       // conv tile edge the pool window needs
-constexpr int kCM = kCT * kCT;         // conv positions per block (289)
-constexpr int kMT = (kCM + 15) / 16;   // m16 tiles (19)
-constexpr int kPE = 2 * (kCT - 1) + 7; // patch edge (39)
-constexpr int kCIN = 3;
 constexpr int kCOUT = 64;
-constexpr int kKR = 7 * 7 * kCIN;      // real K (147)
-constexpr int kKP = 160;               // K padded to a multiple of 16
-constexpr int kLdW = kCOUT + 8;        // padded shared rows: conflict-free ldmatrix
-constexpr int kLdY = kCOUT + 8;
-constexpr int kStemThreads = 256;
-constexpr int kPatch = kPE * kPE * kCIN;  // 4563
-
-constexpr int kSmemW = kKP * kLdW * 2;
-constexpr int kSmemY = kCM * kLdY * 2;
-constexpr int kSmemX = ((kPatch * 2 + 15) / 16) * 16;
-constexpr int kSmemOff = kKP * 4;
-constexpr int kStemSmem = kSmemW + kSmemY + kSmemX + kSmemOff;
+constexpr int kSegP = 64;                     // pooled columns a segment
+constexpr int kPos = 136;                     // conv positions a segment computes: wgmma's N
+constexpr int kAcc = kPos / 2;                // f32 accumulators a thread
+constexpr int kKSteps = 14;                   // k16 steps: 7 kernel rows x 2 pairs of pairs
+constexpr int kPairs = kPos + 3;              // pair slots a conv row reads: pairs 2 px0 - 3 .. 2 px0 + 135
+constexpr int kRowBytes = (kPairs + 1) * 16;  // a staged row: 140 slots of 16 bytes
+constexpr int kRawElems = 1024;               // a raw row: elements 12 px0 - 24 .. + 1023 of an input row
+constexpr int kRawBytes = kRawElems * 2;
+constexpr int kRawWord0 = 3, kRawWords = 3 * kPairs;  // words of a raw row the pair slots read
+constexpr int kRing = 10;                     // staged rows a stream keeps: 7 read, 2 staged, 1 spare
+constexpr int kRaw = 8;                       // raw rows a stream keeps in flight
+constexpr int kABytes = kKSteps * 2 * 1024;   // A: 28 k chunks x 8 channel groups x 8 x 16 bytes
+constexpr int kYBytes = 128 * 128;            // y staging: 128 own conv positions x 64 channels, swizzled
+constexpr int kOBytes = kSegP * 128;          // out staging: 64 pooled columns x 64 channels, swizzled
+constexpr int kEmitBytes = kYBytes + kOBytes;
+constexpr int kStreams = 3;                   // consumer warpgroups a block
+constexpr int kThreads = 128 * (1 + kStreams);
+constexpr int kRawOff = kEmitBytes;           // a stream's bytes: the emit tile | raw rows | staged rows
+constexpr int kRingOff = kRawOff + kRaw * kRawBytes;
+constexpr int kStreamBytes = ((kRingOff + kRing * kRowBytes + 1023) / 1024) * 1024;
+constexpr int kBars = 2 * kRaw;               // a raw row's full and empty
+constexpr int kStemSmem = 1024 + kABytes + kStreams * kStreamBytes + kStreams * kBars * 8;
+constexpr int kTurn = 1 + kStreams;           // hardware barriers kTurn + s: stream s's turn on the tensor cores
 
 struct StemArgs {
+  CUtensorMap omap;  // out (N, Hp, Wp, 64): boxes of 64 channels x 64 x 1 x 1, 128-byte swizzle
+  CUtensorMap ymap;  // y (N, Hc, Wc, 64): the same boxes (the saving forward)
   const bf16* x;     // (N, H, W, 3)
-  const bf16* w;     // (147, 64): HWIO (7,7,3,64) flattened
+  const bf16* w;     // (147, 64): HWIO (7, 7, 3, 64) flattened
   const float* b;    // (64,)
-  bf16* out;         // (N, Hp, Wp, 64)
-  bf16* y;           // (N, Hc, Wc, 64) conv + bias + relu, or nullptr (no save)
-  int N, H, W, Hc, Wc, Hp, Wp, tiles_y, tiles_x;
+  int xbulk;         // raw rows by bulk copy (W % 8 == 0), else by cp.async
+  int H, W, Hp, S;   // S: 64-column segments of a pooled row
+  int units, per;    // pooled rows (image, segment, row) in all; a stream's share
+#if STEM_FWD_CUT
+  int* out_sink;     // keeps a cut build's maxima live
+#endif
 };
 
-__global__ void __launch_bounds__(kStemThreads) stem_kernel(const __grid_constant__ StemArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sW = reinterpret_cast<bf16*>(smem);
-  bf16* sY = reinterpret_cast<bf16*>(smem + kSmemW);
-  bf16* sX = reinterpret_cast<bf16*>(smem + kSmemW + kSmemY);
-  int* sOff = reinterpret_cast<int*>(smem + kSmemW + kSmemY + kSmemX);
+// D (64 x 136 f32, one warpgroup) = A (64 x 16) * B (16 x 136) (+ D when sd
+// is not 0), both K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n136_ss(float (&d)[68], uint64_t da, uint64_t db, int sd) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67}, %68, %69, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67])
+      : "l"(da), "l"(db), "r"(sd));
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  int t = blockIdx.x;
-  const int tx = t % p.tiles_x;
-  t /= p.tiles_x;
-  const int ty = t % p.tiles_y;
-  const int n = t / p.tiles_y;
-  const int py0 = ty * kTP, px0 = tx * kTP;  // first pooled output of the tile
-  const int cy0 = 2 * py0 - 1, cx0 = 2 * px0 - 1;  // first conv output the pool reads
-  const int iy0 = 2 * cy0 - 3, ix0 = 2 * cx0 - 3;  // first input pixel the conv reads
+// wgmma's shared-memory descriptor without swizzle (layout type 0): K-major
+// core matrices of 8 rows x 16 bytes; lbo between the two 8-element k
+// chunks, sbo between 8-row groups
+__device__ __forceinline__ uint64_t nosw_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
 
-  // weights: 147 x 64 bf16 as 16-byte vectors, zero rows up to K = 160
-  for (int v = tid; v < kKP * kCOUT / 8; v += kStemThreads) {
-    const int r = v / (kCOUT / 8), c = (v % (kCOUT / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < kKR) val = *reinterpret_cast<const uint4*>(&p.w[r * kCOUT + c]);
-    *reinterpret_cast<uint4*>(&sW[r * kLdW + c]) = val;
+// a stream's jobs: runs of pooled rows [pa, pb) of one (image n, segment s)
+struct Job {
+  int n, s, pa, pb;
+};
+
+// the next job of units [u, ue), advancing u
+__device__ __forceinline__ bool next_job(const StemArgs& p, int& u, int ue, Job& j) {
+  if (u >= ue) return false;
+  const int ns = u / p.Hp;  // n * S + s
+  j.pa = u - ns * p.Hp;
+  j.pb = min(p.Hp, j.pa + (ue - u));
+  j.n = ns / p.S;
+  j.s = ns - j.n * p.S;
+  u += j.pb - j.pa;
+  return true;
+}
+
+// a job's conv rows are [first_conv, 2 pb): row 2 pa - 1 for the carry, none
+// at the top (the pool's padding); its input rows [2 first_conv - 3, 4 pb + 2)
+__device__ __forceinline__ int first_conv(const Job& j) { return j.pa == 0 ? 0 : 2 * j.pa - 1; }
+
+// the input rows of a stream's jobs, in order
+struct RowCursor {
+  int u, ue, ir, ir_end;
+  Job j;
+  __device__ __forceinline__ bool next(const StemArgs& p) {
+    if (++ir < ir_end) return true;
+    if (!next_job(p, u, ue, j)) return false;
+    ir = 2 * first_conv(j) - 3;
+    ir_end = 4 * j.pb + 2;
+    return true;
   }
-  // input patch, zero outside the image (the conv's zero padding)
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int i = tid; i < kPatch; i += kStemThreads) {
-    const int r = i / (kPE * kCIN), rem = i % (kPE * kCIN);
-    const int iy = iy0 + r, ix = ix0 + rem / kCIN;
-    bf16 v = zero;
-    if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
-      v = p.x[((static_cast<int64_t>(n) * p.H + iy) * p.W + ix) * kCIN + rem % kCIN];
-    sX[i] = v;
-  }
-  // k -> patch offset of tap (ky, kx, c); -1 for the K padding
-  for (int k = tid; k < kKP; k += kStemThreads) {
-    int o = -1;
-    if (k < kKR) {
-      const int ky = k / (7 * kCIN), rem = k % (7 * kCIN);
-      o = (ky * kPE + rem / kCIN) * kCIN + rem % kCIN;
-    }
-    sOff[k] = o;
-  }
-  __syncthreads();
+};
 
-  // conv tile as an implicit GEMM: M = 289 conv positions, N = 64, K = 160
-  for (int mt = warp; mt < kMT; mt += kStemThreads / 32) {
-    const int r0 = mt * 16 + (lane >> 2);
-    const int r1 = r0 + 8;
-    // patch offset of conv position m: its window's top-left input pixel
-    const int base0 = r0 < kCM ? ((2 * (r0 / kCT)) * kPE + 2 * (r0 % kCT)) * kCIN : 0;
-    const int base1 = r1 < kCM ? ((2 * (r1 / kCT)) * kPE + 2 * (r1 % kCT)) * kCIN : 0;
-    float acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+// conv rows of stream sid's jobs
+__device__ __forceinline__ int stream_rows(const StemArgs& p, int sid) {
+  int u = sid * p.per, n = 0;
+  const int ue = min(p.units, u + p.per);
+  Job j;
+  while (next_job(p, u, ue, j)) n += 2 * j.pb - first_conv(j);
+  return n;
+}
 
-#pragma unroll 2
-    for (int ks = 0; ks < kKP / 16; ++ks) {
-      const int k0 = ks * 16 + (lane & 3) * 2;
-      const int o0 = sOff[k0], o1 = sOff[k0 + 1], o8 = sOff[k0 + 8], o9 = sOff[k0 + 9];
-      auto at = [&](int base, int o) { return o >= 0 ? sX[base + o] : zero; };
-      uint32_t a[4];
-      a[0] = pack_bf16x2(at(base0, o0), at(base0, o1));
-      a[1] = pack_bf16x2(at(base1, o0), at(base1, o1));
-      a[2] = pack_bf16x2(at(base0, o8), at(base0, o9));
-      a[3] = pack_bf16x2(at(base1, o8), at(base1, o9));
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &sW[(ks * 16 + (lane & 15)) * kLdW + jj * 16 + (lane >> 4) * 8]);
-        mma_bf16(acc[2 * jj], a, r[0], r[1]);
-        mma_bf16(acc[2 * jj + 1], a, r[2], r[3]);
+// folded weight of output channel ch at k-step ks, k: kernel row ks / 2,
+// pair b = 2 (ks % 2) + k / 8, element e = k % 8 (column q = e / 3, channel
+// e % 3; 6 and 7 are the slot's zeros), kernel column 2 b + q - 1
+__device__ __forceinline__ bf16 fold_w(const bf16* w, int ch, int ks, int k) {
+  const int ky = ks >> 1, b = 2 * (ks & 1) + (k >> 3), e = k & 7;
+  const int kx = 2 * b + e / 3 - 1;
+  if (e >= 6 || kx < 0) return __float2bfloat16(0.f);
+  return w[((ky * 7 + kx) * 3 + e % 3) * kCOUT + ch];
+}
+
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t v) { return *reinterpret_cast<const __nv_bfloat162*>(&v); }
+
+template <bool kSave>
+__global__ void __launch_bounds__(kThreads, 1) stem_kernel(const __grid_constant__ StemArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-aligned in the shared window, by an offset from the shared array:
+  // the pointers stay in the shared space (st/ld.shared, not generic)
+  uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  uint8_t* sA = smem;  // the folded weights, staged once
+  uint8_t* streams = smem + kABytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(streams + kStreams * kStreamBytes);
+  if (tid == 0) {
+    for (int s = 0; s < kStreams; ++s) {
+      uint64_t* b = bars + s * kBars;
+      for (int i = 0; i < kRaw; ++i) {
+        mbar_init(&b[i], p.xbulk ? 1 : 32);  // the bulk copy's, or each producer lane's cp.asyncs
+        mbar_init(&b[kRaw + i], 1);          // the consumer's release
       }
     }
-
-    // bias + relu + one rounding; conv positions outside the conv output are 0
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = half ? r1 : r0;
-      if (m >= kCM) continue;
-      const int cy = cy0 + m / kCT, cx = cx0 + m % kCT;
-      const bool inside = cy >= 0 && cy < p.Hc && cx >= 0 && cx < p.Wc;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + (lane & 3) * 2;
-        __nv_bfloat162 o;
-        o.x = __float2bfloat16(inside ? fmaxf(acc[j][half * 2] + p.b[c], 0.f) : 0.f);
-        o.y = __float2bfloat16(inside ? fmaxf(acc[j][half * 2 + 1] + p.b[c + 1], 0.f) : 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(&sY[m * kLdY + c]) = o;
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // A, K-major without swizzle: (channel ch, k) at ((k / 8) 8 + ch / 8) 128 +
+  // (ch % 8) 16 + (k % 8) 2; k-step ks is chunks 2 ks and 2 ks + 1
+  for (int i = tid; i < kCOUT * kKSteps * 16; i += kThreads) {
+    const int ch = i & (kCOUT - 1), k = i >> 6;
+    *reinterpret_cast<bf16*>(sA + (((k >> 3) * 8 + (ch >> 3)) * 128 + (ch & 7) * 16 + (k & 7) * 2)) =
+        fold_w(p.w, ch, k >> 4, k & 15);
+  }
+  fence_proxy_async();  // A's generic stores before the wgmma reads
   __syncthreads();
 
-  if (p.y != nullptr) {  // this tile's own conv positions: local rows and columns 1..2 TP
-    for (int i = tid; i < 2 * kTP * 2 * kTP * (kCOUT / 8); i += kStemThreads) {
-      const int v = i % (kCOUT / 8), pos = i / (kCOUT / 8);
-      const int ly = 1 + pos / (2 * kTP), lx = 1 + pos % (2 * kTP);
-      const int cy = cy0 + ly, cx = cx0 + lx;
-      if (cy >= p.Hc || cx >= p.Wc) continue;
-      *reinterpret_cast<uint4*>(&p.y[((static_cast<int64_t>(n) * p.Hc + cy) * p.Wc + cx) * kCOUT + v * 8]) =
-          *reinterpret_cast<const uint4*>(&sY[(ly * kCT + lx) * kLdY + v * 8]);
+  if (warp < 4) {
+    // the producer warpgroup: warp s issues stream s's raw rows, kRaw ahead;
+    // its registers go to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp >= kStreams) return;
+    const int sid = warp;
+    uint8_t* raw = streams + sid * kStreamBytes + kRawOff;
+    uint64_t* rawfull = bars + sid * kBars;
+    uint64_t* rawempty = rawfull + kRaw;
+    const int u0 = (blockIdx.x * kStreams + sid) * p.per;
+    RowCursor ld{u0, min(p.units, u0 + p.per), 0, 0, {}};
+    // raw row r into slot r % kRaw: elements 12 px0 - 24 .. + 1023 of input
+    // row ld.ir, those inside the image (the consumer zeroes the rest)
+    for (int r = 0; ld.next(p); ++r) {
+      const int slot = r % kRaw;
+      if (r >= kRaw) mbar_wait(&rawempty[slot], ((r / kRaw) - 1) & 1);
+      uint8_t* dst = raw + slot * kRawBytes;
+      const int e0 = 12 * kSegP * ld.j.s - 24;
+      const bool row_in = ld.ir >= 0 && ld.ir < p.H;
+      const bf16* src = p.x + (static_cast<int64_t>(ld.j.n) * p.H + ld.ir) * 3 * p.W;
+      if (p.xbulk) {  // one copy of elements [max(0, e0), min(3W, e0 + 1024)): 16-byte multiples
+        if (lane == 0) {
+          const int lo = max(0, e0), hi = min(3 * p.W, e0 + kRawElems);
+          if (row_in) {
+            mbar_expect_tx(&rawfull[slot], (hi - lo) * 2);
+            bulk_load(dst + (lo - e0) * 2, src + lo, (hi - lo) * 2, &rawfull[slot]);
+          } else {
+            mbar_arrive(&rawfull[slot]);
+          }
+        }
+        continue;
+      }
+      // an even element offset: a word never straddles a column (3W is even)
+      for (int wd = kRawWord0 + lane; wd < kRawWord0 + kRawWords; wd += 32) {
+        const int e = e0 + 2 * wd;
+        const bool ok = row_in && e >= 0 && e < 3 * p.W;
+        cp_async4(dst + 4 * wd, ok ? src + e : p.x, ok);
+      }
+      cp_async_arrive(&rawfull[slot]);
     }
+    return;
   }
 
-  // maxpool 3x3/s2 over the conv tile: 8x8 pooled pixels x 32 channel pairs
-  for (int i = tid; i < kTP * kTP * (kCOUT / 2); i += kStemThreads) {
-    const int cp = i % (kCOUT / 2), pos = i / (kCOUT / 2);
-    const int pyl = pos / kTP, pxl = pos % kTP;
-    const int py = py0 + pyl, px = px0 + pxl;
-    if (py >= p.Hp || px >= p.Wp) continue;
-    __nv_bfloat162 mx = *reinterpret_cast<const __nv_bfloat162*>(
-        &sY[((2 * pyl) * kCT + 2 * pxl) * kLdY + 2 * cp]);
+  // a consumer warpgroup: stream sid's pooled rows
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n" ::: "memory");
+  const int sid = (warp >> 2) - 1;
+  const int wt = tid - 128 * (1 + sid), w4 = (wt >> 5), g = lane >> 2, q = lane & 3;
+  uint8_t* base = streams + sid * kStreamBytes;
+  const uint8_t* raw = base + kRawOff;
+  uint8_t* ring = base + kRingOff;
+  const uint32_t ring_u32 = smem_u32(ring), a_u32 = smem_u32(sA);
+  uint64_t* rawfull = bars + sid * kBars;
+  uint64_t* rawempty = rawfull + kRaw;
+  const int c0 = 16 * w4 + g;  // this thread's channels: c0 and c0 + 8
+  const float bias0 = p.b[c0], bias1 = p.b[c0 + 8];
+  float acc[kAcc];
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  const float ninf = __int_as_float(0xff800000);
+  const int nb_lane = (lane & ~3) | ((lane + 1) & 3);
+  // the streams take turns on the tensor cores, a conv row's product each
+  // (while one runs, the others' epilogues do): K turns each
+  int K = 0;
+  for (int s = 0; s < kStreams; ++s) K = max(K, stream_rows(p, blockIdx.x * kStreams + s));
+  int turn = 0;
+  auto take_turn = [&]() {
+    if (turn > 0 || sid > 0) named_barrier(kTurn + sid, 256);
+  };
+  auto pass_turn = [&]() {
+    if (turn + 1 < K || sid + 1 < kStreams) named_arrive(kTurn + (sid + 1) % kStreams, 256);
+    ++turn;
+  };
+
+  int u = (blockIdx.x * kStreams + sid) * p.per;
+  const int ue = min(p.units, u + p.per);
+  int staged = 0, rb = 0;  // rows staged so far, the job's first row
+  Job j;
+  while (next_job(p, u, ue, j)) {
+    const int cs = first_conv(j), ce = 2 * j.pb, px0 = kSegP * j.s;
+    const int pair0 = 2 * px0 - 3;  // the pair of slot 0
+    // bf16x2 (channel c0, c0 + 8) of pooled column 4 jj + q: the carried conv
+    // row's horizontal maxima, and the running max of the pooled row
+    uint32_t carry[16], run[16];
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        mx = __hmax2(mx, *reinterpret_cast<const __nv_bfloat162*>(
-                              &sY[((2 * pyl + dy) * kCT + 2 * pxl + dx) * kLdY + 2 * cp]));
-    *reinterpret_cast<__nv_bfloat162*>(
-        &p.out[((static_cast<int64_t>(n) * p.Hp + py) * p.Wp + px) * kCOUT + 2 * cp]) = mx;
+    for (int jj = 0; jj < 16; ++jj) carry[jj] = run[jj] = 0u;  // the top padding: relu output is >= 0
+    for (int c = cs; c < ce; ++c) {
+      const int r0 = rb + 2 * (c - cs);  // this conv row's first input row in the stream
+      // stage the rows this conv row reads first (7 at the job's first, else
+      // 2): raw row r's pair slot qq holds elements 6 qq + 6 .. 6 qq + 11 (pair
+      // 2 px0 - 3 + qq), then two zeros; zeros outside the image. Slot r %
+      // kRing was last read two conv rows ago (a barrier since), or, at a
+      // job's first row, by the last one
+      if (c == cs) named_barrier(1 + sid, 128);
+      const int from = staged;
+      for (; staged < r0 + 7; ++staged) {
+        const int slot = staged % kRaw, ir = 2 * cs - 3 + (staged - rb);
+        mbar_wait(&rawfull[slot], (staged / kRaw) & 1);
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(raw + slot * kRawBytes);
+        uint4* dst = reinterpret_cast<uint4*>(ring + (staged % kRing) * kRowBytes);
+        const bool row_in = ir >= 0 && ir < p.H;
+        for (int qq = wt; qq < kPairs; qq += 128) {
+          const int pr = pair0 + qq;
+          const bool in = row_in && pr >= 0 && 2 * pr < p.W;
+          dst[qq] = in ? make_uint4(src[3 * qq + kRawWord0], src[3 * qq + kRawWord0 + 1], src[3 * qq + kRawWord0 + 2], 0u)
+                       : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      fence_proxy_async();  // the staged rows' generic stores before the wgmma reads
+      named_barrier(1 + sid, 128);
+      if (wt == 0)
+        for (int r = from; r < staged; ++r) mbar_arrive(&rawempty[r % kRaw]);
+      take_turn();
+#if STEM_FWD_CUT != 1 && !STEM_FWD_NOMMA
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const uint32_t row = ring_u32 + ((r0 + (ks >> 1)) % kRing) * kRowBytes;
+        wgmma_m64n136_ss(acc, nosw_desc(a_u32 + ks * 2048, 1024, 128), nosw_desc(row + 32 * (ks & 1), 16, 128), ks);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#endif
+      pass_turn();  // the product is done: the next stream's runs during this epilogue
+#if STEM_FWD_CUT == 2
+      if (acc[wt & 3] == 1.2345f) p.out_sink[wt] = 1;  // keeps the product live
+#endif
+#if STEM_FWD_CUT == 1 || STEM_FWD_CUT == 2
+      continue;
+#endif
+
+      // the horizontal max of the f32 sums: pooled column k = 4 jj + q reads
+      // positions 2k (own), 2k + 1 (own) and 2k + 2 (the next lane's first,
+      // or for q = 3 lane 0's of the next group); d[4 jj + e] is channel
+      // c0 + 8 (e / 2), position 8 jj + 2q + e % 2
+      uint32_t h[16];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        float m[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float v0 = acc[4 * jj + 2 * hh];
+          const float v1 = acc[4 * jj + 2 * hh + 1];
+          const float nxt = __shfl_sync(0xffffffffu, q == 0 ? acc[4 * jj + 4 + 2 * hh] : v0, nb_lane);
+          if (jj == 0 && q == 0 && px0 == 0) v0 = ninf;  // conv column -1: the pool's padding
+          m[hh] = fmaxf(fmaxf(v0, v1), nxt);
+        }
+        h[jj] = bits2(__floats2bfloat162_rn(fmaxf(__fadd_rn(m[0], bias0), 0.f), fmaxf(__fadd_rn(m[1], bias1), 0.f)));
+      }
+      // the vertical max over conv rows 2 py - 1, 2 py, 2 py + 1
+      const bool odd = c & 1, carry_row = c == cs && j.pa > 0;
+      const bool emit_out = odd && !carry_row, emit_y = kSave && !carry_row;
+      uint32_t o[16];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        if (!odd) {
+          run[jj] = bits2(__hmax2(bf2(carry[jj]), bf2(h[jj])));
+        } else {
+          o[jj] = bits2(__hmax2(bf2(run[jj]), bf2(h[jj])));
+          carry[jj] = h[jj];
+        }
+      }
+#if STEM_FWD_CUT == 3
+      {
+        uint32_t sink = 0u;
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) sink ^= run[jj] ^ carry[jj] ^ (odd ? o[jj] : 0u);
+        if (sink == 0x7fc17fc1u) p.out_sink[wt] = 1;
+      }
+      continue;
+#endif
+      if (!emit_out && !emit_y) continue;
+      // the staging tile (y's 128 positions, then out's 64 columns), once the
+      // last emit's stores have read it
+      uint8_t* st = base;
+      uint8_t* so = st + kYBytes;
+      if (wt == 0) bulk_wait_read<0>();
+      named_barrier(1 + sid, 128);
+      if (emit_y) {  // own positions t = 1 .. 128 (conv columns 2 px0 ..), row t - 1
+#pragma unroll
+        for (int jj = 0; jj < kPos / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = 8 * jj + 2 * q + (e & 1), ch = c0 + 8 * (e >> 1);
+            if (t < 1 || t > 128) continue;
+            const float bb = e >> 1 ? bias1 : bias0;
+            *reinterpret_cast<bf16*>(st + swz(t - 1, ch >> 3) + (ch & 7) * 2) =
+                __float2bfloat16_rn(fmaxf(__fadd_rn(acc[4 * jj + e], bb), 0.f));
+          }
+      }
+      if (emit_out) {
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int k = 4 * jj + q;
+          const __nv_bfloat162 v = bf2(o[jj]);
+          *reinterpret_cast<bf16*>(so + swz(k, c0 >> 3) + (c0 & 7) * 2) = v.x;
+          *reinterpret_cast<bf16*>(so + swz(k, (c0 + 8) >> 3) + (c0 & 7) * 2) = v.y;
+        }
+      }
+      fence_proxy_async();
+      named_barrier(1 + sid, 128);
+      if (wt == 0) {
+        if (emit_y) {
+          tma_store_4d(&p.ymap, st, 0, 2 * px0, c, j.n);
+          tma_store_4d(&p.ymap, st + 8192, 0, 2 * px0 + 64, c, j.n);
+        }
+        if (emit_out) tma_store_4d(&p.omap, so, 0, px0, (c - 1) / 2, j.n);
+        bulk_commit();
+      }
+    }
+    rb += 4 * j.pb + 2 - (2 * cs - 3);
   }
+  while (turn < K) {  // the other streams' remaining turns
+    take_turn();
+    pass_turn();
+  }
+  if (wt == 0) bulk_wait<0>();  // the staging tiles stay until their stores have read them
 }
 
 }  // namespace argus
 
 namespace {
 
+// the shared-memory opt-in, once a form (internal linkage: one flag per library)
+bool smem_ready[2] = {false, false};
+
+template <bool kSave>
 int stem_launch(const void* x, const void* w, const void* b, void* out, void* y, int N, int H, int W,
                 void* stream) {
   using namespace argus;
+  if (N < 1 || H < 4 || W < 4 || H % 4 || W % 4) return static_cast<int>(cudaErrorInvalidValue);
   StemArgs p;
+  memset(&p, 0, sizeof(p));
   p.x = static_cast<const bf16*>(x);
+#if STEM_FWD_CUT
+  p.out_sink = static_cast<int*>(out);
+#endif
   p.w = static_cast<const bf16*>(w);
   p.b = static_cast<const float*>(b);
-  p.out = static_cast<bf16*>(out);
-  p.y = static_cast<bf16*>(y);
-  p.N = N;
   p.H = H;
   p.W = W;
-  p.Hc = (H - 1) / 2 + 1;  // conv 7x7 / s2 / pad 3
-  p.Wc = (W - 1) / 2 + 1;
-  p.Hp = (p.Hc - 1) / 2 + 1;  // pool 3x3 / s2 / pad 1
-  p.Wp = (p.Wc - 1) / 2 + 1;
-  p.tiles_y = (p.Hp + kTP - 1) / kTP;
-  p.tiles_x = (p.Wp + kTP - 1) / kTP;
-  cudaError_t e = cudaFuncSetAttribute(stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       kStemSmem);
+  const int Hc = H / 2, Wc = W / 2;  // conv 7x7 / s2 / pad 3
+  p.Hp = Hc / 2;                     // pool 3x3 / s2 / pad 1
+  const int Wp = Wc / 2;
+  p.S = (Wp + kSegP - 1) / kSegP;
+  p.units = N * p.S * p.Hp;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int64_t blocks = static_cast<int64_t>(N) * p.tiles_y * p.tiles_x;
-  stem_kernel<<<static_cast<unsigned>(blocks), kStemThreads, kStemSmem,
-                static_cast<cudaStream_t>(stream)>>>(p);
+  const int blocks = std::max(1, std::min(sms, (p.units + kStreams - 1) / kStreams));
+  p.per = (p.units + kStreams * blocks - 1) / (kStreams * blocks);
+  p.xbulk = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  e = make_tmap_nhwc(&p.omap, out, N, p.Hp, Wp, kCOUT, 1, kSegP, 1, 1);
+  if (e == cudaSuccess && kSave) e = make_tmap_nhwc(&p.ymap, y, N, Hc, Wc, kCOUT, 1, 64, 1, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!smem_ready[kSave]) {
+    e = cudaFuncSetAttribute(stem_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize, kStemSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_ready[kSave] = true;
+  }
+  stem_kernel<kSave><<<blocks, kThreads, kStemSmem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int argus_stem_fwd(const void* x, const void* w, const void* b, void* out, int N, int H,
-                              int W, void* stream) {
-  return stem_launch(x, w, b, out, nullptr, N, H, W, stream);
+extern "C" int argus_stem_fwd(const void* x, const void* w, const void* b, void* out, int N, int H, int W,
+                              void* stream) {
+  return stem_launch<false>(x, w, b, out, nullptr, N, H, W, stream);
 }
 
 // the training forward: also writes y (N, Hc, Wc, 64)
 extern "C" int argus_stem_fwd_save(const void* x, const void* w, const void* b, void* out, void* y, int N,
                                    int H, int W, void* stream) {
-  return stem_launch(x, w, b, out, y, N, H, W, stream);
+  return stem_launch<true>(x, w, b, out, y, N, H, W, stream);
 }

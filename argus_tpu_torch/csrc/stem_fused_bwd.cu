@@ -129,25 +129,8 @@ __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
-// 4-byte async copy global -> shared, zero-filled when !pred
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-// the barrier's arrival when this thread's earlier cp.asyncs have landed (the
-// barrier's count includes it)
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
 // the search warps' barrier
 __device__ __forceinline__ void search_sync() { named_barrier(kBarSearch, kSearch); }
-
-// an arrival at hardware barrier `id` of `threads`, without waiting
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // the last of `count` blocks to arrive at *t (after a __threadfence of their
 // writes) gets true and resets *t

@@ -8,8 +8,9 @@ the image dtype, as the TPU kernel's vector ops do in it, with the per-image
 scalars cast to it at the op.
 
 On a CUDA tensor `fused_random_blur` launches `csrc/blur.cu` (one read and
-one write of the batch); on a CPU tensor it runs the plain version
-`fused_random_blur_plain`, the port of `blur.reference_blur`.
+one write of the batch: a block per band of rows, or per tile of a band where
+one would not fit, with `band_plan`'s sizes); on a CPU tensor it runs the
+plain version `fused_random_blur_plain`, the port of `blur.reference_blur`.
 """
 
 from __future__ import annotations
@@ -19,8 +20,33 @@ import torch
 from argus_tpu_torch.ops.kernels._build import I, P, Kernel
 from argus_tpu_torch.ops.kernels.block_fused import check_cuda, check_device
 
-KERNEL = Kernel("blur", "argus_blur", [P] * 3 + [I] * 4 + [P])
+KERNEL = Kernel("blur", "argus_blur", [P] * 3 + [I] * 6 + [P])
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_BUDGET = 72 * 1024  # a block's shared memory: three blocks an SM
+HALO = 3  # rows each side of a band: the vertical gaussian's 2 and the motion kernel's 1
+
+
+def smem_bytes(rows: int, pitch: int, itemsize: int) -> int:
+    """A block's shared memory (csrc/blur.cu `blur_smem`): three channels of
+    the band and its halo, one channel's vertical gaussian (rows + 2), pairs
+    of `pitch` a row, and the band's mbarrier."""
+    return (3 * (rows + 2 * HALO) + rows + 2) * pitch * 2 * itemsize + 16
+
+
+def band_plan(h: int, w: int, itemsize: int):
+    """(R rows a band, CW columns a tile) of the kernel: the whole width
+    where a band of 8 rows fits the budget, else the widest even tile (with
+    a 4-column halo each side) that does; then the most rows that fit,
+    spread evenly over the bands."""
+    pitch = (w + 1) // 2  # pairs a shared row
+    if smem_bytes(8, pitch, itemsize) <= SMEM_BUDGET:
+        cw = w + (w & 1)
+    else:
+        pitch = (SMEM_BUDGET - 16) // (smem_bytes(8, 1, itemsize) - 16)
+        cw = 2 * (pitch - 4)
+    rows = min(h, max(1, ((SMEM_BUDGET - 16) // (2 * pitch * itemsize) - 6 * HALO - 2) // 4))
+    bands = -(-h // rows)
+    return -(-h // bands), cw
 
 
 def clamp_shift(x: torch.Tensor, axis: int, r: int) -> torch.Tensor:
@@ -67,5 +93,6 @@ def fused_random_blur(images: torch.Tensor, gauss_w: torch.Tensor, motion_k: tor
                         gates.reshape(n, 2).float()], 1).contiguous()
     check_cuda("packed", packed, torch.float32, (n, 16))
     out = torch.empty_like(images)
-    KERNEL.launch(images, packed, out, n, h, w, DTYPES[images.dtype])
+    rows, cw = band_plan(h, w, images.element_size())
+    KERNEL.launch(images, packed, out, n, h, w, rows, cw, DTYPES[images.dtype])
     return out

@@ -13,9 +13,9 @@ Phases, each fatal on failure (nothing is caught and ignored):
    identity's saved-residual and recompute backwards), the stage chain's
    backward, the BasicBlock, identity bottleneck and projection forwards,
    the chain forwards, the pointwise backward and forward and the stem's
-   weight gradient must show wgmma (HGMMA) instructions, and the
-   augmentation kernel's bf16 instantiation packed bf16x2 products and sums
-   (its conversions counted beside them);
+   weight gradient and forward must show wgmma (HGMMA) instructions, and the
+   augmentation kernel's and the blur's bf16 instantiations packed bf16x2
+   products and sums (their conversions counted beside them);
 2. per kernel, at the serving shapes of a batch of 256 two-camera frames
    (N = 512 camera images at 256x256): hold the CUDA kernel against its plain
    PyTorch version on the same bf16 inputs, max |kernel - plain| <=
@@ -75,7 +75,9 @@ Phases, each fatal on failure (nothing is caught and ignored):
    the plasma threshold falls on the other side of a pixel (the per-op path
    upsamples with a matrix product, the kernel in a fixed order of separate
    roundings) and, in bf16, where the per-op hue, computed in bf16, lands a
-   few ulps from the kernel's f32 hue. Times: kernel, plain, and for the
+   few ulps from the kernel's f32 hue. The blur, in bf16 and f32 at the
+   flagship's shape, 3 x 40x72 and 2 x 17x33 (an odd width, a band shorter
+   than its halo), bit-equal to its plain version. Times: kernel, plain, and for the
    blur the yardstick `library_ms` (`F.pad(replicate)` and grouped
    `F.conv2d`); the stack has no single PyTorch call (null);
 6. the flagship train step through `argus_tpu_torch.train` (ResNet-50
@@ -119,7 +121,10 @@ Phases, each fatal on failure (nothing is caught and ignored):
    sits within f32 rounding of zero) and its weight gradient over all 512
    images and over the first 128 (2e-2 * max |plain| + 1e-2; two calls
    bit-equal), and at 16 x 200x136 and 16 x 200x132 (not whole tiles; the
-   second's patch rows by cp.async) over 16 and 4 images; BatchNorm's
+   second's patch rows by cp.async) over 16 and 4 images; the three stem
+   forwards there and at 16 x 36x44 and 16 x 72x40 within one bf16 ulp, the
+   no-save and packed outputs bit-equal to the saving one's (also at N =
+   512); BatchNorm's
    statistics and backward reductions at every distinct (M, C) of ResNet-50's
    53 BN inputs at N = 512, strides 1 and 4 (n_rows equal, sums within 1e-4
    of each channel's sum of magnitudes, one device kernel a call, two calls
@@ -398,7 +403,7 @@ def hgmma_check() -> None:
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for name in ("basic_fused_bwd", "proj_fused_bwd", "block_fused_bwd", "block_fused_rbwd", "basic_fused",
                  "stage_fused_bwd", "block_fused", "pointwise_bwd", "proj_fused", "stage_fused", "pointwise",
-                 "stem_fused_bwd"):
+                 "stem_fused_bwd", "stem_fused"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                               check=True, timeout=300).stdout
         n = sass.count("HGMMA")
@@ -409,9 +414,10 @@ def hgmma_check() -> None:
 
 def bf16x2_check() -> None:
     """The augmentation kernel's bf16 instantiations (the resident and the
-    streamed form) do their image-dtype ops as packed bf16x2 instructions:
-    `cuobjdump -sass` of its library must show them in each (printed beside
-    its f32 -> bf16 conversions, one per rounding in the parent's form)."""
+    streamed form) and the blur's bf16 `blur_kernel` do their image-dtype
+    ops as packed bf16x2 instructions: `cuobjdump -sass` of their libraries
+    must show them in each (printed beside its f32 -> bf16 conversions, one
+    per rounding in the augmentation's parent form)."""
     import re
     import shutil
     from collections import Counter
@@ -419,22 +425,25 @@ def bf16x2_check() -> None:
     from argus_tpu_torch.ops.kernels import _build
 
     tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("augment_fused"))], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-    funcs = [f for f in re.split(r"\n\s+Function : ", sass)[1:] if "augment_kernel" in f.split("\n", 1)[0]]
-    bf = [f for f in funcs if "bfloat16" in f.split("\n", 1)[0]]
-    if len(bf) != 2:  # the resident and the streamed form
-        raise AssertionError(f"augment_fused: {len(bf)} bf16 instantiations of augment_kernel in its library")
-    for f in bf:
-        ops = Counter(m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", f))
-        packed = {k: v for k, v in ops.items() if k.startswith(("HMUL2", "HADD2", "HFMA2", "HMNMX2")) and "BF16" in k}
-        conv = {k: v for k, v in ops.items() if k.startswith("F2F")}
-        head = f.split("\n", 1)[0]  # the mangled name: kStream is its Lb0E / Lb1E
-        form = "streamed" if "Lb1E" in head or "true" in head else "resident"
-        say(f"cuobjdump -sass augment_fused bf16 ({form}): {sum(ops.values())} instructions, packed bf16x2 "
-            f"{packed}, conversions {conv}")
-        if not any(k.startswith("HMUL2") for k in packed) or not any(k.startswith(("HADD2", "HFMA2")) for k in packed):
-            raise AssertionError(f"augment_fused: no packed bf16x2 product or sum in its bf16 {form} instantiation")
+    for lib, kernel, forms in (("augment_fused", "augment_kernel", 2), ("blur", "blur_kernel", 1)):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        funcs = [f for f in re.split(r"\n\s+Function : ", sass)[1:] if kernel in f.split("\n", 1)[0]]
+        bf = [f for f in funcs if "bfloat16" in f.split("\n", 1)[0]]
+        if len(bf) != forms:  # augment_fused: the resident and the streamed form
+            raise AssertionError(f"{lib}: {len(bf)} bf16 instantiations of {kernel} in its library")
+        for f in bf:
+            ops = Counter(m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", f))
+            packed = {k: v for k, v in ops.items()
+                      if k.startswith(("HMUL2", "HADD2", "HFMA2", "HMNMX2")) and "BF16" in k}
+            conv = {k: v for k, v in ops.items() if k.startswith("F2F")}
+            head = f.split("\n", 1)[0]  # the mangled name: augment_kernel's kStream is its Lb0E / Lb1E
+            form = ("streamed" if "Lb1E" in head or "true" in head else "resident") if forms == 2 else "band"
+            say(f"cuobjdump -sass {lib} bf16 ({form}): {sum(ops.values())} instructions, packed bf16x2 "
+                f"{packed}, conversions {conv}")
+            if not any(k.startswith("HMUL2") for k in packed) or \
+                    not any(k.startswith(("HADD2", "HFMA2")) for k in packed):
+                raise AssertionError(f"{lib}: no packed bf16x2 product or sum in its bf16 {form} instantiation")
 
 
 # ─────────────────────────── phase 2: kernels ───────────────────────────
@@ -1085,6 +1094,11 @@ def stem_bn_kernel_phase() -> dict:
     pout, py = stem_fused.stem_fwd_save_plain(x, w7, b7)
     err = max(_ulp_compare("stem_fused_save out", out, pout), _ulp_compare("stem_fused_save y", y, py))
     del pout, py
+    # the no-save and packed forwards compute the same bits (the weight
+    # gradient's first-match search compares the saved out with y)
+    if not torch.equal(stem_fused.stem_fwd(x, w7, b7), out) or \
+            not torch.equal(stem_fused.stem_fwd_packed(x, w7, b7), stem_fused.packed_view(out)):
+        raise AssertionError("stem_fused / stem_fused_packed differ from stem_fused_save's out")
     conv_flops = 2 * N_IMG * (HW // 2) ** 2 * 64 * 147
 
     def lib_fwd(w):
@@ -1129,10 +1143,27 @@ def stem_bn_kernel_phase() -> dict:
     results["stem_fused_bwd"] = entry
     del x, out, y, gr, lib_out, wl
     # a size that is not a whole number of the kernel's 16 x 16 tiles (conv
-    # output 100 x 68), and a width whose patch rows go by cp.async (W % 8 != 0)
-    for shape in ((16, 200, 136), (16, 200, 132)):
+    # output 100 x 68), and a width whose patch rows go by cp.async (W % 8 != 0);
+    # the forwards there and at two small images (one of them W % 8 != 0),
+    # each within one bf16 ulp of the plain version, the no-save and packed
+    # forwards the saving one's out bit for bit (no packed view at W % 8 != 0)
+    for shape in ((16, 200, 136), (16, 200, 132), (16, 36, 44), (16, 72, 40)):
         xs = torch.rand(*shape, 3, generator=g, device="cuda").to(bf)
         os_, ys = stem_fused.stem_fwd_save(xs, w7, b7)
+        po, py = stem_fused.stem_fwd_save_plain(xs, w7, b7)
+        err = max(err, _ulp_compare(f"stem_fused_save {shape} out", os_, po),
+                  _ulp_compare(f"stem_fused_save {shape} y", ys, py))
+        err = max(err, _ulp_compare(f"stem_fused {shape}", stem_fused.stem_fwd(xs, w7, b7), po))
+        if not torch.equal(stem_fused.stem_fwd(xs, w7, b7), os_):
+            raise AssertionError(f"stem_fused {shape}: differs from stem_fused_save's out")
+        if shape[2] % 8 == 0:
+            packed = stem_fused.stem_fwd_packed(xs, w7, b7)
+            err = max(err, _ulp_compare(f"stem_fused_packed {shape}", packed, stem_fused.packed_view(po)))
+            if not torch.equal(packed, stem_fused.packed_view(os_)):
+                raise AssertionError(f"stem_fused_packed {shape}: differs from stem_fused_save's out")
+        results["stem_fused_save"]["max_abs_err"] = max(results["stem_fused_save"]["max_abs_err"], err)
+        if shape[1] < 200:
+            continue
         gs = torch.randn(os_.shape, generator=g, device="cuda").to(bf)
         for n_images in (shape[0], shape[0] // 4):
             got = stem_fused.stem_bwd(xs, gs, os_, ys, n_images)
@@ -1394,6 +1425,21 @@ def augment_phase() -> tuple:
 
     worst = max(_aug_compare(f"blur {dt}", kb.fused_random_blur(*blur_args(dt)),
                              kb.fused_random_blur_plain(*blur_args(dt)), dt) for dt in ("bf16", "f32"))
+    # bit for bit at the flagship's shape and at small ones (one band, an odd
+    # width with a band shorter than its halo), in both dtypes
+    for dt in ("bf16", "f32"):
+        cases = [blur_args(dt)]
+        for n, h, w in ((3, 40, 72), (2, 17, 33)):
+            xr = torch.rand(n, 3, h, w, generator=g, device="cuda").to(x[dt].dtype)
+            pr = TA.sample_params(cfg, 13, n, 1, h, w, "cuda", xr.dtype)
+            (gw_, gg_), (mk_, mg_) = pr.gauss, pr.motion
+            cases.append((xr, gw_, mk_, torch.stack([gg_, mg_], 1)))
+        for args in cases:
+            got, want = kb.fused_random_blur(*args), kb.fused_random_blur_plain(*args)
+            bad = int((got != want).sum())
+            say(f"blur {dt} {tuple(args[0].shape)}: {bad} elements differ from the plain version")
+            if bad or not torch.equal(got, want):
+                raise AssertionError(f"blur {dt} {tuple(args[0].shape)}: not bit-equal to its plain version")
     xb, gw, mk, gates = blur_args("bf16")
     c = N_IMG * 3
     wv = gw.repeat_interleave(3, 0).to(xb.dtype)

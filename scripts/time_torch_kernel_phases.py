@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the augmentation kernel (`csrc/augment_fused.cu`) and the stem
-weight-gradient kernel (`csrc/stem_fused_bwd.cu`) phase by phase, at the
+"""Time the augmentation kernel (`csrc/augment_fused.cu`), the stem
+weight-gradient kernel (`csrc/stem_fused_bwd.cu`), the stem forward
+(`csrc/stem_fused.cu`) and the blur (`csrc/blur.cu`) phase by phase, at the
 flagship step's shapes (512 camera images of 256x256, bf16), from builds
 of their sources cut at the `#if` phase markers; count the instructions of
 the augmentation kernel's instantiations.
 
-    python3 scripts/time_torch_kernel_phases.py [--root DIR] [--only augment,stem,sass]
+    python3 scripts/time_torch_kernel_phases.py [--root DIR] [--only augment,stem,stem_fwd,blur,sass]
 
 - augmentation (`AUG_CUT`, `AUG_NOHUE`): cut after the band's load and
   tables, after pass 2 (arcs, gains, ops before the contrast), after the
@@ -17,6 +18,13 @@ the augmentation kernel's instantiations.
   operands staged, and with only the patch staged), the loads alone, and
   the whole kernel with its partials added by one last block instead of
   the two-level tree;
+- stem forward (`STEM_FWD_CUT`, `STEM_FWD_NOMMA`): the consumers only
+  waiting for and releasing their input rows, + the product, + the
+  horizontal and vertical maxima without stores, the full kernel, the
+  epilogue without the product; the saving form full and without the
+  product;
+- blur (`BLUR_CUT`), bf16 and f32: the band's load, + the vertical passes,
+  + the horizontal passes and the gate, the full kernel;
 - `sass`: the opcode counts of each `augment_kernel` instantiation
   (conversions F2F, packed bf16x2 ops).
 
@@ -145,6 +153,64 @@ def stem(torch, tmp: str, csrc: str) -> None:
                   flush=True)
 
 
+def stem_fwd(torch, tmp: str, csrc: str) -> None:
+    from argus_tpu_torch.ops.kernels import stem_fused as ks
+
+    variants = {"full": [], "rows only": ["STEM_FWD_CUT=1"], "+ product": ["STEM_FWD_CUT=2"],
+                "+ maxima, no stores": ["STEM_FWD_CUT=3"], "epilogue without the product": ["STEM_FWD_NOMMA=1"]}
+    libs = build(tmp, csrc, "stem_fused", variants)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.rand(N, HW, HW, 3, generator=g, device="cuda").to(torch.bfloat16)
+    w7 = (0.2 * torch.randn(7, 7, 3, 64, generator=g, device="cuda")).to(torch.bfloat16)
+    b = 0.1 * torch.randn(1, 64, generator=g, device="cuda")
+    out, y = ks.stem_fwd_save(x, w7, b)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib, save):
+        fn = lib.argus_stem_fwd_save if save else lib.argus_stem_fwd
+        fn.argtypes = [VP] * (5 if save else 4) + [I] * 3 + [VP]
+        ptrs = [x.data_ptr(), w7.data_ptr(), b.data_ptr(), out.data_ptr()] + ([y.data_ptr()] if save else [])
+        err = fn(*ptrs, N, HW, HW, stream)
+        if err:
+            raise SystemExit(f"stem forward launch failed: {err}")
+
+    for rnd in range(2):
+        t = {k: event_ms(torch, lambda k=k: call(libs[k], False)) for k in libs}
+        ts = {k: event_ms(torch, lambda k=k: call(libs[k], True)) for k in ("full", "epilogue without the product")}
+        print(f"stem_fused no-save run {rnd}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+              + "; saving: " + ", ".join(f"{k} {v:.4f} ms" for k, v in ts.items()), flush=True)
+
+
+def blur(torch, tmp: str, csrc: str) -> None:
+    from argus_tpu_torch.ops import augment as TA
+    from argus_tpu_torch.ops.kernels import blur as kb
+
+    libs = build(tmp, csrc, "blur", {"load": ["BLUR_CUT=1"], "+ vertical": ["BLUR_CUT=2"],
+                                     "+ horizontal and gate": ["BLUR_CUT=3"], "full": []})
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.rand(N, 3, HW, HW, generator=g, device="cuda").to(dt)
+        p = TA.sample_params(TA.AugmentationConfig(), 11, N // 2, 2, HW, HW, "cuda", dt)
+        (gw, gg), (mk, mg) = p.gauss, p.motion
+        packed = torch.cat([gw.float(), mk.reshape(N, 9).float(), gg[:, None].float(), mg[:, None].float()], 1)
+        packed = packed.contiguous()
+        out = torch.empty_like(x)
+        rows, cw = kb.band_plan(HW, HW, x.element_size())
+
+        def call(lib):
+            fn = lib.argus_blur
+            fn.argtypes = [VP] * 3 + [I] * 6 + [VP]
+            err = fn(x.data_ptr(), packed.data_ptr(), out.data_ptr(), N, HW, HW, rows, cw,
+                     int(dt == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"blur launch failed: {err}")
+
+        for rnd in range(2):
+            t = {k: event_ms(torch, lambda k=k: call(libs[k])) for k in libs}
+            print(f"blur {str(dt)[6:]} bands of {rows} rows run {rnd}: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()), flush=True)
+
+
 def sass(tmp: str, csrc: str) -> None:
     so = os.path.join(tmp, "libaugment_sass.so")
     subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler",
@@ -166,7 +232,7 @@ def sass(tmp: str, csrc: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    ap.add_argument("--only", default="augment,stem,sass")
+    ap.add_argument("--only", default="augment,stem,stem_fwd,blur,sass")
     args = ap.parse_args()
     import torch
 
@@ -185,6 +251,10 @@ def main() -> None:
                 augment(torch, tmp, csrc)
             elif part == "stem":
                 stem(torch, tmp, csrc)
+            elif part == "stem_fwd":
+                stem_fwd(torch, tmp, csrc)
+            elif part == "blur":
+                blur(torch, tmp, csrc)
             elif part == "sass":
                 sass(tmp, csrc)
             else:
