@@ -25,6 +25,7 @@ argus_tpu's nominal camera mounts.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,6 +50,14 @@ def cube_corners(half_width: float = 0.035) -> torch.Tensor:
     """(8, 3) corner offsets in the cube frame, +/- half_width per axis."""
     signs = [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
     return half_width * torch.tensor(signs, dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _corners_on(half_width: float, device: torch.device) -> torch.Tensor:
+    """`cube_corners(half_width)` on `device`, uploaded once per device (an
+    upload from host memory waits for the device, and a train step captured
+    in a CUDA graph may make none). Read-only."""
+    return cube_corners(half_width).to(device)
 
 
 @dataclass(frozen=True)
@@ -242,7 +251,7 @@ def fit_pose(P: torch.Tensor, keypoints_uv: torch.Tensor, half_width: float = 0.
     """Per-camera 2D corners (B, n_cams, 8, 2) -> triangulated corners ->
     (B, 7) xyzw poses; P (n_cams, 3, 4)."""
     pts3d = triangulate_points(P, keypoints_uv)
-    return procrustes_pose(cube_corners(half_width).to(pts3d.device), pts3d)
+    return procrustes_pose(_corners_on(half_width, pts3d.device), pts3d)
 
 
 def keypoint_loss_fn(
@@ -252,7 +261,7 @@ def keypoint_loss_fn(
     corners of the squared pixel distance between the predicted corners
     (B, n_cams, 8, 2) and the true pose's (B, 7) corners projected through
     P (n_cams, 3, 4). Returns (B,)."""
-    corners = cube_corners(half_width).to(pose_true.device)
+    corners = _corners_on(half_width, pose_true.device)
     world = quat_rotate(pose_true[:, None, 3:7], corners[None]) + pose_true[:, None, :3]  # (B, 8, 3)
     target_uv = project_points(P[None], world[:, None])  # (B, n_cams, 8, 2)
     return ((keypoints_uv.float() - target_uv) ** 2).sum(-1).mean(dim=(-2, -1))

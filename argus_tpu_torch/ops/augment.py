@@ -555,13 +555,6 @@ def pack_fused(p: AugmentParams, N: int, H: int, W: int, n_arcs: int, device):
     return field.contiguous(), mh, mwt, packed, order
 
 
-def apply_fused(p: AugmentParams, per_cam: torch.Tensor, n_arcs: int) -> torch.Tensor:
-    """The whole stack in one `augment_fused` launch (its plain version on
-    the CPU)."""
-    N, _, H, W = per_cam.shape
-    return fused_augment(per_cam, *pack_fused(p, N, H, W, n_arcs, per_cam.device), n_arcs)
-
-
 def apply_per_op(cfg: AugmentationConfig, p: AugmentParams, per_cam: torch.Tensor) -> torch.Tensor:
     """One op per transform, argus_tpu's per-op path."""
     if p.arcs is not None:
@@ -606,22 +599,45 @@ def apply_augmentation(cfg: AugmentationConfig, key: int, images: torch.Tensor, 
     return apply_params(cfg, params, images, n_cams)
 
 
+def fused_applies(cfg: AugmentationConfig, device) -> bool:
+    """True when `apply_params` takes the fused path for images on
+    `device`: the default transform set with the fused kernel selected
+    ("auto": on CUDA)."""
+    fused = torch.device(device).type == "cuda" if cfg.pallas_fused == "auto" else cfg.pallas_fused
+    default_set = all((cfg.color_jiggle, cfg.planckian_jitter, cfg.blur, cfg.motion_blur, cfg.plasma_shadow))
+    return bool(fused and default_set and not (cfg.random_erasing or cfg.salt_and_pepper))
+
+
+def _per_cam(images: torch.Tensor, n_cams: int) -> torch.Tensor:
+    B, H, W, _ = images.shape
+    return images.reshape(B, H, W, n_cams, 3).permute(0, 3, 4, 1, 2).reshape(B * n_cams, 3, H, W)
+
+
+def _nhwc(per_cam: torch.Tensor, B: int, n_cams: int) -> torch.Tensor:
+    _, _, H, W = per_cam.shape
+    out = per_cam.reshape(B, n_cams, 3, H, W).permute(0, 3, 4, 1, 2)
+    return out.contiguous().reshape(B, H, W, 3 * n_cams)
+
+
 def apply_params(cfg: AugmentationConfig, params: AugmentParams, images: torch.Tensor,
                  n_cams: int = 2) -> torch.Tensor:
     """The full stack with parameters already sampled (`sample_params`), on
     (B, H, W, 3 * n_cams) images: the fused path or the per-op path, as
-    `cfg` and the images' device select."""
+    `cfg` and the images' device select (`fused_applies`)."""
     _check_channels(images, n_cams)
     B, H, W, _ = images.shape
-    per_cam = images.reshape(B, H, W, n_cams, 3).permute(0, 3, 4, 1, 2).reshape(B * n_cams, 3, H, W)
-    fused = images.device.type == "cuda" if cfg.pallas_fused == "auto" else cfg.pallas_fused
-    default_set = all((cfg.color_jiggle, cfg.planckian_jitter, cfg.blur, cfg.motion_blur, cfg.plasma_shadow))
-    if fused and default_set and not (cfg.random_erasing or cfg.salt_and_pepper):
-        per_cam = apply_fused(params, per_cam, cfg.num_spaghetti)
-    else:
-        per_cam = apply_per_op(cfg, params, per_cam)
-    out = per_cam.reshape(B, n_cams, 3, H, W).permute(0, 3, 4, 1, 2)
-    return out.contiguous().reshape(B, H, W, 3 * n_cams)
+    if fused_applies(cfg, images.device):
+        operands = pack_fused(params, B * n_cams, H, W, cfg.num_spaghetti, images.device)
+        return apply_packed(cfg, operands, images, n_cams)
+    return _nhwc(apply_per_op(cfg, params, _per_cam(images, n_cams)), B, n_cams)
+
+
+def apply_packed(cfg: AugmentationConfig, operands: tuple, images: torch.Tensor, n_cams: int = 2) -> torch.Tensor:
+    """The fused path on (B, H, W, 3 * n_cams) images with the operands
+    `pack_fused` made: one `augment_fused` launch and its layout
+    transposes, no host work and no upload (a CUDA graph can capture it)."""
+    _check_channels(images, n_cams)
+    return _nhwc(fused_augment(_per_cam(images, n_cams), *operands, cfg.num_spaghetti), images.shape[0], n_cams)
 
 
 class Augmentation:

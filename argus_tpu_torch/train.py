@@ -33,21 +33,27 @@ dtype through `ops.augment` (the fused kernel on the card). After a step
 `state.batch_stats`, the model's own BN buffers, hold the running
 statistics argus_tpu's step returns as `new_batch_stats`.
 
-`train(cfg)` is argus_tpu's loop on one card: the host loader
-(`data.HostDataLoader`) and the device feed (`data.feed.device_prefetch`),
-a train step per batch with the losses fetched in blocks of 50, an eval
-pass per `val_epochs` whose mean loss drives the plateau schedule, a
-format-2 checkpoint of the whole train state per `save_epochs` (written by
+`train(cfg)` is argus_tpu's loop on one card. Its data path is argus_tpu's
+choice by `device_resident_mb`: the whole train split on the card
+(`data.resident.DeviceResidentData`) when it fits the budget, shards of it
+swapped in per epoch (`data.resident.ResidentShardedData`) past it, and the
+host loader (`data.HostDataLoader`) with the device feed
+(`data.feed.device_prefetch`) at 0. On the resident paths an epoch runs
+through `make_resident_epoch_step`: batches gathered on the card, the step
+captured once as a CUDA graph and replayed. Then a train step per batch
+with the losses fetched in blocks of 50, an eval pass per `val_epochs`
+whose mean loss drives the plateau schedule, a format-2 checkpoint of the
+whole train state per `save_epochs` (written by
 `checkpoint.AsyncCheckpointer`), a SIGTERM guard that saves and returns,
 and `resume_from`. `python -m argus_tpu_torch.train --dataset-config.dataset-path
 DIR ...` runs it from the command line (`configs.cli`).
 
-Configurations not ported yet raise `NotImplementedError` naming their
-ROADMAP item: gradient accumulation (A5), a device mesh or several cards
-(A7) and, in `initialize_training`, the device-resident data
-path that argus_tpu takes for any `device_resident_mb > 0` (A11; pass 0 for
-the host feed). The entry points run on CUDA unless the caller passes
-`device="cpu"`, and raise without a card.
+`grad_accum_steps > 1` splits the augmented batch into microbatches and
+combines their gradients by mask count before one clip and Adam step
+(frozen BN only, as argus_tpu requires). A device mesh or several cards
+(A7) raise `NotImplementedError` naming the ROADMAP item. The entry points
+run on CUDA unless the caller passes `device="cpu"`, and raise without a
+card.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from argus_tpu_torch import resolve_device
 from argus_tpu_torch.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
 from argus_tpu_torch.data.dataset import CameraCubePoseDataset, CameraCubePoseDatasetConfig, HostDataLoader
 from argus_tpu_torch.data.feed import device_prefetch
+from argus_tpu_torch.data.resident import DeviceResidentData, ResidentShardedData
 from argus_tpu_torch.geom import se3_exp, se3_inverse, se3_log, se3_multiply
 from argus_tpu_torch.models import CubeKeypointNetConfig, NCameraCNNConfig, resolve_model
 from argus_tpu_torch.models.keypoint_net import (
@@ -81,6 +88,7 @@ from argus_tpu_torch.models.resnet import BasicBlock, BottleneckBlock, Conv, lec
 from argus_tpu_torch.ops import augment
 from argus_tpu_torch.ops.augment import AugmentationConfig
 from argus_tpu_torch.ops.image import u8_to_f32
+from argus_tpu_torch.ops.kernels import KERNELS
 
 ROOT = str(Path(__file__).resolve().parents[1])
 
@@ -137,8 +145,6 @@ class TrainConfig:
 def check_config(cfg: TrainConfig, mesh=None) -> None:
     """Raise `NotImplementedError`, naming the ROADMAP item, for what the
     port's training step does not run yet."""
-    if cfg.grad_accum_steps > 1:
-        raise NotImplementedError("gradient accumulation is not ported yet (ROADMAP A5)")
     if mesh is not None or cfg.multigpu or (cfg.num_chips or 1) > 1 or cfg.num_model_shards > 1:
         raise NotImplementedError("data or tensor parallelism over several cards is not ported yet (ROADMAP A7)")
 
@@ -332,53 +338,141 @@ def create_train_state(cfg: TrainConfig, seed: int = 0, sample_hw: tuple = (256,
 # ───────────────────────────── step ─────────────────────────────
 
 
-def make_train_step(model: torch.nn.Module, cfg: TrainConfig, base_seed: int = 0, mesh=None, hw=None,
-                    device=None):
-    """Build the train step `step(state, batch) -> (state, loss)` for
-    `grad_accum_steps == 1`. `batch` holds "images" (B, H, W, 3 * n_cams)
-    uint8, "cube_pose" (B, 7) and "mask" (B,) (tensors or numpy arrays; the
-    step moves them to the model's device). The update is in place: the
-    model's parameters, the Adam moments and the step count change under the
-    caller's `state`, which is also returned; nothing is donated or copied.
-    With `use_augmentation` the fed images are augmented with the key
-    `fold_in(base_seed, state.step)` (argus_tpu: `fold_in(PRNGKey(
-    base_seed), state.step)`). Sampling the parameters is ~100 small ops of
-    host time, so a step samples the next step's (same batch shape) once it
-    has queued its own work, while the device runs it. `hw`, the training
-    crop, places the keypoint family's cameras (`make_loss_fn`)."""
-    check_config(cfg, mesh)
-    device = resolve_device(device)
-    on = next(model.parameters()).device
-    if on != device and not (device.index is None and on.type == device.type):
-        raise ValueError(f"the model lives on {on}; make_train_step runs on {device}")
-    opt = make_optimizer(cfg.max_grad_norm)
-    losses = make_loss_fn(cfg, hw)
+class TrainStepBody:
+    """argus_tpu's `make_train_step_body` in two parts, so that the second
+    can be captured in a CUDA graph:
 
-    n_cams = model.cfg.n_cams
-    aug = cfg.augmentation_config
-    ahead = {}  # (step, images' shape and dtype) -> that step's parameters, sampled a step early
+    - `prepare(step, images, poses, mask)`: the host's share. Feeds the
+      uint8 frames (`feed_images`) and samples the step's augmentation from
+      `fold_in(base_seed, step)` (~100 small ops of host time). On the fused
+      path it packs the kernel's operands; on the per-op path it augments.
+      Returns the step's operands, all tensors on the device.
+    - `compute(state, operands)`: the rest. The `augment_fused` launch on the
+      fused path, then the forward and backward, the clip and Adam, with the
+      parameters, moments and count updated in place; returns the loss. It
+      makes no upload from host memory and reads nothing back.
 
-    def sample(step: int, images: torch.Tensor):
-        B, H, W, _ = images.shape
-        key = augment.fold_in(base_seed, step)
-        return augment.sample_params(aug, key, B, n_cams, H, W, images.device, images.dtype)
+    With `grad_accum_steps` k > 1 the augmented batch is cut into k
+    microbatches; each one's masked-mean loss and gradient are weighted by
+    its mask count and summed in f32, then divided by max(total count, 1),
+    before one clip and Adam step. Microbatch BN statistics would differ
+    from the whole batch's, so k > 1 needs frozen BN (`ValueError`
+    otherwise, where argus_tpu asserts), and the batch must divide by k.
+    `hw`, the training crop, places the keypoint family's cameras
+    (`make_loss_fn`)."""
 
-    def train_step(state: TrainState, batch: dict):
-        images = feed_images(cfg, batch["images"], on)
-        if cfg.use_augmentation:
-            like = (tuple(images.shape), images.dtype)
-            drawn = ahead.pop((state.step, *like), None) or sample(state.step, images)
-            images = augment.apply_params(aug, drawn, images, n_cams)
-        loss, grads = _loss_and_grads_on(model, state.params, images, batch, losses)
-        updates = opt.update(grads, state.opt_state)
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, base_seed: int = 0, hw=None, device=None):
+        device = resolve_device(device)
+        on = next(model.parameters()).device
+        if on != device and not (device.index is None and on.type == device.type):
+            raise ValueError(f"the model lives on {on}; the train step runs on {device}")
+        _, mcfg = _resolved_model_config(cfg)
+        self.accum = max(1, int(cfg.grad_accum_steps))
+        if self.accum > 1 and not mcfg.bn_frozen:
+            raise ValueError("grad_accum_steps > 1 requires bn_frozen (exact accumulation)")
+        self.model, self.cfg, self.base_seed, self.device = model, cfg, base_seed, on
+        self.opt = make_optimizer(cfg.max_grad_norm)
+        self.losses = make_loss_fn(cfg, hw)
+        self.n_cams = model.cfg.n_cams
+        self.fused = cfg.use_augmentation and augment.fused_applies(cfg.augmentation_config, on)
+        self.ahead = {}  # (step, images' shape and dtype) -> that step's parameters, sampled a step early
+
+    def _sample(self, step: int, images: torch.Tensor):
+        like = (step, tuple(images.shape), images.dtype)
+        drawn = self.ahead.pop(like, None)
+        if drawn is None:
+            B, H, W, _ = images.shape
+            drawn = augment.sample_params(self.cfg.augmentation_config, augment.fold_in(self.base_seed, step), B,
+                                          self.n_cams, H, W, images.device, images.dtype)
+        return drawn
+
+    def sample_ahead(self, step: int, operands: dict) -> None:
+        """Sample step `step`'s augmentation now, for a batch like
+        `operands`' (the host path calls this once its step is queued, so
+        the sampling overlaps the device's work)."""
+        self.ahead.clear()
+        if self.cfg.use_augmentation:
+            self.ahead[(step, tuple(operands["images"].shape), operands["images"].dtype)] = \
+                self._sample(step, operands["images"])
+
+    def prepare(self, step: int, images, poses, mask) -> dict:
+        on = self.device
+        out = {"images": feed_images(self.cfg, images, on),
+               "poses": torch.as_tensor(poses).to(on, torch.float32),
+               "mask": torch.as_tensor(mask).to(on, torch.float32)}
+        if self.cfg.use_augmentation:
+            drawn = self._sample(step, out["images"])
+            aug = self.cfg.augmentation_config
+            if self.fused:
+                B, H, W, _ = out["images"].shape
+                field, _, _, packed, order = augment.pack_fused(drawn, B * self.n_cams, H, W, aug.num_spaghetti, on)
+                out.update(field=field, packed=packed, order=order)
+            else:
+                out["images"] = augment.apply_params(aug, drawn, out["images"], self.n_cams)
+        return out
+
+    def compute(self, state: TrainState, operands: dict) -> torch.Tensor:
+        images = operands["images"]
+        if "field" in operands:
+            _, H, W, _ = images.shape
+            field = operands["field"]
+            mh, mwt = augment.resize_matrices(H, W, field.shape[-1], images.device)
+            images = augment.apply_packed(self.cfg.augmentation_config,
+                                          (field, mh, mwt, operands["packed"], operands["order"]), images, self.n_cams)
+        loss, grads = self._loss_and_grads(state.params, images, operands["poses"], operands["mask"])
+        updates = self.opt.update(grads, state.opt_state)
         names = list(state.params)
         with torch.no_grad():
             torch._foreach_add_([state.params[k] for k in names],
                                 torch._foreach_mul([updates[k] for k in names], -state.lr))
+        return loss
+
+    def _loss_and_grads(self, params, images, poses, mask):
+        if self.accum == 1:
+            return _loss_and_grads_on(self.model, params, images, {"cube_pose": poses, "mask": mask}, self.losses)
+        B = images.shape[0]
+        if B % self.accum:
+            raise ValueError(f"batch {B} does not divide into {self.accum} microbatches")
+        mb = B // self.accum
+        names = list(params)
+        gsum = lsum = csum = None
+        for i in range(self.accum):
+            rows = slice(i * mb, (i + 1) * mb)
+            loss_i, g = _loss_and_grads_on(self.model, params, images[rows],
+                                           {"cube_pose": poses[rows], "mask": mask[rows]}, self.losses)
+            cnt = mask[rows].sum()
+            weighted = torch._foreach_mul([g[k].float() for k in names], cnt)
+            if gsum is None:
+                gsum, lsum, csum = weighted, loss_i * cnt, cnt
+            else:
+                torch._foreach_add_(gsum, weighted)
+                lsum, csum = lsum + loss_i * cnt, csum + cnt
+        denom = csum.clamp(min=1.0)
+        grads = {k: (gk / denom).to(params[k].dtype) for k, gk in zip(names, gsum)}
+        return lsum / denom, grads
+
+
+def make_train_step(model: torch.nn.Module, cfg: TrainConfig, base_seed: int = 0, mesh=None, hw=None,
+                    device=None):
+    """Build the train step `step(state, batch) -> (state, loss)`
+    (`TrainStepBody`'s two parts in turn). `batch` holds "images" (B, H, W,
+    3 * n_cams) uint8, "cube_pose" (B, 7) and "mask" (B,) (tensors or numpy
+    arrays; the step moves them to the model's device). The update is in
+    place: the model's parameters, the Adam moments and the step count
+    change under the caller's `state`, which is also returned; nothing is
+    donated or copied. With `use_augmentation` the fed images are augmented
+    with the key `fold_in(base_seed, state.step)` (argus_tpu: `fold_in(
+    PRNGKey(base_seed), state.step)`); a step samples the next step's
+    parameters (same batch shape) once it has queued its own work, while
+    the device runs it."""
+    check_config(cfg, mesh)
+    body = TrainStepBody(model, cfg, base_seed, hw, device)
+
+    def train_step(state: TrainState, batch: dict):
+        operands = body.prepare(state.step, batch["images"], batch["cube_pose"], batch["mask"])
+        loss = body.compute(state, operands)
         state.step += 1
-        if cfg.use_augmentation:
-            ahead.clear()
-            ahead[(state.step, *like)] = sample(state.step, images)
+        body.sample_ahead(state.step, operands)
         return state, loss
 
     return train_step
@@ -414,6 +508,134 @@ def _loss_and_grads_on(model: torch.nn.Module, params: Dict[str, torch.Tensor], 
     grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
     grads = {k: torch.zeros_like(params[k]) if gk is None else gk for k, gk in zip(names, grads)}
     return loss.detach(), grads
+
+
+# ───────────────────────────── resident epoch ─────────────────────────────
+
+
+WARMUP_STEPS = 2  # steps a CapturedStep runs eagerly on its capture stream before it captures
+
+
+class CapturedStep:
+    """`TrainStepBody.compute` on the card as one CUDA graph, captured once
+    and replayed for every later step. The first `WARMUP_STEPS` calls run
+    it eagerly on the capture stream (they are steps of the run, not extra
+    ones): they fill what the kernels' wrappers make once per stream or
+    shape (the one-launch reductions' ticket counters, the BN and weight
+    gradient plans, the resize matrices' nonzero ranges, each launcher's
+    shared-memory opt-in), which capture could not. The next call captures
+    (`capture_error_mode="thread_local"`, so the shard-upload and
+    checkpoint threads may call CUDA meanwhile) and then replays; from there
+    a call copies the step's operands into the graph's static inputs and
+    replays it on the current stream, behind whatever that stream holds
+    (a checkpoint's snapshot taken after it sees its updates). The
+    parameters, moments and count are the state's own tensors, updated in
+    place, so their addresses stay fixed; `state.lr`, which the schedule
+    fills in place, is read at each replay. A capture that fails raises.
+
+    Kernel launch counts: a kernel the graph holds counts one launch a
+    replay for each call its wrapper made during the capture, in which no
+    kernel ran (those calls' counts are taken back)."""
+
+    def __init__(self, body: TrainStepBody) -> None:
+        self.body = body
+        self.stream = torch.cuda.Stream(body.device)
+        self.eager_left = WARMUP_STEPS
+        self.graph = None
+        self.static = None  # the graph's input operands
+        self.loss = None  # its output
+        self.per_replay = []  # (Kernel, launches a replay)
+
+    def __call__(self, state: TrainState, operands: dict) -> torch.Tensor:
+        current = torch.cuda.current_stream(self.body.device)
+        if self.graph is None:
+            self.stream.wait_stream(current)
+            if self.eager_left > 0:
+                self.eager_left -= 1
+                with torch.cuda.stream(self.stream):
+                    loss = self.body.compute(state, operands)
+                current.wait_stream(self.stream)
+                loss.record_stream(current)
+                return loss
+            self._capture(state, operands)
+        for k, t in operands.items():
+            self.static[k].copy_(t)
+        self.graph.replay()
+        for kernel, n in self.per_replay:
+            kernel.launches += n
+        return self.loss
+
+    def _capture(self, state: TrainState, operands: dict) -> None:
+        self.static = {k: t.clone() for k, t in operands.items()}
+        before = {name: k.launches for name, k in KERNELS.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+            self.loss = self.body.compute(state, self.static)
+        self.per_replay = []
+        for name, k in KERNELS.items():
+            n = k.launches - before[name]
+            if n:
+                k.launches -= n
+                self.per_replay.append((k, n))
+        self.graph = graph
+
+
+def epoch_permutation(base_seed: int, epoch: int, n: int, device) -> torch.Tensor:
+    """The resident epoch's order of its `n` examples, drawn on `device` from
+    a generator seeded by `fold_in(base_seed ^ 0x5EED, epoch)`: a stream
+    apart from the augmentation keys, as argus_tpu draws it (the numbers are
+    torch's, not jax.random's)."""
+    gen = augment.generator(augment.fold_in(base_seed ^ 0x5EED, epoch), device)
+    return torch.randperm(n, generator=gen, device=device)
+
+
+def make_resident_epoch_step(model: torch.nn.Module, cfg: TrainConfig, base_seed: int, n_examples: int, hw=None,
+                             device=None, like=None):
+    """A whole epoch over device-resident data, argus_tpu's
+    `make_resident_epoch_step`. Returns (epoch_step, k) with k = ceil(n /
+    batch_size) batches an epoch and
+
+        epoch_step(state, images, poses, epoch) -> (state, losses (k,) on the device)
+
+    for images uint8 (n, H, W, 3 * n_cams) and poses (n, 7) on the device.
+    The epoch's order is `epoch_permutation(base_seed, epoch, n)`, padded to
+    k * batch_size with its own first entries, whose mask is 0. Each batch
+    is gathered on the device (`index_select`) and runs `TrainStepBody`,
+    accumulation included, with the augmentation keyed by `state.step`, so
+    for the same order the epoch gives the per-step path's losses and
+    updates. On the card the compute part is a `CapturedStep`: between its
+    replays the host queues the gathers, the augmentation's sampling and
+    packing and device-to-device copies, and no upload. On the CPU it runs
+    eagerly through the same code. `like`, an epoch step made earlier for
+    the same model, config and batch shape, lends it its step body and
+    graph (the shard path's two shard lengths share one)."""
+    device = resolve_device(device)
+    if like is not None:
+        body, run = like.body, like.run
+    else:
+        body = TrainStepBody(model, cfg, base_seed, hw, device)
+        run = CapturedStep(body) if device.type == "cuda" else body.compute
+    B = cfg.batch_size
+    n = int(n_examples)
+    k = -(-n // B)
+    pad = k * B - n
+    mask = (torch.arange(k * B, device=body.device) < n).to(torch.float32).reshape(k, B)
+
+    def epoch_step(state: TrainState, images: torch.Tensor, poses: torch.Tensor, epoch: int):
+        perm = epoch_permutation(base_seed, int(epoch), n, body.device)
+        if pad:
+            perm = torch.cat([perm, perm[:pad]])
+        idx = perm.reshape(k, B)
+        losses = torch.empty(k, dtype=torch.float32, device=body.device)
+        for i in range(k):
+            operands = body.prepare(state.step, images.index_select(0, idx[i]), poses.index_select(0, idx[i]),
+                                    mask[i])
+            losses[i] = run(state, operands)
+            state.step += 1
+        return state, losses
+
+    epoch_step.body, epoch_step.run = body, run
+    return epoch_step, k
 
 
 # ───────────────────────────── eval step ─────────────────────────────
@@ -505,19 +727,19 @@ def initialize_training(cfg: TrainConfig, device=None, datasets=None) -> dict:
     loaders, the model and train state (restored from `resume_from`), the
     train and eval steps, and the metrics logger. `datasets` = (train, val)
     replaces the datasets of `cfg.dataset_config` (any object with
-    `__len__`, `__getitem__`, `cube_poses` and `load_images_batch`).
-    Raises `NotImplementedError` for `device_resident_mb > 0`: argus_tpu
-    then trains from a device-resident copy of the data (ROADMAP A11), and
-    the host feed here is its path at 0."""
+    `__len__`, `__getitem__`, `cube_poses`, `n_cams`, `_out_hw` and
+    `load_images_batch`).
+
+    The data path is argus_tpu's choice: the train split resident on the
+    device when it fits `device_resident_mb` (`resident`, with its
+    `epoch_step`), shards of it swapped in per epoch past the budget
+    (`resident_sharded`, with one epoch step per distinct shard length in
+    `shard_steps`, sharing one step and its CUDA graph), else (at 0) the
+    host loader."""
     from argus_tpu_torch.logging_utils import MetricsLogger, generate_run_id
 
     device = resolve_device(device)
     check_config(cfg)
-    if cfg.device_resident_mb > 0:
-        raise NotImplementedError(
-            "the device-resident data path is not ported yet (ROADMAP A11): argus_tpu takes it for any "
-            "device_resident_mb > 0 on one process; pass device_resident_mb=0 for the host feed"
-        )
     if datasets is None:
         if cfg.dataset_config is None:
             raise ValueError("TrainConfig.dataset_config is required for training, or pass datasets")
@@ -536,10 +758,25 @@ def initialize_training(cfg: TrainConfig, device=None, datasets=None) -> dict:
     train_step = make_train_step(model, cfg, base_seed=cfg.random_seed, hw=sample_hw, device=device)
     eval_step = make_eval_step(model, cfg, base_seed=cfg.random_seed, hw=sample_hw, device=device)
 
+    resident = epoch_step = resident_sharded = shard_steps = None
+    budget_mb = cfg.device_resident_mb
+    epoch_kw = dict(base_seed=cfg.random_seed, hw=sample_hw, device=device)
+    if DeviceResidentData.fits(train_dataset, budget_mb):
+        resident = DeviceResidentData.from_dataset(train_dataset, device=device, n_threads=cfg.num_workers)
+        epoch_step, _ = make_resident_epoch_step(model, cfg, n_examples=resident.n, **epoch_kw)
+    elif ResidentShardedData.applicable(train_dataset, budget_mb):
+        resident_sharded = ResidentShardedData(train_dataset, budget_mb, device=device, n_threads=cfg.num_workers,
+                                               seed=cfg.random_seed)
+        shard_steps = {}
+        for n_k in sorted({resident_sharded.shard_size, resident_sharded.tail_size}, reverse=True):
+            like = next(iter(shard_steps.values()), None)
+            shard_steps[n_k], _ = make_resident_epoch_step(model, cfg, n_examples=n_k, like=like, **epoch_kw)
+
     run_id = generate_run_id()
     logger = MetricsLogger(cfg.wandb_project, run_id=run_id, config=cfg, enabled=cfg.wandb_log)
     return dict(device=device, model=model, sample_hw=sample_hw, state=state, train_loader=train_loader,
-                val_loader=val_loader, train_step=train_step, eval_step=eval_step, logger=logger,
+                val_loader=val_loader, train_step=train_step, eval_step=eval_step, resident=resident,
+                epoch_step=epoch_step, resident_sharded=resident_sharded, shard_steps=shard_steps, logger=logger,
                 run_id=run_id, rank=0)
 
 
@@ -611,13 +848,28 @@ def _train_epochs(cfg, setup, state, scheduler, ckpt_path, guard, global_step, l
                 global_step += 1
             pending.clear()
 
-        for batch in device_prefetch(setup["train_loader"], device):
-            state, loss = train_step(state, batch)
-            pending.append(loss)
-            if len(pending) >= 50:
-                flush_pending()
-            if guard.requested:
-                break
+        if setup["resident"] is not None:
+            # the whole epoch from the resident split: no host feed and no
+            # upload; preemption is seen once the epoch is queued
+            res = setup["resident"]
+            state, losses = setup["epoch_step"](state, res.images, res.poses, epoch)
+            pending.extend(losses.unbind())
+        elif setup["resident_sharded"] is not None:
+            # shard by shard, the next shard's decode and upload overlapping
+            # this one's steps; preemption is seen after each shard
+            for images, poses, segment, n_k in setup["resident_sharded"].epoch_shards(epoch):
+                state, losses = setup["shard_steps"][n_k](state, images, poses, segment)
+                pending.extend(losses.unbind())
+                if guard.requested:
+                    break
+        else:
+            for batch in device_prefetch(setup["train_loader"], device):
+                state, loss = train_step(state, batch)
+                pending.append(loss)
+                if len(pending) >= 50:
+                    flush_pending()
+                if guard.requested:
+                    break
         flush_pending()
 
         if guard.requested:

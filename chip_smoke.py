@@ -96,7 +96,12 @@ Phases, each fatal on failure (nothing is caught and ignored):
    and 6 timed steps with finite losses, launches per step 1 augment / 1
    stem / 1 + 1 chain / 3 + 3 projection / 10 + 10 identity, ms per step
    (CUDA events and host clock), camera-images/s and peak memory; then the
-   same for the step without augmentation, beside it;
+   same for the step without augmentation, beside it; then gradient
+   accumulation: the step with `grad_accum_steps=2` against 1 on the same 8
+   augmented rows (loss and combined gradients) under the same gates, and
+   6 timed steps of each at batch 256 (microbatches of 128; launches per
+   step the model's kernels twice, the augmentation once), ms per step and
+   peak memory;
 7. the keypoint family (CubeKeypointNet at argus_tpu's default config:
    2 cameras, 8 corners, resnet18, head_features 128, 32x32 heatmaps) with
    `fuse_block`/`fuse_stem` "on", bf16, frozen BN + affine + stem, default
@@ -108,8 +113,11 @@ Phases, each fatal on failure (nothing is caught and ignored):
    distance from f32 (max and median over parameters) and within 0.25 /
    0.15 of the unfused step; the launches of an eval forward (1 stem / 5
    `basic_fused`) and of a step (1 augment / 1 stem / 5 + 5 BasicBlock),
-   6 timed steps fused and 6 unfused in the same call; then keypoint
-   serving, `Estimator(ckpt, batch_size=256)` on a checkpoint of those
+   6 timed steps fused and 6 unfused in the same call; one resident epoch
+   (`train.make_resident_epoch_step`, 776 fresh frames: 4 steps, the last
+   padded) with its step captured as a CUDA graph after its eager warm-up
+   steps, finite losses and the launches of 4 steps counted through the
+   replays; then keypoint serving, `Estimator(ckpt, batch_size=256)` on a checkpoint of those
    weights (unfused bf16, as argus_tpu serves BasicBlock backbones: no
    kernel launch), poses within 0.05 of the CPU estimator on 8 rows, or,
    where the CPU's own bf16 poses sit farther than that from its f32 ones
@@ -159,14 +167,21 @@ Phases, each fatal on failure (nothing is caught and ignored):
    "auto" step launches exactly what the table names, and is no slower
    than the faster of "on" and "off" by more than 2%;
 11. `train()` end to end: the `frozen_stages=3` fine-tune at full width
-   (fuse "auto", `device_resident_mb=0`, augmentation on) on 1024 + 160
-   frames rendered by the port's synthetic renderer into an in-memory
-   dataset (no h5py on the card), through `HostDataLoader` and the device
-   feed: 2 epochs, then 1 more resumed from the saved file; finite losses,
-   the step count continuing, the file restoring bit-equal into a fresh
-   `TrainState`, every kernel "auto" names launched; end-to-end
-   camera-images/s beside the compute-only step, and how long
-   `AsyncCheckpointer.save` holds the caller;
+   (fuse "auto", augmentation on) on 1024 + 160 frames rendered by the
+   port's synthetic renderer into an in-memory dataset (no h5py on the
+   card), on each of the three data paths: the host feed
+   (`device_resident_mb=0`: `HostDataLoader` and the device feed), the
+   default budget (the split resident on the card, each epoch's step
+   captured as a CUDA graph and replayed) and a 300 MiB budget (shards of
+   399, 399 and 226 swapped in per epoch): each 2 epochs, then 1 more
+   resumed from the saved file; finite losses, the step count continuing,
+   the file restoring bit-equal into a fresh `TrainState`, every kernel
+   "auto" names launched (counted through the replays); end-to-end
+   camera-images/s of each path beside the compute-only step, and how long
+   `AsyncCheckpointer.save` holds the caller; then one resident epoch
+   replayed against the same epoch (one state, one order) run eagerly on
+   the card, losses and the parameters' change under phase 6's gates, the
+   replayed epoch's launches those of 4 "auto" steps, bit-equality printed;
 12. the pointwise kernels (`fuse_pointwise`, B11) at every (M, CIN, COUT,
    residual) of configuration P's step (N = 512 camera images, 256x256:
    Conv_0 and Conv_2 of the 16 bottlenecks) and at an odd M (513 x 7 x 7):
@@ -329,6 +344,10 @@ C1_ROUNDS = 288
 AUTO_ORDERS = ((0, 1, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0), (1, 0, 2), (0, 2, 1))
 LOOP_TRAIN, LOOP_VAL = 1024, 160  # rendered examples of the loop phase: 4 train batches, 1 padded val batch
 LOOP_VAL_BATCHES = 1
+# the sharded run's budget (MiB): the 1024 examples of 393,244 B (384.0 MiB)
+# do not fit, so they train as shards of 399, 399 and 226 (each within half
+# the budget; any budget that fits a shard of half the split fits the split)
+LOOP_SHARD_MB = 300.0
 AUTO_SLACK = 0.02  # "auto" may be this much slower than the faster of all "on" and all "off"
 
 
@@ -1645,6 +1664,49 @@ def _time_steps(step, state, batch, label: str):
     return launches, ms, state
 
 
+def accum_phase() -> tuple:
+    """The flagship step with `grad_accum_steps=2` against
+    `grad_accum_steps=1` (phase 6's step; `train.TrainStepBody`'s loss and
+    combined gradient) on the same 8 augmented rows, under phase 6's gates;
+    then 6 timed steps of each at batch 256 (two microbatches of 128 rows
+    for accumulation), launches per step (the model's kernels twice, the
+    augmentation once) and peak memory. Returns (launches per accumulated
+    step, {accum: (ms/step, peak bytes)})."""
+    import torch
+
+    from argus_tpu_torch.train import TrainStepBody, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup()
+    cfg2 = dataclasses.replace(cfg, grad_accum_steps=2)
+    head, images = _eight_rows(cfg, batch)
+    args = (state.params, images, head["cube_pose"], head["mask"])
+    loss1, g1 = TrainStepBody(model, cfg)._loss_and_grads(*args)
+    loss2, g2 = TrainStepBody(model, cfg2)._loss_and_grads(*args)
+    errs = _grad_errors(g2, g1)
+    worst, median, name = _spread(errs)
+    loss_err = abs(loss2.item() - loss1.item()) / abs(loss1.item())
+    say(f"accumulation: grad_accum_steps=2 vs 1 on the first 8 augmented rows: loss {loss2.item():.6f} vs "
+        f"{loss1.item():.6f} (rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); gradients of {len(errs)} parameters: "
+        f"max rel {worst:.3g} ({name}), median {median:.3g} (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
+        raise AssertionError("the accumulated step disagrees with the whole-batch one")
+    del g1, g2, head, images, args
+    runs = {}
+    for accum, c in ((1, cfg), (2, cfg2)):
+        torch.cuda.empty_cache()
+        launches, ms, state = _time_steps(make_train_step(model, c), state, batch, f"grad_accum_steps={accum}")
+        runs[accum] = (launches, ms, torch.cuda.max_memory_allocated())
+    want = {k: v if k == "augment_fused" else 2 * v for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    if runs[2][0] != want or runs[1][0] != EXPECTED_TRAIN_LAUNCHES:
+        raise AssertionError(f"accumulation launch counts {runs[2][0]} != {want}")
+    say(f"accumulation on {GPU}: grad_accum_steps=2 {runs[2][1]:.2f} ms/step, peak {runs[2][2] / 2**30:.2f} GiB; "
+        f"grad_accum_steps=1 {runs[1][1]:.2f} ms/step, peak {runs[1][2] / 2**30:.2f} GiB (batch {N_ROWS}, "
+        f"CUDA events, peak after each warm-up step)")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return runs[2][0], {a: r[1:] for a, r in runs.items()}
+
+
 # ─────────────── phase 8: the trained stem and exact BN (Path A, Path B) ───────────────
 
 
@@ -1847,8 +1909,8 @@ def keypoint_phase(tmpdir: str) -> tuple:
     from argus_tpu_torch.ops import kernels
     from argus_tpu_torch.ops.augment import apply_augmentation
     from argus_tpu_torch.serve import Estimator
-    from argus_tpu_torch.train import _loss_and_grads_on, create_train_state, feed_images, make_loss_fn, \
-        make_train_step
+    from argus_tpu_torch.train import WARMUP_STEPS, _loss_and_grads_on, create_train_state, feed_images, \
+        make_loss_fn, make_resident_epoch_step, make_train_step
 
     cfg, model, state, batch = keypoint_setup()
     # the served weights: the random initial ones, which no training step
@@ -1922,6 +1984,28 @@ def keypoint_phase(tmpdir: str) -> tuple:
         f"ms/step in this call ({N_IMG / runs['fused'][1] * 1e3:.1f} against "
         f"{N_IMG / runs['unfused'][1] * 1e3:.1f} camera-images/s)")
     del ref, ref_state, runs["unfused"]
+    torch.cuda.empty_cache()
+
+    # one resident epoch of 3 batches and a padded fourth, captured: its
+    # first WARMUP_STEPS steps eager, then the capture and replays
+    n_res = 3 * N_ROWS + 8
+    g = torch.Generator(device="cuda").manual_seed(8)
+    frames = torch.randint(0, 256, (n_res, HW, HW, 6), generator=g, device="cuda", dtype=torch.uint8)
+    poses = batch["cube_pose"].repeat(4, 1)[:n_res].contiguous()
+    epoch_step, k = make_resident_epoch_step(model, cfg, base_seed=3, n_examples=n_res, hw=(HW, HW))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, res_losses = epoch_step(state, frames, poses, 0)
+    res_losses = res_losses.tolist()
+    res_s = time.perf_counter() - t0
+    res_launches = kernels.launch_counts()
+    want = {name: k * v for name, v in EXPECTED_KP_LAUNCHES.items()}
+    say(f"keypoint resident epoch ({n_res} examples, {k} steps, {WARMUP_STEPS} eager then captured and replayed): "
+        f"losses {[round(v, 4) for v in res_losses]}, {res_s:.2f} s with the capture; launches {res_launches}")
+    if epoch_step.run.graph is None or res_launches != want or not np.isfinite(res_losses).all():
+        raise AssertionError(f"keypoint resident epoch: captured {epoch_step.run.graph is not None}, launches "
+                             f"{res_launches} != {want}, losses {res_losses}")
+    del epoch_step, frames, poses
     torch.cuda.empty_cache()
 
     # serving: a keypoint checkpoint of the initial weights, batch 256 on the card
@@ -2322,6 +2406,9 @@ class FramesDataset:
     def __getitem__(self, idx):
         return {"images": self.images[idx], "cube_pose": self.cube_poses[idx]}
 
+    def _out_hw(self):
+        return tuple(self.images.shape[1:3])
+
     def load_images_batch(self, idxs, n_threads=1, pool=None):
         self.requested.append(time.perf_counter())
         return self.images[list(idxs)]
@@ -2344,30 +2431,122 @@ class _Recorder:
         pass
 
 
-def loop_phase(tmpdir: str) -> dict:
-    """`train()` on the card at full width: the `frozen_stages=3` fine-tune
-    (ResNet-50 NCameraCNN, 2 cameras, 1024-d features, 256x256, batch 256,
-    amp, frozen BN and affine, augmentation on, fuse "auto",
-    `device_resident_mb=0`) on LOOP_TRAIN + LOOP_VAL rendered examples
-    through `HostDataLoader` and the device feed: 2 epochs, then a run
-    resumed from the file that saved for 1 more. Checks: every epoch's loss
-    and val loss finite, the step count continuing (8, then 12), the first
-    file restoring bit-equal into a fresh `TrainState`, and every kernel
-    "auto" names for this path launched. Prints end-to-end camera-images/s
-    of the resumed run's train pass (loader, feed, steps; from its first
-    batch request to its losses), and of the first run's second epoch,
-    during which epoch 0's checkpoint is written, beside the compute-only
-    step on a resident batch, and how long `AsyncCheckpointer.save` holds
-    the caller."""
-    import numpy as np
+def _loop_runs(cfg, datasets):
+    """`train()` for 2 epochs, then a run resumed from the file that saved
+    for 1 more: (first file, resumed file, each run's records, the first
+    run's launches, host clock as each run's set-up returned, seconds of
+    each run)."""
     import torch
 
     from argus_tpu_torch import logging_utils
-    from argus_tpu_torch.checkpoint import AsyncCheckpointer, load_checkpoint, train_state_tree
+    from argus_tpu_torch import train as ttrain
+    from argus_tpu_torch.ops import kernels
+
+    ready = []
+    orig_logger, orig_init = logging_utils.MetricsLogger, ttrain.initialize_training
+
+    def init(*a, **k):
+        setup = orig_init(*a, **k)
+        torch.cuda.synchronize()
+        ready.append(time.perf_counter())
+        return setup
+
+    logging_utils.MetricsLogger, ttrain.initialize_training = _Recorder, init
+    try:
+        _Recorder.runs.clear()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = ttrain.train(cfg, datasets=datasets)
+        t_first = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        datasets[0].requested.clear()
+        t0 = time.perf_counter()
+        resumed = ttrain.train(dataclasses.replace(cfg, n_epochs=1, resume_from=first), datasets=datasets)
+        t_resumed = time.perf_counter() - t0
+    finally:
+        logging_utils.MetricsLogger, ttrain.initialize_training = orig_logger, orig_init
+    return first, resumed, [r.records for r in _Recorder.runs], launches, ready, (t_first, t_resumed)
+
+
+def _check_loop(label, cfg, first, resumed, runs, launches, per_epoch, times):
+    """The loop's checks: finite losses and val losses, the step count
+    continuing (2 epochs, then 3), every kernel "auto" names for this path
+    launched (`stem_fused_packed` once a train step and once a val batch),
+    the first file restoring bit-equal into a fresh `TrainState`."""
+    import numpy as np
+
+    from argus_tpu_torch.checkpoint import load_checkpoint, train_state_tree
+    from argus_tpu_torch.train import create_train_state
+
+    losses = [[m["loss"] for _, _, m in r if "loss" in m] for r in runs]
+    vals = [[m["val_loss"] for _, _, m in r if "val_loss" in m] for r in runs]
+    say(f"loop ({label}): train() 2 epochs in {times[0]:.1f} s, resumed 1 epoch in {times[1]:.1f} s (model set-up, "
+        f"datasets and checkpoint files included); losses {[round(v, 4) for v in losses[0]]} then "
+        f"{[round(v, 4) for v in losses[1]]}; val losses {[round(v, 4) for v in vals[0]]} then "
+        f"{[round(v, 4) for v in vals[1]]}; launches over both epochs {({k: v for k, v in launches.items() if v})}")
+    first_tree, final_tree = load_checkpoint(first), load_checkpoint(resumed)
+    steps = (int(first_tree["step"]), int(final_tree["step"]))
+    if steps != (2 * per_epoch, 3 * per_epoch) or len(losses[0]) != 2 * per_epoch or len(losses[1]) != per_epoch:
+        raise AssertionError(f"loop ({label}): step counts {steps}, losses {len(losses[0])} + {len(losses[1])}")
+    if not (np.isfinite(losses[0] + losses[1]).all() and np.isfinite(vals[0] + vals[1]).all()
+            and len(vals[0]) == 2 and len(vals[1]) == 1):
+        raise AssertionError(f"loop ({label}): non-finite or missing losses {losses} {vals}")
+    want = {k for k, v in _expected_launches(3, stem_trained=False).items() if v}
+    want |= {k for k, v in _expected_launches(3, stem_trained=False, serving=True).items() if v}
+    missed = sorted(k for k in want if not launches[k])
+    if missed or launches["stem_fused_packed"] != 2 * (per_epoch + LOOP_VAL_BATCHES):
+        raise AssertionError(f"loop ({label}): kernels of the path not launched {missed} (launches {launches})")
+
+    _, fresh = create_train_state(cfg, seed=5)
+    load_checkpoint(first, target=fresh)
+
+    def leaves(t, pre=""):
+        for k, v in t.items():
+            yield from leaves(v, f"{pre}/{k}") if isinstance(v, dict) else [(f"{pre}/{k}", np.asarray(v))]
+
+    a, b = dict(leaves(train_state_tree(fresh))), dict(leaves(first_tree))
+    unequal = [k for k in b if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+    if a.keys() != b.keys() or unequal:
+        raise AssertionError(f"loop ({label}): the saved state does not restore bit-equal: {unequal[:5]}")
+    say(f"loop ({label}): {first} restores bit-equal into a fresh TrainState ({len(b)} leaves); steps {steps[0]} "
+        f"then {steps[1]}")
+
+
+def _second_epoch_ms(records, per_epoch):
+    """ms a step of the first run's second epoch (its train pass, while
+    epoch 0's file is written): from epoch 0's val loss to epoch 1's losses,
+    which are logged when its pass ends."""
+    t_val0 = next(t for t, s, m in records if "val_loss" in m)
+    t_loss1 = [t for t, s, m in records if "loss" in m][per_epoch]
+    return (t_loss1 - t_val0) / per_epoch * 1e3
+
+
+def loop_phase(tmpdir: str) -> dict:
+    """`train()` on the card at full width: the `frozen_stages=3` fine-tune
+    (ResNet-50 NCameraCNN, 2 cameras, 1024-d features, 256x256, batch 256,
+    amp, frozen BN and affine, augmentation on, fuse "auto") on LOOP_TRAIN +
+    LOOP_VAL rendered examples, on each of argus_tpu's three data paths: the
+    host feed (`device_resident_mb=0`: `HostDataLoader` and the device
+    feed), the default budget (2048 MiB: the split resident on the card, each
+    epoch's step replayed as a CUDA graph) and LOOP_SHARD_MB (shards of 399,
+    399 and 226 swapped in per epoch, 2 + 2 + 1 steps an epoch). Each: 2 epochs,
+    then a run resumed from the file that saved for 1 more, under
+    `_check_loop`'s checks (launches counted through the replays). Then one
+    resident epoch replayed against the same epoch run eagerly on the card
+    (`_captured_vs_eager`). Prints end-to-end camera-images/s of each path
+    beside the compute-only step on a resident batch: the resumed run's
+    train pass (the host feed's from its first batch request, the resident
+    paths' from the end of `initialize_training`, so with their 2 eager
+    steps and the capture), and the first run's second epoch (every step
+    replayed; epoch 0's file is written meanwhile); and how long
+    `AsyncCheckpointer.save` holds the caller."""
+    import torch
+
+    from argus_tpu_torch.checkpoint import AsyncCheckpointer, load_checkpoint
+    from argus_tpu_torch.data.resident import ResidentShardedData
     from argus_tpu_torch.data.synthetic import render_dataset_arrays
     from argus_tpu_torch.models import NCameraCNNConfig
-    from argus_tpu_torch.ops import kernels
-    from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step, train
+    from argus_tpu_torch.train import WARMUP_STEPS, TrainConfig, create_train_state, make_train_step
 
     t0 = time.perf_counter()
     sets = [render_dataset_arrays(n, HW, HW, seed=s) for n, s in ((LOOP_TRAIN, 10), (LOOP_VAL, 11))]
@@ -2376,88 +2555,134 @@ def loop_phase(tmpdir: str) -> dict:
         f"{time.perf_counter() - t0:.1f} s; PNG decode is not on this path (no HDF5 writer on this host)")
     mcfg = NCameraCNNConfig(n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True,
                             bn_frozen_affine=True, stem_frozen=True, frozen_stages=3)
-    cfg = TrainConfig(model_config=mcfg, amp=True, batch_size=N_ROWS, n_epochs=2, learning_rate=1e-4,
-                      device_resident_mb=0, wandb_log=False, num_workers=8, save_dir=os.path.join(tmpdir, "ckpt"))
-    orig = logging_utils.MetricsLogger
-    logging_utils.MetricsLogger = _Recorder
-    try:
-        _Recorder.runs.clear()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        first = train(cfg, datasets=datasets)
-        t_first = time.perf_counter() - t0
-        launches = kernels.launch_counts()
-        datasets[0].requested.clear()
-        t0 = time.perf_counter()
-        resumed = train(dataclasses.replace(cfg, n_epochs=1, resume_from=first), datasets=datasets)
-        t_resumed = time.perf_counter() - t0
-    finally:
-        logging_utils.MetricsLogger = orig
-    runs = [r.records for r in _Recorder.runs]
-    losses = [[m["loss"] for _, _, m in r if "loss" in m] for r in runs]
-    vals = [[m["val_loss"] for _, _, m in r if "val_loss" in m] for r in runs]
+    base = TrainConfig(model_config=mcfg, amp=True, batch_size=N_ROWS, n_epochs=2, learning_rate=1e-4,
+                       wandb_log=False, num_workers=8, save_dir=os.path.join(tmpdir, "ckpt"))
     per_epoch = LOOP_TRAIN // N_ROWS
-    say(f"loop: train() 2 epochs in {t_first:.1f} s, resumed 1 epoch in {t_resumed:.1f} s (model set-up, "
-        f"datasets and checkpoint files included); losses {[round(v, 4) for v in losses[0]]} then "
-        f"{[round(v, 4) for v in losses[1]]}; val losses {[round(v, 4) for v in vals[0]]} then "
-        f"{[round(v, 4) for v in vals[1]]}; launches over both epochs {({k: v for k, v in launches.items() if v})}")
-    first_tree, final_tree = load_checkpoint(first), load_checkpoint(resumed)
-    steps = (int(first_tree["step"]), int(final_tree["step"]))
-    if steps != (2 * per_epoch, 3 * per_epoch) or len(losses[0]) != 2 * per_epoch or len(losses[1]) != per_epoch:
-        raise AssertionError(f"loop: step counts {steps}, losses {len(losses[0])} + {len(losses[1])}")
-    if not (np.isfinite(losses[0] + losses[1]).all() and np.isfinite(vals[0] + vals[1]).all()
-            and len(vals[0]) == 2 and len(vals[1]) == 1):
-        raise AssertionError(f"loop: non-finite or missing losses {losses} {vals}")
-    want = {k for k, v in _expected_launches(3, stem_trained=False).items() if v}
-    want |= {k for k, v in _expected_launches(3, stem_trained=False, serving=True).items() if v}
-    missed = sorted(k for k in want if not launches[k])
-    if missed or launches["stem_fused_packed"] != 2 * (per_epoch + LOOP_VAL_BATCHES):
-        raise AssertionError(f"loop: kernels of the path not launched {missed} (launches {launches})")
+    shards = ResidentShardedData(datasets[0], LOOP_SHARD_MB)
+    shard_steps = sum(-(-len(idx) // N_ROWS) for idx in shards.index_shards)
+    if len({len(idx) for idx in shards.index_shards}) != 2:
+        raise AssertionError(f"LOOP_SHARD_MB gives shards {[len(i) for i in shards.index_shards]}")
+    out = {}
+    for label, budget, steps in (("host feed", 0.0, per_epoch), ("resident", base.device_resident_mb, per_epoch),
+                                 ("sharded", LOOP_SHARD_MB, shard_steps)):
+        cfg = dataclasses.replace(base, device_resident_mb=budget)
+        first, resumed, runs, launches, ready, times = _loop_runs(cfg, datasets)
+        _check_loop(label, cfg, first, resumed, runs, launches, steps, times)
+        t_resumed_loss = next(t for t, s, m in runs[1] if "loss" in m)
+        start = datasets[0].requested[0] if label == "host feed" else ready[1]
+        out[label] = dict(e2e_ms=(t_resumed_loss - start) / steps * 1e3,
+                          saving_ms=_second_epoch_ms(runs[0], steps), first=first)
+        torch.cuda.empty_cache()
 
-    # the saved file restores bit-equal into a fresh state
-    _, fresh = create_train_state(cfg, seed=5)
-    load_checkpoint(first, target=fresh)
-    got = train_state_tree(fresh)
-
-    def leaves(t, pre=""):
-        for k, v in t.items():
-            yield from leaves(v, f"{pre}/{k}") if isinstance(v, dict) else [(f"{pre}/{k}", np.asarray(v))]
-
-    a, b = dict(leaves(got)), dict(leaves(first_tree))
-    unequal = [k for k in b if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
-    if a.keys() != b.keys() or unequal:
-        raise AssertionError(f"loop: the saved state does not restore bit-equal: {unequal[:5]}")
-    say(f"loop: {first} restores bit-equal into a fresh TrainState ({len(b)} leaves); steps {steps[0]} then "
-        f"{steps[1]}")
-
-    # end to end against compute only, and the save's hold on the loop
-    # each epoch's losses are logged when its train pass ends
-    t_val0 = next(t for t, s, m in runs[0] if "val_loss" in m)
-    t_loss1 = [t for t, s, m in runs[0] if "loss" in m][per_epoch]
-    saving_ms = (t_loss1 - t_val0) / per_epoch * 1e3
-    t_resumed_loss = next(t for t, s, m in runs[1] if "loss" in m)
-    e2e_ms = (t_resumed_loss - datasets[0].requested[0]) / per_epoch * 1e3
-    model, state = create_train_state(cfg, seed=5)
-    load_checkpoint(first, target=state)
+    model, state = create_train_state(base, seed=5)
+    load_checkpoint(out["host feed"]["first"], target=state)
     batch = {"images": torch.from_numpy(sets[0][0][:N_ROWS]).cuda(),
              "cube_pose": torch.from_numpy(datasets[0].cube_poses[:N_ROWS]).cuda(),
              "mask": torch.ones(N_ROWS, device="cuda")}
-    compute_ms, _, state = _median_step_ms(make_train_step(model, cfg, base_seed=cfg.random_seed), state, batch)
+    compute_ms, _, state = _median_step_ms(make_train_step(model, base, base_seed=base.random_seed), state, batch)
     ck = AsyncCheckpointer()
     t0 = time.perf_counter()
     ck.save(os.path.join(tmpdir, "held.ckpt"), state)
     hold_ms = (time.perf_counter() - t0) * 1e3
     ck.wait()
     write_ms = (time.perf_counter() - t0) * 1e3
-    say(f"loop: end to end {N_IMG / e2e_ms * 1e3:.1f} camera-images/s ({e2e_ms:.2f} ms per step of the resumed "
-        f"run's train pass through HostDataLoader, the feed and the step; host clock) against compute only "
-        f"{N_IMG / compute_ms * 1e3:.1f} ({compute_ms:.2f} ms/step, resident batch, CUDA events); the first "
-        f"run's second epoch, while epoch 0's file is written, {saving_ms:.2f} ms/step; AsyncCheckpointer.save "
-        f"holds the caller {hold_ms:.1f} ms, the write ends {write_ms:.0f} ms after")
-    del model, state, batch, fresh
+    del model, state, batch
     torch.cuda.empty_cache()
-    return dict(e2e_ms=e2e_ms, saving_ms=saving_ms, compute_ms=compute_ms, hold_ms=hold_ms, launches=launches)
+    rate = lambda ms: N_IMG / ms * 1e3  # noqa: E731
+    say(f"loop: end to end on {GPU}, camera-images/s (ms a step): " + "; ".join(
+        f"{label} {rate(o['e2e_ms']):.1f} ({o['e2e_ms']:.2f}) in the resumed run's train pass, "
+        f"{rate(o['saving_ms']):.1f} ({o['saving_ms']:.2f}) in the first run's second epoch"
+        for label, o in out.items())
+        + f"; compute only {rate(compute_ms):.1f} ({compute_ms:.2f} ms/step, the host path's step on a resident "
+        f"batch, CUDA events, median of {C1_STEPS}). The host feed's pass runs from its first batch request, the "
+        f"resident paths' from the end of initialize_training (the upload is set-up; their one epoch holds "
+        f"{WARMUP_STEPS} eager steps and the capture); the second epoch's window runs from epoch 0's val loss "
+        f"to epoch 1's losses, while epoch 0's file is written; host clock. AsyncCheckpointer.save holds the "
+        f"caller {hold_ms:.1f} ms, the write ends {write_ms:.0f} ms after")
+    _captured_vs_eager(base, sets)
+    return dict(compute_ms=compute_ms, paths=out)
 
+
+def _captured_vs_eager(cfg, sets) -> None:
+    """One resident epoch replayed as a CUDA graph against the same epoch
+    (one state, one order) run eagerly on the card: epoch 0 captures
+    (WARMUP_STEPS eager steps first), epoch 1 is replayed from a snapshot of
+    the state, then the snapshot is restored in place and the per-step path
+    (`make_train_step`) is fed epoch 1's order, gathered on the card.
+    Losses within phase 6's loss gate; the parameters' change per leaf
+    within its gradient gates (max, median over leaves); the replayed
+    epoch's launches, counted through the replays, those of its "auto"
+    steps. Prints the largest differences and whether the two epochs are
+    bit-equal."""
+    import torch
+
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.train import create_train_state, epoch_permutation, make_resident_epoch_step, \
+        make_train_step
+
+    model, state = create_train_state(cfg, seed=5)
+    images = torch.from_numpy(sets[0][0]).cuda()
+    poses = torch.from_numpy(FramesDataset(*sets[0]).cube_poses).cuda()
+    n = images.shape[0]  # a whole number of batches: no padded rows
+    graphed, k = make_resident_epoch_step(model, cfg, cfg.random_seed, n)
+    state, _ = graphed(state, images, poses, 0)
+    if graphed.run.graph is None:
+        raise AssertionError("the resident epoch step was not captured")
+    snap = [t.detach().clone() for t in _state_tensors(state)]
+    step0 = state.step
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, loss_g = graphed(state, images, poses, 1)
+    torch.cuda.synchronize()
+    graphed_ms = (time.perf_counter() - t0) / k * 1e3
+    launches = kernels.launch_counts()
+    got = [t.detach().clone() for t in _state_tensors(state)]
+    with torch.no_grad():
+        for t, v in zip(_state_tensors(state), snap):
+            t.copy_(v)
+    state.step = step0
+    step = make_train_step(model, cfg, cfg.random_seed)
+    order = epoch_permutation(cfg.random_seed, 1, n, "cuda")
+    ones = torch.ones(N_ROWS, device="cuda")
+    t0 = time.perf_counter()
+    loss_e = []
+    for i in range(k):
+        idx = order[i * N_ROWS:(i + 1) * N_ROWS]
+        state, loss = step(state, {"images": images.index_select(0, idx), "cube_pose": poses.index_select(0, idx),
+                                   "mask": ones})
+        loss_e.append(loss)
+    loss_e = torch.stack(loss_e)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / k * 1e3
+    want = [t.detach().clone() for t in _state_tensors(state)]
+    loss_err = ((loss_g - loss_e).abs() / loss_e.abs()).max().item()
+    names = list(state.params)
+    errs = {}
+    for name, a, b, s0 in zip(names, got, want, snap):
+        moved = (b.float() - s0.float()).norm()
+        if moved > 0:
+            errs[name] = ((a.float() - b.float()).norm() / moved).item()
+    worst, median, wname = _spread(errs)
+    bit_equal = torch.equal(loss_g, loss_e) and all(torch.equal(a, b) for a, b in zip(got, want))
+    expected = {name: k * v for name, v in _expected_launches(3, stem_trained=False).items()}
+    say(f"loop: captured vs eager resident epoch ({k} steps, every one replayed): losses {loss_g.tolist()} vs "
+        f"{loss_e.tolist()} (max rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); the {len(errs)} trained parameters' "
+        f"change: max rel {worst:.3g} ({wname}), median {median:.3g} (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN}); "
+        f"bit-equal: {bit_equal}; launches of the replayed epoch {({k_: v for k_, v in launches.items() if v})}; "
+        f"host clock a step {graphed_ms:.2f} ms replayed, {eager_ms:.2f} ms eager (each epoch synchronised once)")
+    if launches != expected:
+        raise AssertionError(f"replayed epoch launches {launches} != {expected}")
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
+        raise AssertionError("the captured resident epoch disagrees with the eager one")
+    del model, state, images, poses, graphed, step, snap, got, want
+    torch.cuda.empty_cache()
+
+
+def _state_tensors(state):
+    """Every tensor a train step changes: the parameters (in the order of
+    `state.params`), the Adam moments and count."""
+    return [*state.params.values(), *state.opt_state.mu.values(), *state.opt_state.nu.values(),
+            state.opt_state.count]
 
 
 # ─────────────── phase 12: the pointwise kernels (B11) ───────────────
@@ -2829,6 +3054,7 @@ def main() -> int:
     aug_measured, aug_launches = augment_phase()
     measured.update(aug_measured)
     train_launches, step_ms = train_phase()
+    accum_launches, accum_runs = accum_phase()
     kernel_ms = sum(m["ms"] for name, m in measured.items() if train_launches[name])
     say(f"train breakdown: fused kernels {kernel_ms:.2f} ms of the {step_ms:.2f} ms step (phase-2/4 kernel "
         f"times at these shapes: " + ", ".join(
@@ -2880,8 +3106,13 @@ def main() -> int:
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })
     say(f"the fine-tune in this call: fused ('on') {f_ms:.2f} ms/step, 'auto' {auto_ms['frozen_stages=3']['auto']:.2f}, "
-        f"unfused {f_unfused_ms:.2f}; train() end to end {N_IMG / loop['e2e_ms'] * 1e3:.1f} camera-images/s against "
-        f"{N_IMG / loop['compute_ms'] * 1e3:.1f} compute only")
+        f"unfused {f_unfused_ms:.2f}; train() end to end, camera-images/s, the resumed run's train pass: " + ", ".join(
+            f"{label} {N_IMG / o['e2e_ms'] * 1e3:.1f}" for label, o in loop["paths"].items())
+        + "; the first run's second epoch: " + ", ".join(
+            f"{label} {N_IMG / o['saving_ms'] * 1e3:.1f}" for label, o in loop["paths"].items())
+        + f"; compute only {N_IMG / loop['compute_ms'] * 1e3:.1f}; the flagship step {accum_runs[1][0]:.2f} ms "
+        f"({accum_runs[1][1] / 2**30:.2f} GiB), with grad_accum_steps=2 {accum_runs[2][0]:.2f} ms "
+        f"({accum_runs[2][1] / 2**30:.2f} GiB); {GPU}")
     say(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(GPU)

@@ -62,7 +62,8 @@ def test_port_imports_without_jax_or_argus_tpu():
 # the modules of the training loop, each imported alone under the same block
 LOOP_MODULES = (
     "argus_tpu_torch.checkpoint", "argus_tpu_torch.configs", "argus_tpu_torch.data",
-    "argus_tpu_torch.data.dataset", "argus_tpu_torch.data.feed", "argus_tpu_torch.data.synthetic",
+    "argus_tpu_torch.data.dataset", "argus_tpu_torch.data.feed", "argus_tpu_torch.data.resident",
+    "argus_tpu_torch.data.synthetic",
     "argus_tpu_torch.logging_utils", "argus_tpu_torch.native", "argus_tpu_torch.preemption",
     "argus_tpu_torch.train",
 )

@@ -294,10 +294,8 @@ def _loop_cfg(dataset, save_dir, model=SMALL, **kw):
 
 def test_unported_configurations_raise_in_initialize_training(dataset, tmp_path):
     cfg = _loop_cfg(dataset, tmp_path)
-    for bad, item in ((dict(device_resident_mb=2048.0), "A11"), (dict(device_resident_mb=0.5), "A11"),
-                      (dict(grad_accum_steps=2), "A5"), (dict(multigpu=True), "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttrain.initialize_training(dataclasses.replace(cfg, **bad), device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        ttrain.initialize_training(dataclasses.replace(cfg, multigpu=True), device="cpu")
     assert TrainConfig().device_resident_mb == 2048.0
 
 

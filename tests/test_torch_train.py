@@ -307,7 +307,6 @@ def test_adam_state_bridge_round_trip():
 def test_unported_configurations_raise():
     model_cfg = NCameraCNNConfig(**MODEL)
     cases = [
-        (dict(use_augmentation=False, grad_accum_steps=2), "A5"),
         (dict(use_augmentation=False, multigpu=True), "A7"),
     ]
     for kw, item in cases:
