@@ -5,8 +5,11 @@ models on a CUDA card with hand-written sm_90a kernels in place of the Pallas
 TPU kernels. It imports torch, numpy and the standard library only: never
 jax, flax, msgpack or anything of `argus_tpu`.
 
-Covered so far (ROADMAP.md lists what waits): batched serving of both
-model families (`serve.Estimator`), the train step of either family
+Covered so far (ROADMAP.md lists what waits): serving of both model
+families (`serve.Estimator`: on the card one CUDA graph replayed per input
+shape, the single-frame control loop included), the exported serving
+program (`serve.export_estimator`, `serve.ExportedEstimator`), validation
+(`validate`, `validate_real`), the train step of either family
 (`train.make_train_step`) in argus_tpu's BN modes (exact train-mode BN with
 BatchNorm's reduction kernels, frozen BN with a trained or frozen affine)
 with a trained or frozen stem or frozen stages, the augmentation stack,
@@ -20,7 +23,13 @@ present, and run on the CPU only when the caller passes `device="cpu"`.
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+# the repository root, against which configs resolve relative paths and
+# under which `outputs/` is written (argus_tpu's `ROOT`)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,4 +46,4 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+__all__ = ["ROOT", "resolve_device"]

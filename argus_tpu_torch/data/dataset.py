@@ -23,9 +23,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from argus_tpu_torch import ROOT
 from argus_tpu_torch.geom import xyzwxyz_to_xyzxyzw_SE3
-
-ROOT = str(Path(__file__).resolve().parents[2])
 
 
 def resolve_path(path: str) -> str:

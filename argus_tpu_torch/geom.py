@@ -1,9 +1,11 @@
 """SE(3) / so(3) / quaternion math for serving and the training loss, in
 PyTorch.
 
-Port of `argus_tpu/geom.py` (the group operations, Exp and Log, the
-rotation-matrix-to-quaternion map and the Unity-to-MuJoCo pose converter),
-with the same conventions
+Port of `argus_tpu/geom.py` (the group operations, Exp and Log, the SO(3)
+left Jacobian and its inverse as matrices, the homogeneous matrix of a
+pose, the rotation-matrix-to-quaternion map, random poses, the pose-error
+metrics and the host-side Unity <-> MuJoCo converters), with the same
+conventions
 (pypose's): quaternions are xyzw (scalar last), SE(3) elements are 7-vectors
 ``[tx, ty, tz, qx, qy, qz, qw]``, se(3) tangents are ``[rho(3), phi(3)]``, and
 ``se3_exp`` is the full exponential ``t = J_l(phi) @ rho``, ``q = so3_exp(phi)``.
@@ -140,6 +142,36 @@ def so3_left_jacobian_inv_apply(phi: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return v - 0.5 * pv + C * ppv
 
 
+def _skew(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) skew-symmetric cross-product matrix."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [torch.stack([zero, -z, y], -1), torch.stack([z, zero, -x], -1), torch.stack([-y, x, zero], -1)], -2
+    )
+
+
+def _outer_minus_thetasq(phi: torch.Tensor) -> torch.Tensor:
+    """[phi]x^2 as outer(phi, phi) - |phi|^2 I, no matmul."""
+    theta_sq = (phi * phi).sum(-1)[..., None, None]
+    outer = phi[..., :, None] * phi[..., None, :]
+    return outer - theta_sq * torch.eye(3, dtype=phi.dtype, device=phi.device)
+
+
+def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian of SO(3) as a (..., 3, 3) matrix: I + A [phi]x + B [phi]x^2."""
+    A, B = _jacobian_coeff_AB(phi)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return eye + A[..., None] * _skew(phi) + B[..., None] * _outer_minus_thetasq(phi)
+
+
+def so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian as a (..., 3, 3) matrix: I - 1/2 [phi]x + C [phi]x^2."""
+    C = _jacobian_coeff_C(phi)
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
+    return eye - 0.5 * _skew(phi) + C[..., None] * _outer_minus_thetasq(phi)
+
+
 def se3_exp(tau: torch.Tensor) -> torch.Tensor:
     """se(3) 6-vector [rho, phi] -> SE(3) 7-vector [t, q_xyzw] (pypose Exp)."""
     rho, phi = tau[..., :3], tau[..., 3:6]
@@ -163,6 +195,42 @@ def se3_inverse(pose: torch.Tensor) -> torch.Tensor:
     """Inverse of an SE(3) 7-vector (pypose `Inv`)."""
     q_inv = quat_conjugate(pose[..., 3:7])
     return torch.cat([-quat_rotate(q_inv, pose[..., :3]), q_inv], dim=-1)
+
+
+def se3_matrix(pose: torch.Tensor) -> torch.Tensor:
+    """SE(3) 7-vector -> (..., 4, 4) homogeneous matrix (pypose `matrix()`)."""
+    x, y, z, w = pose[..., 3:7].unbind(-1)
+    R = torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        -2,
+    )
+    top = torch.cat([R, pose[..., :3, None]], -1)  # (..., 3, 4)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=pose.dtype, device=pose.device)
+    return torch.cat([top, bottom.expand(*top.shape[:-2], 1, 4)], -2)
+
+
+def random_se3(generator: torch.Generator, shape=(), stdev: float = 1.0) -> torch.Tensor:
+    """Random se(3) tangents ~ N(0, stdev), (*shape, 6) f32 on the
+    generator's device (pypose `randn_se3`; the draws are torch's, not
+    jax.random's)."""
+    return stdev * torch.randn(*shape, 6, generator=generator, device=generator.device)
+
+
+def random_SE3(generator: torch.Generator, shape=()) -> torch.Tensor:
+    """Random SE(3) poses, Exp of N(0, 1) tangents (pypose `randn_SE3`)."""
+    return se3_exp(random_se3(generator, shape))
+
+
+def pose_errors(pred: torch.Tensor, target: torch.Tensor) -> tuple:
+    """(rotation error in degrees, translation error in metres) between
+    (..., 7) xyzw poses, per pose."""
+    dq = quat_normalize(quat_multiply(pred[..., 3:], quat_conjugate(target[..., 3:])))
+    ang = 2.0 * torch.arccos(torch.clamp(dq[..., 3].abs(), 0.0, 1.0))
+    return torch.rad2deg(ang), torch.linalg.norm(pred[..., :3] - target[..., :3], dim=-1)
 
 
 def xyzwxyz_to_xyzxyzw_SE3(pose):
@@ -212,6 +280,21 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
     return quat_canonical(quat_normalize(q))
 
 
+def convert_pose_mjpc_to_unity(pose_mjpc: np.ndarray) -> np.ndarray:
+    """MuJoCo pose (..., 7) wxyz -> Unity pose (..., 7) xyzw, in numpy: the
+    inverse of `convert_pose_unity_to_mjpc`, w >= 0."""
+    R_m2u = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])
+    trans_unity = (R_m2u @ pose_mjpc[..., :3, None]).squeeze(-1)
+    q_wxyz = pose_mjpc[..., 3:]
+    q_xyzw = np.concatenate([q_wxyz[..., 1:], q_wxyz[..., :1]], axis=-1)
+    quat_unity = np.concatenate(
+        [-q_xyzw[..., 1:2], q_xyzw[..., 2:3], q_xyzw[..., 0:1], -q_xyzw[..., 3:4]], axis=-1
+    )
+    neg_w = quat_unity[..., 3] < 0
+    quat_unity[neg_w] = -quat_unity[neg_w]
+    return np.concatenate([trans_unity, quat_unity], axis=-1)
+
+
 def convert_pose_unity_to_mjpc(pose_unity: np.ndarray) -> np.ndarray:
     """Unity pose (..., 7) xyzw -> MuJoCo pose (..., 7) wxyz, in numpy:
     the axis remap of the translation, and the quaternion's matching remap
@@ -226,3 +309,11 @@ def convert_pose_unity_to_mjpc(pose_unity: np.ndarray) -> np.ndarray:
     neg_w = quat_mjpc[..., 0] < 0
     quat_mjpc[neg_w] = -quat_mjpc[neg_w]
     return np.concatenate([trans_mjpc, quat_mjpc], axis=-1)
+
+
+def convert_unity_quat_to_euler(quat: np.ndarray) -> np.ndarray:
+    """Unity xyzw quaternion -> intrinsic XYZ Euler angles in degrees (a
+    debugging aid against the Unity inspector; scipy, imported here)."""
+    from scipy.spatial.transform import Rotation
+
+    return Rotation.from_quat(quat).as_euler("XYZ", degrees=True)

@@ -15,9 +15,7 @@ from typing import Optional
 
 import numpy as np
 
-from pathlib import Path
-
-ROOT = str(Path(__file__).resolve().parents[1])
+from argus_tpu_torch import ROOT
 
 
 def generate_run_id(length: int = 8) -> str:

@@ -27,7 +27,9 @@ tensor (`csrc/block_fused.cu`, three launches of the TMA forward engine;
 `csrc/block_fused_bwd.cu` and `csrc/block_fused_rbwd.cu`, the Hopper
 backward compositions) and runs the plain version on a CPU tensor; and
 `block_saved`, the `torch.autograd.Function` that ties the saving forward to
-the backward.
+the backward. The no-save forward is the op `argus::bottleneck_block`
+(`torch.library`: the launch on CUDA, the plain version on the CPU, a fake
+for shapes), one node to a CUDA graph capture and to `torch.export`.
 
 Also home of the helpers the other block kernels share: the plain conv
 pieces and the wrapper argument checks.
@@ -225,12 +227,30 @@ def _forward(kernel, x, w1, b1, w2, b2, w3, b3):
     return out, h1, h2
 
 
-def bottleneck_block(x, w1, b1, w2, b2, w3, b3):
-    """Identity bottleneck forward: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if not check_device(x):
-        return bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3)
+@torch.library.custom_op("argus::bottleneck_block", mutates_args=(), device_types="cuda")
+def bottleneck_block_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                        w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+    """The identity block's no-save forward as the op
+    `argus::bottleneck_block`: on a CUDA tensor the kernel (`KERNEL`)."""
     return _forward(KERNEL, x, w1, b1, w2, b2, w3, b3)[0]
+
+
+@bottleneck_block_op.register_kernel("cpu")
+def _bottleneck_block_cpu(x, w1, b1, w2, b2, w3, b3):
+    return bottleneck_block_plain(x, w1, b1, w2, b2, w3, b3)
+
+
+@bottleneck_block_op.register_fake
+def _bottleneck_block_fake(x, w1, b1, w2, b2, w3, b3):
+    return x.new_empty(x.shape)
+
+
+def bottleneck_block(x, w1, b1, w2, b2, w3, b3):
+    """Identity bottleneck forward through `argus::bottleneck_block`: the
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor; raises
+    for any other device."""
+    check_device(x)
+    return bottleneck_block_op(x, w1, b1, w2, b2, w3, b3)
 
 
 def bottleneck_block_save(x, w1, b1, w2, b2, w3, b3):

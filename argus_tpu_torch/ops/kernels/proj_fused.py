@@ -19,7 +19,9 @@ and the backward from the saved h1/h2 (`_proj_bwd_kernel`):
 On a CUDA tensor the wrappers launch `csrc/proj_fused.cu` (three launches
 of the TMA forward engine: conv1, the 3x3 at stride S, conv3 and the
 shortcut as one launch with two K segments) and `csrc/proj_fused_bwd.cu`;
-on a CPU tensor they run the plain versions.
+on a CPU tensor they run the plain versions. The no-save forward is the op
+`argus::projection_block` (`torch.library`), one node to a CUDA graph
+capture and to `torch.export`.
 """
 
 from __future__ import annotations
@@ -135,14 +137,33 @@ def forward_launch(kernel, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
     return out, h1, h2
 
 
+@torch.library.custom_op("argus::projection_block", mutates_args=(), device_types="cuda")
+def projection_block_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                        w3: torch.Tensor, b3: torch.Tensor, wsc: torch.Tensor, bsc: torch.Tensor,
+                        stride: int) -> torch.Tensor:
+    """The projection block's no-save forward as the op
+    `argus::projection_block`: on a CUDA tensor the kernel (`KERNEL`)."""
+    return forward_launch(KERNEL, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)[0]
+
+
+@projection_block_op.register_kernel("cpu")
+def _projection_block_cpu(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
+    return projection_block_plain(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
+
+
+@projection_block_op.register_fake
+def _projection_block_fake(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h // stride, w // stride, w3.shape[1]))
+
+
 def projection_block(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
-    """Projection bottleneck forward: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    """Projection bottleneck forward through `argus::projection_block`: the
+    CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    if not check_device(x):
-        return projection_block_plain(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
-    return forward_launch(KERNEL, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)[0]
+    check_device(x)
+    return projection_block_op(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
 
 
 def projection_block_save(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):

@@ -174,6 +174,37 @@ def chain_fwd_launch(kernel, x, proj_folded, ids, stride):
     return out
 
 
+def split_flat(flat, has_proj: bool):
+    """The chain's flat weights (the projection's 8, then 6 per identity
+    block) as (proj_folded or None, [identity weights, ...])."""
+    proj = tuple(flat[:8]) if has_proj else None
+    rest = flat[8:] if has_proj else flat
+    return proj, [tuple(rest[i:i + 6]) for i in range(0, len(rest), 6)]
+
+
+@torch.library.custom_op("argus::stage_fwd", mutates_args=(), device_types="cuda")
+def stage_fwd_op(x: torch.Tensor, weights: list[torch.Tensor], has_proj: bool, stride: int) -> torch.Tensor:
+    """The chain's no-save forward as the op `argus::stage_fwd`, its weights
+    flat (`split_flat`): on a CUDA tensor one launch of the chain, counted in
+    `KERNEL` where argus_tpu takes `_chain_fwd_packed`, else in
+    `KERNEL_FROZEN`."""
+    proj, ids = split_flat(weights, has_proj)
+    return chain_fwd_launch(None, x, proj, ids, stride)
+
+
+@stage_fwd_op.register_kernel("cpu")
+def _stage_fwd_cpu(x, weights, has_proj, stride):
+    proj, ids = split_flat(weights, has_proj)
+    return stage_plain(x, proj, ids, stride)
+
+
+@stage_fwd_op.register_fake
+def _stage_fwd_fake(x, weights, has_proj, stride):
+    n, h, w, cin = x.shape
+    s = stride if has_proj else 1
+    return x.new_empty((n, h // s, w // s, weights[4].shape[1] if has_proj else cin))
+
+
 def fused_stage(
     x: torch.Tensor,
     proj_folded: Optional[Sequence[torch.Tensor]],
@@ -181,13 +212,15 @@ def fused_stage(
     stride: int = 2,
 ) -> torch.Tensor:
     """Run a stage: `proj_folded` (w1, b1, w2, b2, w3, b3, wsc, bsc) or None,
-    then each identity block of `id_folded` (w1, b1, w2, b2, w3, b3)."""
+    then each identity block of `id_folded` (w1, b1, w2, b2, w3, b3), through
+    `argus::stage_fwd`: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
     ids = [tuple(w) for w in id_folded]
     if proj_folded is None and not ids:
         raise ValueError("a stage needs at least one block")
-    if not check_device(x):
-        return stage_plain(x, proj_folded, ids, stride)
-    return chain_fwd_launch(None, x, proj_folded, ids, stride)
+    check_device(x)
+    flat = list(proj_folded or ()) + [t for idw in ids for t in idw]
+    return stage_fwd_op(x, flat, proj_folded is not None, stride)
 
 
 def chain_fwd_save_launch(kernel, x, proj_folded, ids, stride):
@@ -318,10 +351,7 @@ class _StageChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, stride, has_proj, *flat):
-        proj = tuple(flat[:8]) if has_proj else None
-        rest = flat[8:] if has_proj else flat
-        ids = [tuple(rest[i:i + 6]) for i in range(0, len(rest), 6)]
-        out, bnds, h1s, h2s = fused_stage_save(x, proj, ids, stride)
+        out, bnds, h1s, h2s = fused_stage_save(x, *split_flat(flat, has_proj), stride)
         ctx.nb, ctx.stride, ctx.has_proj = len(bnds), stride, has_proj
         ctx.biases = flat[1::2]
         # weights the backward reads: every block's w1, w2, w3 (and wsc)

@@ -21,7 +21,10 @@ On a CUDA tensor the wrappers launch `csrc/stem_fused.cu` (the forward, with
 or without y) and `csrc/stem_fused_bwd.cu`; on a CPU tensor they run the
 plain versions. `stem_pool` is the stem as autograd sees it: the no-save
 forward when nothing needs a gradient, else `stem_saved`, the saving forward
-with the weight-gradient backward. With `packed_out` it is argus_tpu's
+with the weight-gradient backward. The no-save forward is the op
+`argus::stem_fwd` (`torch.library`: its CUDA implementation the launch, its
+CPU one the plain version, a fake one for shapes), so that a CUDA graph
+capture and `torch.export` see one node. With `packed_out` it is argus_tpu's
 packed-output stem (`_stem_fwd_packed_pallas`, forward only): the
 (N, H/4, W/8, 128) pair-packed view the frozen stage-0 chain reads
 (`stem_fwd_packed`).
@@ -119,15 +122,37 @@ def _check_stem(x, w, b):
     return n, h, wd
 
 
-def stem_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The no-save forward, (N, H, W, 3) -> (N, H/4, W/4, 64): the CUDA kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
-    if not check_device(x):
-        return stem_pool_plain(x, w, b)
+@torch.library.custom_op("argus::stem_fwd", mutates_args=(), device_types="cuda")
+def stem_fwd_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool) -> torch.Tensor:
+    """The no-save forward as the op `argus::stem_fwd`, (N, H, W, 3) ->
+    (N, H/4, W/4, 64) NHWC: on a CUDA tensor one launch of the kernel,
+    counted in `KERNEL`, or with `packed` (argus_tpu's packed-output stem)
+    in `KERNEL_PACKED`."""
     n, h, wd = _check_stem(x, w, b)
+    if packed and wd % 8:
+        raise ValueError(f"the packed stem needs W % 8 == 0, got {tuple(x.shape)}")
     out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
-    KERNEL.launch(x, w, b, out, n, h, wd)
+    (KERNEL_PACKED if packed else KERNEL).launch(x, w, b, out, n, h, wd)
     return out
+
+
+@stem_fwd_op.register_kernel("cpu")
+def _stem_fwd_cpu(x, w, b, packed):
+    return stem_pool_plain(x, w, b)
+
+
+@stem_fwd_op.register_fake
+def _stem_fwd_fake(x, w, b, packed):
+    n, h, wd, _ = x.shape
+    return x.new_empty((n, h // 4, wd // 4, 64))
+
+
+def stem_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The no-save forward, (N, H, W, 3) -> (N, H/4, W/4, 64), through
+    `argus::stem_fwd`: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    check_device(x)
+    return stem_fwd_op(x, w, b, False)
 
 
 def stem_fwd_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -136,17 +161,12 @@ def stem_fwd_packed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.
     memory that element sits at (j*128 + r*64 + c) = ((2j + r)*64 + c) within
     its row, NHWC's own offset of pool[n, h, 2j + r, c]: the pair packing only
     fills the TPU's 128-lane tiles, and on the card it is a view of the NHWC
-    output. So this launches `stem_fwd`'s kernel (counted in
-    `KERNEL_PACKED`) and returns the view, which the stage-0 chain reads
-    without a copy. The plain version on a CPU tensor."""
-    if not check_device(x):
-        return stem_pool_packed_plain(x, w, b)
-    n, h, wd = _check_stem(x, w, b)
-    if wd % 8:
-        raise ValueError(f"the packed stem needs W % 8 == 0, got {tuple(x.shape)}")
-    out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
-    KERNEL_PACKED.launch(x, w, b, out, n, h, wd)
-    return packed_view(out)
+    output. So this runs `argus::stem_fwd` with `packed` (its launch counted
+    in `KERNEL_PACKED`) and returns the view, taken outside the op (an op's
+    output may not alias), which the stage-0 chain reads without a copy. The
+    plain version on a CPU tensor."""
+    check_device(x)
+    return packed_view(stem_fwd_op(x, w, b, True))
 
 
 def stem_fwd_save(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):

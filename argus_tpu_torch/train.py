@@ -70,7 +70,8 @@ import numpy as np
 
 import torch
 
-from argus_tpu_torch import resolve_device
+from argus_tpu_torch import ROOT, resolve_device
+from argus_tpu_torch.capture import WARMUP_STEPS, CapturedCall
 from argus_tpu_torch.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
 from argus_tpu_torch.data.dataset import CameraCubePoseDataset, CameraCubePoseDatasetConfig, HostDataLoader
 from argus_tpu_torch.data.feed import device_prefetch
@@ -88,9 +89,6 @@ from argus_tpu_torch.models.resnet import BasicBlock, BottleneckBlock, Conv, lec
 from argus_tpu_torch.ops import augment
 from argus_tpu_torch.ops.augment import AugmentationConfig
 from argus_tpu_torch.ops.image import u8_to_f32
-from argus_tpu_torch.ops.kernels import KERNELS
-
-ROOT = str(Path(__file__).resolve().parents[1])
 
 
 # ───────────────────────────── config ─────────────────────────────
@@ -513,73 +511,6 @@ def _loss_and_grads_on(model: torch.nn.Module, params: Dict[str, torch.Tensor], 
 # ───────────────────────────── resident epoch ─────────────────────────────
 
 
-WARMUP_STEPS = 2  # steps a CapturedStep runs eagerly on its capture stream before it captures
-
-
-class CapturedStep:
-    """`TrainStepBody.compute` on the card as one CUDA graph, captured once
-    and replayed for every later step. The first `WARMUP_STEPS` calls run
-    it eagerly on the capture stream (they are steps of the run, not extra
-    ones): they fill what the kernels' wrappers make once per stream or
-    shape (the one-launch reductions' ticket counters, the BN and weight
-    gradient plans, the resize matrices' nonzero ranges, each launcher's
-    shared-memory opt-in), which capture could not. The next call captures
-    (`capture_error_mode="thread_local"`, so the shard-upload and
-    checkpoint threads may call CUDA meanwhile) and then replays; from there
-    a call copies the step's operands into the graph's static inputs and
-    replays it on the current stream, behind whatever that stream holds
-    (a checkpoint's snapshot taken after it sees its updates). The
-    parameters, moments and count are the state's own tensors, updated in
-    place, so their addresses stay fixed; `state.lr`, which the schedule
-    fills in place, is read at each replay. A capture that fails raises.
-
-    Kernel launch counts: a kernel the graph holds counts one launch a
-    replay for each call its wrapper made during the capture, in which no
-    kernel ran (those calls' counts are taken back)."""
-
-    def __init__(self, body: TrainStepBody) -> None:
-        self.body = body
-        self.stream = torch.cuda.Stream(body.device)
-        self.eager_left = WARMUP_STEPS
-        self.graph = None
-        self.static = None  # the graph's input operands
-        self.loss = None  # its output
-        self.per_replay = []  # (Kernel, launches a replay)
-
-    def __call__(self, state: TrainState, operands: dict) -> torch.Tensor:
-        current = torch.cuda.current_stream(self.body.device)
-        if self.graph is None:
-            self.stream.wait_stream(current)
-            if self.eager_left > 0:
-                self.eager_left -= 1
-                with torch.cuda.stream(self.stream):
-                    loss = self.body.compute(state, operands)
-                current.wait_stream(self.stream)
-                loss.record_stream(current)
-                return loss
-            self._capture(state, operands)
-        for k, t in operands.items():
-            self.static[k].copy_(t)
-        self.graph.replay()
-        for kernel, n in self.per_replay:
-            kernel.launches += n
-        return self.loss
-
-    def _capture(self, state: TrainState, operands: dict) -> None:
-        self.static = {k: t.clone() for k, t in operands.items()}
-        before = {name: k.launches for name, k in KERNELS.items()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
-            self.loss = self.body.compute(state, self.static)
-        self.per_replay = []
-        for name, k in KERNELS.items():
-            n = k.launches - before[name]
-            if n:
-                k.launches -= n
-                self.per_replay.append((k, n))
-        self.graph = graph
-
-
 def epoch_permutation(base_seed: int, epoch: int, n: int, device) -> torch.Tensor:
     """The resident epoch's order of its `n` examples, drawn on `device` from
     a generator seeded by `fold_in(base_seed ^ 0x5EED, epoch)`: a stream
@@ -603,7 +534,11 @@ def make_resident_epoch_step(model: torch.nn.Module, cfg: TrainConfig, base_seed
     is gathered on the device (`index_select`) and runs `TrainStepBody`,
     accumulation included, with the augmentation keyed by `state.step`, so
     for the same order the epoch gives the per-step path's losses and
-    updates. On the card the compute part is a `CapturedStep`: between its
+    updates. On the card the compute part, `TrainStepBody.compute` from the
+    `augment_fused` launch on, is a `capture.CapturedCall`: its first
+    `WARMUP_STEPS` steps eager, then one CUDA graph replayed (the state's
+    tensors are updated in place, and `state.lr`, which the schedule fills
+    in place, is read at each replay). Between its
     replays the host queues the gathers, the augmentation's sampling and
     packing and device-to-device copies, and no upload. On the CPU it runs
     eagerly through the same code. `like`, an epoch step made earlier for
@@ -614,7 +549,7 @@ def make_resident_epoch_step(model: torch.nn.Module, cfg: TrainConfig, base_seed
         body, run = like.body, like.run
     else:
         body = TrainStepBody(model, cfg, base_seed, hw, device)
-        run = CapturedStep(body) if device.type == "cuda" else body.compute
+        run = CapturedCall(body.compute, body.device) if device.type == "cuda" else body.compute
     B = cfg.batch_size
     n = int(n_examples)
     k = -(-n // B)

@@ -29,7 +29,25 @@ Phases, each fatal on failure (nothing is caught and ignored):
    `Estimator(ckpt, batch_size=256)` on the card; the launch counts of one
    `predict` must be 1 stem / 1 stage / 3 projection / 10 identity, and the
    poses must match `Estimator(ckpt, batch_size=8, device="cpu")` on the first
-   8 rows within atol 0.05 (bf16 on both sides);
+   8 rows within atol 0.05 (bf16 on both sides); the predict replays a
+   CUDA graph captured after `WARMUP_STEPS` eager calls (one graph per
+   shape and fuse setting; the launches counted are a replay's), its frames
+   staged through pinned memory (the upload timed beside one from pageable
+   memory, and the graph's replay alone);
+3b. the control loop and export, on the same checkpoint: at batch 1
+   (f32, plain convs) `Estimator.predict` replayed, p50 and p90 over 200
+   calls by the host clock, beside the same model run eagerly here (upload,
+   model, `se3_exp`, download) and the upload alone, no kernel launched,
+   the replayed pose against the eager one (bit-equality printed) and the
+   CPU estimator's within 0.05, cuDNN's TF32 flag printed; the same for the
+   keypoint family (its phase-7 config and random weights; the pose fit
+   after the replay, on the card, timed alone); `make_pose_estimator`
+   against the estimator (1e-5) and one `validation_step` on 4 frames with
+   augmentation (finite losses); then `export_estimator` at batch 256 and
+   at batch 1, each served by `ExportedEstimator` in a process of its own
+   that has no checkpoint and imports no model module: a replayed graph,
+   the batch-256 graph's four `argus::` ops (1 / 1 / 3 / 10) and launches
+   (`EXPECTED_LAUNCHES`), poses within 0.05 of the estimator's;
 4. the training kernels at the shapes of the flagship train step (batch 256
    rows, N = 512 camera images, 256x256): each saving forward (out, h1, h2)
    and each one-pass backward (dx and every dw) of the stage-0 chain, the
@@ -703,6 +721,7 @@ def end_to_end_phase(tmpdir: str) -> tuple:
     from argus_tpu_torch.checkpoint import save_checkpoint
     from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
     from argus_tpu_torch.models.jax_import import variables_from_state_dict
+    from argus_tpu_torch.capture import WARMUP_STEPS
     from argus_tpu_torch.ops import kernels
     from argus_tpu_torch.serve import Estimator
 
@@ -720,15 +739,19 @@ def end_to_end_phase(tmpdir: str) -> tuple:
     frames = np.random.default_rng(0).integers(0, 256, (N_ROWS, HW, HW, 6), dtype=np.uint8)
     for k in FUSE_ON:  # every kernel of the path launches here; the auto phase times "auto"
         setattr(est.model.backbone, k, "on")
-    est.predict(frames)
+    for _ in range(WARMUP_STEPS + 1):  # a graph of its own for these flags: eager calls, then the capture
+        est.predict(frames)
+    captured = est.server.captured()
     say(f"end to end: Estimator(batch_size={N_ROWS}) on {est.device} built and warmed in "
         f"{time.perf_counter() - t0:.1f} s; config dtype={est.cfg.dtype}, fuse flags {est.cfg.fuse_stem} "
-        f"(set to 'on')")
+        f"(set to 'on'); graphs captured for {captured}")
+    if ((N_ROWS, HW, HW, 6), tuple(FUSE_ON.values()) + ("off",)) not in captured:
+        raise AssertionError(f"batch-{N_ROWS} predict is not replayed: graphs {captured}")
 
     kernels.reset_launch_counts()
     poses = est.predict(frames)
     launches = kernels.launch_counts()
-    say(f"end to end: launches in one predict {launches}")
+    say(f"end to end: launches in one predict (replayed) {launches}")
     if launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"launch counts {launches} != expected {EXPECTED_LAUNCHES}")
     if poses.shape != (N_ROWS, 7) or not np.all(np.isfinite(poses)):
@@ -743,21 +766,20 @@ def end_to_end_phase(tmpdir: str) -> tuple:
     for _ in range(reps):
         est.predict(frames)
     ms = (time.perf_counter() - t0) / reps * 1e3
-    say(f"end to end: {ms:.2f} ms per predict of {N_ROWS} rows = {N_ROWS / ms * 1e3:.1f} rows/s, "
+    say(f"end to end: {ms:.2f} ms per predict of {N_ROWS} rows (replayed) = {N_ROWS / ms * 1e3:.1f} rows/s, "
         f"{N_IMG / ms * 1e3:.1f} camera-images/s (host clock, uint8 numpy in, poses numpy out)")
-    # where a predict's time goes: the uint8 upload (host clock) and the
-    # model forward on a resident batch (CUDA events)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        on_card = torch.from_numpy(frames).to("cuda")
-    torch.cuda.synchronize()
-    upload_ms = (time.perf_counter() - t0) / reps * 1e3
+    # where a predict's time goes: the uint8 upload, as the estimator makes
+    # it (a copy into a pinned buffer, then an asynchronous upload) and from
+    # pageable memory, host clock; the graph's replay on a staged batch
+    server = est.server
+    upload_ms, pageable_ms = upload_times(server, frames, reps)
+    staged = server.staging[frames.shape].dev_in
     with torch.inference_mode():
-        images = on_card.float() / 255.0
-        forward_ms = cuda_ms(lambda: est.model(images), reps)
-    say(f"end to end breakdown: uint8 upload {upload_ms:.2f} ms (pageable, {frames.nbytes / 1e6:.0f} MB), "
-        f"model forward {forward_ms:.2f} ms on the card; together {upload_ms + forward_ms:.2f} ms "
-        f"of the {ms:.2f} ms predict (separate runs, so the two may not add up exactly)")
+        replay_ms = cuda_ms(lambda: server.program.net(staged), reps)
+    say(f"end to end breakdown: uint8 upload {upload_ms:.2f} ms through the pinned buffer "
+        f"({frames.nbytes / 1e6:.0f} MB; from pageable memory {pageable_ms:.2f} ms), the graph's replay "
+        f"{replay_ms:.2f} ms on the card; together {upload_ms + replay_ms:.2f} ms of the {ms:.2f} ms predict "
+        f"(separate runs, so the two may not add up exactly)")
 
     t0 = time.perf_counter()
     cpu = Estimator(ckpt, batch_size=8, device="cpu")
@@ -767,7 +789,216 @@ def end_to_end_phase(tmpdir: str) -> tuple:
         f"|pose| max {float(np.abs(ref).max()):.3g}, CPU estimator {time.perf_counter() - t0:.1f} s")
     if not err <= POSE_ATOL:
         raise AssertionError(f"GPU poses differ from the CPU estimator by {err} > {POSE_ATOL}")
-    return launches, ms
+    return launches, ms, ckpt, frames, poses
+
+
+def upload_times(server, frames, reps: int) -> tuple:
+    """(ms of the estimator's upload through its pinned buffer, ms of one
+    upload from pageable memory) of `frames`, host clock, each
+    synchronised."""
+    import torch
+
+    on_card = torch.empty(frames.shape, dtype=torch.uint8, device="cuda")
+    times = {}
+    for how in ("pinned", "pageable"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if how == "pinned":
+                server.stage(frames)
+            else:
+                on_card.copy_(torch.from_numpy(frames))
+            torch.cuda.synchronize()
+        times[how] = (time.perf_counter() - t0) / reps * 1e3
+    return times["pinned"], times["pageable"]
+
+
+# ─────────────────── phase 3b: the control loop and export ───────────────────
+
+LOOP_CALLS = 200  # timed batch-1 predicts of each kind; p50 and p90 kept
+SAME_MODEL_ATOL = 1e-5  # two estimators of one model on the same card and frames
+# a process that serves an exported program with no checkpoint and no model code
+_EXPORTED_ALONE = r"""
+import json, sys
+import numpy as np
+import torch
+from argus_tpu_torch.ops import kernels
+from argus_tpu_torch.serve import ExportedEstimator
+
+out = {}
+for path, frames_path in zip(sys.argv[1::2], sys.argv[2::2]):
+    est = ExportedEstimator(path)
+    frames = np.load(frames_path)
+    kernels.reset_launch_counts()
+    poses = est.predict(frames)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    targets = [str(n.target) for n in torch.export.load(path).graph.nodes if n.op == "call_function"]
+    ops = {t: targets.count(t) for t in sorted(set(targets)) if t.startswith("argus.")}
+    np.save(path + ".poses.npy", poses)
+    out[path] = {"launches": launches, "ops": ops, "captured": [str(k) for k in est.server.captured()]}
+models = sorted(m for m in sys.modules if m.startswith(("argus_tpu_torch.models", "argus_tpu_torch.checkpoint")))
+assert not models, models
+print(json.dumps(out))
+"""
+
+
+def _percentiles(ts) -> tuple:
+    ts = sorted(ts)
+    return ts[len(ts) // 2], ts[int(len(ts) * 0.9)]
+
+
+def _host_ms(fn, n: int = LOOP_CALLS) -> tuple:
+    """(p50, p90) ms of `fn()` by the host's clock over n calls, each ended
+    by what `fn` returns on the host."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return _percentiles(ts)
+
+
+def control_loop_phase(tmpdir: str, ckpt: str, frames256, poses256) -> None:
+    """The control loop's path at batch 1 and the exported programs: the
+    f32 NCameraCNN estimator replayed against the same model run eagerly
+    here and the upload alone, its pose against the eager one and the CPU
+    estimator's; the keypoint family the same way (its fit on the card after
+    the replay); `make_pose_estimator` against the estimator; one validation
+    step with augmentation; then `export_estimator` at batch 256 and 1,
+    served by `ExportedEstimator` in a process of its own with no
+    checkpoint and no model code: launches, ops, poses."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.checkpoint import save_checkpoint
+    from argus_tpu_torch.geom import random_SE3, se3_exp
+    from argus_tpu_torch.models import CubeKeypointNet, CubeKeypointNetConfig
+    from argus_tpu_torch.models.jax_import import variables_from_state_dict
+    from argus_tpu_torch.models.keypoint_net import fit_pose
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.ops.augment import AugmentationConfig, fold_in
+    from argus_tpu_torch.serve import Estimator, export_estimator, load_model
+    from argus_tpu_torch.validate import validation_step
+    from argus_tpu_torch.validate_real import make_pose_estimator
+
+    t_phase = time.perf_counter()
+    tf32 = f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (8, HW, HW, 6), dtype=np.uint8)
+    one = [np.ascontiguousarray(frames[i:i + 1]) for i in range(8)]
+
+    def pose_diff(a, b):  # translation and quaternion (up to sign) together, max abs
+        flip = np.where(np.sum(a[:, 3:] * b[:, 3:], -1, keepdims=True) < 0, -1.0, 1.0)
+        return float(max(np.abs(a[:, :3] - b[:, :3]).max(), np.abs(a[:, 3:] - flip * b[:, 3:]).max()))
+
+    # ── batch 1, the two families: replayed, eager, the upload alone ──
+    kp_ckpt = os.path.join(tmpdir, "keypoint_serving.ckpt")
+    torch.manual_seed(0)
+    kcfg = CubeKeypointNetConfig(bn_frozen=True, bn_frozen_affine=True, stem_frozen=True, **KP_FUSE)
+    kp_model = CubeKeypointNet(kcfg)
+    _randomize_(kp_model, seed=0, last_bn="BatchNorm_1", out_layer="heatmap")
+    params, stats = variables_from_state_dict(kp_model.state_dict())
+    save_checkpoint(kp_ckpt, {"params": params, "batch_stats": stats},
+                    meta={"model_type": "keypoint", "model_config": dataclasses.asdict(kcfg), "center_crop": [HW, HW]})
+    del kp_model, params, stats
+    for family, path in (("NCameraCNN", ckpt), ("keypoint", kp_ckpt)):
+        est = Estimator(path, batch_size=1)
+        captured = est.server.captured()
+        if not any(shape == (1, HW, HW, 6) for shape, _ in captured):
+            raise AssertionError(f"{family} batch-1 predict is not replayed: graphs {captured}")
+        kernels.reset_launch_counts()
+        i = iter(range(10 ** 9))
+        replayed = _host_ms(lambda: est.predict(one[next(i) % 8]))
+        launched = {k: v for k, v in kernels.launch_counts().items() if v}
+        model, cam_P = est.model, est.cam_P
+
+        @torch.inference_mode()
+        def eager(f):
+            pred = model(torch.from_numpy(f).to("cuda").float() / 255.0)
+            return (fit_pose(cam_P, pred[0]) if family == "keypoint" else se3_exp(pred)).cpu().numpy()
+
+        for _ in range(3):
+            eager(one[0])
+        eager_ms = _host_ms(lambda: eager(one[next(i) % 8]))
+        def upload(f):
+            est.server.stage(f)
+            torch.cuda.current_stream().synchronize()
+
+        upload_ms = _host_ms(lambda: upload(one[next(i) % 8]))
+        got = np.concatenate([est.predict(f) for f in one[:4]])
+        ref = np.concatenate([eager(f) for f in one[:4]])
+        cpu = Estimator(path, batch_size=1, device="cpu")
+        want = np.concatenate([cpu.predict(f) for f in one[:2]])
+        d_eager, d_cpu = pose_diff(got, ref), pose_diff(got[:2], want)
+        with torch.inference_mode():  # the graph's replay alone, on the card; the keypoint fit alone
+            staged = est.server.staging[one[0].shape].dev_in
+            replay_ms = cuda_ms(lambda: est.server.program.net(staged), 50)
+            fit_where = ""
+            if family == "keypoint":
+                uv = est.server.program.net(staged)
+                fit_ms = _host_ms(lambda: est.program.fit(uv).cpu())
+                fit_where = (f"; the pose fit (torch.linalg solve, SVD, det) runs on the card after the replay, "
+                             f"eagerly: alone p50 {fit_ms[0]:.3f}, p90 {fit_ms[1]:.3f} ms")
+        say(f"control loop, {family} batch 1 (f32, plain convs; {tf32}): Estimator.predict replayed p50 "
+            f"{replayed[0]:.3f} ms, p90 {replayed[1]:.3f} ms over {LOOP_CALLS} calls; the same model run eagerly "
+            f"here (upload, model, {'fit' if family == 'keypoint' else 'se3_exp'}, download) p50 {eager_ms[0]:.3f}, "
+            f"p90 {eager_ms[1]:.3f} ms; the upload alone (pinned) p50 {upload_ms[0]:.3f}, p90 {upload_ms[1]:.3f} ms "
+            f"(host clock, numpy in and out); the graph's replay alone {replay_ms:.3f} ms (CUDA events){fit_where}; kernel launches {launched or 'none'}; replayed vs eager "
+            f"max |diff| {d_eager:.3g} ({'bit-equal' if np.array_equal(got, ref) else 'not bit-equal'}), vs the CPU "
+            f"estimator {d_cpu:.3g} (atol {POSE_ATOL})")
+        if launched or not np.isfinite(got).all() or d_cpu > POSE_ATOL or d_eager > POSE_ATOL:
+            raise AssertionError(f"{family} batch-1 serving: launches {launched}, replayed vs eager {d_eager}, "
+                                 f"vs CPU {d_cpu}")
+        if family == "NCameraCNN":
+            # make_pose_estimator on the same model and frames, and one validation step
+            model_v, _, model_type, _ = load_model(ckpt)
+            mpe = make_pose_estimator(model_v, model_type=model_type, crop=(HW, HW))
+            d_mpe = pose_diff(np.concatenate([mpe.predict(f) for f in one[:4]]), got)
+            poses = random_SE3(torch.Generator().manual_seed(4), (4,)).numpy()
+            _, _, val_losses = validation_step(mpe.model, model_type, frames[:4], poses, fold_in(0, 1),
+                                               AugmentationConfig(), use_train=True)
+            val_losses = val_losses.cpu().numpy()
+            say(f"control loop: make_pose_estimator vs Estimator on 4 frames max |diff| {d_mpe:.3g} (tol "
+                f"{SAME_MODEL_ATOL}); validation_step on 4 frames with augmentation: losses {val_losses.round(4).tolist()}")
+            if d_mpe > SAME_MODEL_ATOL or not np.isfinite(val_losses).all():
+                raise AssertionError(f"make_pose_estimator {d_mpe}, validation losses {val_losses}")
+            del mpe, model_v
+        del est, cpu, model
+        torch.cuda.empty_cache()
+
+    # ── export at batch 256 and 1, served in a process of its own ──
+    t0 = time.perf_counter()
+    paths = {n: os.path.join(tmpdir, f"resnet50_b{n}.pt2") for n in (N_ROWS, 1)}
+    for n, path in paths.items():
+        export_estimator(ckpt, path, batch_size=n)
+        np.save(path + ".frames.npy", frames256 if n == N_ROWS else one[0])
+    export_s = time.perf_counter() - t0
+    ref1 = Estimator(ckpt, batch_size=1).predict(one[0])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _EXPORTED_ALONE] + [a for n, p in paths.items()
+                                                                     for a in (p, p + ".frames.npy")],
+                          cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serving the exported programs failed:\n{proc.stderr[-6000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    want_ops = {"argus.stem_fwd.default": 1, "argus.stage_fwd.default": 1, "argus.projection_block.default": 3,
+                "argus.bottleneck_block.default": 10}
+    for n, path in paths.items():
+        r = served[path]
+        got = np.load(path + ".poses.npy")
+        err = pose_diff(got, poses256 if n == N_ROWS else ref1)
+        size = os.path.getsize(path) / 2**20
+        say(f"export: batch {n}, {size:.0f} MiB, loaded alone (no checkpoint, no model module): graphs "
+            f"{r['captured']}, argus ops {r['ops'] or 'none'}, launches in one predict {r['launches'] or 'none'}; "
+            f"poses vs the Estimator's max |diff| {err:.3g} (atol {POSE_ATOL})")
+        want_launches = {k: v for k, v in EXPECTED_LAUNCHES.items() if v} if n == N_ROWS else {}
+        if (r["ops"] != (want_ops if n == N_ROWS else {}) or r["launches"] != want_launches or not r["captured"]
+                or not np.isfinite(got).all() or err > POSE_ATOL):
+            raise AssertionError(f"exported batch-{n} program: {r}, pose diff {err}")
+    say(f"control loop and export phase: {time.perf_counter() - t_phase:.1f} s (the two exports {export_s:.1f} s, "
+        f"the loading process {time.perf_counter() - t0:.1f} s)")
 
 
 # ─────────────────────── phase 4: training kernels ───────────────────────
@@ -2272,7 +2503,8 @@ def auto_phase(tmpdir: str) -> dict:
     flagship step, the `frozen_stages=3` step (both batch 256, the fastest
     of C1_ROUNDS steps by CUDA events after a warm-up step each) and
     batch-256 serving (the fastest of C1_ROUNDS `Estimator.predict` calls by
-    host clock), the three settings interleaved in AUTO_ORDERS on one
+    host clock, each setting replaying its own captured graph), the three
+    settings interleaved in AUTO_ORDERS on one
     model or estimator with its flags switched: a step samples the next
     step's augmentation parameters and uploads them from pageable memory,
     which waits for the device, so the step's time carries the host's
@@ -2288,6 +2520,7 @@ def auto_phase(tmpdir: str) -> dict:
     from argus_tpu_torch.checkpoint import save_checkpoint
     from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
     from argus_tpu_torch.models.jax_import import variables_from_state_dict
+    from argus_tpu_torch.capture import WARMUP_STEPS
     from argus_tpu_torch.models.resnet import AUTO_FUSE
     from argus_tpu_torch.ops import kernels
     from argus_tpu_torch.serve import Estimator
@@ -2350,7 +2583,8 @@ def auto_phase(tmpdir: str) -> dict:
     times = {}
     for flags in ("on", "off", "auto"):
         switch(est.model.backbone, flags, pointwise=False)  # batched serving keeps fuse_pointwise "off"
-        est.predict(frames)
+        for _ in range(WARMUP_STEPS + 1):  # each setting's own graph: eager calls, then its capture
+            est.predict(frames)
         kernels.reset_launch_counts()
         est.predict(frames)
         launches = kernels.launch_counts()
@@ -2358,7 +2592,8 @@ def auto_phase(tmpdir: str) -> dict:
             want = _expected_launches(0, stem_trained=False, serving=True)
             if launches != want:
                 raise AssertionError(f"auto serving: launches {launches} != the table's {want}")
-        say(f"auto: serving, flags {flags}: launches {({k: v for k, v in launches.items() if v})}")
+        say(f"auto: serving, flags {flags}: launches in a replayed predict "
+            f"{({k: v for k, v in launches.items() if v})}")
     # the settings interleaved in AUTO_ORDERS, so that the host's load and
     # the one before fall on all three alike
     for r in range(C1_ROUNDS):
@@ -3046,7 +3281,9 @@ def main() -> int:
     from argus_tpu_torch.ops.kernels import _build
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
-        launches, _ = end_to_end_phase(tmpdir)
+        launches, _, ckpt, frames, poses = end_to_end_phase(tmpdir)
+        control_loop_phase(tmpdir, ckpt, frames, poses)
+        del frames, poses
     measured.update(train_kernel_phase())
     measured.update(basic_kernel_phase())
     engine_phase()

@@ -101,6 +101,34 @@ def test_slice_modules_import_without_jax(module):
     assert proc.returncode == 0, proc.stderr[-4000:]
 
 
+SERVING_OPS = ("stem_fwd", "stage_fwd", "projection_block", "bottleneck_block")
+
+
+def test_serving_and_validation_import_without_jax():
+    """The serving module first, alone: it registers the four serving ops
+    (`argus::`) and imports no model or checkpoint code (an exported
+    program's loader needs neither); then validation and the utilities
+    among the package walk, under the same block."""
+    check = (
+        "import sys, torch\n"
+        "import argus_tpu_torch.serve\n"
+        f"missing = [op for op in {SERVING_OPS!r} if not hasattr(torch.ops.argus, op)]\n"
+        "assert not missing, missing\n"
+        "models = sorted(m for m in sys.modules if m.startswith(('argus_tpu_torch.models', "
+        "'argus_tpu_torch.checkpoint')))\n"
+        "assert not models, models\n"
+        "import argus_tpu_torch\n"
+    )
+    modules = ("argus_tpu_torch.validate", "argus_tpu_torch.validate_real", "argus_tpu_torch.utils",
+               "argus_tpu_torch.capture")
+    code = _BLOCKED_IMPORT.replace("import argus_tpu_torch\n", check, 1).replace(
+        'print("imported"', f'assert set({modules!r}) <= set(names), names\nprint("imported"')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
 def test_chip_smoke_imports_no_jax():
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|msgpack|argus_tpu)\b", re.M)
