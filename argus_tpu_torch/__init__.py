@@ -13,9 +13,13 @@ program (`serve.export_estimator`, `serve.ExportedEstimator`), validation
 (`train.make_train_step`) in argus_tpu's BN modes (exact train-mode BN with
 BatchNorm's reduction kernels, frozen BN with a trained or frozen affine)
 with a trained or frozen stem or frozen stages, the augmentation stack,
-and argus_tpu's training loop on one card (`train.train`: the host data
-feed of `data`, the eval step, the plateau schedule, checkpoints of the
-whole train state and resume), with the CUDA kernels of `ops.kernels`.
+and argus_tpu's training loop (`train.train`: the host data feed of
+`data`, the eval step, the plateau schedule, checkpoints of the whole
+train state and resume), with the CUDA kernels of `ops.kernels`; on one
+card or, under `multigpu`, one process per card (`parallel`): argus_tpu's
+bucketed gradient all-reduce over the data ranks, exact BatchNorm over the
+global batch, the wide dense layers cut over `num_model_shards` ranks, and
+the multi-process dry-run (`dryrun`).
 
 Entry points take `device=None`, meaning CUDA; they raise when no card is
 present, and run on the CPU only when the caller passes `device="cpu"`.

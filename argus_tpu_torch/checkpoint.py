@@ -54,7 +54,11 @@ def _is_train_state(obj: Any) -> bool:
 
 
 def train_state_tree(state) -> dict:
-    """A `TrainState` as argus_tpu's format-2 state tree (host numpy arrays)."""
+    """A `TrainState` as argus_tpu's format-2 state tree (host numpy arrays).
+    A state with sharded leaves raises: gather it first
+    (`parallel.tp.whole_state`), since files hold whole tensors."""
+    if getattr(state, "shardings", None):
+        raise ValueError("a tensor-parallel state holds slices; write parallel.tp.whole_state(state, mesh)")
     params, _ = variables_from_state_dict(state.params)
     _, stats = variables_from_state_dict(state.batch_stats)
     opt = state.opt_state
@@ -86,17 +90,21 @@ def _copy_into(what: str, dst: dict, src: dict) -> None:
 
 def restore_train_state(tree: dict, state):
     """Fill `state` (a `TrainState`) in place from an argus_tpu state tree;
-    raises on a missing or extra key or a shape that differs. Returns `state`."""
+    raises on a missing or extra key or a shape that differs. The whole
+    tensors of the file are cut to the state's `shardings` (tensor
+    parallelism) first. Returns `state`."""
     _keys_match("state", tree, ("step", "params", "batch_stats", "opt_state", "lr"))
     opt = tree["opt_state"]
     _keys_match("opt_state", opt, ("0", "1"))
     _keys_match("opt_state Adam state", opt["1"], ("count", "mu", "nu"))
+    cuts = getattr(state, "shardings", None) or {}
+    cut = lambda d: {k: cuts[k].take(torch.as_tensor(v)) if k in cuts else v for k, v in d.items()}  # noqa: E731
     reference = {**state.params, **state.batch_stats}
-    sd = state_dict_from_variables(tree["params"], tree["batch_stats"], reference)
-    _copy_into("params and batch_stats", reference, sd)
+    sd = state_dict_from_variables(tree["params"], tree["batch_stats"], None if cuts else reference)
+    _copy_into("params and batch_stats", reference, cut(sd))
     count, mu, nu = adam_moments_from_optax(opt["1"]["count"], opt["1"]["mu"], opt["1"]["nu"])
-    _copy_into("Adam mu", state.opt_state.mu, mu)
-    _copy_into("Adam nu", state.opt_state.nu, nu)
+    _copy_into("Adam mu", state.opt_state.mu, cut(mu))
+    _copy_into("Adam nu", state.opt_state.nu, cut(nu))
     with torch.no_grad():
         state.opt_state.count.copy_(count)
         state.lr.copy_(torch.tensor(float(np.asarray(tree["lr"])), dtype=torch.float32))

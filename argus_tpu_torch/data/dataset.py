@@ -170,10 +170,16 @@ class HostDataLoader:
     row, with mask 0. A producer thread decodes `prefetch` batches ahead; an
     error there is raised in the consumer. `dataset` is anything with
     `__len__`, `cube_poses` and `load_images_batch(idxs, n_threads, pool)`.
+
+    `rows`, a slice of the `batch_size` rows, is one rank's share of its
+    node's batch (`parallel.Mesh.node_rows`): the loader then yields those
+    rows only and decodes only them (and the batch's first row where its
+    padding repeats it).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0, num_workers: int = 8,
-                 process_index: int = 0, process_count: int = 1, prefetch: int = 2) -> None:
+                 process_index: int = 0, process_count: int = 1, prefetch: int = 2,
+                 rows: Optional[slice] = None) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -182,6 +188,7 @@ class HostDataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.prefetch = prefetch
+        self.rows = slice(0, batch_size) if rows is None else rows
         self.epoch = 0
         self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
 
@@ -204,14 +211,18 @@ class HostDataLoader:
         return -(-per_host // self.batch_size)
 
     def _make_batch(self, idxs: np.ndarray) -> dict:
-        images = self.dataset.load_images_batch(idxs.tolist(), n_threads=self.num_workers, pool=self._pool)
-        n_real = len(idxs)
-        pad = self.batch_size - n_real
-        poses = self.dataset.cube_poses[idxs]
+        a, b = self.rows.start, self.rows.stop
+        mine = idxs[a:b]  # this rank's real rows; the rest of its share repeats the batch's first row
+        n_real = len(mine)
+        pad = (b - a) - n_real
+        load = mine.tolist() + ([int(idxs[0])] if pad > 0 and (a > 0 or n_real == 0) else [])
+        images = self.dataset.load_images_batch(load, n_threads=self.num_workers, pool=self._pool)
+        poses = self.dataset.cube_poses[np.asarray(load, np.int64)]
         if pad > 0:
-            images = np.concatenate([images, np.repeat(images[:1], pad, axis=0)], axis=0)
-            poses = np.concatenate([poses, np.repeat(poses[:1], pad, axis=0)], axis=0)
-        mask = np.zeros((self.batch_size,), np.float32)
+            first = slice(len(load) - 1, len(load)) if len(load) > n_real else slice(0, 1)
+            images = np.concatenate([images[:n_real], np.repeat(images[first], pad, axis=0)], axis=0)
+            poses = np.concatenate([poses[:n_real], np.repeat(poses[first], pad, axis=0)], axis=0)
+        mask = np.zeros((b - a,), np.float32)
         mask[:n_real] = 1.0
         return {
             "images": np.ascontiguousarray(images, dtype=np.uint8),

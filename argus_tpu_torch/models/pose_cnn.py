@@ -9,6 +9,20 @@ layers run in the compute dtype and `head_out` in f32; casts are explicit
 6-vector; `geom.se3_exp` maps it to a pose. `forward(x, train=True)` is the
 training forward of the backbone (see `models.resnet`); the head
 differentiates by autograd.
+
+Under tensor parallelism (`parallel.tp.shard_model_`, `num_model_shards`
+k > 1) each rank of the model group holds output features
+`[m D / k, (m + 1) D / k)` of `backbone.fc` (and its bias), and the columns
+of `head_fc1` that read them: each camera's block of D columns cut the
+same way, not argus_tpu's contiguous block of the concatenation (GSPMD
+reshards the features there; here they stay where the fc made them).
+`head_fc1` is then a row-parallel product: each rank's partial product is
+summed over the model group before its bias, and the gradient entering
+the 2048-wide pooled features is summed over the group inside the
+backbone. Both sums are of f32 partials, formed from the compute dtype's
+inputs and rounded to it once after the sum, where the unsharded layer
+rounds its product once: the numbers are the unsharded model's up to the
+order of f32 sums; memory and work are split.
 """
 
 from __future__ import annotations
@@ -20,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from argus_tpu_torch.models.resnet import BACKBONES, DTYPES
+from argus_tpu_torch.parallel.collectives import reduce_from_model
 
 
 @dataclass(frozen=True)
@@ -66,6 +81,8 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 class NCameraCNN(nn.Module):
     """(B, H, W, 3 * n_cams) images in [0, 1] -> (B, 6) se(3) tangents."""
 
+    model_group = None  # the tensor-parallel process group, when the wide layers are cut
+
     def __init__(self, cfg: NCameraCNNConfig = NCameraCNNConfig()) -> None:
         super().__init__()
         self.cfg = cfg
@@ -105,8 +122,12 @@ class NCameraCNN(nn.Module):
             raise ValueError(f"Expected {3 * cfg.n_cams} channels (n_cams={cfg.n_cams}), got {c}.")
         # fold cameras into the batch so one backbone (shared weights) sees all views
         x = x.reshape(b, h, w, cfg.n_cams, 3).movedim(3, 1).reshape(b * cfg.n_cams, h, w, 3)
-        feats = self.backbone(x, train=train).reshape(b, cfg.n_cams * cfg.resnet_output_dim)
-        feats = F.gelu(feats)
-        y = F.gelu(_dense(self.head_fc1, feats, self.dtype))
+        feats = F.gelu(self.backbone(x, train=train).reshape(b, -1))
+        if self.model_group is None:
+            y = F.gelu(_dense(self.head_fc1, feats, self.dtype))
+        else:
+            # this rank's partial product in f32, summed, then rounded once as `_dense` rounds it
+            part = F.linear(feats.to(self.dtype).float(), self.head_fc1.weight.to(self.dtype).float())
+            y = F.gelu(reduce_from_model(part, self.model_group).to(self.dtype) + self.head_fc1.bias.to(self.dtype))
         y = F.gelu(_dense(self.head_fc2, y, self.dtype))
         return _dense(self.head_out, y, torch.float32)

@@ -74,6 +74,7 @@ from argus_tpu_torch.ops.kernels.proj_fused import fold_projection_params, proj_
 from argus_tpu_torch.ops.kernels.stage_fused import packed_fwd_ok, stage_chain
 from argus_tpu_torch.ops.kernels.stem_fused import fold_stem_params, stem_pool
 from argus_tpu_torch.ops.norm import IMPLS, BatchNorm, StatsTape
+from argus_tpu_torch.parallel.collectives import copy_to_model
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 POINTWISE_FLAGS = ("off", "on", "dot", "auto")
@@ -280,7 +281,10 @@ class BottleneckBlock(nn.Module):
 
 
 class ResNet(nn.Module):
-    """NHWC ResNet with a trailing `output_dim` projection."""
+    """NHWC ResNet with a trailing `output_dim` projection (cut over
+    `model_group` under tensor parallelism: `parallel.tp.shard_model_`)."""
+
+    model_group = None
 
     def __init__(
         self,
@@ -450,7 +454,14 @@ class ResNet(nn.Module):
         # global average pool: f32 sum, result in the compute dtype (jnp.mean)
         x = x.float().mean(dim=(1, 2)).to(dt)
         if self.output_dim is not None:
-            x = F.linear(x, self.fc.weight.to(dt)) + self.fc.bias.to(dt)
+            if self.model_group is None:
+                x = F.linear(x, self.fc.weight.to(dt)) + self.fc.bias.to(dt)
+            else:
+                # this rank's output features of the fc; the features' gradient,
+                # each rank's share formed in f32, is summed over the model group
+                # and rounded once, as the whole layer's product rounds it
+                x = copy_to_model(x.float(), self.model_group)
+                x = F.linear(x, self.fc.weight.to(dt).float()).to(dt) + self.fc.bias.to(dt)
         return x.float()
 
     def _fuse(self, x: torch.Tensor, mode: str, i: int, w_in: int) -> tuple:

@@ -39,7 +39,7 @@ value of argus_tpu's one-hot product).
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -529,6 +529,21 @@ def sample_params(cfg: AugmentationConfig, key: int, B: int, n_cams: int, H: int
     if cfg.salt_and_pepper:
         p.salt = _salt_pepper_params(gen(8), N, H, W)
     return p
+
+
+def take_rows(p: AugmentParams, a: int, b: int) -> AugmentParams:
+    """The parameters of camera images [a, b) of `p` (one rank's rows of a
+    global batch's draw); the colour order, one draw a batch, is kept."""
+    def cut(v):
+        if isinstance(v, torch.Tensor):
+            return v[a:b]
+        return tuple(cut(t) for t in v)
+
+    out = AugmentParams()
+    for f in fields(AugmentParams):
+        v = getattr(p, f.name)
+        setattr(out, f.name, v if v is None or f.name == "order" else cut(v))
+    return out
 
 
 # ───────────────────────────── the two application paths ─────────────────────────────

@@ -39,6 +39,22 @@ with them: it computes no statistics (no second `bn_stats` launch, no other
 sum of another order) and moves no running statistic, as argus_tpu's
 `nn.remat` discards what its recompute updates.
 
+Over a process group (`group`, set by a data-parallel train step), the
+statistics are the global batch's, argus_tpu's exact BN under a mesh
+(`argus_tpu/train.py:274-280`), with SyncBatchNorm's structure on this
+module's own reductions: the per-channel sums (the kernel's or the "xla"
+path's: sum and sum of squares) are summed over the group before the mean
+and variance are formed; in the backward `_BNApplySubgrad` sums (sum dy,
+sum dy*xhat) over the group and `_Moments` the incoming cotangents of the
+mean and mean of squares; dscale and dbias stay each rank's own share
+(the step sums the gradients). Every rank holds as many rows, so the
+global row count is the local one times the group's size. The running
+statistics move from the global moments on every rank, and `StatsTape`
+records them. At a stride above 1 the "xla" engine subsamples each image,
+so the ranks' subsamples make the global one; the kernel engine's row
+blocks are cut from the flattened rows, so `check_rank_rows` raises where
+the ranks' blocks are not the global batch's.
+
 `impl` keeps argus_tpu's names: "pallas" is the reduction kernels (their
 plain versions on a CPU tensor), "auto" is the kernels on a CUDA tensor and
 "xla" on a CPU tensor, as the port's `fuse_*` flags read "auto".
@@ -47,11 +63,13 @@ plain versions on a CPU tensor), "auto" is the kernels on a CUDA tensor and
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch import nn
 
 from argus_tpu_torch.ops.kernels import bn_reduce
+from argus_tpu_torch.parallel.collectives import all_reduce_, group_size
 
 IMPLS = ("xla", "pallas", "auto")
 
@@ -67,6 +85,41 @@ def _block_subsample(x: torch.Tensor, stride: int) -> torch.Tensor:
         if H % (bs * stride) == 0:
             return x.reshape(N, H // (bs * stride), stride, bs, W, C)[:, :, 0].reshape(N, H // stride, W, C)
     return x
+
+
+def _merged(spans):
+    out = []
+    for a, b in spans:
+        if out and out[-1][1] == a:
+            out[-1] = (out[-1][0], b)
+        else:
+            out.append((a, b))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def check_rank_rows(M: int, C: int, stride: int, ranks: int) -> None:
+    """Raise unless the kernel engine's visited row blocks of `ranks` equal
+    shares of M rows each (an (M, C) view a rank, stride `stride`) make up
+    the blocks it visits in the global batch's ranks * M rows."""
+    if stride <= 1 or ranks <= 1:
+        return
+    R, S, n = bn_reduce.visited_rows(M * ranks, C, stride)
+    Rl, Sl, nl = bn_reduce.visited_rows(M, C, stride)
+    want = _merged([(b * S, b * S + R) for b in range(n // R)])
+    got = _merged([(r * M + b * Sl, r * M + b * Sl + Rl) for r in range(ranks) for b in range(nl // Rl)])
+    if want != got:
+        raise ValueError(f"bn_impl='pallas' at stride {stride}: the row blocks of {ranks} ranks of {M} rows x {C} "
+                         f"channels are not the global batch's; use bn_impl='xla' (it subsamples each image) or a "
+                         f"stride of 1")
+
+
+def _sum_over(group, *sums: torch.Tensor):
+    """The f32 per-channel sums, each summed over `group` in one collective."""
+    if group is None:
+        return sums
+    flat = all_reduce_(torch.cat([t.float().reshape(-1) for t in sums]), group)
+    return flat.split([t.numel() for t in sums])
 
 
 def _reduce_moments(x, dy, mean, rstd, stride: int, impl: str):
@@ -91,10 +144,10 @@ class _BNApplySubgrad(torch.autograd.Function):
     reference's rounding points, dscale and dbias in f32."""
 
     @staticmethod
-    def forward(ctx, x, mean, rstd, scale, bias, grad_stride: int, impl: str):
+    def forward(ctx, x, mean, rstd, scale, bias, grad_stride: int, impl: str, group=None):
         dt = x.dtype
         ctx.save_for_backward(x, mean, rstd, scale)
-        ctx.grad_stride, ctx.impl = grad_stride, impl
+        ctx.grad_stride, ctx.impl, ctx.group = grad_stride, impl, group
         return ((x - mean.to(dt)) * rstd.to(dt)) * scale.to(dt) + bias.to(dt)
 
     @staticmethod
@@ -104,11 +157,13 @@ class _BNApplySubgrad(torch.autograd.Function):
         dy = dy.contiguous()
         sum_dy, sum_dy_xhat, n_sub, total = _reduce_moments(x, dy, mean, rstd, ctx.grad_stride, ctx.impl)
         ratio = total / n_sub
-        m_dy = (sum_dy / n_sub).to(dt)
-        m_dy_xhat = (sum_dy_xhat / n_sub).to(dt)
+        g_dy, g_dy_xhat = _sum_over(ctx.group, sum_dy, sum_dy_xhat)
+        n_all = n_sub * group_size(ctx.group)
+        m_dy = (g_dy / n_all).to(dt)
+        m_dy_xhat = (g_dy_xhat / n_all).to(dt)
         xhat = (x - mean.to(dt)) * rstd.to(dt)
         dx = (rstd.to(dt) * scale.to(dt)) * (dy - m_dy - xhat * m_dy_xhat)
-        return dx, None, None, sum_dy_xhat * ratio, sum_dy * ratio, None, None
+        return dx, None, None, sum_dy_xhat * ratio, sum_dy * ratio, None, None, None
 
 
 class _Moments(torch.autograd.Function):
@@ -119,19 +174,25 @@ class _Moments(torch.autograd.Function):
     recompute) gives the values of the forward instead of summing again."""
 
     @staticmethod
-    def forward(ctx, x, recorded=None):
+    def forward(ctx, x, recorded=None, group=None):
         ctx.save_for_backward(x)
+        ctx.group = group
         if recorded is not None:
             return recorded[0].clone(), recorded[1].clone()
         red = tuple(range(x.ndim - 1))
         x32 = x.float()
-        return x32.mean(red), x32.square().mean(red)
+        if group is None:
+            return x32.mean(red), x32.square().mean(red)
+        M = x.numel() // x.shape[-1] * group_size(group)
+        s, q = _sum_over(group, x32.sum(red), x32.square().sum(red))
+        return s / M, q / M
 
     @staticmethod
     def backward(ctx, dmean, dmsq):
         (x,) = ctx.saved_tensors
-        M = x.numel() // x.shape[-1]
-        return ((dmsq / M) * (2.0 * x.float()) + dmean / M).to(x.dtype), None
+        M = x.numel() // x.shape[-1] * group_size(ctx.group)
+        dmean, dmsq = _sum_over(ctx.group, dmean, dmsq)
+        return ((dmsq / M) * (2.0 * x.float()) + dmean / M).to(x.dtype), None, None
 
 
 class _Affine(torch.autograd.Function):
@@ -204,6 +265,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.tape = None  # (StatsTape, "record" or "replay") while a remat block runs
+        self.group = None  # the data-parallel process group of the batch statistics, if any
 
     def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
         dt = x.dtype
@@ -224,17 +286,31 @@ class BatchNorm(nn.Module):
             mean, var = recorded
         elif impl == "pallas":
             with torch.no_grad():
+                if self.group is not None:
+                    check_rank_rows(x.numel() // x.shape[-1], x.shape[-1], self.stats_stride,
+                                    group_size(self.group))
+                    if self.grad_stride != self.stats_stride:
+                        check_rank_rows(x.numel() // x.shape[-1], x.shape[-1], self.grad_stride,
+                                        group_size(self.group))
                 s, q, n = bn_reduce.fused_stats(x.detach(), self.stats_stride)
+                s, q = _sum_over(self.group, s, q)
+                n = n * group_size(self.group)
                 mean = s / n
                 var = torch.clamp(q / n - mean.square(), min=0.0)
         elif custom:
             with torch.no_grad():
                 xs32 = _block_subsample(x, self.stats_stride).float()
                 red = tuple(range(x.ndim - 1))
-                mean = xs32.mean(red)
-                var = torch.clamp(xs32.square().mean(red) - mean.square(), min=0.0)
+                if self.group is None:
+                    mean = xs32.mean(red)
+                    var = torch.clamp(xs32.square().mean(red) - mean.square(), min=0.0)
+                else:
+                    s, q = _sum_over(self.group, xs32.sum(red), xs32.square().sum(red))
+                    n = xs32.numel() // x.shape[-1] * group_size(self.group)
+                    mean = s / n
+                    var = torch.clamp(q / n - mean.square(), min=0.0)
         if not custom:
-            mean, msq = _Moments.apply(x, recorded)
+            mean, msq = _Moments.apply(x, recorded, self.group)
             v = msq - mean.square()
             var = torch.maximum(v, torch.zeros_like(v))  # jnp.maximum's tie gradient (half each)
         if mode == "record":
@@ -248,5 +324,5 @@ class BatchNorm(nn.Module):
 
         rstd = torch.rsqrt(var + self.eps)
         if custom:
-            return _BNApplySubgrad.apply(x, mean, rstd, scale, bias, self.grad_stride, impl)
+            return _BNApplySubgrad.apply(x, mean, rstd, scale, bias, self.grad_stride, impl, self.group)
         return _Affine.apply(x, mean.to(dt), rstd.to(dt), scale.to(dt), bias.to(dt))

@@ -233,7 +233,33 @@ Phases, each fatal on failure (nothing is caught and ignored):
    Path B's; (phase 10, "auto", also switches `fuse_pointwise` in the two
    train workloads, and its expected launches count the pointwise kernels
    where `AUTO_FUSE` names them);
-17. the `kernels` JSON line, the card's name and power limit, and the result
+17. data and tensor parallelism (`argus_tpu_torch.parallel`), after every
+   kernel is built: (a) NCCL at world size 1 in this process: the flagship
+   step at 256 rows through the bucketed all-reduce on NCCL against the
+   one-card step (phase 6's gates), launches, timed steps and the
+   all-reduce alone (CUDA events, bucket sizes); the loop phase's resident
+   epoch with its step captured as a CUDA graph holding the NCCL
+   all-reduce, against the same epoch eager (phase 11's gates, bit-equality
+   printed); (b) two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device), spawned processes of 128 rows each, their steps
+   eager (gloo's collectives cannot be captured): the flagship, Path B
+   and the keypoint default, each against the one-card step this process
+   computes at 256 rows on the same weights, batch and step number (phase
+   6's gates; Path B's for the exact-BN two, with their running
+   statistics; beside Path B, one card's "xla" engine against its "auto"
+   on the same rows, the spread of bf16 exact BN), and Path B in f32
+   (loss 1e-5, gradients 0.02 / 5e-3, running statistics 1e-4 / 1e-5: the
+   same function summed in other orders), launches per rank per step the
+   one-card step's, the ranks' parameters bit-equal after 5 steps (2 in
+   f32); (c) the flagship with
+   `num_model_shards=2` on the same two ranks (the wide layers cut, the
+   same 256 rows) against the unsharded step; (d) `train()` under
+   `multigpu` on the two ranks over the loop phase's rendered split, one
+   epoch resident and one on the host feed: finite losses, the parameters
+   bit-equal across ranks, rank 0's checkpoint restoring bit-equal on both,
+   camera-images/s beside phase 11's one-card figure. Two ranks share one
+   card, so none of these times is a scaling figure;
+18. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the blur and the augmentation
@@ -348,11 +374,10 @@ EXPECTED_FROZEN_EVAL_LAUNCHES = {
     **_NONE, "stem_fused_packed": 1, "stage_fused": 1, "stage_fused_frozen": 2, "proj_fused": 1, "block_fused": 2,
 }
 C1_STEPS = 5  # timed steps of the loop phase's compute-only step; the median is kept
-# interleaved steps or predicts per fuse setting in the auto phase, in the
-# orders of AUTO_ORDERS; the fastest is kept (the steps carry the host's
-# jitter: the fine-tune's enqueue takes about as long as its device time,
-# and the fastest of 24, and once of 96, came 3-11% apart between settings
-# that launch the same kernels)
+# interleaved graph replays per fuse setting in the auto phase, in the
+# orders of AUTO_ORDERS; the fastest is kept (eager steps carried the host's
+# jitter: their fastest of 288 came up to 5% apart between settings that
+# launch the same kernels)
 C1_ROUNDS = 288
 # the order of ("on", "off", "auto") in auto-phase round r is
 # AUTO_ORDERS[r % 6]: over six rounds each setting runs twice in each
@@ -2498,33 +2523,55 @@ def _median_step_ms(step, state, batch, n: int = C1_STEPS):
     return sorted(ms)[n // 2], launches, state
 
 
+def _replay_rounds(call, settings) -> dict:
+    """{flags: [ms]}: `call(flags)` timed by CUDA events, C1_ROUNDS times
+    for each of `settings`, interleaved in AUTO_ORDERS, so that the card's
+    clocks and the call before fall on all of them alike."""
+    import torch
+
+    torch.cuda.synchronize()
+    out = {}
+    for r in range(C1_ROUNDS):
+        order = [settings[i] for i in AUTO_ORDERS[r % 6]]
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in order]
+        for flags, (e0, e1) in zip(order, events):
+            e0.record()
+            call(flags)
+            e1.record()
+        torch.cuda.synchronize()
+        for flags, (e0, e1) in zip(order, events):
+            out.setdefault(flags, []).append(e0.elapsed_time(e1))
+    return out
+
+
 def auto_phase(tmpdir: str) -> dict:
     """The fuse flags all "on", all "off" and all "auto" in one call, for the
-    flagship step, the `frozen_stages=3` step (both batch 256, the fastest
-    of C1_ROUNDS steps by CUDA events after a warm-up step each) and
-    batch-256 serving (the fastest of C1_ROUNDS `Estimator.predict` calls by
-    host clock, each setting replaying its own captured graph), the three
-    settings interleaved in AUTO_ORDERS on one
-    model or estimator with its flags switched: a step samples the next
-    step's augmentation parameters and uploads them from pageable memory,
-    which waits for the device, so the step's time carries the host's
-    jitter (10-25% between steps of one setting at the fine-tune's ~45 ms,
-    where "auto" and "on" launch the same kernels), and the upload of the
-    frames varies a predict's more than the 2% gate. Prints `AUTO_FUSE`'s choice for each function and mode; an
-    "auto" step must launch exactly what the table names, and be no slower
-    than the faster of "on" and "off" by more than AUTO_SLACK. Returns
-    {workload: {flags: ms}}."""
+    flagship step, the `frozen_stages=3` step (both batch 256) and batch-256
+    serving. Each setting of a workload gets its own CUDA graph, as the
+    resident training path and the estimator run it: the step's
+    `TrainStepBody.compute` through `capture.CapturedCall` on operands
+    prepared once, the estimator's replayed program on its staged frames.
+    The three graphs are replayed interleaved in AUTO_ORDERS, C1_ROUNDS
+    times each, timed by CUDA events, and the fastest is kept. A replay
+    holds only what the flags change: an eager step also waits for the
+    host's ~100 sampling ops and its launches, which moved the fastest of
+    288 eager steps up to 5% between settings that launch the same kernels,
+    and the host clock around a predict also holds its 100 MB upload.
+    Prints `AUTO_FUSE`'s choice for each function and mode; an "auto" step
+    (eager) and predict must launch exactly what the table names, and
+    "auto" must be no slower than the faster of "on" and "off" by more than
+    AUTO_SLACK. Returns {workload: {flags: ms}}."""
     import numpy as np
     import torch
 
     from argus_tpu_torch.checkpoint import save_checkpoint
     from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
     from argus_tpu_torch.models.jax_import import variables_from_state_dict
-    from argus_tpu_torch.capture import WARMUP_STEPS
+    from argus_tpu_torch.capture import WARMUP_STEPS, CapturedCall
     from argus_tpu_torch.models.resnet import AUTO_FUSE
     from argus_tpu_torch.ops import kernels
     from argus_tpu_torch.serve import Estimator
-    from argus_tpu_torch.train import make_train_step
+    from argus_tpu_torch.train import TrainStepBody, make_train_step
 
     say("auto: AUTO_FUSE " + ", ".join(f"{f}/{m} {'on' if v else 'off'}" for (f, m), v in AUTO_FUSE.items()))
     timings = {}
@@ -2549,23 +2596,22 @@ def auto_phase(tmpdir: str) -> dict:
         want = _expected_launches(frozen_stages, stem_trained=False, pointwise=True)
         if launched["auto"] != want:
             raise AssertionError(f"auto {workload}: launches {launched['auto']} != the table's {want}")
-        steps = {}
-        for r in range(C1_ROUNDS):
-            for flags in (settings[i] for i in AUTO_ORDERS[r % 6]):
-                switch(model.backbone, flags)
-                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                e0.record()
-                state, _ = step(state, batch)
-                e1.record()
-                torch.cuda.synchronize()
-                steps.setdefault(flags, []).append(e0.elapsed_time(e1))
+        body = TrainStepBody(model, cfg)
+        operands = body.prepare(state.step, batch["images"], batch["cube_pose"], batch["mask"])
+        runs = {}
+        for flags in settings:  # each setting's own graph of the step's compute: eager calls, then its capture
+            switch(model.backbone, flags)
+            runs[flags] = CapturedCall(body.compute, body.device)
+            for _ in range(WARMUP_STEPS + 1):
+                runs[flags](state, operands)
+        steps = _replay_rounds(lambda flags: runs[flags](state, operands), settings)
         for flags in settings:
             ms = min(steps[flags])
             timings.setdefault(workload, {})[flags] = ms
-            say(f"auto: {workload} step, flags {flags}: fastest of {C1_ROUNDS} {ms:.2f} ms/step, median "
+            say(f"auto: {workload} step, flags {flags}: fastest of {C1_ROUNDS} replays {ms:.2f} ms/step, median "
                 f"{sorted(steps[flags])[C1_ROUNDS // 2]:.2f} ({N_IMG / ms * 1e3:.1f} camera-images/s; launches "
-                f"{({k: v for k, v in launched[flags].items() if v})})")
-        del model, state, batch, step
+                f"of an eager step {({k: v for k, v in launched[flags].items() if v})})")
+        del model, state, batch, step, body, operands, runs
         torch.cuda.empty_cache()
 
     mcfg = NCameraCNNConfig(n_cams=2, resnet_output_dim=1024, backbone="resnet50")
@@ -2580,8 +2626,7 @@ def auto_phase(tmpdir: str) -> dict:
     if {getattr(est.cfg, k) for k in FUSE_ON} != {"auto"}:
         raise AssertionError(f"batched serving's tuned config is not 'auto': {est.cfg}")
     frames = np.random.default_rng(0).integers(0, 256, (N_ROWS, HW, HW, 6), dtype=np.uint8)
-    times = {}
-    for flags in ("on", "off", "auto"):
+    for flags in settings:
         switch(est.model.backbone, flags, pointwise=False)  # batched serving keeps fuse_pointwise "off"
         for _ in range(WARMUP_STEPS + 1):  # each setting's own graph: eager calls, then its capture
             est.predict(frames)
@@ -2594,19 +2639,19 @@ def auto_phase(tmpdir: str) -> dict:
                 raise AssertionError(f"auto serving: launches {launches} != the table's {want}")
         say(f"auto: serving, flags {flags}: launches in a replayed predict "
             f"{({k: v for k, v in launches.items() if v})}")
-    # the settings interleaved in AUTO_ORDERS, so that the host's load and
-    # the one before fall on all three alike
-    for r in range(C1_ROUNDS):
-        for flags in (settings[i] for i in AUTO_ORDERS[r % 6]):
-            switch(est.model.backbone, flags, pointwise=False)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            est.predict(frames)
-            times.setdefault(flags, []).append((time.perf_counter() - t0) * 1e3)
+    staged = est.server.stage(frames).dev_in  # the frames in the graphs' static input
+
+    def replay(flags):  # the program's graph of these flags (the graphs are keyed by them) on the staged frames
+        switch(est.model.backbone, flags, pointwise=False)
+        with torch.inference_mode():
+            est.server.program(staged)
+
+    times = _replay_rounds(replay, settings)
     for flags, ts in times.items():
         timings.setdefault("serving", {})[flags] = min(ts)
-        say(f"auto: serving predict of {N_ROWS} rows, flags {flags}: fastest of {C1_ROUNDS} {min(ts):.2f} ms, "
-            f"median {sorted(ts)[C1_ROUNDS // 2]:.2f} ms (host clock, interleaved with the other settings)")
+        say(f"auto: serving predict of {N_ROWS} rows, flags {flags}: fastest of {C1_ROUNDS} replays of its program "
+            f"{min(ts):.2f} ms, median {sorted(ts)[C1_ROUNDS // 2]:.2f} ms (CUDA events on the staged frames, "
+            f"interleaved with the other settings)")
     del est
     torch.cuda.empty_cache()
     for workload, t in timings.items():
@@ -2756,6 +2801,18 @@ def _second_epoch_ms(records, per_epoch):
     return (t_loss1 - t_val0) / per_epoch * 1e3
 
 
+def _loop_config(save_dir: str):
+    """The loop phase's `TrainConfig`: the `frozen_stages=3` fine-tune at
+    full width, batch 256, amp, 2 epochs, no metrics service."""
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig
+
+    mcfg = NCameraCNNConfig(n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True,
+                            bn_frozen_affine=True, stem_frozen=True, frozen_stages=3)
+    return TrainConfig(model_config=mcfg, amp=True, batch_size=N_ROWS, n_epochs=2, learning_rate=1e-4,
+                       wandb_log=False, num_workers=8, save_dir=save_dir)
+
+
 def loop_phase(tmpdir: str) -> dict:
     """`train()` on the card at full width: the `frozen_stages=3` fine-tune
     (ResNet-50 NCameraCNN, 2 cameras, 1024-d features, 256x256, batch 256,
@@ -2780,18 +2837,14 @@ def loop_phase(tmpdir: str) -> dict:
     from argus_tpu_torch.checkpoint import AsyncCheckpointer, load_checkpoint
     from argus_tpu_torch.data.resident import ResidentShardedData
     from argus_tpu_torch.data.synthetic import render_dataset_arrays
-    from argus_tpu_torch.models import NCameraCNNConfig
-    from argus_tpu_torch.train import WARMUP_STEPS, TrainConfig, create_train_state, make_train_step
+    from argus_tpu_torch.train import WARMUP_STEPS, create_train_state, make_train_step
 
     t0 = time.perf_counter()
     sets = [render_dataset_arrays(n, HW, HW, seed=s) for n, s in ((LOOP_TRAIN, 10), (LOOP_VAL, 11))]
     datasets = tuple(FramesDataset(*a) for a in sets)
     say(f"loop: rendered {LOOP_TRAIN} + {LOOP_VAL} corner-projection examples ({HW}x{HW}, 2 cameras) in "
         f"{time.perf_counter() - t0:.1f} s; PNG decode is not on this path (no HDF5 writer on this host)")
-    mcfg = NCameraCNNConfig(n_cams=2, resnet_output_dim=1024, backbone="resnet50", bn_frozen=True,
-                            bn_frozen_affine=True, stem_frozen=True, frozen_stages=3)
-    base = TrainConfig(model_config=mcfg, amp=True, batch_size=N_ROWS, n_epochs=2, learning_rate=1e-4,
-                       wandb_log=False, num_workers=8, save_dir=os.path.join(tmpdir, "ckpt"))
+    base = _loop_config(os.path.join(tmpdir, "ckpt"))
     per_epoch = LOOP_TRAIN // N_ROWS
     shards = ResidentShardedData(datasets[0], LOOP_SHARD_MB)
     shard_steps = sum(-(-len(idx) // N_ROWS) for idx in shards.index_shards)
@@ -2835,10 +2888,10 @@ def loop_phase(tmpdir: str) -> dict:
         f"to epoch 1's losses, while epoch 0's file is written; host clock. AsyncCheckpointer.save holds the "
         f"caller {hold_ms:.1f} ms, the write ends {write_ms:.0f} ms after")
     _captured_vs_eager(base, sets)
-    return dict(compute_ms=compute_ms, paths=out)
+    return dict(compute_ms=compute_ms, paths=out, config=base, sets=sets)
 
 
-def _captured_vs_eager(cfg, sets) -> None:
+def _captured_vs_eager(cfg, sets, mesh=None) -> None:
     """One resident epoch replayed as a CUDA graph against the same epoch
     (one state, one order) run eagerly on the card: epoch 0 captures
     (WARMUP_STEPS eager steps first), epoch 1 is replayed from a snapshot of
@@ -2848,18 +2901,19 @@ def _captured_vs_eager(cfg, sets) -> None:
     within its gradient gates (max, median over leaves); the replayed
     epoch's launches, counted through the replays, those of its "auto"
     steps. Prints the largest differences and whether the two epochs are
-    bit-equal."""
+    bit-equal. With a `mesh` both run its data-parallel step (the graph
+    then holds the step's all-reduce)."""
     import torch
 
     from argus_tpu_torch.ops import kernels
     from argus_tpu_torch.train import create_train_state, epoch_permutation, make_resident_epoch_step, \
         make_train_step
 
-    model, state = create_train_state(cfg, seed=5)
+    model, state = create_train_state(cfg, seed=5, mesh=mesh)
     images = torch.from_numpy(sets[0][0]).cuda()
     poses = torch.from_numpy(FramesDataset(*sets[0]).cube_poses).cuda()
     n = images.shape[0]  # a whole number of batches: no padded rows
-    graphed, k = make_resident_epoch_step(model, cfg, cfg.random_seed, n)
+    graphed, k = make_resident_epoch_step(model, cfg, cfg.random_seed, n, mesh=mesh)
     state, _ = graphed(state, images, poses, 0)
     if graphed.run.graph is None:
         raise AssertionError("the resident epoch step was not captured")
@@ -2876,7 +2930,7 @@ def _captured_vs_eager(cfg, sets) -> None:
         for t, v in zip(_state_tensors(state), snap):
             t.copy_(v)
     state.step = step0
-    step = make_train_step(model, cfg, cfg.random_seed)
+    step = make_train_step(model, cfg, cfg.random_seed, mesh=mesh)
     order = epoch_permutation(cfg.random_seed, 1, n, "cuda")
     ones = torch.ones(N_ROWS, device="cuda")
     t0 = time.perf_counter()
@@ -2900,7 +2954,8 @@ def _captured_vs_eager(cfg, sets) -> None:
     worst, median, wname = _spread(errs)
     bit_equal = torch.equal(loss_g, loss_e) and all(torch.equal(a, b) for a, b in zip(got, want))
     expected = {name: k * v for name, v in _expected_launches(3, stem_trained=False).items()}
-    say(f"loop: captured vs eager resident epoch ({k} steps, every one replayed): losses {loss_g.tolist()} vs "
+    label = "loop:" if mesh is None else "parallel (a): NCCL at world size 1, the all-reduce in the graph;"
+    say(f"{label} captured vs eager resident epoch ({k} steps, every one replayed): losses {loss_g.tolist()} vs "
         f"{loss_e.tolist()} (max rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); the {len(errs)} trained parameters' "
         f"change: max rel {worst:.3g} ({wname}), median {median:.3g} (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN}); "
         f"bit-equal: {bit_equal}; launches of the replayed epoch {({k_: v for k_, v in launches.items() if v})}; "
@@ -3258,6 +3313,400 @@ def remat_exact_phase() -> tuple:
     return launches, ms_r, peak_r, ms_s, peak_s
 
 
+# ─────────────── phase 17: data and tensor parallelism (A7) ───────────────
+
+PAR_TIMED = 3  # timed steps of a configuration on each of the two ranks
+PAR_TIMEOUT = 600.0  # seconds the two ranks may take in all
+PAR_CONFIGS = ("flagship", "path B", "keypoint default", "path B f32")
+# Path B in f32 on two ranks against one card: the same function summed in other orders (loss; gradients max,
+# median; running statistics' change max, median), where bf16 exact BN amplifies each rounding through 53 BNs
+# (one card's own "auto" and "xla" engines sit ~2e-3 apart in loss at 256 rows in bf16)
+PAR_F32_LOSS_RTOL, PAR_F32_GRAD_RTOL, PAR_F32_STATS_RTOL = 1e-5, (0.02, 5e-3), (1e-4, 1e-5)
+# each configuration's gates against the one-card step: (loss; gradients max, median; running statistics' change
+# max, median, or None where BN is frozen). The flagship takes phase 6's; Path B in bf16 Path B's exact-BN gates
+# (one card's own two engines differ by ~0.2 / 0.09 in its gradients); the keypoint default, whose exact BN runs
+# the differentiable moments of the "xla" engine over the data group, gates a few times above its readings
+# (loss 0, gradients 7.1e-3 / 3.5e-3, statistics 1.5e-6 / 2.6e-7 on the H100)
+PAR_GATES = {
+    "flagship": (TRAIN_LOSS_RTOL, (GRAD_RTOL, GRAD_RTOL_MEDIAN), None),
+    "path B": (EXACT_LOSS_RTOL, EXACT_GRAD_RTOL, EXACT_STATS_RTOL),
+    "keypoint default": (1e-3, (0.03, 0.015), (1e-4, 1e-5)),
+    "path B f32": (PAR_F32_LOSS_RTOL, PAR_F32_GRAD_RTOL, PAR_F32_STATS_RTOL),
+}
+
+
+def _par_setup(name: str, bn_impl: str = None):
+    """(cfg, model, state, batch) of a configuration of the parallel phase,
+    the same weights and batch in every process: the flagship step (phase
+    6), Path B (exact BN, `bn_impl="auto"`, phase 8), the keypoint default
+    (exact BN, unfused), each at batch 256, and Path B in f32; `bn_impl`
+    replaces Path B's engine."""
+    from argus_tpu_torch.models import CubeKeypointNetConfig
+    from argus_tpu_torch.train import create_train_state
+
+    if name == "flagship":
+        return flagship_train_setup()
+    if name == "keypoint default":
+        return keypoint_setup(CubeKeypointNetConfig())
+    cfg, model, state, batch = flagship_train_setup(bn_frozen=False, bn_frozen_affine=False, stem_frozen=False,
+                                                    bn_impl="auto", **{k: "auto" for k in FUSE_ON})
+    f32 = name.endswith("f32")
+    if f32 or bn_impl:
+        cfg = dataclasses.replace(cfg, amp=not f32,
+                                  model_config=dataclasses.replace(cfg.model_config, bn_impl=bn_impl or "auto"))
+        twin, state = create_train_state(cfg, seed=0)
+        twin.load_state_dict(model.state_dict())
+        model = twin
+    return cfg, model, state, batch
+
+
+def _par_expected(name: str) -> dict:
+    if name == "flagship":
+        return EXPECTED_TRAIN_LAUNCHES
+    if name.startswith("path B"):
+        return EXPECTED_EXACT_LAUNCHES
+    return {**_NONE, "augment_fused": 1}
+
+
+def _step_grads(body, state, batch, step: int = 0):
+    """(loss, {name: grad}, the BN buffers' change) of `body`'s train step
+    `step` on `batch` (the rows it holds): prepared and augmented as the
+    step is, no update."""
+    import torch
+
+    before = {k: v.detach().clone() for k, v in body.model.named_buffers()}
+    ops = body.prepare(step, batch["images"], batch["cube_pose"], batch["mask"])
+    loss, grads = body._loss_and_grads(state.params, body.augmented(ops), ops["poses"], ops["mask"])
+    moved = {k: (v.detach() - before[k]).float() for k, v in body.model.named_buffers()}
+    torch.cuda.synchronize()
+    return loss.item(), grads, moved
+
+
+def _on_host(d: dict) -> dict:
+    return {k: v.detach().float().cpu() for k, v in d.items()}
+
+
+def _digest(tensors) -> str:
+    """A hash of the tensors' bytes (the ranks' parameters compared bitwise)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _gates(label: str, got: tuple, want: tuple, config: str) -> None:
+    """A parallel step's (loss, gradients, BN buffers' change) against the
+    one-card step's, under `PAR_GATES[config]` (the keypoint head's
+    `SHIFT_INVARIANT` bias, zero up to rounding, left out)."""
+    loss_tol, grad_tol, stats_tol = PAR_GATES[config]
+    errs = _grad_errors(got[1], {k: v for k, v in want[1].items() if k != SHIFT_INVARIANT})
+    worst, median, name = _spread(errs)
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    msg = (f"{label}: loss {got[0]:.6f} vs {want[0]:.6f} one-card (rel {loss_err:.3g}, tol {loss_tol}); gradients of "
+           f"{len(errs)} parameters: max rel {worst:.3g} ({name}), median {median:.3g} (tol {grad_tol})")
+    ok = loss_err <= loss_tol and worst <= grad_tol[0] and median <= grad_tol[1]
+    if stats_tol is not None:
+        serr = {k: ((a - want[2][k]).norm() / want[2][k].norm()).item() for k, a in got[2].items()
+                if want[2][k].norm() > 0}
+        s_worst, s_median, s_name = _spread(serr)
+        msg += (f"; running statistics' change, {len(serr)} buffers: max rel {s_worst:.3g} ({s_name}), median "
+                f"{s_median:.3g} (tol {stats_tol})")
+        ok &= s_worst <= stats_tol[0] and s_median <= stats_tol[1]
+    say(msg)
+    if not ok:
+        raise AssertionError(f"{label} disagrees with the one-card step")
+
+
+def _all_reduce_ms(grads: dict, group, reps: int = 5) -> tuple:
+    """(bucket sizes, ms of one bucketed all-reduce of a step's [loss,
+    count, gradients] by CUDA events, the same by the host clock)."""
+    import torch
+
+    from argus_tpu_torch.parallel.collectives import all_reduce_loss_and_grads, bucket_bounds
+
+    one = torch.ones((), device="cuda")
+    n = 2 + sum(g.numel() for g in grads.values())
+    sizes = [b - a for a, b in bucket_bounds(n)]
+    all_reduce_loss_and_grads(one, one, grads, group)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(reps):
+        all_reduce_loss_and_grads(one, one, grads, group)
+    e1.record()
+    torch.cuda.synchronize()
+    return sizes, e0.elapsed_time(e1) / reps, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _timed_rank_steps(step, state, batch, n: int = PAR_TIMED):
+    """A warm-up step, a counted one, then `n` timed ones: (launches of the
+    counted step, ms each by CUDA events, the losses)."""
+    import torch
+
+    from argus_tpu_torch.ops import kernels
+
+    state, loss = step(state, batch)
+    kernels.reset_launch_counts()
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    ms, losses = [], [loss.item()]
+    for _ in range(n):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, loss = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(loss.item())
+    return launches, ms, losses, state
+
+
+def _par_rank(rank: int, n: int, data_dir: str) -> dict:
+    """One of the two ranks sharing the card (gloo): (b) the configurations'
+    data-parallel step on this rank's 128 rows (Path B in f32 counted, not
+    timed), (c) the
+    flagship step with `num_model_shards=2`, (d) `train()` under
+    `multigpu`, one epoch resident and one on the host feed. Returns what
+    the parent gates."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.checkpoint import load_checkpoint, train_state_tree
+    from argus_tpu_torch.parallel import make_mesh
+    from argus_tpu_torch.parallel.collectives import gather_whole
+    from argus_tpu_torch.parallel.tp import shard_state
+    from argus_tpu_torch.train import TrainStepBody, create_train_state, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False  # as the parent's phases 2 and 6 set them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"dp": {}}
+    mesh = make_mesh()
+    for name in PAR_CONFIGS:
+        cfg, model, state, batch = _par_setup(name)
+        local = {k: v[mesh.local_rows(N_ROWS)] for k, v in batch.items()}
+        body = TrainStepBody(model, cfg, mesh=mesh)
+        loss, grads, moved = _step_grads(body, state, local)
+        sizes, ar_ms, ar_host = _all_reduce_ms(grads, mesh.data_group) if name == "flagship" else (None, None, None)
+        launches, ms, losses, state = _timed_rank_steps(make_train_step(model, cfg, mesh=mesh), state, local,
+                                                        0 if name.endswith("f32") else PAR_TIMED)
+        out["dp"][name] = dict(loss=loss, grads=_on_host(grads) if rank == 0 else None,
+                               moved=_on_host(moved) if rank == 0 else None, launches=launches, ms=ms,
+                               losses=losses, digest=_digest(state.params.values()), buckets=sizes,
+                               all_reduce_ms=ar_ms, all_reduce_host_ms=ar_host)
+        del cfg, model, state, batch, local, body, grads, moved
+        torch.cuda.empty_cache()
+
+    # (c) the flagship step with its wide layers cut over the two ranks
+    tp = make_mesh(n_model=2)
+    cfg, model, state, batch = _par_setup("flagship")
+    cfg = dataclasses.replace(cfg, num_model_shards=2)
+    state = shard_state(model, state, tp)
+    cuts = state.shardings
+    body = TrainStepBody(model, cfg, mesh=tp)
+    loss, grads, _ = _step_grads(body, state, batch)
+    whole = {k: gather_whole(g, cuts[k], tp.model_group) if k in cuts else g for k, g in grads.items()}
+    launches, ms, losses, state = _timed_rank_steps(make_train_step(model, cfg, mesh=tp), state, batch, 1)
+    out["tp"] = dict(loss=loss, grads=_on_host(whole) if rank == 0 else None, launches=launches, ms=ms,
+                     cut={k: tuple(v.shape) for k, v in state.params.items() if k in cuts})
+    del cfg, model, state, batch, body, grads, whole
+    torch.cuda.empty_cache()
+
+    # (d) train() under multigpu on the loop phase's rendered split
+    from argus_tpu_torch import logging_utils
+    from argus_tpu_torch import train as ttrain
+
+    arrays = np.load(os.path.join(data_dir, "split.npz"))
+    datasets = (FramesDataset(arrays["train_images"], arrays["train_poses"]),
+                FramesDataset(arrays["val_images"], arrays["val_poses"]))
+    base = _loop_config(os.path.join(data_dir, "ckpt"))
+    orig = (logging_utils.MetricsLogger, ttrain.initialize_training, ttrain._train_epochs)
+    ready, finals = [], []
+
+    def init(*a, **k):
+        setup = orig[1](*a, **k)
+        torch.cuda.synchronize()
+        ready.append((time.perf_counter(), setup["resident"] is not None))
+        return setup
+
+    def epochs(*a, **k):
+        res = orig[2](*a, **k)
+        finals.append(res[0])
+        return res
+
+    logging_utils.MetricsLogger, ttrain.initialize_training, ttrain._train_epochs = _Recorder, init, epochs
+    out["loop"] = {}
+    try:
+        for label, budget in (("resident", base.device_resident_mb), ("host feed", 0.0)):
+            cfg = dataclasses.replace(base, multigpu=True, n_epochs=1, device_resident_mb=budget)
+            _Recorder.runs.clear()
+            t0 = time.perf_counter()
+            path = ttrain.train(cfg, datasets=datasets)
+            wall = time.perf_counter() - t0
+            records = _Recorder.runs[-1].records
+            losses = [m["loss"] for _, _, m in records if "loss" in m]
+            t_last = [t for t, _, m in records if "loss" in m][-1]
+            final = finals[-1]
+            _, fresh = create_train_state(dataclasses.replace(cfg, multigpu=False), seed=5)
+            load_checkpoint(path, target=fresh)
+            a, b = _tree_leaves(train_state_tree(fresh)), _tree_leaves(train_state_tree(final))
+            restores = a.keys() == b.keys() and all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+            out["loop"][label] = dict(losses=losses, vals=[m["val_loss"] for _, _, m in records if "val_loss" in m],
+                                      train_ms=(t_last - ready[-1][0]) * 1e3, steps=len(losses), wall=wall,
+                                      digest=_digest(final.params.values()), restores=restores, path=path,
+                                      resident=ready[-1][1])
+            del final, fresh
+            finals.clear()
+            torch.cuda.empty_cache()
+    finally:
+        logging_utils.MetricsLogger, ttrain.initialize_training, ttrain._train_epochs = orig
+    return out
+
+
+def _tree_leaves(t, pre: str = "") -> dict:
+    import numpy as np
+
+    out = {}
+    for k, v in t.items():
+        if isinstance(v, dict):
+            out.update(_tree_leaves(v, f"{pre}/{k}"))
+        else:
+            out[f"{pre}/{k}"] = np.asarray(v)
+    return out
+
+
+def _nccl_world1(one_card_ms: float, base, sets) -> None:
+    """(a) NCCL at world size 1 in this process: the flagship step through
+    the bucketed all-reduce on NCCL against the one-card step on the same
+    256 rows (phase 6's gates), its timed steps and launches, the
+    all-reduce alone; then the resident epoch captured as a CUDA graph
+    with the NCCL all-reduce inside it, against the same epoch eager."""
+    import torch
+    import torch.distributed as dist
+
+    from argus_tpu_torch.parallel import init_distributed, make_mesh
+    from argus_tpu_torch.parallel.launch import free_port
+    from argus_tpu_torch.train import TrainStepBody, make_train_step
+
+    init_distributed(f"127.0.0.1:{free_port()}", num_processes=1, process_id=0, device="cuda", timeout=300)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"one process on one card took backend {dist.get_backend()}, not nccl")
+        mesh = make_mesh(reduce_alone=True)
+        cfg, model, state, batch = flagship_train_setup()
+        want = _step_grads(TrainStepBody(model, cfg), state, batch)
+        got = _step_grads(TrainStepBody(model, cfg, mesh=mesh), state, batch)
+        _gates("parallel (a): the data-parallel step over NCCL at world size 1 (256 rows)",
+               (got[0], got[1], {}), (want[0], want[1], {}), "flagship")
+        sizes, ar_ms, ar_host = _all_reduce_ms(got[1], mesh.data_group)
+        del want, got
+        torch.cuda.empty_cache()
+        launches, ms, state = _time_steps(make_train_step(model, cfg, mesh=mesh), state, batch,
+                                          "DP over NCCL at world size 1")
+        if launches != EXPECTED_TRAIN_LAUNCHES:
+            raise AssertionError(f"DP step launch counts {launches} != {EXPECTED_TRAIN_LAUNCHES}")
+        say(f"parallel (a) on {GPU}: NCCL at world size 1, the bucketed all-reduce of [loss, count, gradients]: "
+            f"{len(sizes)} buckets of {sizes} f32 values, {ar_ms:.3f} ms by CUDA events ({ar_host:.3f} ms host "
+            f"clock); the step {ms:.2f} ms against the one-card step's {one_card_ms:.2f} ms (phase 6)")
+        del model, state, batch
+        torch.cuda.empty_cache()
+        _captured_vs_eager(base, sets, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(one_card_ms: float, loop: dict, tmpdir: str) -> None:
+    """(a) NCCL at world size 1 here; then two ranks on the one card over
+    gloo (`parallel.launch.run_ranks`, spawned: CUDA is initialised here),
+    each gated against the one-card step this process computes on the same
+    weights, batch and step number: (b) the flagship, Path B and the
+    keypoint default, 128 rows a rank; (c) the flagship with
+    `num_model_shards=2`; (d) `train()` under `multigpu`, resident and on
+    the host feed. Two ranks share one card here, so no time of theirs is
+    a scaling figure."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.parallel.launch import run_ranks
+    from argus_tpu_torch.train import TrainStepBody
+
+    t0 = time.perf_counter()
+    base, sets = loop["config"], loop["sets"]
+    _nccl_world1(one_card_ms, base, sets)
+    t_a = time.perf_counter() - t0
+
+    refs = {}
+    for name in PAR_CONFIGS + ("path B xla",):
+        cfg, model, state, batch = _par_setup(*(("path B", "xla") if name == "path B xla" else (name,)))
+        loss, grads, moved = _step_grads(TrainStepBody(model, cfg), state, batch)
+        refs[name] = (loss, _on_host(grads), _on_host(moved))
+        del cfg, model, state, batch, grads, moved
+        torch.cuda.empty_cache()
+    np.savez(os.path.join(tmpdir, "split.npz"), train_images=sets[0][0], train_poses=sets[0][1],
+             val_images=sets[1][0], val_poses=sets[1][1])
+    t1 = time.perf_counter()
+    ranks = run_ranks(_par_rank, 2, tmpdir, timeout=PAR_TIMEOUT, device="cuda")
+    t_ranks = time.perf_counter() - t1
+
+    for name in PAR_CONFIGS:
+        r0, r1 = ranks[0]["dp"][name], ranks[1]["dp"][name]
+        _gates(f"parallel (b): {name}, 2 ranks x 128 rows over gloo", (r0["loss"], r0["grads"], r0["moved"]),
+               refs[name], name)
+        want = _par_expected(name)
+        if r0["launches"] != want or r1["launches"] != want:
+            raise AssertionError(f"{name}: launches per rank {r0['launches']} / {r1['launches']} != {want}")
+        steps = len(r0["losses"]) + 1
+        if r0["digest"] != r1["digest"] or not np.isfinite(r0["losses"] + r1["losses"]).all():
+            raise AssertionError(f"{name}: the ranks' parameters differ after {steps} steps, or a loss is not finite")
+        if name == "path B":
+            # one card's own two engines on the same 256 rows: the spread of bf16 exact BN at this batch
+            e_worst, e_median, e_name = _spread(_grad_errors(refs["path B xla"][1], refs[name][1]))
+            say(f"parallel (b): path B on one card, bn_impl xla against auto on the same 256 rows (bf16): loss rel "
+                f"{abs(refs['path B xla'][0] - refs[name][0]) / abs(refs[name][0]):.3g}; gradients max rel "
+                f"{e_worst:.3g} ({e_name}), median {e_median:.3g}")
+        timed = (f"; a step {np.mean(r0['ms']):.2f} ms (rank 0) / {np.mean(r1['ms']):.2f} ms (rank 1) by CUDA "
+                 f"events, two ranks sharing one card: no scaling figure") if r0["ms"] else " (not timed)"
+        say(f"parallel (b) on {GPU}: {name}: 2 ranks over gloo (eager: gloo's collectives cannot be captured), "
+            f"launches per rank per step {({k: v for k, v in r0['launches'].items() if v})}, equal; the ranks' "
+            f"parameters bit-equal after {steps} steps{timed}")
+    fl = ranks[0]["dp"]["flagship"]
+    say(f"parallel (b) on {GPU}: gloo, the bucketed all-reduce of the flagship's [loss, count, gradients]: "
+        f"{len(fl['buckets'])} buckets of {fl['buckets']} f32 values, {fl['all_reduce_ms']:.3f} ms by CUDA events "
+        f"({fl['all_reduce_host_ms']:.3f} ms host clock); the flagship step on 2 x 128 rows "
+        f"{np.mean(fl['ms']):.2f} ms against the one-card step on 256 rows {one_card_ms:.2f} ms (phase 6); both "
+        f"ranks share one card, so this is no scaling figure")
+
+    tp = ranks[0]["tp"]
+    _gates("parallel (c): the flagship with num_model_shards=2 (2 ranks, the same 256 rows)",
+           (tp["loss"], tp["grads"], {}), refs["flagship"], "flagship")
+    if tp["launches"] != EXPECTED_TRAIN_LAUNCHES or ranks[1]["tp"]["launches"] != EXPECTED_TRAIN_LAUNCHES:
+        raise AssertionError(f"TP launches {tp['launches']} != {EXPECTED_TRAIN_LAUNCHES}")
+    say(f"parallel (c) on {GPU}: cut leaves {tp['cut']} a rank; a step {np.mean(tp['ms']):.2f} ms (rank 0)")
+
+    per_epoch = LOOP_TRAIN // N_ROWS
+    for label in ("resident", "host feed"):
+        r0, r1 = ranks[0]["loop"][label], ranks[1]["loop"][label]
+        finite = np.isfinite(r0["losses"] + r0["vals"] + r1["losses"] + r1["vals"]).all()
+        if not (finite and r0["steps"] == per_epoch and r0["digest"] == r1["digest"] and r0["restores"]
+                and r1["restores"] and r0["path"] == r1["path"] and r0["resident"] == (label == "resident")):
+            raise AssertionError(f"parallel (d) {label}: {r0} / {r1}")
+        one = loop["paths"][label]["e2e_ms"]
+        rate = lambda ms: N_IMG / ms * 1e3  # noqa: E731
+        say(f"parallel (d) on {GPU}: train() under multigpu, 2 ranks over gloo, {label}: one epoch of {per_epoch} "
+            f"steps, losses {[round(v, 4) for v in r0['losses']]}, val {[round(v, 4) for v in r0['vals']]}; the "
+            f"ranks' parameters bit-equal; rank 0's file restores bit-equal on both ranks; "
+            f"{rate(r0['train_ms'] / per_epoch):.1f} camera-images/s in the train pass (eager steps) against "
+            f"{rate(one):.1f} on one card (phase 11, the resumed run's pass); {r0['wall']:.1f} s with set-up")
+    say(f"parallel: the phase took {time.perf_counter() - t0:.1f} s ((a) {t_a:.1f} s, the two ranks "
+        f"{t_ranks:.1f} s with their start-up)")
+
+
 def main() -> int:
     global GPU
     import torch
@@ -3330,6 +3779,9 @@ def main() -> int:
         + f"); the other {kp_ms - kp_kernel_ms:.2f} ms: the three strided BasicBlocks (cuDNN convs, frozen BN "
         f"through autograd, both ways), the head (upsampling convs, LayerNorms, heatmap, softmax) both ways, "
         f"the u8 feed, augmentation copies, loss, BN folds, weight transposes, optimizer and launch gaps")
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        parallel_phase(step_ms, loop, tmpdir)
 
     rows = []
     for name, m in measured.items():

@@ -101,6 +101,22 @@ def test_slice_modules_import_without_jax(module):
     assert proc.returncode == 0, proc.stderr[-4000:]
 
 
+# the parallel slice's modules: each imported first, alone, under the same block (tp imports the package,
+# its mesh and collectives)
+PARALLEL_MODULES = ("argus_tpu_torch.parallel.tp", "argus_tpu_torch.parallel.launch", "argus_tpu_torch.dryrun")
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_import_without_jax(module):
+    code = _BLOCKED_IMPORT.replace(
+        "import argus_tpu_torch\n", f"import {module}\nimport argus_tpu_torch\n", 1,
+    ).replace('print("imported"', f'assert {module!r} in names, names\nprint("imported"')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+
+
 SERVING_OPS = ("stem_fwd", "stage_fwd", "projection_block", "bottleneck_block")
 
 

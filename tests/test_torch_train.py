@@ -305,14 +305,24 @@ def test_adam_state_bridge_round_trip():
 
 
 def test_unported_configurations_raise():
+    """Data and tensor parallelism are ported: the multi-card fields raise
+    only where they disagree with the mesh the step runs over (the model
+    axis, the world, the global batch over the data ranks), each naming
+    the reason."""
+    from argus_tpu_torch.parallel import Mesh
+
     model_cfg = NCameraCNNConfig(**MODEL)
+    create_train_state(TrainConfig(model_config=model_cfg, use_augmentation=False, multigpu=True), device="cpu")
     cases = [
-        (dict(use_augmentation=False, multigpu=True), "A7"),
+        (dict(num_model_shards=2), Mesh(2, 1, 0, 2), "num_model_shards=2"),
+        (dict(num_chips=4), Mesh(2, 1, 0, 2), "num_chips=4"),
+        (dict(batch_size=3), Mesh(2, 1, 0, 2), "divide over 2 data shards"),
+        (dict(batch_size=6), Mesh(4, 1, 0, 1), "divide over 4 data shards"),
     ]
-    for kw, item in cases:
-        cfg = TrainConfig(**{"model_config": model_cfg, **kw})
-        with pytest.raises(NotImplementedError, match=item):
-            create_train_state(cfg, device="cpu")
+    for kw, mesh, reason in cases:
+        cfg = TrainConfig(**{"model_config": model_cfg, "use_augmentation": False, **kw})
+        with pytest.raises(ValueError, match=reason):
+            create_train_state(cfg, device="cpu", mesh=mesh)
 
 
 def test_frozen_stages_stop_gradients():
