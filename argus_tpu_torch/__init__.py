@@ -19,7 +19,12 @@ train state and resume), with the CUDA kernels of `ops.kernels`; on one
 card or, under `multigpu`, one process per card (`parallel`): argus_tpu's
 bucketed gradient all-reduce over the data ranks, exact BatchNorm over the
 global batch, the wide dense layers cut over `num_model_shards` ranks, and
-the multi-process dry-run (`dryrun`).
+the multi-process dry-run (`dryrun`). Around them: the streaming render
+feed (`data.streaming`: rendered batches straight into the train step),
+the Unity/MJPC data generation's host parts (`datagen`), torchvision
+weight import (`models.torch_import`), `models.pose_cnn.init_model`,
+tracing and timing (`profiling`), and twins of argus_tpu's scripts
+(`scripts/*_torch.py`).
 
 Entry points take `device=None`, meaning CUDA; they raise when no card is
 present, and run on the CPU only when the caller passes `device="cpu"`.

@@ -19,8 +19,8 @@ The head rounds where flax rounds under `dtype`: the conv in the compute
 dtype with its bias added after the rounded conv; LayerNorm statistics in
 f32 as E[x^2] - E[x]^2 (flax's `use_fast_variance`), epsilon 1e-6, the
 normalised value in f32 then rounded; the heatmap conv, softmax and
-soft-argmax in f32. `nominal_camera_matrices` carries its own copy of
-argus_tpu's nominal camera mounts.
+soft-argmax in f32. `nominal_camera_matrices` places the cameras at the
+rig's CAD-nominal mounts (`datagen.CAM1_NOMINAL`, `CAM2_NOMINAL`).
 """
 
 from __future__ import annotations
@@ -33,17 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from argus_tpu_torch.datagen import CAM1_NOMINAL, CAM2_NOMINAL
 from argus_tpu_torch.geom import convert_pose_unity_to_mjpc, matrix_to_quat, quat_rotate
 from argus_tpu_torch.models.resnet import BACKBONES, DTYPES, lecun_normal_
-
-# the CAD-nominal camera mounts of the rig, Unity frame, xyz + xyzw
-# (argus_tpu/datagen.py CAM1_NOMINAL, CAM2_NOMINAL)
-CAM1_NOMINAL = np.array(
-    [-0.14786571, 0.125994, 0.00858148, 0.35355339, -0.35355339, 0.85355339, 0.14644661]
-)
-CAM2_NOMINAL = np.array(
-    [0.14786571, 0.125994, 0.00858148, -0.35355339, -0.35355339, 0.85355339, -0.14644661]
-)
 
 
 def cube_corners(half_width: float = 0.035) -> torch.Tensor:

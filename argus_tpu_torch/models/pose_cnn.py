@@ -131,3 +131,27 @@ class NCameraCNN(nn.Module):
             y = F.gelu(reduce_from_model(part, self.model_group).to(self.dtype) + self.head_fc1.bias.to(self.dtype))
         y = F.gelu(_dense(self.head_fc2, y, self.dtype))
         return _dense(self.head_out, y, torch.float32)
+
+
+def init_model(cfg: NCameraCNNConfig, seed_or_generator=0, height: int = 256, width: int = 256,
+               device=None) -> NCameraCNN:
+    """A fresh NCameraCNN with flax's initialisers (`train._init_`: lecun-
+    normal kernels, zero biases, each residual block's last BN scale at
+    zero) drawn from `seed_or_generator` (an int seed or a CPU
+    `torch.Generator`), moved to `device` (CUDA unless the caller names the
+    CPU). argus_tpu's `init_model` returns (model, variables) from a dummy
+    forward at (height, width); the port's modules know their shapes at
+    construction, so the size is not read and the weights live in the
+    returned module."""
+    from argus_tpu_torch import resolve_device
+    from argus_tpu_torch.train import _init_
+
+    del height, width
+    device = resolve_device(device)
+    gen = seed_or_generator
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator().manual_seed(int(gen))
+    with torch.random.fork_rng(devices=[]):  # construction's default draws are overwritten; keep the caller's RNG
+        model = NCameraCNN(cfg)
+    _init_(model, gen)
+    return model.to(device)

@@ -432,11 +432,12 @@ class ResNet(nn.Module):
             if fuse_stem:
                 x = stem_pool(x, *self._folded_weights("stem"), self.stem_grad_stride, packed_out=packed)
             else:
-                conv = self.conv_init
                 if self.stem_space_to_depth:
                     n, h, w, c = x.shape
                     x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
                     x, conv = x.reshape(n, h // 2, w // 2, 4 * c), self.conv_init_s2d
+                else:
+                    conv = self.conv_init
                 x = torch.relu(conv_bn(conv, self.norm_init, x, bs))
                 x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1).permute(0, 2, 3, 1)
 

@@ -259,7 +259,30 @@ Phases, each fatal on failure (nothing is caught and ignored):
    bit-equal across ranks, rank 0's checkpoint restoring bit-equal on both,
    camera-images/s beside phase 11's one-card figure. Two ranks share one
    card, so none of these times is a scaling figure;
-18. the `kernels` JSON line, the card's name and power limit, and the result
+18. the streaming render feed (`data.StreamingRenderLoader`): a render
+   source over 512 rows of the port's synthetic renderer (rendered once,
+   each batch a copy of its slice, poses xyzw) feeding phase 6's flagship
+   step through `device_prefetch`: the first streamed step's loss and
+   updated parameters bit-equal to the same step on the same batch passed
+   as a dict to a twin state; 1 more and 10 timed streamed steps, launches
+   10 times phase 6's, finite losses, camera-images/s beside phase 6's
+   compute-only step;
+19. torchvision weight import (`models.torch_import.load_torch_resnet`): a
+   seeded synthetic torchvision-layout ResNet-50 state_dict
+   (`scripts/verify_torch_import_torch.py`) into the bare ResNet-50 with
+   the plain stem and with `stem_space_to_depth`: pooled features of 8
+   seeded 256x256 frames in f32 on the card (TF32 off) within 2e-4 of the
+   largest feature of torchvision's forward rebuilt from `F.*` on the CPU;
+   the same weights in a full-width NCameraCNN (head random) as a format-2
+   checkpoint served by `Estimator(ckpt, batch_size=256)` with fuse "on":
+   launches 1 / 1 / 3 / 10, poses within 0.05 of the f32 CPU estimator on
+   8 rows;
+20. profiling (`profiling.trace`, `annotate`, `profile_fn`): two flagship
+   steps traced, each inside `annotate("train_step")`; the Chrome trace
+   names the annotation, the augmentation kernel and a wgmma engine kernel
+   (a window the profiler returns without kernel records is traced again,
+   up to 5 times); `profile_fn`'s mean, p50 and p95 of the step;
+21. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the blur and the augmentation
@@ -3707,6 +3730,227 @@ def parallel_phase(one_card_ms: float, loop: dict, tmpdir: str) -> None:
         f"{t_ranks:.1f} s with their start-up)")
 
 
+
+# ─────────────── phase 18: the streaming render feed into the flagship step ───────────────
+
+STREAM_POOL = 512  # rendered rows the render source hands out in turn, as copies
+STREAM_WARMUP, STREAM_TIMED = 2, 10  # streamed steps before the timed ones, and timed
+
+
+def _pool_source(frames, poses_xyzw):
+    """A render source over a rendered pool: copies of consecutive rows,
+    batch after batch, wrapping (the batch size divides the pool), so the
+    phase measures the feed and the step, not the renderer."""
+    cursor = [0]
+
+    def render_fn(batch_size: int):
+        i = cursor[0]
+        cursor[0] = (i + batch_size) % len(frames)
+        return frames[i:i + batch_size].copy(), poses_xyzw[i:i + batch_size].copy()
+
+    return render_fn
+
+
+def streaming_phase(step_ms: float) -> None:
+    """The flagship step (phase 6's setup, fuse flags "on") fed by
+    `StreamingRenderLoader` through `device_prefetch`: a render source over
+    STREAM_POOL rows of the port's synthetic renderer. The first streamed
+    step's loss and updated parameters bit-equal to the same step on the
+    same batch passed as a dict (no loader) to a twin state; then
+    STREAM_WARMUP - 1 more and STREAM_TIMED timed streamed steps: launches
+    STREAM_TIMED times phase 6's, finite losses, camera-images/s beside
+    phase 6's compute-only step."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.data import StreamingRenderLoader, device_prefetch
+    from argus_tpu_torch.data.synthetic import render_dataset_arrays
+    from argus_tpu_torch.geom import xyzwxyz_to_xyzxyzw_SE3
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    frames, poses_wxyz = render_dataset_arrays(STREAM_POOL, HW, HW, seed=12)
+    poses = xyzwxyz_to_xyzxyzw_SE3(poses_wxyz).astype(np.float32)
+    say(f"streaming: rendered a pool of {STREAM_POOL} rows ({HW}x{HW}, 2 cameras) in {time.perf_counter() - t0:.1f} s")
+
+    cfg, model, state, _ = flagship_train_setup()
+    _, twin, twin_state, _ = flagship_train_setup()
+    direct = {"images": frames[:N_ROWS].copy(), "cube_pose": poses[:N_ROWS].copy(),
+              "mask": np.ones(N_ROWS, np.float32)}
+    twin_state, twin_loss = make_train_step(twin, cfg)(twin_state, direct)
+
+    step = make_train_step(model, cfg)
+    loader = StreamingRenderLoader(_pool_source(frames, poses), N_ROWS, n_batches=STREAM_WARMUP + STREAM_TIMED)
+    losses = []
+    for i, batch in enumerate(device_prefetch(loader)):
+        if i == STREAM_WARMUP:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(loss)
+        if i == 0:
+            differ = [k for k, v in state.params.items() if not torch.equal(v, twin_state.params[k])]
+            say(f"streaming: the first streamed step against the same step on the same batch as a dict: loss "
+                f"{loss.item():.6f} vs {twin_loss.item():.6f}, {len(differ)} of {len(state.params)} updated "
+                f"parameters differ")
+            if not torch.equal(loss, twin_loss) or differ:
+                raise AssertionError(f"the streamed step is not bit-equal to the direct one: {differ[:5]}")
+            del twin, twin_state, direct
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {k: STREAM_TIMED * v for k, v in EXPECTED_TRAIN_LAUNCHES.items()}
+    values = [v.item() for v in losses]
+    say(f"streaming: launches in the {STREAM_TIMED} timed steps {launches}; losses {[round(v, 6) for v in values]}")
+    if len(values) != STREAM_WARMUP + STREAM_TIMED or launches != want or not np.all(np.isfinite(values)):
+        raise AssertionError(f"streamed steps: {len(values)} losses, launches {launches} != {want}")
+    rate = STREAM_TIMED * N_IMG / secs
+    say(f"streaming on {GPU}: StreamingRenderLoader -> device_prefetch -> the flagship step, {STREAM_TIMED} timed "
+        f"steps of {N_ROWS} rows: {secs / STREAM_TIMED * 1e3:.2f} ms/step, {rate:.1f} camera-images/s (host clock, "
+        f"synchronised), against {N_IMG / step_ms * 1e3:.1f} compute only (phase 6, {step_ms:.2f} ms/step, "
+        f"CUDA events): {rate / (N_IMG / step_ms * 1e3) * 100:.1f}%")
+    del model, state, losses
+    torch.cuda.empty_cache()
+
+
+# ─────────────── phase 19: torchvision weight import at full width ───────────────
+
+IMPORT_ROWS = 8  # frames of the features gate
+IMPORT_RTOL = 2e-4  # |port - torchvision| over the features' largest magnitude, f32, TF32 off
+
+
+def _script(name: str):
+    """A script of `scripts/` as a module (they are not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def import_phase(tmpdir: str) -> None:
+    """A seeded synthetic torchvision-layout ResNet-50 state_dict
+    (`scripts/verify_torch_import_torch.py`) loaded by `load_torch_resnet`:
+    the bare ResNet-50's pooled features with the plain stem and with
+    `stem_space_to_depth`, in f32 on the card (TF32 off), against
+    torchvision's forward rebuilt from `torch.nn.functional` on the CPU, on
+    IMPORT_ROWS seeded frames, within IMPORT_RTOL of the largest feature;
+    then a full-width NCameraCNN (head random) with the imported backbone
+    saved as a format-2 checkpoint and served by `Estimator(ckpt,
+    batch_size=256)` with fuse "on": phase 3's launches, poses within phase
+    3's atol of the f32 CPU estimator on the first 8 rows."""
+    import numpy as np
+
+    from argus_tpu_torch.capture import WARMUP_STEPS
+    from argus_tpu_torch.checkpoint import save_checkpoint
+    from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
+    from argus_tpu_torch.models.jax_import import variables_from_state_dict
+    from argus_tpu_torch.models.torch_import import load_torch_resnet
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.serve import Estimator
+
+    verify = _script("verify_torch_import_torch")
+    sd = verify.synthetic_state_dict("resnet50", seed=0)
+    x = np.random.default_rng(0).standard_normal((IMPORT_ROWS, 3, HW, HW)).astype(np.float32)
+    t0 = time.perf_counter()
+    want = verify.torch_reference_features(sd, x)
+    ref_s = time.perf_counter() - t0
+    scale = float(np.abs(want).max())
+    for s2d in (False, True):
+        got = verify.port_features(verify.translated_model(sd, "resnet50", stem_space_to_depth=s2d), x, "cuda")
+        err = float(np.abs(got - want).max())
+        say(f"import: torchvision ResNet-50 ({len(sd)} keys) through load_torch_resnet, "
+            f"{'space-to-depth' if s2d else 'plain'} stem, pooled features {tuple(got.shape)} of {IMPORT_ROWS} "
+            f"frames {HW}x{HW} in f32 on the card against the F.* forward on the CPU ({ref_s:.1f} s): max abs "
+            f"diff {err:.3g}, {err / scale:.3g} of the largest feature {scale:.4g} (tol {IMPORT_RTOL})")
+        if not (got.shape == want.shape and err <= IMPORT_RTOL * scale):
+            raise AssertionError(f"imported features differ from torchvision's forward by {err} (scale {scale})")
+
+    cfg = NCameraCNNConfig(n_cams=2, resnet_output_dim=1024, backbone="resnet50")
+    model = NCameraCNN(cfg)
+    _randomize_(model, seed=3)  # the head and fc: random, the output at gain 8
+    model.load_state_dict(load_torch_resnet(sd, model))
+    params, stats = variables_from_state_dict(model.state_dict())
+    ckpt = os.path.join(tmpdir, "torchvision_resnet50.ckpt")
+    meta = {"model_type": "pose_cnn", "model_config": dataclasses.asdict(cfg), "center_crop": [HW, HW]}
+    save_checkpoint(ckpt, {"params": params, "batch_stats": stats}, meta=meta)
+    del model, params, stats
+
+    est = Estimator(ckpt, batch_size=N_ROWS)
+    for k in FUSE_ON:
+        setattr(est.model.backbone, k, "on")
+    frames = np.random.default_rng(5).integers(0, 256, (N_ROWS, HW, HW, 6), dtype=np.uint8)
+    for _ in range(WARMUP_STEPS + 1):
+        est.predict(frames)
+    kernels.reset_launch_counts()
+    poses = est.predict(frames)
+    launches = kernels.launch_counts()
+    if launches != EXPECTED_LAUNCHES or poses.shape != (N_ROWS, 7) or not np.all(np.isfinite(poses)):
+        raise AssertionError(f"imported serving: launches {launches} != {EXPECTED_LAUNCHES}, or bad poses")
+    t0 = time.perf_counter()
+    ref = Estimator(ckpt, batch_size=1, device="cpu").predict(frames[:8])  # below the fused batch: f32
+    err = float(np.abs(poses[:8] - ref).max())
+    say(f"import on {GPU}: the imported weights served by Estimator(batch_size={N_ROWS}), bf16, fuse 'on': "
+        f"launches {({k: v for k, v in launches.items() if v})}; poses against the f32 CPU estimator on 8 rows: "
+        f"max abs diff {err:.4g} (atol {POSE_ATOL}), |pose| max {float(np.abs(ref).max()):.3g}, CPU "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not err <= POSE_ATOL:
+        raise AssertionError(f"imported serving poses differ from the f32 CPU estimator by {err} > {POSE_ATOL}")
+    del est
+
+
+# ─────────────── phase 20: profiling ───────────────
+
+TRACE_ATTEMPTS = 5  # a profiled window on this card's PyTorch now and then loses its kernel records
+WGMMA_KERNELS = ("conv_fwd_tma_sm90_kernel", "dgrad_sm90_kernel", "wgrad_sm90_kernel")
+
+
+def profiling_phase(tmpdir: str) -> None:
+    """Two flagship steps (phase 6's setup, fuse "on") inside
+    `profiling.trace`, each inside `annotate("train_step")`: the Chrome
+    trace must exist and name the annotation twice, the augmentation kernel
+    and a wgmma engine kernel (a window with no kernel record is traced
+    again, up to TRACE_ATTEMPTS times); then `profile_fn`'s mean, p50 and
+    p95 of the step."""
+    import torch
+
+    from argus_tpu_torch import profiling
+    from argus_tpu_torch.train import make_train_step
+
+    cfg, model, state, batch = flagship_train_setup()
+    step = make_train_step(model, cfg)
+    state, loss = step(state, batch)
+    loss.item()
+    for attempt in range(TRACE_ATTEMPTS):
+        with profiling.trace(os.path.join(tmpdir, f"trace{attempt}")) as log_dir:
+            for _ in range(2):
+                with profiling.annotate("train_step"):
+                    state, loss = step(state, batch)
+            loss.item()
+        path = os.path.join(log_dir, profiling.TRACE_FILE)
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        aug = sorted({n for n in names if "augment_kernel" in n})
+        engines = sorted({n for n in names if any(k in n for k in WGMMA_KERNELS)})
+        if aug and engines:
+            break
+    annotated = names.count("train_step")
+    say(f"profiling: {path} ({os.path.getsize(path) / 1e6:.1f} MB, {len(names)} events, attempt {attempt + 1}): "
+        f"'train_step' {annotated} times; augmentation {aug[:1]}; {len(engines)} wgmma engine kernels, e.g. "
+        f"{engines[:2]}")
+    if annotated < 2 or not aug or not engines:
+        raise AssertionError("the trace does not name the annotation, the augmentation kernel and a wgmma kernel")
+    stats = profiling.profile_fn(lambda: step(state, batch)[1], n_trials=10, warmup=1)
+    say(f"profiling on {GPU}: profile_fn of the flagship step, {stats['n_trials']} trials (host clock, the loss "
+        f"synchronised): mean {stats['mean_ms']:.2f} ms, p50 {stats['p50_ms']:.2f}, p95 {stats['p95_ms']:.2f}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     global GPU
     import torch
@@ -3782,6 +4026,10 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         parallel_phase(step_ms, loop, tmpdir)
+    streaming_phase(step_ms)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        import_phase(tmpdir)
+        profiling_phase(tmpdir)
 
     rows = []
     for name, m in measured.items():

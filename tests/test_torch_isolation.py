@@ -3,6 +3,7 @@ argus_tpu, and its entry points refuse to fall back to the CPU when no card
 is present."""
 
 import dataclasses
+import json
 import os
 import re
 import subprocess
@@ -204,3 +205,80 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     for entry in (initialize_training, train):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(loop_cfg, datasets=([], []))
+
+
+# the remaining modules of argus_tpu, the script twins beside the originals, and the two host scripts that
+# need no twin: one process per block list imports each in turn and reports what raised
+REMAINING_MODULES = ("argus_tpu_torch.datagen", "argus_tpu_torch.data.streaming",
+                     "argus_tpu_torch.models.torch_import", "argus_tpu_torch.profiling",
+                     "argus_tpu_torch.models.pose_cnn")
+SCRIPT_TWINS = ("timing_torch", "throughput_torch", "rotation_overfitting_torch", "view_augmentations_torch",
+                "verify_torch_import_torch", "convergence_ab_torch")
+HOST_SCRIPTS = ("mujoco_rendering", "mesh_conversion")
+
+_IMPORT_EACH = textwrap.dedent(
+    """
+    import importlib, importlib.abc, importlib.util, json, os, sys
+
+    BLOCKED, MODULES, SCRIPTS = {blocked!r}, {modules!r}, {scripts!r}
+
+    def blocked(name):
+        return name.split(".")[0] in BLOCKED
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"blocked import of {{name}}")
+            return None
+
+    for name in [m for m in sys.modules if blocked(m)]:
+        del sys.modules[name]
+    sys.meta_path.insert(0, Block())
+
+    out = {{}}
+    for name in MODULES + SCRIPTS:
+        try:
+            if name in SCRIPTS:
+                spec = importlib.util.spec_from_file_location(name, os.path.join("scripts", name + ".py"))
+                spec.loader.exec_module(importlib.util.module_from_spec(spec))
+            else:
+                importlib.import_module(name)
+            out[name] = "ok"
+        except Exception as e:
+            out[name] = repr(e)
+    out["leaked"] = sorted(m for m in sys.modules if blocked(m))
+    print(json.dumps(out))
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def imported_under_block():
+    """{name: "ok" or the exception}: the port's remaining modules and the twins with jax, flax, msgpack
+    and argus_tpu blocked; the host scripts (and argus_tpu.configs, their CLI) with jax and flax blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    runs = ((("jax", "jaxlib", "flax", "msgpack", "argus_tpu"), REMAINING_MODULES, SCRIPT_TWINS),
+            (("jax", "jaxlib", "flax"), ("argus_tpu.configs",), HOST_SCRIPTS))
+    out = {}
+    for blocked, modules, scripts in runs:
+        code = _IMPORT_EACH.format(blocked=blocked, modules=modules, scripts=scripts)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert not res.pop("leaked"), res
+        out.update(res)
+    return out
+
+
+@pytest.mark.parametrize("name", REMAINING_MODULES + SCRIPT_TWINS + ("argus_tpu.configs",) + HOST_SCRIPTS)
+def test_remaining_modules_and_scripts_import_without_jax(name, imported_under_block):
+    assert imported_under_block[name] == "ok", imported_under_block[name]
+
+
+@pytest.mark.parametrize("twin", SCRIPT_TWINS + HOST_SCRIPTS)
+def test_script_imports_nothing_of_jax_anywhere(twin):
+    """Also the imports inside functions, which importing the file does not run."""
+    src = open(os.path.join(REPO, "scripts", f"{twin}.py")).read()
+    banned = "jax|jaxlib|flax" if twin in HOST_SCRIPTS else "jax|jaxlib|flax|msgpack|argus_tpu"
+    assert not re.findall(rf"^\s*(import|from)\s+({banned})\b", src, re.M)
