@@ -42,17 +42,10 @@ from argus_tpu_torch.models.jax_import import (
 from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
 
 from test_torch_train import _check_leaves, _randomize_
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 LR = 1e-3
 MODEL = dict(n_cams=2, backbone="resnet18", resnet_output_dim=16, bn_frozen=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _batch(B=8, n_real=5, hw=(32, 32)):

@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from argus_tpu_torch.parallel.launch import run_ranks
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 HW, B, LR = 32, 8, 1e-4
 MASK = np.array([1, 1, 1, 1, 1, 0, 0, 0], np.float32)
@@ -50,16 +51,6 @@ CASES = {  # name: (model config fields, grad_accum_steps)
     "exact-xla-stride2": (dict(bn_stats_stride=2, bn_grad_stride=2), 1),
     "accum2": (FROZEN, 2),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two torch threads in this process while the module runs (the suite's
-    workers share the machine's cores with this file's rank processes)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _cfg(case: str, aug: bool):

@@ -8,16 +8,7 @@ import pytest
 import torch
 
 from argus_tpu_torch.dryrun import dryrun_multichip
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two torch threads in this process while the module runs (the suite's
-    workers share the machine's cores with this file's rank processes)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 
 def test_dryrun_multichip_two_ranks(capsys):

@@ -33,6 +33,7 @@ from argus_tpu_torch.checkpoint import save_checkpoint
 from argus_tpu_torch.models import NCameraCNN, NCameraCNNConfig
 from argus_tpu_torch.models.jax_import import variables_from_state_dict
 from argus_tpu_torch.serve import Estimator, ExportedEstimator, export_estimator
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = 64
@@ -70,15 +71,6 @@ def _keypoint_ckpt(path):
     rng = np.random.default_rng(1)
     tree = {"params": _perturbed(variables["params"], rng), "batch_stats": _perturbed(variables["batch_stats"], rng)}
     jax_save_checkpoint(path, tree, meta=checkpoint_meta(cfg, hw=(HW, HW)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two torch threads: the suite runs six files at once on the CPU."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

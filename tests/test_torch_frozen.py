@@ -8,11 +8,16 @@
   test_torch_kernels.py: f32 rtol 2e-4 / atol 1e-4, bf16 2e-2).
 - `frozen_stages=3` and `frozen_stages=1` train steps (ResNet-50 widths,
   32x32, two rows of which one is masked, f32, every fuse flag on, the
-  kernels' plain versions) against `make_train_step_body` with argus_tpu's
-  Pallas kernels in interpret mode, with tests/test_torch_train.py's f32
-  tolerances after one step (loss 1e-5; moments and updates 5e-3 / 2e-2
-  per leaf and in the median). A spy confirms that argus_tpu took
-  `_stem_fwd_packed_pallas` and the port its packed entry.
+  kernels' plain versions) against `make_train_step_body`, with
+  tests/test_torch_train.py's f32 tolerances after one step (loss 1e-5;
+  moments and updates 5e-3 / 2e-2 per leaf and in the median). At
+  `frozen_stages=3`, whose step reaches every kernel that 1's does and the
+  no-save chain of the frozen stages besides, argus_tpu runs its Pallas
+  kernels in interpret mode and a spy confirms that it took
+  `_stem_fwd_packed_pallas`; at 1 its fused ops take their XLA route (the
+  math its own tests hold the kernels against) and the spy confirms that
+  its stem was asked for the packed layout. The port takes its packed
+  entry in both.
 - C2: fresh kernels are flax's truncated `lecun_normal` (std within 3% of
   fan_in^-1/2, max |w| sqrt(fan_in) <= 2.28, the truncation at 2 / 0.8796).
 - C1: "auto" reads `AUTO_FUSE` per function and mode on a CUDA tensor and
@@ -43,20 +48,10 @@ from argus_tpu_torch.ops.kernels import stem_fused as ts
 from argus_tpu_torch.train import TrainConfig, _init_, create_train_state, make_train_step
 from test_torch_kernels import BF16_TOL, DTYPES, F32_TOL, _check, _conv_bn, _j, _t
 from test_torch_train import FUSE, TOL, _check_leaves, _pallas_everywhere, _randomize_
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 HW = 32
 LR = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads while this module runs: the suite's workers
-    share the machine's cores, and more threads each only oversubscribe
-    them. The previous count comes back after the module."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -106,12 +101,16 @@ def test_frozen_stages_step_matches_argus_tpu(frozen_stages, tmp_path, monkeypat
                            opt_state=jax_make_optimizer(1.0).init(params), lr=jnp.asarray(LR, jnp.float32))
     jax_packed = []
     with pytest.MonkeyPatch.context() as mp:
-        _pallas_everywhere(mp)
-        packed = js._stem_fwd_packed_pallas
-        mp.setattr(js, "_stem_fwd_packed_pallas", lambda *a, **k: jax_packed.append(1) or packed(*a, **k))
+        if frozen_stages == 3:  # against the Pallas kernels
+            _pallas_everywhere(mp)
+            packed = js._stem_fwd_packed_pallas
+            mp.setattr(js, "_stem_fwd_packed_pallas", lambda *a, **k: jax_packed.append(1) or packed(*a, **k))
+        else:
+            stem = js.fused_stem_pool
+            mp.setattr(js, "fused_stem_pool", lambda *a, **k: jax_packed.append(k["packed_out"]) or stem(*a, **k))
         step = jax.jit(make_train_step_body(JaxNCameraCNN(JaxConfig(**kw)), jcfg, 0))
         jstate, jloss = step(jstate, jax.tree_util.tree_map(jnp.asarray, _batch()))
-    assert jax_packed, "argus_tpu did not take the packed stem"
+    assert any(jax_packed), "argus_tpu did not take the packed stem"
     adam = jstate.opt_state[1]
     _, w_mu, w_nu = adam_moments_from_optax(adam.count, jax.device_get(adam.mu), jax.device_get(adam.nu))
     want = state_dict_from_variables(jax.device_get(jstate.params), {})

@@ -213,7 +213,7 @@ REMAINING_MODULES = ("argus_tpu_torch.datagen", "argus_tpu_torch.data.streaming"
                      "argus_tpu_torch.models.torch_import", "argus_tpu_torch.profiling",
                      "argus_tpu_torch.models.pose_cnn")
 SCRIPT_TWINS = ("timing_torch", "throughput_torch", "rotation_overfitting_torch", "view_augmentations_torch",
-                "verify_torch_import_torch", "convergence_ab_torch")
+                "verify_torch_import_torch", "convergence_ab_torch", "make_mujoco_scene_torch")
 HOST_SCRIPTS = ("mujoco_rendering", "mesh_conversion")
 
 _IMPORT_EACH = textwrap.dedent(

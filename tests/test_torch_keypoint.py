@@ -19,9 +19,13 @@ in f32.
 The train step: one step of the port's `make_train_step` on the fused
 frozen-BN configuration of the keypoint bring-up (frozen BN + affine +
 stem, `fuse_block`/`fuse_stem` "on", full backprop) against argus_tpu's
-`make_train_step_body` with its BasicBlock and stem kernels in Pallas
-interpret mode, in f32 and bf16 (`amp`), compared leaf by leaf as in
-tests/test_torch_train.py. Tolerances there.
+`make_train_step_body`, in f32 and bf16 (`amp`), compared leaf by leaf
+as in tests/test_torch_train.py. Tolerances there. In bf16 argus_tpu runs
+its BasicBlock and stem kernels in Pallas interpret mode (the rounding
+points are the kernels'); in f32 its fused ops take their XLA route, the
+math argus_tpu's own tests hold the kernels against (the port's plain
+versions are held against the interpret-mode kernels by
+tests/test_torch_basic_fused.py and tests/test_torch_kernels.py).
 """
 
 import dataclasses
@@ -50,7 +54,9 @@ from argus_tpu_torch.models.jax_import import (
 )
 from argus_tpu_torch.models.keypoint_net import CubeKeypointNet, CubeKeypointNetConfig
 from argus_tpu_torch.ops.norm import BatchNorm
-from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
+from argus_tpu_torch.train import TrainConfig, make_train_step
+from test_torch_train import _created
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 HW = 64
 LR = 1e-4
@@ -347,7 +353,7 @@ def _batch():
 def _port(amp):
     cfg = TrainConfig(model_type="keypoint", keypoint_config=CubeKeypointNetConfig(**SMALL, **FUSED), amp=amp,
                       use_augmentation=False, learning_rate=LR)
-    model, state = create_train_state(cfg, seed=0, device="cpu")
+    model, state = _created(cfg, seed=0)
     _randomize_(model, seed=1)
     return cfg, model, state
 
@@ -355,14 +361,15 @@ def _port(amp):
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """argus_tpu's loss, Adam state and params after one step of the
-    keypoint train step (BasicBlock and stem kernels in Pallas interpret
-    mode: `basic_fused` imports `_use_pallas` by name, so it is patched
-    there too), from the port's initial state converted; once per dtype."""
+    keypoint train step, from the port's initial state converted; once per
+    dtype. With `pallas` its BasicBlock and stem kernels run in Pallas
+    interpret mode (`basic_fused` imports `_use_pallas` by name, so it is
+    patched there too), else its fused ops take their XLA route."""
     cache = {}
 
-    def run(amp):
-        if amp in cache:
-            return cache[amp]
+    def run(amp, pallas):
+        if (amp, pallas) in cache:
+            return cache[amp, pallas]
         cfg, model, _ = _port(amp)
         params, stats = variables_from_state_dict(model.state_dict())
         jkcfg = jkp.CubeKeypointNetConfig(**SMALL, **FUSED)
@@ -376,17 +383,20 @@ def reference(tmp_path_factory):
         )
         hits = []
         with pytest.MonkeyPatch.context() as mp:
-            for mod in (jb, jbf, js):
-                mp.setattr(mod, "_use_pallas", lambda impl: impl != "xla")
+            if pallas:
+                for mod in (jb, jbf, js):
+                    mp.setattr(mod, "_use_pallas", lambda impl: impl != "xla")
             orig = jbf._fwd_pallas
             mp.setattr(jbf, "_fwd_pallas", lambda *a, **k: (hits.append(k.get("save")), orig(*a, **k))[1])
             step = jax.jit(make_train_step_body(jmodel, jcfg, 0, hw=(HW, HW)))
             state, loss = step(state, jax.tree_util.tree_map(jnp.asarray, _batch()))
-        assert hits.count(True) == 5, hits  # the five identity blocks took the saving Pallas kernel
+        # the five identity blocks took the saving Pallas kernel; on the XLA route no block took one
+        assert (hits.count(True) == 5) if pallas else not hits, hits
         adam = state.opt_state[1]
-        cache[amp] = (float(loss), adam_moments_from_optax(adam.count, jax.device_get(adam.mu), jax.device_get(adam.nu)),
-                      state_dict_from_variables(jax.device_get(state.params), {}))
-        return cache[amp]
+        cache[amp, pallas] = (
+            float(loss), adam_moments_from_optax(adam.count, jax.device_get(adam.mu), jax.device_get(adam.nu)),
+            state_dict_from_variables(jax.device_get(state.params), {}))
+        return cache[amp, pallas]
 
     return run
 
@@ -395,7 +405,7 @@ def reference(tmp_path_factory):
 def test_keypoint_train_step_matches_argus_tpu(reference, amp):
     from test_torch_train import _check_leaves
 
-    w_loss, (w_count, w_mu, w_nu), w_params = reference(amp)
+    w_loss, (w_count, w_mu, w_nu), w_params = reference(amp, pallas=amp)  # bf16 against the Pallas kernels
     cfg, model, state = _port(amp)
     p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     state, loss = make_train_step(model, cfg, hw=(HW, HW), device="cpu")(state, _batch())

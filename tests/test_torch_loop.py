@@ -58,19 +58,9 @@ from argus_tpu_torch.models.jax_import import (
 from argus_tpu_torch.ops.augment import AugmentationConfig
 from argus_tpu_torch.train import ReduceLROnPlateau, TrainConfig, create_train_state, make_eval_step, \
     make_train_step
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 SMALL = dict(backbone="resnet18", resnet_output_dim=16)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads while this module runs: the suite's workers
-    share the machine's cores, and more threads each only oversubscribe
-    them. The previous count comes back after the module."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def test_plateau_schedule_matches_argus_tpu():

@@ -22,18 +22,9 @@ import pytest
 import torch
 
 from argus_tpu_torch.parallel.launch import run_ranks
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 HW, N_TRAIN, N_VAL, B = 32, 10, 4, 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two torch threads in this process while the module runs (the suite's
-    workers share the machine's cores with this file's rank processes)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 class _Frames:

@@ -41,6 +41,7 @@ from argus_tpu_torch.ops.kernels import bn_reduce
 from test_torch_pointwise import argus_loss_grads, assert_grads, check_step, port_loss_grads, step_pair, tiny_models
 from test_torch_train import _pallas_everywhere, _randomize_
 from test_torch_train_bn import STATS_TOL, TOL_EXACT
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 
 def _block_inputs(dtype, n=2, h=6, w=5, cin=32, f=8, seed=0):

@@ -45,17 +45,10 @@ from argus_tpu_torch.models import keypoint_net as kn
 from argus_tpu_torch.models.jax_import import state_dict_from_variables
 from argus_tpu_torch.ops.augment import AugmentationConfig
 from argus_tpu_torch.train import TrainConfig, create_train_state, make_resident_epoch_step, make_train_step
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 SMALL = dict(backbone="resnet18", resnet_output_dim=16)
 PER_EXAMPLE = 32 * 32 * 6 + 28
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -12,18 +12,10 @@ import os
 import numpy as np
 import pytest
 import torch
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """The suite's workers share the machine's cores; more torch threads
-    each only oversubscribe them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 TWINS = {  # twin -> (original, config class)
     "timing_torch": ("timing", "TimingConfig"),

@@ -28,6 +28,7 @@ from argus_tpu_torch.serve import (
     serving_tuned_config,
     throughput_tuned_config,
 )
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 HW = 64
 
@@ -95,10 +96,17 @@ def test_batched_bf16_estimator_matches_argus_tpu(resnet50_ckpt):
     np.testing.assert_allclose(est.predict(batch, wxyz=True)[:, 3], got[:, 6])
 
 
-def test_latency_f32_estimator_matches_argus_tpu(resnet50_ckpt):
+@pytest.fixture(scope="module")
+def latency_estimator(resnet50_ckpt):
+    """The port's batch-1 Estimator on the checkpoint, made once; the cases
+    that use it only predict."""
+    return Estimator(resnet50_ckpt, batch_size=1, device="cpu")
+
+
+def test_latency_f32_estimator_matches_argus_tpu(resnet50_ckpt, latency_estimator):
     """Batch 1: f32, every fused path off, plain convolutions on both sides."""
     jax_est = JaxEstimator(resnet50_ckpt, batch_size=1)
-    est = Estimator(resnet50_ckpt, batch_size=1, device="cpu")
+    est = latency_estimator
     assert est.cfg.dtype == "float32" and est.cfg.fuse_block == "off"
     batch = _batch(1, seed=2)
     np.testing.assert_allclose(est.predict(batch), jax_est.predict(batch), atol=1e-4, rtol=0)
@@ -194,7 +202,7 @@ def test_keypoint_estimator_matches_argus_tpu(keypoint_ckpt, batch_size):
     np.testing.assert_allclose(np.linalg.norm(got[:, 3:], axis=-1), 1.0, atol=1e-5)
 
 
-def test_predict_rejects_bad_input(resnet50_ckpt):
-    est = Estimator(resnet50_ckpt, batch_size=1, device="cpu")
+def test_predict_rejects_bad_input(latency_estimator):
+    est = latency_estimator
     with pytest.raises(ValueError):
         est.predict(_batch(1).astype(np.float32))

@@ -14,16 +14,7 @@ import torch
 
 from argus_tpu.data.streaming import StreamingRenderLoader as JaxLoader
 from argus_tpu_torch.data import StreamingRenderLoader
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """The suite's workers share the machine's cores; more torch threads
-    each only oversubscribe them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 
 def _source(seed=0, hw=32):

@@ -22,19 +22,10 @@ import torch
 
 from argus_tpu_torch.parallel.launch import run_ranks
 from test_torch_dp import B, HW, _batch, _cfg, _check, _clone, _digest, _initial
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 CASE = "frozen"
 CLIP = 0.01
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two torch threads in this process while the module runs (the suite's
-    workers share the machine's cores with this file's rank processes)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _tp_cfg(k: int):

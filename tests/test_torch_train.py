@@ -1,8 +1,8 @@
 """The port's training step (argus_tpu_torch.train) against argus_tpu's.
 
 One and two steps of the port's `make_train_step` on the CPU against
-`argus_tpu.train.make_train_step_body` with the fused kernels in Pallas
-interpret mode, from one state: ResNet-50 NCameraCNN (output dim 32), 64x64,
+`argus_tpu.train.make_train_step_body`, from one state: ResNet-50
+NCameraCNN (output dim 32), 64x64,
 two rows of which one is masked, frozen BN and stem, full backprop, every
 fuse flag on, BN buffers and scales randomised (with the zero-initialised
 BatchNorm_2 scales a broken backward would hide behind zero gradients) and
@@ -11,8 +11,16 @@ are compared leaf by leaf, in f32 and bf16 (`amp`) without augmentation,
 and for one bf16 step with argus_tpu's default augmentation (the per-op
 path with the blur kernel on the CPU, both sides; the port's sampler
 returns argus_tpu's parameters for `fold_in(PRNGKey(0), 0)`).
-Also: the optimizer against optax, the Adam-state bridge, and the entry
-points' refusals.
+argus_tpu's fused ops run as Pallas kernels in interpret mode in the
+augmented case, the step's most complete one, and through their XLA route
+(the math argus_tpu's own tests hold each Pallas kernel against) in the f32
+and bf16 cases; each kernel's plain version in the port is held against its
+interpret-mode Pallas kernel by tests/test_torch_kernels.py. A case's
+reference and its port side start from one created state, copied
+(`_created`). Also: the optimizer against optax, the Adam-state bridge, the
+entry points' refusals, and at 32x32 (what they hold does not depend on the
+size) the augmentation stream of a resumed state and the frozen stages'
+gradients.
 
 Tolerances. Moments are compared per leaf as |port - ref| / |ref| (2-norms),
 the params through their update, |p_port - p_ref| / |p_ref - p_0|, after
@@ -34,6 +42,7 @@ steps 1 and 2; the step count and the frozen leaves' zero moments exactly:
   0.4 in the median (measured 0.32 and 0.25).
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -71,6 +80,7 @@ from argus_tpu_torch.train import (
     make_optimizer,
     make_train_step,
 )
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 LR = 1e-4
 FUSE = dict(fuse_block="on", fuse_proj="on", fuse_stem="on", fuse_stage="on")
@@ -84,6 +94,22 @@ TOL = {
     False: dict(loss=1e-5, moments=[(5e-3, 5e-3), (5e-2, 5e-2)], update=[(2e-2, 2e-2), (5e-2, 5e-2)]),
     True: dict(loss=1e-2, moments=[(0.3, 0.1), (0.4, 0.15)], update=[(0.6, 0.4), (0.6, 0.4)]),
 }
+
+
+_CREATED = {}
+
+
+def _created(cfg, **kw):
+    """`create_train_state(cfg, device="cpu", **kw)`, deep-copied from the
+    last one made when the configuration is the same: the same weights and
+    state, bit for bit, for each caller to step or change. (A reference and
+    the port's side of a case ask for the same state in turn; one state is
+    kept, so the cache holds one ResNet-50 and its moments at most.)"""
+    key = repr((cfg, sorted(kw.items())))
+    if key not in _CREATED:
+        _CREATED.clear()
+        _CREATED[key] = create_train_state(cfg, device="cpu", **kw)
+    return copy.deepcopy(_CREATED[key])
 
 
 def _randomize_(model, seed):
@@ -106,13 +132,13 @@ def _randomize_(model, seed):
                     mod.bias.copy_(0.01 * torch.randn(mod.bias.shape, generator=g))
 
 
-def _batch():
+def _batch(hw=64):
     rng = np.random.default_rng(3)
     poses = np.array([[0.05, -0.1, 0.3, 0.1, 0.2, -0.1, 0.0], [0.2, 0.1, -0.2, 0.0, 0.6, 0.0, 0.8]],
                      np.float32)
     poses[0, 3:] = [0.1, 0.2, -0.1, np.sqrt(1 - 0.06)]
     return {
-        "images": rng.integers(0, 256, (2, 64, 64, 6), dtype=np.uint8),
+        "images": rng.integers(0, 256, (2, hw, hw, 6), dtype=np.uint8),
         "cube_pose": poses,
         "mask": np.array([1.0, 0.0], np.float32),  # the second row is padding
     }
@@ -121,7 +147,7 @@ def _batch():
 def _port(amp, aug=False):
     cfg = TrainConfig(model_config=NCameraCNNConfig(**MODEL), amp=amp, use_augmentation=aug,
                       learning_rate=LR)
-    model, state = create_train_state(cfg, seed=0, device="cpu")
+    model, state = _created(cfg, seed=0)
     _randomize_(model, seed=1)
     return cfg, model, state
 
@@ -137,12 +163,14 @@ def _pallas_everywhere(mp):
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """argus_tpu's loss, Adam state and params after one and two steps, per
-    dtype, from the port's initial state converted; computed once."""
+    dtype, from the port's initial state converted; computed once. The
+    fused ops run as Pallas kernels in interpret mode with `pallas`, else
+    through their XLA route ("on" off the TPU)."""
     cache = {}
 
-    def run(amp, aug=False):
-        if (amp, aug) in cache:
-            return cache[amp, aug]
+    def run(amp, aug=False, pallas=False):
+        if (amp, aug, pallas) in cache:
+            return cache[amp, aug, pallas]
         cfg, model, _ = _port(amp, aug)
         params, stats = variables_from_state_dict(model.state_dict())
         jcfg = JaxTrainConfig(
@@ -159,7 +187,8 @@ def reference(tmp_path_factory):
         batch = jax.tree_util.tree_map(jnp.asarray, _batch())
         out = []
         with pytest.MonkeyPatch.context() as mp:
-            _pallas_everywhere(mp)
+            if pallas:
+                _pallas_everywhere(mp)
             step = jax.jit(make_train_step_body(jmodel, jcfg, 0))
             for _ in range(1 if aug else 2):
                 state, loss = step(state, batch)
@@ -169,7 +198,7 @@ def reference(tmp_path_factory):
                     adam_moments_from_optax(adam.count, jax.device_get(adam.mu), jax.device_get(adam.nu)),
                     state_dict_from_variables(jax.device_get(state.params), {}),
                 ))
-        cache[amp, aug] = out
+        cache[amp, aug, pallas] = out
         return out
 
     return run
@@ -198,7 +227,7 @@ def _check_leaves(got: dict, want: dict, tol, what, base=None):
 @pytest.mark.parametrize("amp,aug", [(False, False), (True, False), (True, True)],
                          ids=["f32", "bf16", "bf16-augmented"])
 def test_train_step_matches_argus_tpu(reference, monkeypatch, amp, aug):
-    want = reference(amp, aug)
+    want = reference(amp, aug, pallas=aug)  # the augmented case against the Pallas kernels
     cfg, model, state = _port(amp, aug)
     if aug:
         from test_torch_augment import jax_params
@@ -239,7 +268,7 @@ def test_resumed_state_continues_the_augmentation_stream(monkeypatch):
         state.step = start
         step = make_train_step(model, cfg, base_seed=3, device="cpu")
         for _ in range(n_steps):
-            state, loss = step(state, _batch())
+            state, loss = step(state, _batch(32))
             assert torch.isfinite(loss)
         assert state.step == start + n_steps
         out = [(p.jiggle, p.arcs, p.plasma[0]) for p in applied]
@@ -252,7 +281,7 @@ def test_resumed_state_continues_the_augmentation_stream(monkeypatch):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert not torch.equal(whole[2][0], whole[3][0])
-    first = TA.sample_params(cfg.augmentation_config, TA.fold_in(3, 0), 2, 2, 64, 64, "cpu", torch.float32)
+    first = TA.sample_params(cfg.augmentation_config, TA.fold_in(3, 0), 2, 2, 32, 32, "cpu", torch.float32)
     assert torch.equal(whole[0][0], first.jiggle) and torch.equal(whole[0][1], first.arcs)
 
 
@@ -334,7 +363,7 @@ def test_frozen_stages_stop_gradients():
     )
     model, state = create_train_state(cfg, device="cpu")
     _randomize_(model, seed=2)
-    state, loss = make_train_step(model, cfg, device="cpu")(state, _batch())
+    state, loss = make_train_step(model, cfg, device="cpu")(state, _batch(32))
     assert torch.isfinite(loss)
     for k, v in state.opt_state.mu.items():
         frozen = "conv_init" in k or "stage0_" in k or "stage1_" in k or "BatchNorm" in k or "norm_" in k

@@ -29,20 +29,10 @@ from argus_tpu.data import CameraCubePoseDatasetConfig as JaxDatasetConfig  # no
 from argus_tpu.ops.augment import AugmentationConfig as JaxAugmentationConfig  # noqa: E402
 from argus_tpu_torch.data import CameraCubePoseDatasetConfig  # noqa: E402
 from argus_tpu_torch.ops.augment import AugmentationConfig  # noqa: E402
+from _torch_threads import _two_threads  # noqa: E402, F401  (autouse, this module)
 from test_torch_export import HW, _assert_poses_close, _keypoint_ckpt, _pose_cnn_ckpt  # noqa: E402
 
 FAMILIES = {"pose_cnn": _pose_cnn_ckpt, "keypoint": _keypoint_ckpt}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two torch threads: the suite runs six files at once on the CPU."""
-    import torch
-
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module", params=list(FAMILIES))

@@ -17,18 +17,9 @@ from argus_tpu_torch.models.jax_import import state_dict_from_variables, variabl
 from argus_tpu_torch.models.resnet import BACKBONES
 from argus_tpu_torch.models.torch_import import conv1_kernel_to_s2d, load_torch_resnet, \
     translate_torch_resnet_state_dict
+from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """The suite's workers share the machine's cores; more torch threads
-    each only oversubscribe them."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _twin():
