@@ -282,7 +282,29 @@ Phases, each fatal on failure (nothing is caught and ignored):
    names the annotation, the augmentation kernel and a wgmma engine kernel
    (a window the profiler returns without kernel records is traced again,
    up to 5 times); `profile_fn`'s mean, p50 and p95 of the step;
-21. the `kernels` JSON line, the card's name and power limit, and the result
+21. argus_tpu's default training configuration (`TrainConfig()` and
+   `NCameraCNNConfig()` as shipped: exact BN on "xla", f32, batch 32, the
+   fused augmentation with 10 arcs), 2 epochs, no metrics service: its f32
+   kernels at its shapes (`fused_stats` and `fused_bn_bwd_reduce` at each
+   distinct (M, C) of the 53 BatchNorms at N = 64 images, strides 1 and 4,
+   under phase 4's BN_RTOL; `augment_fused` at 64 images under phase 5's
+   f32 gate; times beside the plain versions, the library calls and the
+   bounds); one step on 8 seeded noise rows with TF32 off against the
+   port's step on the CPU from the same weights (loss 1e-5, gradients and
+   the running statistics' change under Path B's gates), and "auto" (53 +
+   53 reduction launches) against "xla" on the card under Path B's gates;
+   a resident epoch of 200 examples (the last batch padded) replayed as a
+   CUDA graph against the same epoch eager, for "xla" and "auto" (the
+   loop phase's gates, the running statistics and Adam moments compared
+   too, launches 1 augment a step, plus 53 + 53 under "auto", bit-equality
+   printed); then `train()` over 1,000 + 160 of the loop phase's rendered
+   examples (31 full batches and one padded) resident and on shard swaps
+   (LOOP_SHARD_MB, a padded batch in each shard), each 2 epochs and 1
+   resumed, under the loop phase's checks with exact launch counts;
+   camera-images/s of the second epoch and the resumed pass beside the
+   compute-only step, and the replayed step beside the eager one; the TF32
+   flags on every line (the epochs and `train()` under torch's defaults);
+22. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the blur and the augmentation
@@ -373,6 +395,7 @@ EXPECTED_KP_EVAL_LAUNCHES = {**_NONE, "stem_fused": 1, "basic_fused": 5}
 EXPECTED_STEM_LAUNCHES = {**EXPECTED_TRAIN_LAUNCHES, "stem_fused": 0, "stem_fused_save": 1, "stem_fused_bwd": 1}
 # exact BN (Path B): every BN of ResNet-50 reduces once each way; no conv kernel
 EXPECTED_EXACT_LAUNCHES = {**_NONE, "augment_fused": 1, "bn_stats": 53, "bn_bwd_reduce": 53}
+EXPECTED_EXACT_XLA_LAUNCHES = {**_NONE, "augment_fused": 1}  # the same with bn_impl="xla"
 # Path B against its "xla" twin on 8 rows: loss, per-parameter gradients (max,
 # median over parameters) and the running statistics' change (max, median
 # over buffers), relative 2-norms: the two engines reduce in other orders and
@@ -1361,6 +1384,17 @@ def _ulp_compare(name, got, want) -> float:
     return err.max().item()
 
 
+def _bn_close(name, got, want, scale):
+    """A BN reduction's sums against the plain version's within BN_RTOL of
+    each channel's sum of magnitudes: (max relative, max absolute)."""
+    err = (got - want).abs()
+    bad = err > BN_RTOL * scale + 1e-6
+    if bool(bad.any()) or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: {int(bad.sum())} channels beyond {BN_RTOL} of their sum of magnitudes, "
+                             f"max rel {(err / scale.clamp(min=1e-30)).max().item():.3g}")
+    return (err / scale.clamp(min=1e-30)).max().item(), err.max().item()
+
+
 def stem_bn_kernel_phase() -> dict:
     """The trained stem's two kernels at the flagship's shapes (N = 512,
     256x256) and BatchNorm's two reductions at every distinct (M, C) of
@@ -1472,14 +1506,6 @@ def stem_bn_kernel_phase() -> dict:
     del xs, os_, ys, gs
     torch.cuda.empty_cache()
 
-    def bn_close(name, got, want, scale):
-        err = (got - want).abs()
-        bad = err > BN_RTOL * scale + 1e-6
-        if bool(bad.any()) or not bool(got.isfinite().all()):
-            raise AssertionError(f"{name}: {int(bad.sum())} channels beyond {BN_RTOL} of their sum of magnitudes, "
-                                 f"max rel {(err / scale.clamp(min=1e-30)).max().item():.3g}")
-        return (err / scale.clamp(min=1e-30)).max().item(), err.max().item()
-
     stats = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, peak=PEAK_F32)
     one_kernel = {"bn_stats": 0, "bn_bwd_reduce": 0}  # cases whose profiled calls showed one stream kernel each
     bwd = dict(stats)
@@ -1501,16 +1527,16 @@ def stem_bn_kernel_phase() -> dict:
             p_s, p_q, p_n = bn_reduce.fused_stats_plain(xb, stride)
             if k_n != p_n:
                 raise AssertionError(f"bn_stats ({m}, {c}) stride {stride}: n_rows {k_n} != plain {p_n}")
-            (r1, a1), (r2, a2) = bn_close("bn_stats sum", k_s, p_s, xa.sum(0)), \
-                bn_close("bn_stats sumsq", k_q, p_q, (xa * xa).sum(0))
+            (r1, a1), (r2, a2) = _bn_close("bn_stats sum", k_s, p_s, xa.sum(0)), \
+                _bn_close("bn_stats sumsq", k_q, p_q, (xa * xa).sum(0))
             e1, e1_abs = max(r1, r2), max(a1, a2)
             k_d, k_dx, k_n2 = bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride)
             p_d, p_dx, p_n2 = bn_reduce.fused_bn_bwd_reduce_plain(xb, dy, mean, rstd, stride)
             if k_n2 != p_n2 or k_n2 != k_n:
                 raise AssertionError(f"bn_bwd_reduce ({m}, {c}) stride {stride}: n_rows {k_n2} != plain {p_n2}")
             xh = ((rows.float() - mean) * rstd).abs()
-            (r1, a1), (r2, a2) = bn_close("bn_bwd_reduce sum dy", k_d, p_d, da.sum(0)), \
-                bn_close("bn_bwd_reduce sum dy*xhat", k_dx, p_dx, (da * xh).sum(0))
+            (r1, a1), (r2, a2) = _bn_close("bn_bwd_reduce sum dy", k_d, p_d, da.sum(0)), \
+                _bn_close("bn_bwd_reduce sum dy*xhat", k_dx, p_dx, (da * xh).sum(0))
             e2, e2_abs = max(r1, r2), max(a1, a2)
             again = bn_reduce.fused_stats(xb, stride), bn_reduce.fused_bn_bwd_reduce(xb, dy, mean, rstd, stride)
             if not all(torch.equal(a, b) for a, b in zip((k_s, k_q, k_d, k_dx), again[0][:2] + again[1][:2])):
@@ -1840,17 +1866,24 @@ def flagship_train_setup(**model_overrides):
     model, state = create_train_state(cfg, seed=0)
     _randomize_(model, seed=0)  # in place: the state holds the same parameters
     g = torch.Generator(device="cuda").manual_seed(2)
-    rng = np.random.default_rng(2)
-    axis = rng.normal(size=(N_ROWS, 3))
-    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
-    angle = rng.uniform(0.0, 1.0, (N_ROWS, 1))
-    poses = np.concatenate([rng.normal(0, 0.3, (N_ROWS, 3)), axis * np.sin(angle / 2), np.cos(angle / 2)], 1)
     batch = {
         "images": torch.randint(0, 256, (N_ROWS, HW, HW, 6), generator=g, device="cuda", dtype=torch.uint8),
-        "cube_pose": torch.from_numpy(poses.astype(np.float32)).cuda(),
+        "cube_pose": torch.from_numpy(_random_poses(np.random.default_rng(2), N_ROWS)).cuda(),
         "mask": torch.ones(N_ROWS, device="cuda"),
     }
     return cfg, model, state, batch
+
+
+def _random_poses(rng, n: int):
+    """(n, 7) f32 non-identity poses (xyz, then an xyzw quaternion of a
+    random axis and an angle below 1 rad) drawn from `rng`."""
+    import numpy as np
+
+    axis = rng.normal(size=(n, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    angle = rng.uniform(0.0, 1.0, (n, 1))
+    return np.concatenate([rng.normal(0, 0.3, (n, 3)), axis * np.sin(angle / 2), np.cos(angle / 2)], 1).astype(
+        np.float32)
 
 
 def train_phase() -> tuple:
@@ -2092,9 +2125,8 @@ def path_b_phase() -> tuple:
         torch.cuda.empty_cache()
     if runs["auto"][0] != EXPECTED_EXACT_LAUNCHES:
         raise AssertionError(f"path B launch counts {runs['auto'][0]} != expected {EXPECTED_EXACT_LAUNCHES}")
-    want_xla = {**_NONE, "augment_fused": 1}
-    if runs["xla"][0] != want_xla:
-        raise AssertionError(f"path B (xla) launch counts {runs['xla'][0]} != expected {want_xla}")
+    if runs["xla"][0] != EXPECTED_EXACT_XLA_LAUNCHES:
+        raise AssertionError(f"path B (xla) launch counts {runs['xla'][0]} != expected {EXPECTED_EXACT_XLA_LAUNCHES}")
     say(f"path B: exact BN {runs['auto'][1]:.2f} ms/step with the reduction kernels, {runs['xla'][1]:.2f} ms/step "
         f"with xla reductions, in this call")
     del model, twin, state, twin_state, runs["xla"]
@@ -2771,11 +2803,13 @@ def _loop_runs(cfg, datasets):
     return first, resumed, [r.records for r in _Recorder.runs], launches, ready, (t_first, t_resumed)
 
 
-def _check_loop(label, cfg, first, resumed, runs, launches, per_epoch, times):
+def _check_loop(label, cfg, first, resumed, runs, launches, per_epoch, times, want_launches=None):
     """The loop's checks: finite losses and val losses, the step count
-    continuing (2 epochs, then 3), every kernel "auto" names for this path
-    launched (`stem_fused_packed` once a train step and once a val batch),
-    the first file restoring bit-equal into a fresh `TrainState`."""
+    continuing (2 epochs, then 3), the first file restoring bit-equal into
+    a fresh `TrainState` (running statistics and Adam moments included),
+    and the first run's launches: `want_launches` exactly where given, else
+    (the fine-tune) every kernel "auto" names for this path launched
+    (`stem_fused_packed` once a train step and once a val batch)."""
     import numpy as np
 
     from argus_tpu_torch.checkpoint import load_checkpoint, train_state_tree
@@ -2794,11 +2828,15 @@ def _check_loop(label, cfg, first, resumed, runs, launches, per_epoch, times):
     if not (np.isfinite(losses[0] + losses[1]).all() and np.isfinite(vals[0] + vals[1]).all()
             and len(vals[0]) == 2 and len(vals[1]) == 1):
         raise AssertionError(f"loop ({label}): non-finite or missing losses {losses} {vals}")
-    want = {k for k, v in _expected_launches(3, stem_trained=False).items() if v}
-    want |= {k for k, v in _expected_launches(3, stem_trained=False, serving=True).items() if v}
-    missed = sorted(k for k in want if not launches[k])
-    if missed or launches["stem_fused_packed"] != 2 * (per_epoch + LOOP_VAL_BATCHES):
-        raise AssertionError(f"loop ({label}): kernels of the path not launched {missed} (launches {launches})")
+    if want_launches is not None:
+        if launches != want_launches:
+            raise AssertionError(f"loop ({label}): launches {launches} != expected {want_launches}")
+    else:
+        want = {k for k, v in _expected_launches(3, stem_trained=False).items() if v}
+        want |= {k for k, v in _expected_launches(3, stem_trained=False, serving=True).items() if v}
+        missed = sorted(k for k in want if not launches[k])
+        if missed or launches["stem_fused_packed"] != 2 * (per_epoch + LOOP_VAL_BATCHES):
+            raise AssertionError(f"loop ({label}): kernels of the path not launched {missed} (launches {launches})")
 
     _, fresh = create_train_state(cfg, seed=5)
     load_checkpoint(first, target=fresh)
@@ -2910,92 +2948,134 @@ def loop_phase(tmpdir: str) -> dict:
         f"{WARMUP_STEPS} eager steps and the capture); the second epoch's window runs from epoch 0's val loss "
         f"to epoch 1's losses, while epoch 0's file is written; host clock. AsyncCheckpointer.save holds the "
         f"caller {hold_ms:.1f} ms, the write ends {write_ms:.0f} ms after")
-    _captured_vs_eager(base, sets)
+    _captured_vs_eager(base, sets, _expected_launches(3, stem_trained=False), "loop:")
     return dict(compute_ms=compute_ms, paths=out, config=base, sets=sets)
 
 
-def _captured_vs_eager(cfg, sets, mesh=None) -> None:
+def _captured_vs_eager(cfg, sets, per_step: dict, label: str, mesh=None, n: int = None) -> dict:
     """One resident epoch replayed as a CUDA graph against the same epoch
-    (one state, one order) run eagerly on the card: epoch 0 captures
-    (WARMUP_STEPS eager steps first), epoch 1 is replayed from a snapshot of
-    the state, then the snapshot is restored in place and the per-step path
-    (`make_train_step`) is fed epoch 1's order, gathered on the card.
-    Losses within phase 6's loss gate; the parameters' change per leaf
-    within its gradient gates (max, median over leaves); the replayed
-    epoch's launches, counted through the replays, those of its "auto"
-    steps. Prints the largest differences and whether the two epochs are
-    bit-equal. With a `mesh` both run its data-parallel step (the graph
-    then holds the step's all-reduce)."""
+    (one state, one order) run eagerly on the card, over the first `n`
+    examples of the split (all by default) at `cfg.batch_size`: epoch 0
+    captures (WARMUP_STEPS eager steps first), epoch 1 is replayed from a
+    snapshot of the state, then the snapshot is restored in place and the
+    per-step path (`make_train_step`) is fed epoch 1's batches
+    (`epoch_batches`: the order padded with its own first entries, mask 0),
+    gathered on the card. Losses within phase 6's loss gate; the change of
+    each parameter and Adam moment within its gradient gates (max, median
+    over tensors) and of each running statistic within Path B's statistics
+    gates; a tensor that the eager epoch leaves as it was (frozen BN, frozen
+    stages) must be left bit-equal; the replayed epoch's launches, counted
+    through the replays, `per_step` a step. Prints the largest differences,
+    whether the two epochs are bit-equal and a step's ms of each, by CUDA
+    events and by the host clock (each epoch synchronised once), with the
+    TF32 flags. With a `mesh` both run its data-parallel step (the graph
+    then holds the step's all-reduce). Returns a step's ms by CUDA events,
+    {"replayed": ms, "eager": ms}."""
     import torch
 
     from argus_tpu_torch.ops import kernels
-    from argus_tpu_torch.train import create_train_state, epoch_permutation, make_resident_epoch_step, \
-        make_train_step
+    from argus_tpu_torch.train import create_train_state, epoch_batches, epoch_permutation, \
+        make_resident_epoch_step, make_train_step
 
+    B = cfg.batch_size
     model, state = create_train_state(cfg, seed=5, mesh=mesh)
-    images = torch.from_numpy(sets[0][0]).cuda()
-    poses = torch.from_numpy(FramesDataset(*sets[0]).cube_poses).cuda()
-    n = images.shape[0]  # a whole number of batches: no padded rows
+    images = torch.from_numpy(sets[0][0][:n]).cuda()
+    poses = torch.from_numpy(FramesDataset(*sets[0]).cube_poses[:n]).cuda()
+    n = images.shape[0]
     graphed, k = make_resident_epoch_step(model, cfg, cfg.random_seed, n, mesh=mesh)
     state, _ = graphed(state, images, poses, 0)
     if graphed.run.graph is None:
-        raise AssertionError("the resident epoch step was not captured")
-    snap = [t.detach().clone() for t in _state_tensors(state)]
+        raise AssertionError(f"{label} the resident epoch step was not captured")
+    snap = {name: t.detach().clone() for name, t in _state_tensors(state).items()}
     step0 = state.step
+    ms, host = {}, {}
+
+    def timed(key, fn):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        host[key] = (time.perf_counter() - t0) / k * 1e3
+        ms[key] = e0.elapsed_time(e1) / k
+        return out
+
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    state, loss_g = graphed(state, images, poses, 1)
-    torch.cuda.synchronize()
-    graphed_ms = (time.perf_counter() - t0) / k * 1e3
+    state, loss_g = timed("replayed", lambda: graphed(state, images, poses, 1))
     launches = kernels.launch_counts()
-    got = [t.detach().clone() for t in _state_tensors(state)]
+    got = {name: t.detach().clone() for name, t in _state_tensors(state).items()}
     with torch.no_grad():
-        for t, v in zip(_state_tensors(state), snap):
-            t.copy_(v)
+        for name, t in _state_tensors(state).items():
+            t.copy_(snap[name])
     state.step = step0
     step = make_train_step(model, cfg, cfg.random_seed, mesh=mesh)
-    order = epoch_permutation(cfg.random_seed, 1, n, "cuda")
-    ones = torch.ones(N_ROWS, device="cuda")
-    t0 = time.perf_counter()
-    loss_e = []
-    for i in range(k):
-        idx = order[i * N_ROWS:(i + 1) * N_ROWS]
-        state, loss = step(state, {"images": images.index_select(0, idx), "cube_pose": poses.index_select(0, idx),
-                                   "mask": ones})
-        loss_e.append(loss)
-    loss_e = torch.stack(loss_e)
-    torch.cuda.synchronize()
-    eager_ms = (time.perf_counter() - t0) / k * 1e3
-    want = [t.detach().clone() for t in _state_tensors(state)]
+    idx, mask = epoch_batches(epoch_permutation(cfg.random_seed, 1, n, "cuda"), B,
+                              None if mesh is None else mesh.local_rows(B))
+
+    def eager():
+        st, losses = state, []
+        for i in range(k):
+            st, loss = step(st, {"images": images.index_select(0, idx[i]), "cube_pose": poses.index_select(0, idx[i]),
+                                 "mask": mask[i]})
+            losses.append(loss)
+        return st, torch.stack(losses)
+
+    state, loss_e = timed("eager", eager)
+    want = {name: t.detach().clone() for name, t in _state_tensors(state).items()}
     loss_err = ((loss_g - loss_e).abs() / loss_e.abs()).max().item()
-    names = list(state.params)
-    errs = {}
-    for name, a, b, s0 in zip(names, got, want, snap):
+    errs = {"parameters": {}, "moments": {}, "statistics": {}}
+    unmoved = []
+    for name, b in want.items():
+        a, s0 = got[name], snap[name]
         moved = (b.float() - s0.float()).norm()
-        if moved > 0:
-            errs[name] = ((a.float() - b.float()).norm() / moved).item()
-    worst, median, wname = _spread(errs)
-    bit_equal = torch.equal(loss_g, loss_e) and all(torch.equal(a, b) for a, b in zip(got, want))
-    expected = {name: k * v for name, v in _expected_launches(3, stem_trained=False).items()}
-    label = "loop:" if mesh is None else "parallel (a): NCCL at world size 1, the all-reduce in the graph;"
-    say(f"{label} captured vs eager resident epoch ({k} steps, every one replayed): losses {loss_g.tolist()} vs "
-        f"{loss_e.tolist()} (max rel {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); the {len(errs)} trained parameters' "
-        f"change: max rel {worst:.3g} ({wname}), median {median:.3g} (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN}); "
-        f"bit-equal: {bit_equal}; launches of the replayed epoch {({k_: v for k_, v in launches.items() if v})}; "
-        f"host clock a step {graphed_ms:.2f} ms replayed, {eager_ms:.2f} ms eager (each epoch synchronised once)")
+        if moved == 0:
+            if not torch.equal(a, b):
+                unmoved.append(name)
+            continue
+        group = "parameters" if name.startswith("params/") else "statistics" if name.startswith("stats/") \
+            else "moments"
+        errs[group][name] = ((a.float() - b.float()).norm() / moved).item()
+    spread = {group: _spread(e) if e else (0.0, 0.0, "-") for group, e in errs.items()}
+    bit_equal = torch.equal(loss_g, loss_e) and all(torch.equal(got[name], want[name]) for name in want)
+    expected = {name: k * v for name, v in per_step.items()}
+    say(f"{label} captured vs eager resident epoch ({n} examples, {k} steps of {B} rows, every one replayed; "
+        f"{_tf32_flags()}): losses {loss_g.tolist()} vs {loss_e.tolist()} (max rel {loss_err:.3g}, tol "
+        f"{TRAIN_LOSS_RTOL}); the change of " + "; ".join(
+            f"{len(errs[g])} {g}: max rel {w:.3g} ({wn}), median {m:.3g}" for g, (w, m, wn) in spread.items())
+        + f" (tol {GRAD_RTOL}, {GRAD_RTOL_MEDIAN}; statistics {EXACT_STATS_RTOL}); {len(unmoved)} unmoved tensors "
+        f"changed; bit-equal: {bit_equal}; launches of the replayed epoch "
+        f"{({k_: v for k_, v in launches.items() if v})}; a step {ms['replayed']:.2f} ms replayed, "
+        f"{ms['eager']:.2f} ms eager (CUDA events; host clock {host['replayed']:.2f}, {host['eager']:.2f})")
     if launches != expected:
-        raise AssertionError(f"replayed epoch launches {launches} != {expected}")
-    if not (loss_err <= TRAIN_LOSS_RTOL and worst <= GRAD_RTOL and median <= GRAD_RTOL_MEDIAN):
-        raise AssertionError("the captured resident epoch disagrees with the eager one")
+        raise AssertionError(f"{label} replayed epoch launches {launches} != {expected}")
+    (pw, pm, _), (mw, mm, _), (sw, sm, _) = (spread[g] for g in ("parameters", "moments", "statistics"))
+    if unmoved or not errs["parameters"] or not (
+            loss_err <= TRAIN_LOSS_RTOL and max(pw, mw) <= GRAD_RTOL and max(pm, mm) <= GRAD_RTOL_MEDIAN
+            and sw <= EXACT_STATS_RTOL[0] and sm <= EXACT_STATS_RTOL[1]):
+        raise AssertionError(f"{label} the captured resident epoch disagrees with the eager one {unmoved[:5]}")
     del model, state, images, poses, graphed, step, snap, got, want
     torch.cuda.empty_cache()
+    return ms
 
 
-def _state_tensors(state):
-    """Every tensor a train step changes: the parameters (in the order of
-    `state.params`), the Adam moments and count."""
-    return [*state.params.values(), *state.opt_state.mu.values(), *state.opt_state.nu.values(),
-            state.opt_state.count]
+def _state_tensors(state) -> dict:
+    """Every tensor a train step changes, by name: the parameters, the Adam
+    moments and count, and the BN running statistics."""
+    out = {f"params/{k}": v for k, v in state.params.items()}
+    out.update({f"mu/{k}": v for k, v in state.opt_state.mu.items()})
+    out.update({f"nu/{k}": v for k, v in state.opt_state.nu.items()})
+    out["count"] = state.opt_state.count
+    out.update({f"stats/{k}": v for k, v in state.batch_stats.items()})
+    return out
+
+
+def _tf32_flags() -> str:
+    import torch
+
+    return (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
 
 # ─────────────── phase 12: the pointwise kernels (B11) ───────────────
@@ -3639,7 +3719,8 @@ def _nccl_world1(one_card_ms: float, base, sets) -> None:
             f"clock); the step {ms:.2f} ms against the one-card step's {one_card_ms:.2f} ms (phase 6)")
         del model, state, batch
         torch.cuda.empty_cache()
-        _captured_vs_eager(base, sets, mesh=mesh)
+        _captured_vs_eager(base, sets, _expected_launches(3, stem_trained=False),
+                           "parallel (a): NCCL at world size 1, the all-reduce in the graph;", mesh=mesh)
     finally:
         dist.destroy_process_group()
 
@@ -3951,6 +4032,303 @@ def profiling_phase(tmpdir: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ─────────────── phase 21: argus_tpu's default training configuration ───────────────
+
+DEFAULT_TRAIN = 1000  # examples train() takes of the loop phase's split: 31 batches of 32, then 8 rows padded to 32
+DEFAULT_CAPTURE = 200  # examples of the captured-vs-eager epoch: 6 batches of 32, then 8 rows padded to 32
+DEFAULT_ROWS = 8  # rows of the card-against-CPU step
+DEFAULT_LOSS_RTOL = 1e-5  # the card's f32 step (TF32 off) against the port's on the CPU, loss
+# launches per train step of the default config by bn_impl: exact BN keeps every conv and stem kernel off
+EXPECTED_DEFAULT_LAUNCHES = {"xla": EXPECTED_EXACT_XLA_LAUNCHES, "auto": EXPECTED_EXACT_LAUNCHES}
+
+
+def _default_config(save_dir: str = None, **model_overrides):
+    """argus_tpu's default training configuration, `TrainConfig()` and
+    `NCameraCNNConfig()` as shipped (ResNet-50, 2 cameras, 1024-d features,
+    exact BN on "xla", f32, batch 32, the fused augmentation with 10 arcs,
+    the split resident under 2048 MiB), with 2 epochs, no metrics service
+    and `save_dir` (where given); `model_overrides` replace model fields
+    (`bn_impl`)."""
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig
+
+    where = {} if save_dir is None else dict(save_dir=save_dir)
+    return TrainConfig(model_config=NCameraCNNConfig(**model_overrides), n_epochs=2, wandb_log=False, **where)
+
+
+def default_train_setup(rows: int = None, save_dir: str = None, **model_overrides):
+    """(cfg, model, state, batch) of argus_tpu's default configuration on the
+    card (`_default_config`): random weights from seed 0 with BN randomised,
+    and `rows` (the config's batch by default) seeded noise rows (uint8
+    frame pairs, non-identity poses, mask 1) on the card."""
+    import numpy as np
+    import torch
+
+    from argus_tpu_torch.train import create_train_state
+
+    cfg = _default_config(save_dir, **model_overrides)
+    rows = rows or cfg.batch_size
+    model, state = create_train_state(cfg, seed=0)
+    _randomize_(model, seed=0)
+    rng = np.random.default_rng(21)
+    batch = {"images": torch.from_numpy(rng.integers(0, 256, (rows, HW, HW, 6), dtype=np.uint8)).cuda(),
+             "cube_pose": torch.from_numpy(_random_poses(rng, rows)).cuda(),
+             "mask": torch.ones(rows, device="cuda")}
+    return cfg, model, state, batch
+
+
+def _set_tf32(convs: bool) -> None:
+    """cuDNN's TF32 flag, matmuls in f32: `convs=True` is torch's default,
+    which the port's `train()` leaves as it is."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _default_kernels(batch: int) -> None:
+    """The default configuration's f32 kernels at its shapes (`batch` rows,
+    N = 2 * batch camera images of 256x256): `fused_stats` and
+    `fused_bn_bwd_reduce` on f32 inputs of each distinct (M, C) of ResNet-50's
+    53 BatchNorms at strides 1 and 4 against their plain versions under
+    phase 4's BN_RTOL, two calls bit-equal; `augment_fused` on N f32 images
+    with 10 arcs under phase 5's f32 gate. Prints each time (CUDA events)
+    beside the plain version's, the library call's (stride 1) and the
+    bound, and the BN sums over one step (53 BNs, stride 1)."""
+    import torch
+
+    from argus_tpu_torch.ops import augment as TA
+    from argus_tpu_torch.ops.kernels import augment_fused as kaf
+    from argus_tpu_torch.ops.kernels import bn_reduce
+
+    n_img = 2 * batch
+    g = torch.Generator(device="cuda").manual_seed(21)
+    step = {name: dict(ms=0.0, plain=0.0, library=0.0, flops=0, bytes=0) for name in ("bn_stats", "bn_bwd_reduce")}
+    worst = 0.0
+    for m, c, count in _timing_script().bn_inputs(n_img, HW):
+        side = int(round((m // n_img) ** 0.5))
+        x = torch.randn(m, c, generator=g, device="cuda")
+        dy = torch.randn(m, c, generator=g, device="cuda")
+        x4, dy4 = (t.view(n_img, side, side, c).permute(0, 3, 1, 2) for t in (x, dy))
+        s, q, n = bn_reduce.fused_stats_plain(x, 1)
+        mean = s / n
+        rstd = torch.rsqrt(torch.clamp(q / n - mean * mean, min=0.0) + 1e-5)
+        for stride in (1, 4):
+            rows, drows = (bn_reduce._rows(t, stride) for t in (x, dy))
+            xa, da = rows.abs(), drows.abs()
+            k_s, k_q, k_n = bn_reduce.fused_stats(x, stride)
+            p_s, p_q, p_n = bn_reduce.fused_stats_plain(x, stride)
+            k_d, k_dx, k_n2 = bn_reduce.fused_bn_bwd_reduce(x, dy, mean, rstd, stride)
+            p_d, p_dx, p_n2 = bn_reduce.fused_bn_bwd_reduce_plain(x, dy, mean, rstd, stride)
+            if not k_n == p_n == k_n2 == p_n2 == rows.shape[0]:
+                raise AssertionError(f"bn f32 ({m}, {c}) stride {stride}: n_rows {k_n}, {k_n2} != plain {p_n}")
+            e1 = max(_bn_close("bn_stats f32 sum", k_s, p_s, xa.sum(0)),
+                     _bn_close("bn_stats f32 sumsq", k_q, p_q, (xa * xa).sum(0)))
+            xh = ((rows - mean) * rstd).abs()
+            e2 = max(_bn_close("bn_bwd_reduce f32 sum dy", k_d, p_d, da.sum(0)),
+                     _bn_close("bn_bwd_reduce f32 sum dy*xhat", k_dx, p_dx, (da * xh).sum(0)))
+            again = bn_reduce.fused_stats(x, stride)[:2] + bn_reduce.fused_bn_bwd_reduce(x, dy, mean, rstd, stride)[:2]
+            if not all(torch.equal(a, b) for a, b in zip((k_s, k_q, k_d, k_dx), again)):
+                raise AssertionError(f"bn f32 ({m}, {c}) stride {stride}: two calls on the same input differ")
+            worst = max(worst, e1[0], e2[0])
+            del rows, drows, xa, da, xh
+            t = [cuda_ms(lambda: bn_reduce.fused_stats(x, stride), 10),
+                 cuda_ms(lambda: bn_reduce.fused_stats_plain(x, stride), 3),
+                 cuda_ms(lambda: bn_reduce.fused_bn_bwd_reduce(x, dy, mean, rstd, stride), 10),
+                 cuda_ms(lambda: bn_reduce.fused_bn_bwd_reduce_plain(x, dy, mean, rstd, stride), 3)]
+            nb_s, nb_b = k_n * c * 4 + 2 * c * 4, 2 * k_n * c * 4 + 4 * c * 4
+            lib = ["-", "-"]
+            if stride == 1:
+                lib_s = cuda_ms(lambda: torch.batch_norm_stats(x4, 1e-5), 10)
+                lib_b = cuda_ms(lambda: torch.batch_norm_backward_reduce(dy4, x4, mean, rstd, None, True, False,
+                                                                         False), 10)
+                lib = [f"{lib_s:.4f}", f"{lib_b:.4f}"]
+                # f32 operations per element: x and x*x summed (3); dy summed, (x - mean) * rstd * dy summed (5)
+                for name, vals in (("bn_stats", (t[0], t[1], lib_s, 3 * k_n * c, nb_s)),
+                                   ("bn_bwd_reduce", (t[2], t[3], lib_b, 5 * k_n * c, nb_b))):
+                    for key, v in zip(("ms", "plain", "library", "flops", "bytes"), vals):
+                        step[name][key] += count * v
+            b_s, b_b = bound_ms(3 * k_n * c, nb_s, PEAK_F32)[0], bound_ms(5 * k_n * c, nb_b, PEAK_F32)[0]
+            say(f"default config kernels: bn f32 ({m}, {c}) x{count} stride {stride}: n_rows {k_n}; bn_stats "
+                f"{t[0]:.4f} ms (plain {t[1]:.4f}, library {lib[0]}, bound {b_s:.4f}), bn_bwd_reduce {t[2]:.4f} ms "
+                f"(plain {t[3]:.4f}, library {lib[1]}, bound {b_b:.4f}); max rel err {e1[0]:.3g}, {e2[0]:.3g} (tol "
+                f"{BN_RTOL})")
+        del x, dy, x4, dy4
+        torch.cuda.empty_cache()
+    bounds = {name: bound_ms(d["flops"], d["bytes"], PEAK_F32) for name, d in step.items()}
+    say(f"default config kernels: bn f32 per step ({n_img} camera images, 53 BNs, stride 1; {_tf32_flags()}): "
+        + "; ".join(f"{name} {d['ms']:.3f} ms (plain {d['plain']:.3f}, library {d['library']:.3f}, bound "
+                    f"{bounds[name][0]:.3f} by {bounds[name][1]})" for name, d in step.items())
+        + f"; max rel err {worst:.3g} of the channel's sum of magnitudes (tol {BN_RTOL})")
+
+    cfg = TA.AugmentationConfig()
+    x = torch.rand(n_img, 3, HW, HW, generator=g, device="cuda")
+    params = TA.sample_params(cfg, 21, batch, 2, HW, HW, "cuda", x.dtype)
+    args = TA.pack_fused(params, n_img, HW, HW, cfg.num_spaghetti, "cuda")
+    got = kaf.fused_augment(x, *args, cfg.num_spaghetti)
+    if not torch.equal(got, kaf.fused_augment(x, *args, cfg.num_spaghetti)):
+        raise AssertionError("augment_fused f32: two calls on the same input differ")
+    err = _aug_compare(f"default config kernels: augment_fused f32 {n_img} x {HW}x{HW} {cfg.num_spaghetti} arcs", got,
+                       kaf.fused_augment_plain(x, *args, cfg.num_spaghetti), "f32")
+    image_ops, f32_ops = aug_ops(*args[:4], cfg.num_spaghetti)
+    nb = 2 * nbytes(x) + nbytes(*args)
+    ms = cuda_ms(lambda: kaf.fused_augment(x, *args, cfg.num_spaghetti), 10)
+    pms = cuda_ms(lambda: kaf.fused_augment_plain(x, *args, cfg.num_spaghetti), 2)
+    b, by = bound_ms(image_ops + f32_ops, nb, PEAK_F32)  # f32 images: every operation at the f32 peak
+    say(f"default config kernels: augment_fused {tuple(x.shape)} f32 x1: kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"no library call, bound {b:.3f} ms ({by}: {image_ops + f32_ops:.3g} f32 operations, {nb / 1e6:.1f} MB), "
+        f"max |kernel - plain| {err:.3g}")
+    del x, params, args, got
+    torch.cuda.empty_cache()
+
+
+def _default_step_checks(save_dir: str) -> None:
+    """One step of the default configuration on DEFAULT_ROWS seeded noise
+    rows, augmentation off, TF32 off: the card's (bn_impl "xla") against
+    the port's on the CPU from the same weights (random, BN randomised):
+    loss within DEFAULT_LOSS_RTOL, each parameter's gradient within
+    EXACT_GRAD_RTOL and each running statistic's change within
+    EXACT_STATS_RTOL (relative 2-norms; max, median); then bn_impl "auto"
+    (the reduction kernels, 53 + 53 launches) against "xla" on the card from
+    the same weights, under Path B's gates."""
+    import torch
+
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.ops.norm import BatchNorm
+    from argus_tpu_torch.train import _loss_and_grads_on, create_train_state, feed_images
+
+    _set_tf32(False)
+    cfg, model, state, batch = default_train_setup(DEFAULT_ROWS, save_dir)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def run(m, st, device):
+        for k, v in m.state_dict().items():
+            v.copy_(w0[k])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = _loss_and_grads_on(m, st.params, feed_images(cfg, batch["images"], device), batch)
+        moved = {k: (v - w0[k].to(device)).cpu() for k, v in m.named_buffers()}
+        out = loss.item(), {k: v.cpu() for k, v in grads.items()}, moved, kernels.launch_counts()
+        return out + (time.perf_counter() - t0,)
+
+    def compare(label, got, want, loss_tol, grad_tol):
+        loss_err = abs(got[0] - want[0]) / abs(want[0])
+        errs = _grad_errors(got[1], want[1])
+        worst, median, name = _spread(errs)
+        serr = {k: ((a - want[2][k]).norm() / want[2][k].norm()).item() for k, a in got[2].items()
+                if want[2][k].norm() > 0}
+        s_worst, s_median, s_name = _spread(serr)
+        say(f"default config: {label} on the first {DEFAULT_ROWS} rows ({_tf32_flags()}): loss {got[0]:.7f} vs "
+            f"{want[0]:.7f} (rel {loss_err:.3g}, tol {loss_tol}); gradients of {len(errs)} parameters: max rel "
+            f"{worst:.3g} ({name}), median {median:.3g} (tol {grad_tol}); running statistics' change, {len(serr)} of "
+            f"{2 * n_bn} buffers: max rel {s_worst:.3g} ({s_name}), median {s_median:.3g} (tol {EXACT_STATS_RTOL}); "
+            f"{got[4]:.2f} s and {want[4]:.2f} s")
+        if not (loss_err <= loss_tol and worst <= grad_tol[0] and median <= grad_tol[1] and len(serr) == 2 * n_bn
+                and s_worst <= EXACT_STATS_RTOL[0] and s_median <= EXACT_STATS_RTOL[1]):
+            raise AssertionError(f"default config: {label} disagree")
+
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    card = run(model, state, "cuda")
+    cpu_model, cpu_state = create_train_state(cfg, seed=0, device="cpu")
+    compare("the card's step vs the port's on the CPU", card, run(cpu_model, cpu_state, "cpu"), DEFAULT_LOSS_RTOL,
+            EXACT_GRAD_RTOL)
+    del cpu_model, cpu_state
+    twin, twin_state = create_train_state(_default_config(save_dir, bn_impl="auto"), seed=0)
+    auto = run(twin, twin_state, "cuda")
+    want = {**_NONE, "bn_stats": n_bn, "bn_bwd_reduce": n_bn}
+    if auto[3] != want or card[3] != _NONE:
+        raise AssertionError(f"default config: launches of one forward and backward {auto[3]} (auto), {card[3]} "
+                             f"(xla); expected {want}, none")
+    compare('bn_impl "auto" vs "xla" on the card', auto, card, EXACT_LOSS_RTOL, EXACT_GRAD_RTOL)
+    del model, state, twin, twin_state, card, auto
+    torch.cuda.empty_cache()
+
+
+def default_config_phase(tmpdir: str, sets) -> None:
+    """argus_tpu's default training configuration on the card (see
+    `_default_config`): its f32 kernels at its shapes (`_default_kernels`);
+    one step against the port on the CPU and "auto" against "xla"
+    (`_default_step_checks`); one resident epoch of DEFAULT_CAPTURE examples
+    replayed as a CUDA graph against the same epoch eager, for "xla" and
+    "auto" (`_captured_vs_eager`, the running statistics compared too);
+    then `train()` itself over DEFAULT_TRAIN + LOOP_VAL of the loop phase's
+    rendered examples (the last batch padded) on the default budget (the
+    split resident, each epoch's step replayed) and on LOOP_SHARD_MB
+    (shards swapped in, a padded batch in each), each 2 epochs and 1 more
+    resumed from the file, under `_check_loop`'s checks with exact launch
+    counts (1 `augment_fused` a step, nothing else). The epochs and train()
+    run with torch's TF32 defaults, which `train()` leaves as they are
+    (cuDNN's convs in TF32, matmuls in f32). Prints camera-images/s (64 a
+    step, the padded batch counted whole) of the first run's second epoch
+    and of the resumed run's pass beside the compute-only step (the eager
+    per-step path on a resident batch, CUDA events, median of C1_STEPS), and
+    a captured epoch's step replayed beside the same step eager."""
+    import torch
+
+    from argus_tpu_torch.checkpoint import load_checkpoint
+    from argus_tpu_torch.data.resident import ResidentShardedData
+    from argus_tpu_torch.train import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    base = _default_config(os.path.join(tmpdir, "ckpt"))
+    B = base.batch_size
+    _default_kernels(B)
+    t_kernels = time.perf_counter() - t_phase
+    _default_step_checks(os.path.join(tmpdir, "ckpt"))
+    t_step = time.perf_counter() - t_phase - t_kernels
+
+    _set_tf32(True)
+    step_ms = {impl: _captured_vs_eager(_default_config(base.save_dir, bn_impl=impl), sets,
+                                        EXPECTED_DEFAULT_LAUNCHES[impl], f"default config ({impl}):",
+                                        n=DEFAULT_CAPTURE)
+               for impl in ("xla", "auto")}
+    t_capture = time.perf_counter() - t_phase - t_kernels - t_step
+
+    train_set = tuple(a[:DEFAULT_TRAIN] for a in sets[0])
+    datasets = (FramesDataset(*train_set), FramesDataset(*sets[1]))
+    per_epoch = -(-DEFAULT_TRAIN // B)
+    shards = ResidentShardedData(datasets[0], LOOP_SHARD_MB)
+    sizes = [len(idx) for idx in shards.index_shards]
+    shard_steps = sum(-(-k // B) for k in sizes)
+    if DEFAULT_TRAIN % B == 0 or any(k % B == 0 for k in sizes):
+        raise AssertionError(f"default config: no padded batch in {DEFAULT_TRAIN} examples or shards {sizes}")
+    out = {}
+    for label, budget, steps in (("resident", base.device_resident_mb, per_epoch),
+                                 ("sharded", LOOP_SHARD_MB, shard_steps)):
+        cfg = dataclasses.replace(base, device_resident_mb=budget)
+        first, resumed, runs, launches, ready, times = _loop_runs(cfg, datasets)
+        want = {k: 2 * steps * v for k, v in EXPECTED_DEFAULT_LAUNCHES["xla"].items()}
+        _check_loop(f"default config, {label}", cfg, first, resumed, runs, launches, steps, times, want)
+        t_resumed_loss = next(t for t, s, m in runs[1] if "loss" in m)
+        out[label] = dict(e2e_ms=(t_resumed_loss - ready[1]) / steps * 1e3,
+                          saving_ms=_second_epoch_ms(runs[0], steps), first=first, steps=steps)
+        torch.cuda.empty_cache()
+
+    model, state = create_train_state(base, seed=5)
+    load_checkpoint(out["resident"]["first"], target=state)
+    batch = {"images": torch.from_numpy(train_set[0][:B]).cuda(),
+             "cube_pose": torch.from_numpy(datasets[0].cube_poses[:B]).cuda(),
+             "mask": torch.ones(B, device="cuda")}
+    compute_ms, launches, state = _median_step_ms(make_train_step(model, base, base_seed=base.random_seed), state,
+                                                  batch)
+    if launches != EXPECTED_DEFAULT_LAUNCHES["xla"]:
+        raise AssertionError(f"default config: compute-only step launches {launches}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    rate = lambda ms: 2 * B / ms * 1e3  # noqa: E731
+    say(f"default config train() end to end on {GPU} ({_tf32_flags()}), camera-images/s (ms a step; {2 * B} "
+        f"camera images a step, the padded batch counted whole): " + "; ".join(
+            f"{label} ({o['steps']} steps an epoch) {rate(o['saving_ms']):.1f} ({o['saving_ms']:.2f}) in the first "
+            f"run's second epoch, {rate(o['e2e_ms']):.1f} ({o['e2e_ms']:.2f}) in the resumed run's pass"
+            for label, o in out.items())
+        + f"; compute only {rate(compute_ms):.1f} ({compute_ms:.2f} ms/step, the eager per-step path on a resident "
+        f"batch, CUDA events, median of {C1_STEPS}); a step of the captured epoch ({DEFAULT_CAPTURE} examples), "
+        f"CUDA events: " + ", ".join(f"{impl} {v['replayed']:.2f} ms replayed, {v['eager']:.2f} ms eager"
+                                     for impl, v in step_ms.items()))
+    say(f"default config: the phase took {time.perf_counter() - t_phase:.1f} s (kernels {t_kernels:.1f} s, the "
+        f"step checks {t_step:.1f} s, the captured epochs {t_capture:.1f} s)")
+
+
 def main() -> int:
     global GPU
     import torch
@@ -4030,6 +4408,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         import_phase(tmpdir)
         profiling_phase(tmpdir)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        default_config_phase(tmpdir, loop["sets"])
 
     rows = []
     for name, m in measured.items():

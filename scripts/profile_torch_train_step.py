@@ -4,7 +4,7 @@
 share over a window of steps.
 
     python3 scripts/profile_torch_train_step.py
-        [--model flagship|stem|exact|exact-xla|keypoint|keypoint-unfused]
+        [--model flagship|stem|exact|exact-xla|keypoint|keypoint-unfused|default|default-auto]
         [--steps 3] [--out chiprun_out/profile_<model>.txt]
 
 `flagship` is `chip_smoke.flagship_train_setup`'s step (ResNet-50 NCameraCNN
@@ -16,8 +16,12 @@ at argus_tpu's default BN and stem (exact train-mode BN with
 `bn_impl="xla"`; `keypoint` is
 `chip_smoke.keypoint_setup`'s (CubeKeypointNet at argus_tpu's default
 config, resnet18, the same batch shape, fused identity BasicBlocks and
-stem), `keypoint-unfused` the same with the fuse flags off (cuDNN convs).
-After a warm-up step, `--steps` steps run
+stem), `keypoint-unfused` the same with the fuse flags off (cuDNN convs);
+`default` is `chip_smoke.default_train_setup`'s (argus_tpu's default
+training configuration: the same ResNet-50 in f32 at batch 32, exact BN on
+"xla", cuDNN convs under torch's TF32 defaults), `default-auto` the same
+with `bn_impl="auto"` (the BN reduction kernels). Each step is the eager
+per-step path (`make_train_step`). After a warm-up step, `--steps` steps run
 under the profiler; busy time is the sum of the device-side events' time
 (kernels, copies, memsets; one stream, so they do not overlap), the window
 is the host clock from the first step's start to a synchronise after the
@@ -59,8 +63,8 @@ def main() -> int:
         print("profile_torch_train_step: no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("flagship", "stem", "exact", "exact-xla", "keypoint", "keypoint-unfused"),
-                    default="flagship")
+    ap.add_argument("--model", choices=("flagship", "stem", "exact", "exact-xla", "keypoint", "keypoint-unfused",
+                                        "default", "default-auto"), default="flagship")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -77,6 +81,9 @@ def main() -> int:
         cfg, model, state, batch = chip_smoke.flagship_train_setup()
     elif args.model == "stem":
         cfg, model, state, batch = chip_smoke.flagship_train_setup(stem_frozen=False, **auto)
+    elif args.model.startswith("default"):
+        cfg, model, state, batch = chip_smoke.default_train_setup(
+            bn_impl="auto" if args.model == "default-auto" else "xla")
     elif args.model.startswith("exact"):
         cfg, model, state, batch = chip_smoke.flagship_train_setup(
             bn_frozen=False, bn_frozen_affine=False, stem_frozen=False,

@@ -16,7 +16,18 @@ step's loss and each val loss within 1e-4 relative, the params' change
 per leaf and in the median over leaves within `test_torch_train.py`'s f32
 update tolerance (5e-2, 5e-2), as `test_torch_loop.py`'s two-epoch parity
 holds them, for its reasons (reordered f32 sums, Adam's first steps close
-to lr * sign(g)); frozen BN.
+to lr * sign(g)); frozen BN. The same two comparisons also run argus_tpu's
+default BN (exact, `bn_impl="xla"`, f32, at its default learning rate
+1e-4) from random BN buffers and scales (`test_torch_train._randomize_`,
+pushed into argus_tpu's state): the padded last batch's repeated rows
+enter the batch statistics in both packages. Run free, the two drift apart
+from step to step (tests/test_torch_exact_steps.py says why, and holds
+each step, taken from argus_tpu's state, to test_torch_train_bn.py's
+one-step TOL_EXACT): the first step's loss is held to TOL_EXACT's 1e-5
+relative, every loss and val loss to FREE_EXACT's 5e-2, the params' change
+per leaf to (0.5, 0.3) (max, median) and the running statistics' change to
+(5e-2, 5e-3): a few times the drift that six free steps showed on an x86
+host, whose third step already fails TOL_EXACT.
 """
 
 import dataclasses
@@ -42,12 +53,20 @@ from argus_tpu_torch.data import CameraCubePoseDataset, CameraCubePoseDatasetCon
     ResidentShardedData
 from argus_tpu_torch.models import NCameraCNNConfig
 from argus_tpu_torch.models import keypoint_net as kn
-from argus_tpu_torch.models.jax_import import state_dict_from_variables
+from argus_tpu_torch.models.jax_import import state_dict_from_variables, variables_from_state_dict
 from argus_tpu_torch.ops.augment import AugmentationConfig
 from argus_tpu_torch.train import TrainConfig, create_train_state, make_resident_epoch_step, make_train_step
+from test_torch_train import _check_leaves, _randomize_
+from test_torch_train_bn import TOL_EXACT
 from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 SMALL = dict(backbone="resnet18", resnet_output_dim=16)
+# the BN of the argus_tpu comparisons: frozen, or argus_tpu's default (exact, "xla") in f32, and the
+# learning rate of each (exact BN at test_torch_train_bn.py's, which its TOL_EXACT was measured at)
+BN = {"frozen": dict(bn_frozen=True), "exact-f32": dict(bn_frozen=False, bn_impl="xla")}
+LR = {"frozen": 1e-3, "exact-f32": 1e-4}
+# exact BN's gates over six free steps (the module docstring): losses, params' change, statistics' change
+FREE_EXACT = dict(loss=5e-2, update=(0.5, 0.3), stats=(5e-2, 5e-3))
 PER_EXAMPLE = 32 * 32 * 6 + 28
 
 
@@ -180,44 +199,100 @@ def _update_errors(p0, got, want):
     return errs
 
 
-def test_resident_epoch_matches_argus_tpu(dataset, monkeypatch):
-    """Two resident epochs of both packages from one state, augmentation
-    off, the port's order argus_tpu's."""
-    monkeypatch.setattr(ttrain, "epoch_permutation", _jax_permutation)
-    model_cfg = dict(SMALL, bn_frozen=True)
-    jcfg = jtrain.TrainConfig(model_config=JaxConfig(**model_cfg), batch_size=4, use_augmentation=False,
-                              learning_rate=1e-3, wandb_log=False)
+def _jax_start(jcfg, model):
+    """argus_tpu's init (PRNGKey(3)) loaded into the port's `model`; under
+    exact BN the model's BN buffers and scales are then randomised and the
+    whole model goes back into argus_tpu's state (a fresh optimizer state).
+    Returns argus_tpu's (model, state)."""
     jmodel, jstate = jtrain.create_train_state(jcfg, jax.random.PRNGKey(3), (32, 32))
-    cfg = TrainConfig(model_config=NCameraCNNConfig(**model_cfg), batch_size=4, use_augmentation=False,
-                      learning_rate=1e-3)
-    model, state = create_train_state(cfg, seed=0, device="cpu")
     model.load_state_dict(state_dict_from_variables(jax.device_get(jstate.params),
                                                     jax.device_get(jstate.batch_stats)))
-    p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    if not jcfg.model_config.bn_frozen:
+        _randomize_(model, seed=1)
+        # copies: a jax array made from a numpy view of a torch tensor can share its memory, which the port's
+        # in-place updates would then change under argus_tpu's asynchronously dispatched epoch
+        params, stats = (jax.tree_util.tree_map(lambda a: jnp.asarray(np.array(a)), v)
+                         for v in variables_from_state_dict(model.state_dict()))
+        jstate = jstate.replace(params=params, batch_stats=stats,
+                                opt_state=jtrain.make_optimizer(jcfg.max_grad_norm).init(params))
+    return jmodel, jstate
+
+
+def _is_stat(k):
+    return k.endswith(("running_mean", "running_var"))
+
+
+def _check_state(bn, p0, got, want):
+    """The params' change and the running statistics against argus_tpu's
+    (state_dicts; `p0` the start): frozen BN under the f32 update gate, the
+    statistics unchanged; exact BN under FREE_EXACT's gates."""
+    params = {k: v for k, v in want.items() if not _is_stat(k)}
+    stats = {k: v for k, v in want.items() if _is_stat(k)}
+    assert stats and params
+    errs = _update_errors(p0, got, params)
+    if bn == "frozen":
+        assert errs[-1] <= 5e-2 and errs[len(errs) // 2] <= 5e-2, errs[-3:]
+        assert all(torch.equal(got[k], p0[k]) and torch.equal(stats[k], p0[k]) for k in stats)
+    else:
+        tol = FREE_EXACT["update"]
+        assert errs[-1] <= tol[0] and errs[len(errs) // 2] <= tol[1], errs[-3:]
+        _check_leaves({k: got[k] for k in stats}, stats, FREE_EXACT["stats"], "running statistics", p0)
+        assert all(not torch.equal(got[k], p0[k]) for k in stats)
+
+
+def _check_losses(bn, got, want, first_step=True):
+    """Losses in step order: within 1e-4 relative under frozen BN; under
+    exact BN every one within FREE_EXACT's, and the first step's (where
+    `first_step`) within TOL_EXACT's."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if bn == "frozen":
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        return
+    if first_step:
+        np.testing.assert_allclose(got[0], want[0], rtol=TOL_EXACT["loss"])
+    np.testing.assert_allclose(got, want, rtol=FREE_EXACT["loss"])
+
+
+@pytest.mark.parametrize("bn", list(BN))
+def test_resident_epoch_matches_argus_tpu(dataset, monkeypatch, bn):
+    """Two resident epochs of both packages from one state, augmentation
+    off, the port's order argus_tpu's; frozen BN, or exact BN with the
+    padded batch's repeated rows in its statistics."""
+    monkeypatch.setattr(ttrain, "epoch_permutation", _jax_permutation)
+    model_cfg = dict(SMALL, **BN[bn])
+    jcfg = jtrain.TrainConfig(model_config=JaxConfig(**model_cfg), batch_size=4, use_augmentation=False,
+                              learning_rate=LR[bn], wandb_log=False)
+    cfg = TrainConfig(model_config=NCameraCNNConfig(**model_cfg), batch_size=4, use_augmentation=False,
+                      learning_rate=LR[bn])
+    model, state = create_train_state(cfg, seed=0, device="cpu")
+    jmodel, jstate = _jax_start(jcfg, model)
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     jres = JaxResident.from_dataset(_jax_ds(dataset))
     jepoch, jk = jtrain.make_resident_epoch_step(jmodel, jcfg, base_seed=7, n_examples=jres.n)
     res = DeviceResidentData.from_dataset(_port_ds(dataset), device="cpu")
     epoch_step, k = make_resident_epoch_step(model, cfg, base_seed=7, n_examples=res.n, device="cpu")
     assert k == jk == 3
+    got, want = [], []
     for epoch in range(2):
         jstate, jlosses = jepoch(jstate, jres.images, jres.poses, jnp.asarray(epoch, jnp.int32))
         state, losses = epoch_step(state, res.images, res.poses, epoch)
-        np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses), rtol=1e-4)
+        got += losses.tolist()
+        want += np.asarray(jlosses).tolist()
+    _check_losses(bn, got, want)
     assert state.step == int(jstate.step) == 6
-    want = state_dict_from_variables(jax.device_get(jstate.params), {})
-    errs = _update_errors(p0, {k: v.detach() for k, v in state.params.items()}, want)
-    assert errs[-1] <= 5e-2 and errs[len(errs) // 2] <= 5e-2, errs[-3:]
+    want = state_dict_from_variables(jax.device_get(jstate.params), jax.device_get(jstate.batch_stats))
+    _check_state(bn, p0, {k: v.detach() for k, v in model.state_dict().items()}, want)
 
 
 # ───────────────────────────── the loop ─────────────────────────────
 
 
-def _loop_cfg(dataset, save_dir, **kw):
+def _loop_cfg(dataset, save_dir, bn="frozen", **kw):
     return TrainConfig(dataset_config=CameraCubePoseDatasetConfig(dataset, center_crop=(32, 32)),
-                       model_config=NCameraCNNConfig(**SMALL, bn_frozen=True), batch_size=4, n_epochs=2,
+                       model_config=NCameraCNNConfig(**SMALL, **BN[bn]), batch_size=4, n_epochs=2,
                        num_workers=1, use_augmentation=False, wandb_log=False, save_dir=str(save_dir),
-                       learning_rate=1e-3, **kw)
+                       learning_rate=LR[bn], **kw)
 
 
 def test_initialize_training_selects_the_data_path(dataset, tmp_path):
@@ -258,33 +333,42 @@ class _Recorder:
         pass
 
 
-@pytest.mark.parametrize("path", ["resident", "sharded"])
-def test_two_epochs_match_argus_tpu(dataset, tmp_path, monkeypatch, path):
+@pytest.mark.parametrize("path,bn", [("resident", "frozen"), ("sharded", "frozen"), ("resident", "exact-f32"),
+                                     ("sharded", "exact-f32")],
+                         ids=["resident", "sharded", "resident-exact-f32", "sharded-exact-f32"])
+def test_two_epochs_match_argus_tpu(dataset, tmp_path, monkeypatch, path, bn):
     """train() of both packages on the resident (or sharded) path for two
     epochs from one argus_tpu checkpoint, the port's order argus_tpu's:
-    every step's loss and each val loss, the step counts."""
+    every step's loss and each val loss, the step counts; under exact BN
+    also the files' params and running statistics."""
     kw = {} if path == "resident" else dict(device_resident_mb=9 * PER_EXAMPLE / 2**20)
     jcfg = jtrain.TrainConfig(
         dataset_config=jtrain.CameraCubePoseDatasetConfig(dataset, center_crop=(32, 32)),
-        model_config=JaxConfig(**SMALL, bn_frozen=True), batch_size=4, n_epochs=2, num_workers=1,
-        use_augmentation=False, wandb_log=False, save_dir=str(tmp_path / "jax"), learning_rate=1e-3, **kw)
-    _, jstate = jtrain.create_train_state(jcfg, jax.random.PRNGKey(3), (32, 32))
+        model_config=JaxConfig(**SMALL, **BN[bn]), batch_size=4, n_epochs=2, num_workers=1,
+        use_augmentation=False, wandb_log=False, save_dir=str(tmp_path / "jax"), learning_rate=LR[bn], **kw)
+    cfg = _loop_cfg(dataset, tmp_path / "port", bn, **kw)
+    model, _ = create_train_state(cfg, seed=0, device="cpu")
+    _, jstate = _jax_start(jcfg, model)
+    p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     start = jax_save_checkpoint(str(tmp_path / "start.ckpt"), jstate, meta=jtrain.checkpoint_meta(jcfg, (32, 32)))
     _Recorder.runs.clear()
     monkeypatch.setattr(jtrain, "MetricsLogger", _Recorder)
     monkeypatch.setattr(logging_utils, "MetricsLogger", _Recorder)
     monkeypatch.setattr(ttrain, "epoch_permutation", _jax_permutation)
     jpath = jtrain.train(dataclasses.replace(jcfg, resume_from=start))
-    tpath = ttrain.train(_loop_cfg(dataset, tmp_path / "port", resume_from=start, **kw), device="cpu")
+    tpath = ttrain.train(dataclasses.replace(cfg, resume_from=start), device="cpu")
     jrec, trec = (r.records for r in _Recorder.runs)
     # 3 batches an epoch: 10 examples at batch 4, or shards of 4, 4 and 2 at a batch each
     assert [s for s, _ in trec] == [s for s, _ in jrec] and len(trec) == 6 + 2
     for (_, a), (_, b) in zip(trec, jrec):
         assert a.keys() == b.keys()
-        for k in a:
-            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, err_msg=k)
+    for k in ("loss", "val_loss"):
+        _check_losses(bn, [a[k] for _, a in trec if k in a], [b[k] for _, b in jrec if k in b], k == "loss")
     jend, tend = (tck.load_checkpoint(p) for p in (jpath, tpath))
     assert int(tend["step"]) == int(jend["step"]) == 6
+    if bn != "frozen":
+        got, want = (state_dict_from_variables(t["params"], t["batch_stats"]) for t in (tend, jend))
+        _check_state(bn, p0, {k: torch.as_tensor(v) for k, v in got.items()}, want)
 
 
 # ───────────────────────────── keypoint corners ─────────────────────────────

@@ -24,9 +24,11 @@ argus_tpu's fused ops ("on" in the stem cases) run through their XLA route,
 the math argus_tpu's own tests hold each Pallas kernel against; the port's
 plain versions are held against the interpret-mode Pallas kernels by
 tests/test_torch_kernels.py and, for the trained stem's saving forward and
-weight gradient at both strides, tests/test_torch_bn.py. The exact-pallas
-case runs argus_tpu's BN reduction kernels in interpret mode
-(`bn_impl="pallas"`).
+weight gradient at both strides, tests/test_torch_bn.py. Two cases run
+argus_tpu's Pallas kernels in interpret mode: exact-pallas its BN
+reductions (`bn_impl="pallas"`), and stem-grad2-bf16 its fused ops
+(`INTERPRET`), so that one whole step trains the stem through
+`_stem_fwd_save_pallas` and `_stem_bwd_pallas`.
 
 ResNet-50 at 32x32, two rows of which one is masked; BN buffers and scales
 randomised, non-identity targets. Tolerances: tests/test_torch_train.py's
@@ -66,7 +68,7 @@ from argus_tpu_torch.models.jax_import import (
     variables_from_state_dict,
 )
 from argus_tpu_torch.train import TrainConfig, create_train_state, make_train_step
-from test_torch_train import FUSE, TOL, _check_leaves, _randomize_
+from test_torch_train import FUSE, TOL, _check_leaves, _pallas_everywhere, _randomize_
 from _torch_threads import _two_threads  # noqa: F401  (autouse, this module)
 
 LR = 1e-4
@@ -81,6 +83,7 @@ CASES = {
     "affine-f32": (False, dict(FLAGSHIP, bn_frozen=True)),
     "keypoint-f32": (False, dict(head_features=32)),
 }
+INTERPRET = {"stem-grad2-bf16"}  # argus_tpu's fused ops as Pallas kernels in interpret mode
 STATS_TOL = {False: (1e-3, 1e-3), True: (3e-2, 1e-2)}
 # exact BN in f32: each BN's backward subtracts the cotangent's projections
 # on 1 and xhat, so the relative error of the same sums taken in another
@@ -131,15 +134,18 @@ def test_train_step_matches_argus_tpu(name, tmp_path):
     p0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     params, stats = variables_from_state_dict(model.state_dict())
 
-    # argus_tpu's step: its fused ops through their XLA route; with bn_impl="pallas" its BN reductions as
-    # Pallas kernels in interpret mode
+    # argus_tpu's step: its fused ops through their XLA route (in INTERPRET, as Pallas kernels in interpret
+    # mode); with bn_impl="pallas" its BN reductions as Pallas kernels in interpret mode
     params = jax.tree_util.tree_map(jnp.asarray, params)
     jstate = JaxTrainState(
         step=jnp.zeros((), jnp.int32), params=params, batch_stats=jax.tree_util.tree_map(jnp.asarray, stats),
         opt_state=jax_make_optimizer(1.0).init(params), lr=jnp.asarray(LR, jnp.float32),
     )
-    step = jax.jit(make_train_step_body(jmodel, jcfg, 0, hw=(HW, HW)))
-    jstate, jloss = step(jstate, jax.tree_util.tree_map(jnp.asarray, _batch(keypoint)))
+    with pytest.MonkeyPatch.context() as mp:
+        if name in INTERPRET:
+            _pallas_everywhere(mp)
+        step = jax.jit(make_train_step_body(jmodel, jcfg, 0, hw=(HW, HW)))
+        jstate, jloss = step(jstate, jax.tree_util.tree_map(jnp.asarray, _batch(keypoint)))
     adam = jstate.opt_state[1]
     _, w_mu, w_nu = adam_moments_from_optax(adam.count, jax.device_get(adam.mu), jax.device_get(adam.nu))
     want = state_dict_from_variables(jax.device_get(jstate.params), jax.device_get(jstate.batch_stats))
