@@ -1,6 +1,6 @@
 // The eleven redesigned kernels composed from the engines they ran on
 // before, the mma.sync conv-GEMM (conv_gemm.cuh) and weight gradient
-// (wgrad.cuh): the block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu,
+// (wgrad.cuh) in bf16: the block backwards (basic_fused_bwd.cu, proj_fused_bwd.cu,
 // block_fused_bwd.cu, block_fused_rbwd.cu), the stage chain's backward
 // (stage_fused_bwd.cu), the BasicBlock, identity bottleneck and projection
 // forwards (basic_fused.cu, block_fused.cu, proj_fused.cu), the chain
@@ -40,7 +40,7 @@ inline cudaError_t basic_block_bwd_prev(const void* x, const void* g, const void
 
 }  // namespace argus
 
-// The previous launchers: the workspace is sized by bwd_prev.wgrad_workspace.
+// The previous launchers: the workspace is sized by wgrad_plan.mma_workspace.
 extern "C" int argus_basic_bwd_prev(const void* x, const void* g, const void* out, const void* h1,
                                     const void* w1d, const void* w2d, void* dx, void* m1, void* dw1,
                                     void* dw2, void* ws, int64_t ws_elems, int N, int H, int W, int C,
@@ -104,43 +104,16 @@ extern "C" int argus_basic_fwd_prev(const void* x, void* h1, void* out, const vo
 }
 
 // The stage chain's backward as the block backwards of conv_bwd.cuh in turn
-// (each applying its own relu mask as it loads the cotangent), the
-// cotangent ping-ponging between gtmp0 and gtmp1; arguments as
-// `argus_stage_bwd` (stage_fused_bwd.cu) takes them, the workspace sized by
-// bwd_prev.wgrad_workspace.
+// (`stage_chain_bwd`); arguments as `argus_stage_bwd` (stage_fused_bwd.cu)
+// takes them, the workspace sized by wgrad_plan.mma_workspace.
 extern "C" int argus_stage_bwd_prev(const void* x, const void* g, const void* out, const void* const* bnds,
                                     const void* const* h1s, const void* const* h2s, const void* const* proj,
                                     const void* const* ids, void* const* pdw, void* const* idw, void* dx, void* m1,
                                     void* m2, void* gtmp0, void* gtmp1, void* ws, int64_t ws_elems, int K, int N,
                                     int H, int W, int CIN, int F, int COUT, int S, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Ho = H / S, Wo = W / S;
-  const int has_proj = proj != nullptr ? 1 : 0;
-  const int nblocks = has_proj + K;
-  void* tmp[2] = {gtmp0, gtmp1};
-  const void* gcur = g;
-  int slot = 0;
-  for (int j = K - 1; j >= 0; --j) {
-    const int b = j + has_proj;
-    const void* out_b = b == nblocks - 1 ? out : bnds[b];
-    const void* x_b = b == 0 ? x : bnds[b - 1];
-    void* dst = b == 0 ? dx : tmp[slot];
-    const void* const* w = ids + 3 * j;
-    void* const* d = idw + 3 * j;
-    const cudaError_t e = argus::identity_block_bwd(x_b, gcur, out_b, h1s[b], h2s[b], w[0], w[1], w[2], dst, m1, m2,
-                                                    d[0], d[1], d[2], ws, ws_elems, N, Ho, Wo, COUT, F, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    gcur = dst;
-    slot ^= 1;
-  }
-  if (has_proj) {
-    const void* out_0 = nblocks == 1 ? out : bnds[0];
-    const cudaError_t e = argus::projection_block_bwd(x, gcur, out_0, h1s[0], h2s[0], proj[0], proj[1], proj[2],
-                                                      proj[3], dx, m1, m2, pdw[0], pdw[1], pdw[2], pdw[3], ws,
-                                                      ws_elems, N, H, W, CIN, F, COUT, S, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return static_cast<int>(cudaSuccess);
+  return static_cast<int>(argus::stage_chain_bwd(x, g, out, bnds, h1s, h2s, proj, ids, pdw, idw, dx, m1, m2, gtmp0,
+                                                 gtmp1, ws, ws_elems, K, N, H, W, CIN, F, COUT, S,
+                                                 static_cast<cudaStream_t>(stream)));
 }
 
 // The identity bottleneck forward as three launches of the conv-GEMM
@@ -157,7 +130,7 @@ extern "C" int argus_block_fwd_prev(const void* x, void* h1, void* h2, void* out
 // the weight gradient load g (m written by the mask pass only when it is
 // emitted); arguments as `argus_pointwise_bwd` (pointwise_bwd.cu) takes
 // them, m nullptr when not emitted, the workspace sized by
-// bwd_prev.wgrad_workspace.
+// wgrad_plan.mma_workspace.
 extern "C" int argus_pointwise_bwd_prev(const void* g, const void* out, const void* x, const void* wt, void* dx,
                                         void* dw, void* m, void* ws, int64_t ws_elems, int M, int CIN, int COUT,
                                         int relu, void* stream) {
@@ -195,14 +168,14 @@ extern "C" int argus_proj_fwd_prev(const void* x, void* h1, void* h2, void* out,
 extern "C" int argus_stage_fwd_prev(const void* x, void* out, void* h1, void* h2, void* tmp0, void* tmp1,
                                     const void* const* proj, const void* const* ids, int K, int N, int H, int W,
                                     int CIN, int F, int COUT, int S, void* stream) {
-  return static_cast<int>(argus::stage_fwd(argus::projection_block, argus::identity_block, x, out, h1, h2, tmp0, tmp1,
+  return static_cast<int>(argus::stage_fwd(argus::projection_block<argus::bf16>, argus::identity_block<argus::bf16>, x, out, h1, h2, tmp0, tmp1,
                                            proj, ids, K, N, H, W, CIN, F, COUT, S, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int argus_stage_fwd_save_prev(const void* x, void* out, void* const* bnds, void* const* h1s,
                                          void* const* h2s, const void* const* proj, const void* const* ids, int K,
                                          int N, int H, int W, int CIN, int F, int COUT, int S, void* stream) {
-  return static_cast<int>(argus::stage_fwd_save(argus::projection_block, argus::identity_block, x, out, bnds, h1s,
+  return static_cast<int>(argus::stage_fwd_save(argus::projection_block<argus::bf16>, argus::identity_block<argus::bf16>, x, out, bnds, h1s,
                                                 h2s, proj, ids, K, N, H, W, CIN, F, COUT, S,
                                                 static_cast<cudaStream_t>(stream)));
 }

@@ -1,7 +1,8 @@
-// Weight gradient of a convolution tap over NHWC bf16, reduced over every
-// output pixel in f32: the mma.sync weight gradient of the pointwise
-// backward and of the previous block and chain backwards that bwd_prev.cu
-// keeps for timing (conv_bwd.cuh). Every block backward and the chain
+// Weight gradient of a convolution tap over NHWC bf16 or f32, reduced over
+// every output pixel in f32: the mma.sync weight gradient of the port's f32
+// block and chain backwards (conv_f32.cu through conv_bwd.cuh, TF32
+// products) and of the previous bf16 block and chain backwards that
+// bwd_prev.cu keeps for timing. Every bf16 block backward and the bf16 chain
 // backward run on the Hopper engine instead (wgrad_sm90.cuh).
 //
 //   dW[tap, c, n] = sum_m A_tap[m, c] * B[m, n] * (bmask[m, n] > 0)
@@ -28,25 +29,33 @@
 // cp.async ring, four warps of 32x32, mma.sync m16n8k16 with both operands
 // M-major in shared memory, so A's fragments come transposed through
 // ldmatrix.trans (B's, as in the forward, too). The relu mask of B is applied
-// by each thread to the vectors it loaded, before the tile is shared.
+// by each thread to the vectors it loaded, before the tile is shared. The f32
+// instantiation keeps the tile bytes (16 rows a stage) and runs mma.sync
+// m16n8k8 on TF32: the reduction runs over pixels, along which neither NHWC
+// operand is K-major, and wgmma's TF32 form takes K-major operands only; the
+// m16n8k8 fragments are read by plain 32-bit loads from the pixel-major
+// tiles (any layout, conflict-free on the padded rows), each value rounded
+// to TF32 (cvt.rna), the sums in f32.
 // The wgmma/TMA form is wgrad_sm90.cuh; moving these backwards onto it is
 // later work.
 
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace argus {
 
-struct WgradArgs {
-  const bf16* a;      // (N, H, W, C) source of the forward conv
-  int H, W, C;        // C % 8 == 0
+template <class T>
+struct WgradArgsT {
+  const T* a;      // (N, H, W, C) source of the forward conv
+  int H, W, C;     // C % (16 / sizeof(T)) == 0
   int ks, stride, pad;
-  const bf16* b;      // (N*Ho*Wo, COUT) output-side gradient
-  const bf16* bmask;  // nullptr, or shaped like b: B = b * (bmask > 0)
-  int COUT;           // % 8 == 0
+  const T* b;      // (N*Ho*Wo, COUT) output-side gradient
+  const T* bmask;  // nullptr, or shaped like b: B = b * (bmask > 0)
+  int COUT;        // % (16 / sizeof(T)) == 0
   int N, Ho, Wo;
   int splits, rows_per_split;
   float* out;  // (splits, ks*ks, C, COUT) partials, or dW itself when splits == 1
@@ -54,17 +63,20 @@ struct WgradArgs {
 
 constexpr int kWBC = 64;   // output rows (source channels) per block
 constexpr int kWBN = 64;   // output columns (gradient channels) per block
-constexpr int kWBK = 32;   // reduction rows per stage
-constexpr int kWLd = 72;   // padded shared row: 144 bytes, ldmatrix rows on distinct banks
+template <class T>
+constexpr int kWBK = 64 / static_cast<int>(sizeof(T));  // reduction rows per stage: 32 bf16, 16 f32
+constexpr int kWLd = 72;   // padded shared row: ldmatrix rows (bf16) and fragment loads (f32) on distinct banks
 constexpr int kWStages = 3;
 constexpr int kWThreads = 128;
 constexpr int kWTargetBlocks = 4 * 132;  // four blocks on each of the H100's SMs
 constexpr int kWMinRows = 2048;          // rows a split reduces at least
 
-__global__ void __launch_bounds__(kWThreads) wgrad_kernel(const __grid_constant__ WgradArgs p) {
-  __shared__ __align__(128) bf16 sA[kWStages][kWBK][kWLd];
-  __shared__ __align__(128) bf16 sB[kWStages][kWBK][kWLd];
-  __shared__ __align__(128) bf16 sBm[kWStages][kWBK][kWLd];
+template <class T>
+__global__ void __launch_bounds__(kWThreads) wgrad_kernel(const __grid_constant__ WgradArgsT<T> p) {
+  constexpr int BK = kWBK<T>, VEC = 16 / static_cast<int>(sizeof(T)), VPR = kWBC / VEC;
+  __shared__ __align__(128) T sA[kWStages][BK][kWLd];
+  __shared__ __align__(128) T sB[kWStages][BK][kWLd];
+  __shared__ __align__(128) T sBm[kWStages][BK][kWLd];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -80,20 +92,20 @@ __global__ void __launch_bounds__(kWThreads) wgrad_kernel(const __grid_constant_
   const int64_t M = static_cast<int64_t>(p.N) * p.Ho * p.Wo;
   const int64_t mbeg = static_cast<int64_t>(split) * p.rows_per_split;
   const int64_t mend = mbeg + p.rows_per_split < M ? mbeg + p.rows_per_split : M;
-  const int T = mbeg < mend ? static_cast<int>((mend - mbeg + kWBK - 1) / kWBK) : 0;
+  const int KT = mbeg < mend ? static_cast<int>((mend - mbeg + BK - 1) / BK) : 0;
   const bool masked = p.bmask != nullptr;
 
-  // 32 rows x 64 channels = 256 vectors per operand tile, two per thread
+  // BK rows x 64 channels = 256 vectors per operand tile, two per thread
   auto load_tile = [&](int stage, int t) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int vid = tid + i * kWThreads;
-      const int r = vid >> 3;
-      const int cv = (vid & 7) * 8;
-      const int64_t m = mbeg + static_cast<int64_t>(t) * kWBK + r;
+      const int r = vid / VPR;
+      const int cv = (vid % VPR) * VEC;
+      const int64_t m = mbeg + static_cast<int64_t>(t) * BK + r;
       const bool row = m < mend;
       // A: the tap's source pixel of output pixel m
-      const bf16* asrc = p.a;
+      const T* asrc = p.a;
       bool aok = false;
       if (row && c0 + cv < p.C) {
         const int ow = static_cast<int>(m % p.Wo);
@@ -125,11 +137,11 @@ __global__ void __launch_bounds__(kWThreads) wgrad_kernel(const __grid_constant_
 
 #pragma unroll
   for (int s = 0; s < kWStages - 1; ++s) {
-    if (s < T) load_tile(s, s);
+    if (s < KT) load_tile(s, s);
     cp_async_commit();
   }
 
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < KT; ++t) {
     cp_async_wait<kWStages - 2>();
     const int st = t % kWStages;
     if (masked) {
@@ -137,41 +149,67 @@ __global__ void __launch_bounds__(kWThreads) wgrad_kernel(const __grid_constant_
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int vid = tid + i * kWThreads;
-        bf16* bv = &sB[st][vid >> 3][(vid & 7) * 8];
-        const bf16* mv = &sBm[st][vid >> 3][(vid & 7) * 8];
+        T* bv = &sB[st][vid / VPR][(vid % VPR) * VEC];
+        const T* mv = &sBm[st][vid / VPR][(vid % VPR) * VEC];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (!(__bfloat162float(mv[e]) > 0.f)) bv[e] = __float2bfloat16(0.f);
+        for (int e = 0; e < VEC; ++e)
+          if (!(as_f32(mv[e]) > 0.f)) bv[e] = T(0.f);
       }
     }
     __syncthreads();
     const int nt = t + kWStages - 1;
-    if (nt < T) load_tile(nt % kWStages, nt);
+    if (nt < KT) load_tile(nt % kWStages, nt);
     cp_async_commit();
 
+    if constexpr (std::is_same<T, float>::value) {
+      // k-steps of 8 pixels: A[c][pixel] = sA[pixel][c], B[pixel][n] = sB[pixel][n]
+      const int gr = lane >> 2, tc = lane & 3;
 #pragma unroll
-    for (int kk = 0; kk < kWBK / 16; ++kk) {
-      // A fragments (rows = source channels, cols = pixels) from the
-      // pixel-major tile: 8x8 matrix j covers pixels +8*(j>>1), channels +8*(j&1)
-      uint32_t a[2][4];
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const int p0 = kk * 8 + tc;
+        uint32_t a[2][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4_trans(a[i], &sA[st][kk * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)]
-                                   [wm * 32 + i * 16 + ((lane >> 3) & 1) * 8]);
-      uint32_t b[4][2];
+        for (int i = 0; i < 2; ++i) {
+          const int c = wm * 32 + i * 16 + gr;
+          a[i][0] = tf32(sA[st][p0][c]);
+          a[i][1] = tf32(sA[st][p0][c + 8]);
+          a[i][2] = tf32(sA[st][p0 + 4][c]);
+          a[i][3] = tf32(sA[st][p0 + 4][c + 8]);
+        }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &sB[st][kk * 16 + (lane & 15)][wn * 32 + j * 16 + (lane >> 4) * 8]);
-        b[2 * j][0] = r[0];
-        b[2 * j][1] = r[1];
-        b[2 * j + 1][0] = r[2];
-        b[2 * j + 1][1] = r[3];
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn * 32 + j * 8 + gr;
+          const uint32_t b0 = tf32(sB[st][p0][n]);
+          const uint32_t b1 = tf32(sB[st][p0 + 4][n]);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_tf32(acc[i][j], a[i], b0, b1);
+        }
       }
+    } else {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // A fragments (rows = source channels, cols = pixels) from the
+        // pixel-major tile: 8x8 matrix j covers pixels +8*(j>>1), channels +8*(j&1)
+        uint32_t a[2][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+        for (int i = 0; i < 2; ++i)
+          ldmatrix_x4_trans(a[i], &sA[st][kk * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)]
+                                     [wm * 32 + i * 16 + ((lane >> 3) & 1) * 8]);
+        uint32_t b[4][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, &sB[st][kk * 16 + (lane & 15)][wn * 32 + j * 16 + (lane >> 4) * 8]);
+          b[2 * j][0] = r[0];
+          b[2 * j][1] = r[1];
+          b[2 * j + 1][0] = r[2];
+          b[2 * j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+      }
     }
   }
   cp_async_wait<0>();
@@ -213,7 +251,7 @@ __global__ void sum_splits_kernel(const float4* __restrict__ part, float4* __res
 
 // Splits of the reduction for a problem of M rows and `tiles` output tiles
 // (taps included): enough blocks to fill the card, at least kWMinRows rows
-// each. ops/kernels/block_fused.py `wgrad_workspace` mirrors it to size the
+// each. ops/kernels/wgrad_plan.py `mma_workspace` mirrors it to size the
 // workspace.
 inline int wgrad_splits(int64_t M, int64_t tiles) {
   const int64_t want = (kWTargetBlocks + tiles - 1) / tiles;
@@ -221,21 +259,23 @@ inline int wgrad_splits(int64_t M, int64_t tiles) {
   return static_cast<int>(std::max<int64_t>(1, std::min(want, most)));
 }
 
-// dw (ks*ks, C, COUT) f32 = the tap-wise weight gradient; `ws` holds
-// `ws_elems` f32 for the partials (fewer splits are taken if it is short).
+// dw (ks*ks, C, COUT) f32 = the tap-wise weight gradient of T operands;
+// `ws` holds `ws_elems` f32 for the partials (fewer splits are taken if it
+// is short).
+template <class T = bf16>
 inline cudaError_t wgrad(const void* a, int H, int W, int C, int ks, int stride, int pad,
                          const void* b, const void* bmask, int COUT, int N, int Ho, int Wo,
                          void* dw, void* ws, int64_t ws_elems, cudaStream_t stream) {
-  WgradArgs p;
-  p.a = static_cast<const bf16*>(a);
+  WgradArgsT<T> p;
+  p.a = static_cast<const T*>(a);
   p.H = H;
   p.W = W;
   p.C = C;
   p.ks = ks;
   p.stride = stride;
   p.pad = pad;
-  p.b = static_cast<const bf16*>(b);
-  p.bmask = static_cast<const bf16*>(bmask);
+  p.b = static_cast<const T*>(b);
+  p.bmask = static_cast<const T*>(bmask);
   p.COUT = COUT;
   p.N = N;
   p.Ho = Ho;
@@ -247,14 +287,14 @@ inline cudaError_t wgrad(const void* a, int H, int W, int C, int ks, int stride,
   int64_t splits = wgrad_splits(M, tiles);
   splits = std::min<int64_t>(splits, ws == nullptr ? 1 : std::max<int64_t>(1, ws_elems / elems));
   int64_t rps = (M + splits - 1) / splits;
-  rps = (rps + kWBK - 1) / kWBK * kWBK;
+  rps = (rps + kWBK<T> - 1) / kWBK<T> * kWBK<T>;
   splits = std::max<int64_t>(1, (M + rps - 1) / rps);
   p.splits = static_cast<int>(splits);
   p.rows_per_split = static_cast<int>(rps);
   p.out = static_cast<float*>(splits > 1 ? ws : dw);
   dim3 grid(static_cast<unsigned>((C + kWBC - 1) / kWBC), static_cast<unsigned>((COUT + kWBN - 1) / kWBN),
             static_cast<unsigned>(taps * splits));
-  wgrad_kernel<<<grid, kWThreads, 0, stream>>>(p);
+  wgrad_kernel<T><<<grid, kWThreads, 0, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int64_t n4 = elems / 4;

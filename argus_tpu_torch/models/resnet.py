@@ -15,9 +15,16 @@ flax's `lecun_normal` (`lecun_normal_`). The `fuse_*` flags keep argus_tpu's
 names and values. "on" and "off" force a kernel function on or off, with
 argus_tpu's coupling (the stage chain needs `fuse_block` and `fuse_proj`
 too). "auto" is off on a CPU tensor; on a CUDA tensor it reads `AUTO_FUSE`,
-which holds, per kernel function and mode, whether the port's kernel made
-the model faster than its unfused path on the H100 (argus_tpu's "auto"
-means "on the TPU" and gives no rule for a GPU). Under frozen BN (`bn_frozen` and
+which holds, per kernel function, mode and compute dtype, whether the port's
+kernel made the model faster than its unfused path on the H100 (argus_tpu's
+"auto" means "on the TPU" and gives no rule for a GPU). In f32 (TF32
+products) the stem's no-save forward, the stage-0 chain, and the identity
+and projection blocks (both modes) have kernels; "auto" takes one only where
+`AUTO_FUSE` has its f32 entry, and "on" raises NotImplementedError (ROADMAP
+A14) for a function in f32 with no kernel yet (`F32_TO_PORT`): the trained
+stem, the packed stem, the frozen stages' chains, the identity block under
+remat, the BasicBlocks and the pointwise op. The CPU runs every plain
+version in either dtype (`fuse_choice`). Under frozen BN (`bn_frozen` and
 `bn_frozen_affine`) with fusion on, the stem, stage chains, projection and
 identity bottlenecks, and the identity BasicBlocks of ResNet-18/34 (stride
 1, cin == cout; the strided BasicBlocks stay unfused, as in argus_tpu) run
@@ -79,42 +86,80 @@ from argus_tpu_torch.parallel.collectives import copy_to_model
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 POINTWISE_FLAGS = ("off", "on", "dot", "auto")
 
-# What "auto" chooses on a CUDA tensor, per kernel function and mode: on
-# where the port's kernel made the model faster than its unfused path, cuDNN
-# convs on BN-folded weights (`conv_bn`). "forward" is the no-save forward
-# (serving, eval, frozen stages), "train" the saving forward with its
-# backward. The chain's no-save forward is two functions, as in argus_tpu:
-# the stage-0 form ("stage_chain_packed", `packed_fwd_ok`) and the
-# whole-stage chains of frozen stages 1-3. From scripts/time_torch_auto_fuse.py
-# at batch 256 rows (512 images of 256x256, bf16) on one NVIDIA H100 80GB
-# HBM3 at 700.00 W: ms per step or forward saved by turning the function on
-# alone, every other entry off (negative: cuDNN wins), in the workloads named.
+# What "auto" chooses on a CUDA tensor, per kernel function, mode and
+# compute dtype: on where the port's kernel made the model faster than its
+# unfused path, cuDNN convs on BN-folded weights (`conv_bn`; in f32 under
+# PyTorch's default `cudnn.allow_tf32`, as `train()` leaves it). "forward" is
+# the no-save forward (serving, eval, frozen stages), "train" the saving
+# forward with its backward. The chain's no-save forward is two functions, as
+# in argus_tpu: the stage-0 form ("stage_chain_packed", `packed_fwd_ok`) and
+# the whole-stage chains of frozen stages 1-3. From
+# scripts/time_torch_auto_fuse.py at batch 256 rows (512 images of 256x256)
+# on one NVIDIA H100 80GB HBM3 at 700.00 W: ms per step or forward saved by
+# turning the function on alone, every other entry off (negative: cuDNN
+# wins), in the workloads named; bf16, then f32 (`--dtype float32`). A
+# function with no f32 entry has no f32 kernel (`F32_TO_PORT`).
 AUTO_FUSE = {
-    ("stem", "forward"): True,  # flagship step 8.51, serving 8.87
-    ("stem", "train"): True,  # stem-trained step 13.67
-    ("stage_chain_packed", "forward"): True,  # serving 17.87; frozen_stages=3 step 26.15 with the packed stem
-    ("stage_chain", "forward"): True,  # frozen_stages=3 step 19.77 (stages 1-2, the TMA forward)
-    ("stage_chain", "train"): True,  # flagship step 17.85 (the TMA forward, the Hopper chain backward)
-    ("projection", "forward"): True,  # serving 17.24 (the TMA forward)
-    ("projection", "train"): True,  # flagship step 14.23, frozen_stages=3 step -0.16 (TMA forward, Hopper backward)
-    ("identity", "forward"): True,  # serving 24.54 (the TMA forward)
-    ("identity", "train"): True,  # flagship step 16.63, frozen_stages=3 step -0.15 (TMA forward, Hopper backward)
-    ("basic", "forward"): True,  # keypoint eval forward 4.41 (the TMA forward)
-    ("basic", "train"): False,  # keypoint step -0.13
-    ("pointwise", "forward"): True,  # serving 31.60, frozen_stages=3 step 30.99 (fuse_pointwise "auto" in all 16 blocks)
-    ("pointwise", "train"): True,  # flagship step 22.88, frozen_stages=3 step 1.16 (TMA forward, Hopper backward)
+    ("stem", "forward", "bfloat16"): True,  # flagship step 8.51, serving 8.87
+    ("stem", "train", "bfloat16"): True,  # stem-trained step 13.67
+    ("stage_chain_packed", "forward", "bfloat16"): True,  # serving 17.87; frozen_stages=3 step 26.15 with the packed stem
+    ("stage_chain", "forward", "bfloat16"): True,  # frozen_stages=3 step 19.77 (stages 1-2, the TMA forward)
+    ("stage_chain", "train", "bfloat16"): True,  # flagship step 17.85 (the TMA forward, the Hopper chain backward)
+    ("projection", "forward", "bfloat16"): True,  # serving 17.24 (the TMA forward)
+    ("projection", "train", "bfloat16"): True,  # flagship step 14.23, frozen_stages=3 step -0.16 (TMA forward, Hopper backward)
+    ("identity", "forward", "bfloat16"): True,  # serving 24.54 (the TMA forward)
+    ("identity", "train", "bfloat16"): True,  # flagship step 16.63, frozen_stages=3 step -0.15 (TMA forward, Hopper backward)
+    ("basic", "forward", "bfloat16"): True,  # keypoint eval forward 4.41 (the TMA forward)
+    ("basic", "train", "bfloat16"): False,  # keypoint step -0.13
+    ("pointwise", "forward", "bfloat16"): True,  # serving 31.60, frozen_stages=3 step 30.99 (fuse_pointwise "auto" in all 16 blocks)
+    ("pointwise", "train", "bfloat16"): True,  # flagship step 22.88, frozen_stages=3 step 1.16 (TMA forward, Hopper backward)
+    ("stem", "forward", "float32"): True,  # flagship step 5.75, serving 6.03 (cuDNN's f32 conv in TF32, then the pool)
+    ("stage_chain_packed", "forward", "float32"): True,  # serving 7.49
+    ("stage_chain", "train", "float32"): False,  # flagship step -14.44 (TF32 mma.sync, ~33-40 TFLOP/s)
+    ("projection", "forward", "float32"): False,  # serving -7.35
+    ("projection", "train", "float32"): False,  # flagship step -73.08
+    ("identity", "forward", "float32"): False,  # serving -23.54
+    ("identity", "train", "float32"): False,  # flagship step -152.12
 }
 
+# The (function, mode) pairs with no f32 kernel on the card yet (ROADMAP
+# A14): "on" raises for them in f32, "auto" leaves them off. "stem_packed" is
+# the stem writing the frozen stage-0 chain's packed view, "identity_remat"
+# the identity block under remat (its recompute backward); both share their
+# function's flag.
+F32_TO_PORT = frozenset({
+    ("stem", "train"), ("stem_packed", "forward"), ("stage_chain", "forward"), ("identity_remat", "train"),
+    ("basic", "forward"), ("basic", "train"), ("pointwise", "forward"), ("pointwise", "train"),
+})
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
-def flag_on(flag: str, x: torch.Tensor, function: str, mode: str) -> bool:
-    """A fuse flag's value for kernel function `function` in `mode` on this
-    activation: "on" and "off" as given, "auto" off on a CPU tensor and
-    `AUTO_FUSE[(function, mode)]` on a CUDA tensor."""
+
+def fuse_choice(flag: str, function: str, mode: str, dtype: torch.dtype, cuda: bool, row: Optional[str] = None) -> bool:
+    """Whether kernel function `function` runs in `mode` for activations of
+    `dtype`, on a CUDA tensor (`cuda`) or the CPU, under fuse flag `flag`.
+    "off" never; "on" always, except that in f32 on the card a function with
+    no f32 kernel yet (`F32_TO_PORT`, keyed by `row` where a variant of the
+    function runs) raises NotImplementedError; "auto" never on the CPU and
+    on the card as `AUTO_FUSE[(function, mode, dtype)]`, off for a function
+    with no kernel in that dtype."""
     if flag not in ("on", "off", "auto"):
         raise ValueError(f"fuse flag must be 'on', 'off' or 'auto', got {flag!r}")
+    name = _DTYPE_NAMES.get(dtype)
+    missing = cuda and (name is None or (name == "float32" and (row or function, mode) in F32_TO_PORT))
+    if flag == "on" and missing:
+        raise NotImplementedError(
+            f"fuse flag 'on': {row or function} ({mode}) has no {dtype} kernel on the card yet (ROADMAP A14); "
+            f"set the flag to 'auto' or 'off', or the model's dtype to bfloat16")
     if flag == "auto":
-        return x.is_cuda and AUTO_FUSE[(function, mode)]
+        return cuda and not missing and AUTO_FUSE.get((function, mode, name), False)
     return flag == "on"
+
+
+def flag_on(flag: str, x: torch.Tensor, function: str, mode: str, dtype: torch.dtype,
+            row: Optional[str] = None) -> bool:
+    """A fuse flag's value for kernel function `function` in `mode` on
+    activation x (its device) computed in `dtype` (`fuse_choice`)."""
+    return fuse_choice(flag, function, mode, dtype, x.is_cuda, row)
 
 
 def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -412,7 +457,7 @@ class ResNet(nn.Module):
             and x.shape[1] % 8 == 0
             and x.shape[2] % 8 == 0
             and x.shape[3] == 3
-            and flag_on(self.fuse_stem, x, "stem", "train" if grad and not stem_frozen else "forward")
+            and flag_on(self.fuse_stem, x, "stem", "train" if grad and not stem_frozen else "forward", self.dtype)
         )
         # the stem hands the stage-0 chain its pair-packed view (argus_tpu's
         # predicate, `models/resnet.py` there: frozen stages, every fuse flag
@@ -425,6 +470,7 @@ class ResNet(nn.Module):
             and self._fuse(x, "forward", 0, x.shape[2] // 4)[2]
             and packed_fwd_ok(self.num_filters, 1, x.shape[2] // 4, self.num_filters,
                               self.num_filters * self.block_cls.expansion)
+            and flag_on(self.fuse_stem, x, "stem", "forward", self.dtype, row="stem_packed")
         )
 
         x = x.to(dt)
@@ -467,21 +513,26 @@ class ResNet(nn.Module):
 
     def _fuse(self, x: torch.Tensor, mode: str, i: int, w_in: int) -> tuple:
         """(identity blocks, projection blocks, stage chain) fused for stage
-        `i` (input width `w_in`) in `mode`. The chain needs the block and
-        projection flags not "off", as argus_tpu's `fuse_stg = fuse_blk and
-        fuse_prj and fuse_stage` needs them on; under "auto" each function
-        reads its own `AUTO_FUSE` entry, so the chain can run where the
-        blocks alone would not."""
+        `i` (input width `w_in`) in `mode`, in the model's dtype. The chain
+        counts only in a stage it takes (`fuse_stage_stages` or a frozen
+        stage) and needs the block and projection flags not "off", as
+        argus_tpu's `fuse_stg = fuse_blk and fuse_prj and fuse_stage` needs
+        them on; under "auto" each function reads its own `AUTO_FUSE` entry,
+        so the chain can run where the blocks alone would not. Under remat
+        an identity block's flag is its remat row's."""
         if not self.frozen:
             return False, False, False
         bottleneck = self.block_cls is BottleneckBlock
-        blk = flag_on(self.fuse_block, x, "identity" if bottleneck else "basic", mode)
-        prj = bottleneck and flag_on(self.fuse_proj, x, "projection", mode)
+        remat = mode == "train" and (self.remat or i in self.remat_stages)
+        blk = flag_on(self.fuse_block, x, "identity" if bottleneck else "basic", mode, self.dtype,
+                      row="identity_remat" if bottleneck and remat else None)
+        prj = bottleneck and flag_on(self.fuse_proj, x, "projection", mode, self.dtype)
         f, s = self.num_filters * 2**i, 2 if i > 0 else 1
         cin = self.num_filters if i == 0 else f // 2 * self.block_cls.expansion
         packed = mode == "forward" and packed_fwd_ok(f, s, w_in // s, cin, f * self.block_cls.expansion)
-        stg = (bottleneck and self.fuse_block != "off" and self.fuse_proj != "off"
-               and flag_on(self.fuse_stage, x, "stage_chain_packed" if packed else "stage_chain", mode))
+        chain_here = i in self.fuse_block_stages and (i in self.fuse_stage_stages or i < self.frozen_stages)
+        stg = (bottleneck and chain_here and self.fuse_block != "off" and self.fuse_proj != "off"
+               and flag_on(self.fuse_stage, x, "stage_chain_packed" if packed else "stage_chain", mode, self.dtype))
         return blk, prj, stg
 
     def _pointwise(self, x: torch.Tensor, mode: str) -> Optional[str]:
@@ -493,13 +544,13 @@ class ResNet(nn.Module):
             return None
         if self.fuse_pointwise == "dot":
             return "dot"
-        return "kernel" if flag_on(self.fuse_pointwise, x, "pointwise", mode) else None
+        return "kernel" if flag_on(self.fuse_pointwise, x, "pointwise", mode, self.dtype) else None
 
     def _stage(self, i: int, x: torch.Tensor, fuse_blk: bool, fuse_prj: bool, fuse_stg: bool, bs: bool,
                x_packed: bool = False):
         blocks = self.blocks(i)
         fused_here = i in self.fuse_block_stages
-        if fuse_stg and fused_here and (i in self.fuse_stage_stages or i < self.frozen_stages):
+        if fuse_stg:
             # a chain keeps its own saved residuals: remat does not apply (argus_tpu)
             ws = [self._folded_weights(f"stage{i}_block{j}") for j in range(len(blocks))]
             proj = None if blocks[0].is_identity else ws[0]

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port, one module per argus_tpu Pallas
 kernel family (forward, saving forward, backward; the stem, the bottleneck
-and the BasicBlock families; the augmentation's whole-stack and blur
+and the BasicBlock families, the stem and bottleneck ones also in f32; the augmentation's whole-stack and blur
 kernels; BatchNorm's two reductions; the pointwise conv; the identity block's
 recompute backward), each with its plain PyTorch version
 beside it (see `_build` for how the CUDA sources are
@@ -49,6 +49,17 @@ KERNELS = {
     "pointwise": pointwise.KERNEL,
     "pointwise_bwd": pointwise.KERNEL_BWD,
     "block_fused_rbwd": block_fused.KERNEL_RBWD,
+    # the f32 kernels (TF32 products): argus_tpu's default compute dtype
+    "stem_fused_f32": stem_fused.KERNEL_F32,
+    "stage_fused_f32": stage_fused.KERNEL_F32,
+    "stage_fused_save_f32": stage_fused.KERNEL_SAVE_F32,
+    "stage_fused_bwd_f32": stage_fused.KERNEL_BWD_F32,
+    "proj_fused_f32": proj_fused.KERNEL_F32,
+    "proj_fused_save_f32": proj_fused.KERNEL_SAVE_F32,
+    "proj_fused_bwd_f32": proj_fused.KERNEL_BWD_F32,
+    "block_fused_f32": block_fused.KERNEL_F32,
+    "block_fused_save_f32": block_fused.KERNEL_SAVE_F32,
+    "block_fused_bwd_f32": block_fused.KERNEL_BWD_F32,
 }
 
 

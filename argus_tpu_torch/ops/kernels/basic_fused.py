@@ -41,6 +41,7 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     conv3x3_grads_f32,
     dgrad_w2,
     fold_affine,
+    kernel_dtype,
     needs_grad,
     relu_mask,
     zero_grad_of,
@@ -94,7 +95,7 @@ def _check(x, w1, w2, biases=None):
     n, h, w, c = x.shape
     check_channels(C=c)
     bf = torch.bfloat16
-    check_cuda("x", x, bf)
+    check_cuda("x", x, kernel_dtype(x, f32=False))  # f32: ROADMAP A14
     for name, t in (("w1", w1), ("w2", w2)):
         check_cuda(name, t, bf, (3, 3, c, c))
     for name, t in zip(("b1", "b2"), biases or ()):

@@ -25,7 +25,9 @@ the CPU tests hold against argus_tpu and `chip_smoke.py` holds the kernel
 against on the card; the wrapper, which launches the CUDA kernel on a CUDA
 tensor (`csrc/block_fused.cu`, three launches of the TMA forward engine;
 `csrc/block_fused_bwd.cu` and `csrc/block_fused_rbwd.cu`, the Hopper
-backward compositions) and runs the plain version on a CPU tensor; and
+backward compositions; in f32 the forwards and the saved-residual backward
+of `csrc/conv_f32.cu`, TF32 products on the mma.sync engines, counted in
+their own `*_F32` handles) and runs the plain version on a CPU tensor; and
 `block_saved`, the `torch.autograd.Function` that ties the saving forward to
 the backward. The no-save forward is the op `argus::bottleneck_block`
 (`torch.library`: the launch on CUDA, the plain version on the CPU, a fake
@@ -49,6 +51,10 @@ KERNEL = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
 KERNEL_SAVE = Kernel("block_fused", "argus_block_fwd", [P] * 10 + [I] * 5 + [P])
 KERNEL_BWD = Kernel("block_fused_bwd", "argus_block_bwd", [P] * 16 + [L] + [I] * 5 + [P])
 KERNEL_RBWD = Kernel("block_fused_rbwd", "argus_block_rbwd", [P] * 20 + [L] + [I] * 5 + [P])
+# the f32 kernels (csrc/conv_f32.cu): forward, saving forward, backward
+KERNEL_F32 = Kernel("conv_f32", "argus_block_fwd_f32", [P] * 10 + [I] * 5 + [P])
+KERNEL_SAVE_F32 = Kernel("conv_f32", "argus_block_fwd_f32", [P] * 10 + [I] * 5 + [P])
+KERNEL_BWD_F32 = Kernel("conv_f32", "argus_block_bwd_f32", [P] * 15 + [L] + [I] * 5 + [P])
 
 
 # ───────────────────────────── plain pieces ─────────────────────────────
@@ -130,6 +136,19 @@ def fold_affine(k: torch.Tensor, s, b, m, v, eps: float, dtype, axis: int = -1):
 # ───────────────────────────── wrapper checks ─────────────────────────────
 
 
+def kernel_dtype(x: torch.Tensor, f32: bool = True):
+    """The dtype a CUDA kernel takes the activation x in: bf16, or f32 where
+    the function has its f32 kernel (`f32`). An f32 x of a function whose f32
+    kernel is still to be ported raises NotImplementedError (ROADMAP A14);
+    any other dtype TypeError."""
+    if x.dtype == torch.bfloat16 or (f32 and x.dtype == torch.float32):
+        return x.dtype
+    if x.dtype == torch.float32:
+        raise NotImplementedError("this kernel has no f32 form on the card yet (ROADMAP A14): run it in bf16, "
+                                  "or with its fuse flag 'off' (cuDNN)")
+    raise TypeError(f"x must be torch.bfloat16 or torch.float32, got {x.dtype}")
+
+
 def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -205,11 +224,11 @@ def block_bwd_plain(x, g, out, h1, h2, w1, w2, w3, need_dx=True):
     return dx, dw1, dw2, dw3
 
 
-def _check_block(x, w1, w2, w3, biases=None):
+def _check_block(x, w1, w2, w3, biases=None, f32=True):
     n, h, w, cin = x.shape
     f = w1.shape[1]
     check_channels(CIN=cin, F=f)
-    bf = torch.bfloat16
+    bf = kernel_dtype(x, f32)
     check_cuda("x", x, bf)
     for name, t, shape in (("w1", w1, (cin, f)), ("w2", w2, (3, 3, f, f)), ("w3", w3, (f, cin))):
         check_cuda(name, t, bf, shape)
@@ -218,9 +237,11 @@ def _check_block(x, w1, w2, w3, biases=None):
     return n, h, w, cin, f
 
 
-def _forward(kernel, x, w1, b1, w2, b2, w3, b3):
+def _forward(kernel, kernel_f32, x, w1, b1, w2, b2, w3, b3):
     n, h, w, cin, f = _check_block(x, w1, w2, w3, (b1, b2, b3))
-    h1 = torch.empty((n, h, w, f), dtype=torch.bfloat16, device=x.device)
+    if x.dtype == torch.float32:
+        kernel = kernel_f32
+    h1 = torch.empty((n, h, w, f), dtype=x.dtype, device=x.device)
     h2 = torch.empty_like(h1)
     out = torch.empty_like(x)
     kernel.launch(x, h1, h2, out, w1, b1, w2, b2, w3, b3, n, h, w, cin, f)
@@ -231,8 +252,9 @@ def _forward(kernel, x, w1, b1, w2, b2, w3, b3):
 def bottleneck_block_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                         w3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
     """The identity block's no-save forward as the op
-    `argus::bottleneck_block`: on a CUDA tensor the kernel (`KERNEL`)."""
-    return _forward(KERNEL, x, w1, b1, w2, b2, w3, b3)[0]
+    `argus::bottleneck_block`: on a CUDA tensor the kernel (`KERNEL`, in
+    f32 `KERNEL_F32`)."""
+    return _forward(KERNEL, KERNEL_F32, x, w1, b1, w2, b2, w3, b3)[0]
 
 
 @bottleneck_block_op.register_kernel("cpu")
@@ -258,7 +280,7 @@ def bottleneck_block_save(x, w1, b1, w2, b2, w3, b3):
     the plain version on a CPU tensor."""
     if not check_device(x):
         return bottleneck_block_save_plain(x, w1, b1, w2, b2, w3, b3)
-    return _forward(KERNEL_SAVE, x, w1, b1, w2, b2, w3, b3)
+    return _forward(KERNEL_SAVE, KERNEL_SAVE_F32, x, w1, b1, w2, b2, w3, b3)
 
 
 def dgrad_w2(w2: torch.Tensor, stride: int) -> torch.Tensor:
@@ -290,13 +312,28 @@ def block_bwd(x, g, out, h1, h2, w1, w2, w3, need_dx=True):
     if not check_device(x):
         return block_bwd_plain(x, g, out, h1, h2, w1, w2, w3, need_dx)
     n, h, w, cin, f = _check_block(x, w1, w2, w3)
-    bf = torch.bfloat16
     for name, t, c in (("g", g, cin), ("out", out, cin), ("h1", h1, f), ("h2", h2, f)):
-        check_cuda(name, t, bf, (n, h, w, c))
+        check_cuda(name, t, x.dtype, (n, h, w, c))
+    if x.dtype == torch.float32:
+        return _block_bwd_f32(x, g, out, h1, h2, w1, w2, w3, n, h, w, cin, f, need_dx)
     dx, m1, m2, m3, dws, ws, ws_elems = _identity_scratch(x, n, h, w, cin, f, need_dx)
     KERNEL_BWD.launch(
         x, g, out, h1, h2, *transposed_weights(w1, w2, w3), dx, m1, m2, m3, *dws, ws, ws_elems, n, h, w, cin, f,
     )
+    return (dx, *dws)
+
+
+def _block_bwd_f32(x, g, out, h1, h2, w1, w2, w3, n, h, w, cin, f, need_dx):
+    """The f32 backward (csrc/conv_f32.cu, `KERNEL_BWD_F32`): m1, m2 f32
+    scratch, the mma.sync weight gradient's workspace."""
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m1, m2 = torch.empty_like(h1), torch.empty_like(h2)
+    dx = torch.empty_like(x) if need_dx else None
+    dws = (torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32), torch.empty((f, cin), **f32))
+    ws_elems = wgrad_plan.mma_workspace(*wgrad_plan.identity_mma_problems(n, h, w, cin, f))
+    ws = torch.empty(max(ws_elems, 1), **f32)
+    KERNEL_BWD_F32.launch(x, g, out, h1, h2, *transposed_weights(w1, w2, w3), dx, m1, m2, *dws, ws, ws_elems,
+                          n, h, w, cin, f)
     return (dx, *dws)
 
 
@@ -322,7 +359,7 @@ def block_bwd_recompute(x, g, out, w1, b1, w2, b2, w3, b3, need_dx=True, recompu
     masks may differ, and the backward from there on with them)."""
     if not check_device(x):
         return block_bwd_recompute_plain(x, g, out, w1, b1, w2, b2, w3, b3, need_dx, recomputed)
-    n, h, w, cin, f = _check_block(x, w1, w2, w3, (b1, b2, b3))
+    n, h, w, cin, f = _check_block(x, w1, w2, w3, (b1, b2, b3), f32=False)
     bf = torch.bfloat16
     for name, t in (("g", g), ("out", out)):
         check_cuda(name, t, bf, (n, h, w, cin))

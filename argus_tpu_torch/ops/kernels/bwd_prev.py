@@ -21,6 +21,12 @@ from __future__ import annotations
 import torch
 
 from argus_tpu_torch.ops.kernels._build import I, L, P, Kernel
+from argus_tpu_torch.ops.kernels.wgrad_plan import (
+    chain_mma_problems,
+    identity_mma_problems,
+    mma_workspace,
+    projection_mma_problems,
+)
 from argus_tpu_torch.ops.kernels.block_fused import dgrad_w2
 from argus_tpu_torch.ops.kernels.block_fused import transposed_weights as identity_transposed_weights
 from argus_tpu_torch.ops.kernels.bn_reduce import visited_rows
@@ -42,37 +48,6 @@ KERNEL_PW_FWD = Kernel("bwd_prev", "argus_pointwise_fwd_prev", [P] * 5 + [I] * 4
 KERNEL_BN_STATS = Kernel("bn_reduce", "argus_bn_stats_prev", [P, P, P, L, L, L, I, I, I, P])
 KERNEL_BN_BWD = Kernel("bn_reduce", "argus_bn_bwd_reduce_prev", [P] * 6 + [L, L, L, I, I, I, P])
 
-_WG_TILE, _WG_TARGET_BLOCKS, _WG_MIN_ROWS = 64, 4 * 132, 2048
-
-
-def wgrad_workspace(*problems) -> int:
-    """f32 elements of partials the mma.sync weight-gradient launches of one
-    backward need, for problems (rows, C, COUT, taps): the split rule of `wgrad_splits` in csrc/wgrad.cuh
-    (the launcher takes fewer splits when the workspace is short, so the two
-    cannot overrun each other)."""
-    need = 0
-    for rows, c, cout, taps in problems:
-        tiles = taps * -(-c // _WG_TILE) * -(-cout // _WG_TILE)
-        splits = max(1, min(-(-_WG_TARGET_BLOCKS // tiles), -(-rows // _WG_MIN_ROWS)))
-        if splits > 1:
-            need = max(need, splits * taps * c * cout)
-    return need
-
-
-def identity_wgrad_problems(n, h, w, cin, f):
-    """The identity block's weight gradients as csrc/wgrad.cuh's workspace
-    rule takes them (rows, C, COUT, taps)."""
-    rows = n * h * w
-    return [(rows, f, cin, 1), (rows, f, f, 9), (rows, cin, f, 1)]
-
-
-def projection_wgrad_problems(n, h, w, cin, f, cout, stride):
-    """The projection block's weight gradients as csrc/wgrad.cuh's workspace
-    rule takes them (rows, C, COUT, taps)."""
-    rows, rows_o = n * h * w, n * (h // stride) * (w // stride)
-    return [(rows_o, f, cout, 1), (rows_o, cin, cout, 1), (rows_o, f, f, 9), (rows, cin, f, 1)]
-
-
 def basic_bwd_prev(x, g, out, h1, w1, w2, need_dx=True):
     """(dx or None, dw1, dw2 in f32), as `basic_fused.basic_bwd`."""
     n, h, w, c = x.shape
@@ -80,7 +55,7 @@ def basic_bwd_prev(x, g, out, h1, w1, w2, need_dx=True):
     m1 = torch.empty_like(h1)
     dx = torch.empty_like(x) if need_dx else None
     dw1, dw2 = torch.empty((3, 3, c, c), **f32), torch.empty((3, 3, c, c), **f32)
-    ws_elems = wgrad_workspace((n * h * w, c, c, 9))
+    ws_elems = mma_workspace((n * h * w, c, c, 9))
     ws = torch.empty(max(ws_elems, 1), **f32)
     KERNEL_BASIC.launch(x, g, out, h1, dgrad_w2(w1, 1), dgrad_w2(w2, 1), dx, m1, dw1, dw2, ws, ws_elems, n, h, w, c)
     return dx, dw1, dw2
@@ -95,7 +70,7 @@ def proj_bwd_prev(x, g, out, h1, h2, w1, w2, w3, wsc, stride, need_dx=True):
     dx = torch.empty_like(x) if need_dx else None
     dw1, dw2 = torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32)
     dw3, dwsc = torch.empty((f, cout), **f32), torch.empty((cin, cout), **f32)
-    ws_elems = wgrad_workspace(*projection_wgrad_problems(n, h, w, cin, f, cout, stride))
+    ws_elems = mma_workspace(*projection_mma_problems(n, h, w, cin, f, cout, stride))
     ws = torch.empty(max(ws_elems, 1), **f32)
     KERNEL_PROJ.launch(x, g, out, h1, h2, *transposed_weights(w1, w2, w3, wsc, stride), dx, m1, m2, dw1, dw2, dw3,
                        dwsc, ws, ws_elems, n, h, w, cin, f, cout, stride)
@@ -108,7 +83,7 @@ def _identity_outputs(x, f, need_dx):
     m1, m2 = (torch.empty((n, h, w, f), dtype=x.dtype, device=x.device) for _ in range(2))
     dx = torch.empty_like(x) if need_dx else None
     dws = (torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32), torch.empty((f, cin), **f32))
-    ws_elems = wgrad_workspace(*identity_wgrad_problems(n, h, w, cin, f))
+    ws_elems = mma_workspace(*identity_mma_problems(n, h, w, cin, f))
     return dx, m1, m2, dws, torch.empty(max(ws_elems, 1), **f32), ws_elems
 
 
@@ -138,14 +113,10 @@ def stage_bwd_prev(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride=2, need_dx=Tr
     """(dx or None, proj dws or None, [identity dws]), as `stage_fused.stage_bwd`."""
     n, h, w, cin = x.shape
     has_proj = proj_w is not None
-    s = stride if has_proj else 1
     f = (proj_w[0] if has_proj else id_w[0][0]).shape[1]
     cout = proj_w[2].shape[1] if has_proj else cin
-    problems = identity_wgrad_problems(n, h // s, w // s, cout, f)
-    if has_proj:
-        problems += projection_wgrad_problems(n, h, w, cin, f, cout, s)
-    return chain_bwd_launch(KERNEL_STAGE, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx,
-                            wgrad_workspace(*problems))
+    ws_elems = mma_workspace(*chain_mma_problems(n, h, w, cin, f, cout, stride, has_proj))
+    return chain_bwd_launch(KERNEL_STAGE, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx, ws_elems)
 
 
 def basic_fwd_prev(x, w1, b1, w2, b2, save=False):
@@ -189,7 +160,7 @@ def pointwise_bwd_prev(g2, out2, x2, w, relu=True, emit_m=False, need_dx=True):
     dx = torch.empty_like(x2) if need_dx else None
     dw = torch.empty((cin, cout), dtype=torch.float32, device=x2.device)
     mm = torch.empty_like(g2) if emit_m and relu else None
-    ws_elems = wgrad_workspace((m, cin, cout, 1))
+    ws_elems = mma_workspace((m, cin, cout, 1))
     ws = torch.empty(max(ws_elems, 1), dtype=torch.float32, device=x2.device)
     KERNEL_PW_BWD.launch(g2, out2, x2, w.t().contiguous(), dx, dw, mm, ws, ws_elems, m, cin, cout, int(relu))
     return dx, dw, (mm if relu else g2) if emit_m else None

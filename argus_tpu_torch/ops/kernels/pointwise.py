@@ -45,6 +45,7 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     check_cuda,
     check_device,
     fold_affine,
+    kernel_dtype,
     needs_grad,
     relu_mask,
     wgrad_f32,
@@ -83,7 +84,7 @@ def _check(x2, w):
     m, cin = x2.shape
     cout = w.shape[1]
     check_channels(CIN=cin, COUT=cout)
-    check_cuda("x2", x2, torch.bfloat16)
+    check_cuda("x2", x2, kernel_dtype(x2, f32=False))  # f32: ROADMAP A14
     check_cuda("w", w, torch.bfloat16, (cin, cout))
     return m, cin, cout
 

@@ -18,8 +18,10 @@ and the backward from the saved h1/h2 (`_proj_bwd_kernel`):
 
 On a CUDA tensor the wrappers launch `csrc/proj_fused.cu` (three launches
 of the TMA forward engine: conv1, the 3x3 at stride S, conv3 and the
-shortcut as one launch with two K segments) and `csrc/proj_fused_bwd.cu`;
-on a CPU tensor they run the plain versions. The no-save forward is the op
+shortcut as one launch with two K segments) and `csrc/proj_fused_bwd.cu`
+(in f32 those of `csrc/conv_f32.cu`, TF32 products on the mma.sync engines,
+counted in the `*_F32` handles); on a CPU tensor they run the plain
+versions. The no-save forward is the op
 `argus::projection_block` (`torch.library`), one node to a CUDA graph
 capture and to `torch.export`.
 """
@@ -38,6 +40,7 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     conv3x3_grads_f32,
     dgrad_w2,
     fold_affine,
+    kernel_dtype,
     matmul_f32,
     needs_grad,
     relu_mask,
@@ -49,6 +52,10 @@ from argus_tpu_torch.ops.kernels import wgrad_plan
 KERNEL = Kernel("proj_fused", "argus_proj_fwd", [P] * 12 + [I] * 7 + [P])
 KERNEL_SAVE = Kernel("proj_fused", "argus_proj_fwd", [P] * 12 + [I] * 7 + [P])  # kept h1/h2
 KERNEL_BWD = Kernel("proj_fused_bwd", "argus_proj_bwd", [P] * 18 + [L] + [I] * 7 + [P])
+# the f32 kernels (csrc/conv_f32.cu)
+KERNEL_F32 = Kernel("conv_f32", "argus_proj_fwd_f32", [P] * 12 + [I] * 7 + [P])
+KERNEL_SAVE_F32 = Kernel("conv_f32", "argus_proj_fwd_f32", [P] * 12 + [I] * 7 + [P])
+KERNEL_BWD_F32 = Kernel("conv_f32", "argus_proj_bwd_f32", [P] * 17 + [L] + [I] * 7 + [P])
 
 
 def fold_projection_params(
@@ -113,7 +120,7 @@ def _check_block(x, w1, w2, w3, wsc, stride, biases=None):
     if h % stride or w % stride:
         raise ValueError(f"spatial size {(h, w)} must be divisible by the stride {stride}")
     check_channels(CIN=cin, F=f, COUT=cout)
-    bf = torch.bfloat16
+    bf = kernel_dtype(x)
     check_cuda("x", x, bf)
     for name, t, shape in (
         ("w1", w1, (cin, f)), ("w2", w2, (3, 3, f, f)), ("w3", w3, (f, cout)), ("wsc", wsc, (cin, cout)),
@@ -129,7 +136,7 @@ def forward_launch(kernel, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
     argument order) with its outputs allocated here: (out, h1, h2)."""
     n, h, w, cin, f, cout = _check_block(x, w1, w2, w3, wsc, stride, (b1, b2, b3, bsc))
     ho, wo = h // stride, w // stride
-    bf = torch.bfloat16
+    bf = x.dtype
     h1 = torch.empty((n, h, w, f), dtype=bf, device=x.device)
     h2 = torch.empty((n, ho, wo, f), dtype=bf, device=x.device)
     out = torch.empty((n, ho, wo, cout), dtype=bf, device=x.device)
@@ -142,8 +149,10 @@ def projection_block_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2:
                         w3: torch.Tensor, b3: torch.Tensor, wsc: torch.Tensor, bsc: torch.Tensor,
                         stride: int) -> torch.Tensor:
     """The projection block's no-save forward as the op
-    `argus::projection_block`: on a CUDA tensor the kernel (`KERNEL`)."""
-    return forward_launch(KERNEL, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)[0]
+    `argus::projection_block`: on a CUDA tensor the kernel (`KERNEL`, in
+    f32 `KERNEL_F32`)."""
+    kernel = KERNEL_F32 if x.dtype == torch.float32 else KERNEL
+    return forward_launch(kernel, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)[0]
 
 
 @projection_block_op.register_kernel("cpu")
@@ -173,7 +182,8 @@ def projection_block_save(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
     if not check_device(x):
         return projection_block_save_plain(x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
-    return forward_launch(KERNEL_SAVE, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
+    kernel = KERNEL_SAVE_F32 if x.dtype == torch.float32 else KERNEL_SAVE
+    return forward_launch(kernel, x, w1, b1, w2, b2, w3, b3, wsc, bsc, stride)
 
 
 def projection_wgrad_plans(n, h, w, cin, f, cout, stride):
@@ -197,18 +207,24 @@ def proj_bwd(x, g, out, h1, h2, w1, w2, w3, wsc, stride, need_dx=True):
         return proj_bwd_plain(x, g, out, h1, h2, w1, w2, w3, wsc, stride, need_dx)
     n, h, w, cin, f, cout = _check_block(x, w1, w2, w3, wsc, stride)
     ho, wo = h // stride, w // stride
-    bf = torch.bfloat16
     for name, t, shape in (
         ("g", g, (n, ho, wo, cout)), ("out", out, (n, ho, wo, cout)),
         ("h1", h1, (n, h, w, f)), ("h2", h2, (n, ho, wo, f)),
     ):
-        check_cuda(name, t, bf, shape)
+        check_cuda(name, t, x.dtype, shape)
     dev = x.device
-    m1, m2, m3 = torch.empty_like(h1), torch.empty_like(h2), torch.empty_like(g)
+    m1, m2 = torch.empty_like(h1), torch.empty_like(h2)
     dx = torch.empty_like(x) if need_dx else None
     f32 = dict(dtype=torch.float32, device=dev)
     dw1, dw2 = torch.empty((cin, f), **f32), torch.empty((3, 3, f, f), **f32)
     dw3, dwsc = torch.empty((f, cout), **f32), torch.empty((cin, cout), **f32)
+    if x.dtype == torch.float32:  # csrc/conv_f32.cu: no m3 scratch, the mma.sync weight gradient's workspace
+        ws_elems = wgrad_plan.mma_workspace(*wgrad_plan.projection_mma_problems(n, h, w, cin, f, cout, stride))
+        ws = torch.empty(max(ws_elems, 1), **f32)
+        KERNEL_BWD_F32.launch(x, g, out, h1, h2, *transposed_weights(w1, w2, w3, wsc, stride), dx, m1, m2, dw1, dw2,
+                              dw3, dwsc, ws, ws_elems, n, h, w, cin, f, cout, stride)
+        return dx, dw1, dw2, dw3, dwsc
+    m3 = torch.empty_like(g)
     ws_elems = wgrad_plan.workspace(*projection_wgrad_plans(n, h, w, cin, f, cout, stride))
     ws = torch.empty(max(ws_elems, 1), **f32)
     KERNEL_BWD.launch(

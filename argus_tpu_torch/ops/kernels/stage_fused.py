@@ -27,6 +27,12 @@ launches in `KERNEL` where argus_tpu takes `_chain_fwd_packed` (stage 0,
 save=False)` (the whole-stage chains of frozen stages 1-3). `stage_chain(
 ..., x_packed=True)` takes the packed stem's (N, H, W/2, 128) view and reads
 it back as the (N, H, W, 64) NHWC tensor it is.
+
+In f32 the saving forward, the backward and the stage-0 no-save forward
+launch `csrc/conv_f32.cu` (the same compositions on the mma.sync engines'
+TF32 form, counted in the `*_F32` handles); the whole-stage no-save chains
+of frozen stages 1-3 have no f32 kernel yet (ROADMAP A14) and raise
+NotImplementedError on an f32 CUDA tensor.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     check_cuda,
     check_device,
     identity_wgrad_plans,
+    kernel_dtype,
     needs_grad,
     zero_grad_of,
 )
@@ -60,6 +67,10 @@ KERNEL = Kernel("stage_fused", "argus_stage_fwd", [P] * 8 + [I] * 8 + [P])
 KERNEL_FROZEN = Kernel("stage_fused", "argus_stage_fwd", [P] * 8 + [I] * 8 + [P])
 KERNEL_SAVE = Kernel("stage_fused", "argus_stage_fwd_save", [P] * 7 + [I] * 8 + [P])
 KERNEL_BWD = Kernel("stage_fused_bwd", "argus_stage_bwd", [P] * 16 + [L] + [I] * 8 + [P])
+# the f32 kernels (csrc/conv_f32.cu): the stage-0 no-save forward, the saving forward, the backward
+KERNEL_F32 = Kernel("conv_f32", "argus_stage_fwd_f32", [P] * 8 + [I] * 8 + [P])
+KERNEL_SAVE_F32 = Kernel("conv_f32", "argus_stage_fwd_save_f32", [P] * 7 + [I] * 8 + [P])
+KERNEL_BWD_F32 = Kernel("conv_f32", "argus_stage_bwd_f32", [P] * 16 + [L] + [I] * 8 + [P])
 
 
 def packed_fwd_ok(F: int, S: int, W_out: int, CIN: int, COUT: int) -> bool:
@@ -113,9 +124,9 @@ def stage_bwd_plain(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx=Tru
     return g, proj_dws, id_dws
 
 
-def _check_weights(ws, shapes) -> None:
+def _check_weights(ws, shapes, dt) -> None:
     for i, (t, shape) in enumerate(zip(ws, shapes)):
-        dtype = torch.bfloat16 if i % 2 == 0 else torch.float32
+        dtype = dt if i % 2 == 0 else torch.float32
         check_cuda(f"weight {i}", t, dtype, shape)
 
 
@@ -128,14 +139,15 @@ def _geometry(x, proj_folded, ids, stride):
     f = (proj_folded[0] if proj_folded is not None else ids[0][0]).shape[1]
     cout = proj_folded[4].shape[1] if proj_folded is not None else cin
     check_channels(CIN=cin, F=f, COUT=cout)
-    check_cuda("x", x, torch.bfloat16)
+    dt = kernel_dtype(x)
+    check_cuda("x", x, dt)
     if proj_folded is not None:
         _check_weights(
             proj_folded,
-            [(cin, f), (1, f), (3, 3, f, f), (1, f), (f, cout), (1, cout), (cin, cout), (1, cout)],
+            [(cin, f), (1, f), (3, 3, f, f), (1, f), (f, cout), (1, cout), (cin, cout), (1, cout)], dt,
         )
     for idw in ids:
-        _check_weights(idw, [(cout, f), (1, f), (3, 3, f, f), (1, f), (f, cout), (1, cout)])
+        _check_weights(idw, [(cout, f), (1, f), (3, 3, f, f), (1, f), (f, cout), (1, cout)], dt)
     return n, h, w, cin, f, cout, s
 
 
@@ -149,11 +161,15 @@ def _ptrs(ts):
 def chain_fwd_launch(kernel, x, proj_folded, ids, stride):
     """Launch a no-save chain's C launcher (`kernel`, argus_stage_fwd's
     argument order) with its output and scratch allocated here; None: the
-    stage-0 form (`KERNEL`) where argus_tpu takes `_chain_fwd_packed`,
-    `KERNEL_FROZEN` elsewhere."""
+    stage-0 form (`KERNEL`, in f32 `KERNEL_F32`) where argus_tpu takes
+    `_chain_fwd_packed`, `KERNEL_FROZEN` elsewhere (bf16 only)."""
     n, h, w, cin, f, cout, s = _geometry(x, proj_folded, ids, stride)
+    if kernel is None:
+        stage0 = packed_fwd_ok(f, s, w // s, cin, cout)
+        kernel_dtype(x, f32=stage0)  # the frozen stages' chains have no f32 kernel yet
+        kernel = (KERNEL_F32 if x.dtype == torch.float32 else KERNEL) if stage0 else KERNEL_FROZEN
     ho, wo = h // s, w // s
-    bf, dev = torch.bfloat16, x.device
+    bf, dev = x.dtype, x.device
     h1 = torch.empty((n, h, w, f), dtype=bf, device=dev)
     h2 = torch.empty((n, ho, wo, f), dtype=bf, device=dev)
     n_tmp = len(ids) if proj_folded is not None else len(ids) - 1
@@ -164,8 +180,6 @@ def chain_fwd_launch(kernel, x, proj_folded, ids, stride):
     # host arrays of weight pointers, alive until the launcher returns
     proj_arr = _ptrs(proj_folded) if proj_folded is not None else None
     id_arr = _ptrs([t for idw in ids for t in idw])
-    if kernel is None:
-        kernel = KERNEL if packed_fwd_ok(f, s, w // s, cin, cout) else KERNEL_FROZEN
     kernel.launch(
         x, out, h1, h2, tmp[0], tmp[1],
         ctypes.addressof(proj_arr) if proj_arr is not None else None,
@@ -229,7 +243,7 @@ def chain_fwd_save_launch(kernel, x, proj_folded, ids, stride):
     h2s)."""
     n, h, w, cin, f, cout, s = _geometry(x, proj_folded, ids, stride)
     ho, wo = h // s, w // s
-    bf, dev = torch.bfloat16, x.device
+    bf, dev = x.dtype, x.device
     has_proj = proj_folded is not None
     nblocks = has_proj + len(ids)
     bnds = [torch.empty((n, ho, wo, cout), dtype=bf, device=dev) for _ in range(nblocks - 1)]
@@ -255,7 +269,8 @@ def fused_stage_save(x, proj_folded, id_folded, stride=2):
         raise ValueError("a stage needs at least one block")
     if not check_device(x):
         return stage_save_plain(x, proj_folded, ids, stride)
-    return chain_fwd_save_launch(KERNEL_SAVE, x, proj_folded, ids, stride)
+    return chain_fwd_save_launch(KERNEL_SAVE_F32 if x.dtype == torch.float32 else KERNEL_SAVE, x, proj_folded, ids,
+                                 stride)
 
 
 def chain_wgrad_plans(n, h, w, cin, f, cout, stride, k, has_proj):
@@ -276,7 +291,7 @@ def _check_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride):
     cout = proj_w[2].shape[1] if has_proj else cin
     ho, wo = h // s, w // s
     check_channels(CIN=cin, F=f, COUT=cout)
-    bf, dev = torch.bfloat16, x.device
+    bf = kernel_dtype(x)
     check_cuda("x", x, bf)
     for name, t in [("g", g), ("out", out)] + [(f"bnd {b}", t) for b, t in enumerate(bnds)]:
         check_cuda(name, t, bf, (n, ho, wo, cout))
@@ -302,7 +317,7 @@ def chain_bwd_launch(kernel, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, ne
     has_proj = proj_w is not None
     n, h, w, cin, f, cout, s = _check_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride)
     ho, wo = h // s, w // s
-    bf, dev = torch.bfloat16, x.device
+    bf, dev = x.dtype, x.device
     f32 = dict(dtype=torch.float32, device=dev)
     proj_dws, proj_t = None, []
     if has_proj:
@@ -338,6 +353,10 @@ def stage_bwd(x, g, out, bnds, h1s, h2s, proj_w, id_w, stride=2, need_dx=True):
     n, h, w, cin = x.shape
     f = (proj_w[0] if proj_w is not None else id_w[0][0]).shape[1]
     cout = proj_w[2].shape[1] if proj_w is not None else cin
+    if x.dtype == torch.float32:
+        problems = wgrad_plan.chain_mma_problems(n, h, w, cin, f, cout, stride, proj_w is not None)
+        return chain_bwd_launch(KERNEL_BWD_F32, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx,
+                                wgrad_plan.mma_workspace(*problems))
     plans = chain_wgrad_plans(n, h, w, cin, f, cout, stride, len(id_w), proj_w is not None)
     return chain_bwd_launch(KERNEL_BWD, x, g, out, bnds, h1s, h2s, proj_w, id_w, stride, need_dx,
                             wgrad_plan.workspace(*plans))

@@ -19,7 +19,10 @@ applies: s = 1 when N % s != 0.
 
 On a CUDA tensor the wrappers launch `csrc/stem_fused.cu` (the forward, with
 or without y) and `csrc/stem_fused_bwd.cu`; on a CPU tensor they run the
-plain versions. `stem_pool` is the stem as autograd sees it: the no-save
+plain versions. In f32 the no-save forward launches `csrc/stem_fused_f32.cu`
+(TF32 products, counted in `KERNEL_F32`); the packed, saving and backward
+forms have no f32 kernel yet (ROADMAP A14) and raise NotImplementedError on
+an f32 CUDA tensor. `stem_pool` is the stem as autograd sees it: the no-save
 forward when nothing needs a gradient, else `stem_saved`, the saving forward
 with the weight-gradient backward. The no-save forward is the op
 `argus::stem_fwd` (`torch.library`: its CUDA implementation the launch, its
@@ -40,6 +43,7 @@ from argus_tpu_torch.ops.kernels.block_fused import (
     check_cuda,
     check_device,
     fold_affine,
+    kernel_dtype,
     needs_grad,
     zero_grad_of,
 )
@@ -49,6 +53,8 @@ KERNEL_SAVE = Kernel("stem_fused", "argus_stem_fwd_save", [P] * 5 + [I] * 3 + [P
 # the packed-output stem launches the same kernel, counted apart
 KERNEL_PACKED = Kernel("stem_fused", "argus_stem_fwd", [P] * 4 + [I] * 3 + [P])
 KERNEL_BWD = Kernel("stem_fused_bwd", "argus_stem_bwd", [P] * 7 + [I] * 5 + [P])
+# the f32 no-save forward (csrc/stem_fused_f32.cu)
+KERNEL_F32 = Kernel("stem_fused_f32", "argus_stem_fwd_f32", [P] * 4 + [I] * 3 + [P])
 
 _BWD_TILE = 16  # conv pixels per tile edge of csrc/stem_fused_bwd.cu
 
@@ -111,12 +117,15 @@ def stem_bwd_plain(x, g, out, y, n_images: int) -> torch.Tensor:
     return dw.permute(2, 3, 1, 0).contiguous()
 
 
-def _check_stem(x, w, b):
+def _check_stem(x, w, b, f32=True):
+    """(n, h, w) of a stem call, its operands checked; `f32`: whether the
+    function has its f32 kernel."""
     n, h, wd, c = x.shape
     if c != 3 or h % 4 or wd % 4:
         raise ValueError(f"stem kernel takes (N, H, W, 3) with H, W % 4 == 0, got {tuple(x.shape)}")
-    check_cuda("x", x, torch.bfloat16)
-    check_cuda("w", w, torch.bfloat16, (7, 7, 3, 64))
+    dt = kernel_dtype(x, f32)
+    check_cuda("x", x, dt)
+    check_cuda("w", w, dt, (7, 7, 3, 64))
     if b is not None:
         check_cuda("b", b, torch.float32, (1, 64))
     return n, h, wd
@@ -127,12 +136,14 @@ def stem_fwd_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool)
     """The no-save forward as the op `argus::stem_fwd`, (N, H, W, 3) ->
     (N, H/4, W/4, 64) NHWC: on a CUDA tensor one launch of the kernel,
     counted in `KERNEL`, or with `packed` (argus_tpu's packed-output stem)
-    in `KERNEL_PACKED`."""
-    n, h, wd = _check_stem(x, w, b)
+    in `KERNEL_PACKED`; in f32 the f32 kernel (`KERNEL_F32`; the packed
+    form has none yet)."""
+    n, h, wd = _check_stem(x, w, b, f32=not packed)
     if packed and wd % 8:
         raise ValueError(f"the packed stem needs W % 8 == 0, got {tuple(x.shape)}")
-    out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
-    (KERNEL_PACKED if packed else KERNEL).launch(x, w, b, out, n, h, wd)
+    out = torch.empty((n, h // 4, wd // 4, 64), dtype=x.dtype, device=x.device)
+    kernel = KERNEL_F32 if x.dtype == torch.float32 else KERNEL_PACKED if packed else KERNEL
+    kernel.launch(x, w, b, out, n, h, wd)
     return out
 
 
@@ -174,7 +185,7 @@ def stem_fwd_save(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     plain version on a CPU tensor."""
     if not check_device(x):
         return stem_fwd_save_plain(x, w, b)
-    n, h, wd = _check_stem(x, w, b)
+    n, h, wd = _check_stem(x, w, b, f32=False)
     out = torch.empty((n, h // 4, wd // 4, 64), dtype=torch.bfloat16, device=x.device)
     y = torch.empty((n, h // 2, wd // 2, 64), dtype=torch.bfloat16, device=x.device)
     KERNEL_SAVE.launch(x, w, b, out, y, n, h, wd)
@@ -191,7 +202,7 @@ def stem_bwd(x, g, out, y, n_images: int) -> torch.Tensor:
     if c != 3 or h % 4 or wd % 4 or not 1 <= n_images <= n:
         raise ValueError(f"stem backward takes (N, H, W, 3) with H, W % 4 == 0 and 1 <= n_images <= N, "
                          f"got {tuple(x.shape)}, n_images={n_images}")
-    check_cuda("x", x, torch.bfloat16)
+    check_cuda("x", x, kernel_dtype(x, f32=False))
     for name, t, shape in (("g", g, (n, h // 4, wd // 4, 64)), ("out", out, (n, h // 4, wd // 4, 64)),
                            ("y", y, (n, h // 2, wd // 2, 64))):
         check_cuda(name, t, torch.bfloat16, shape)

@@ -24,9 +24,11 @@ Used by the block backwards `basic_fused.basic_bwd`, `proj_fused.proj_bwd`,
 `block_fused.block_bwd` and `block_fused.block_bwd_recompute`, by the
 stage chain's `stage_fused.stage_bwd` (over every block's plans,
 `stage_fused.chain_wgrad_plans`) and by the pointwise backward
-`pointwise.pointwise_bwd` (one launch: M rows, CIN, COUT, one tap). Only
-the previous forms timed beside them keep the older engine (`csrc/wgrad.cuh`,
-sized by `bwd_prev.wgrad_workspace`).
+`pointwise.pointwise_bwd` (one launch: M rows, CIN, COUT, one tap). The
+f32 block and chain backwards (`csrc/conv_f32.cu`) and the previous bf16
+forms timed beside the Hopper ones (`bwd_prev`) run the mma.sync weight
+gradient (`csrc/wgrad.cuh`), whose simpler split rule `mma_workspace`
+mirrors.
 """
 
 from __future__ import annotations
@@ -101,3 +103,45 @@ def workspace(*problems) -> int:
     need, for problems (rows, C, COUT, ks): the largest `partial_elems`,
     since the launches run one after another on one stream."""
     return max((plan(*prob).partial_elems for prob in problems), default=0)
+
+
+# ─────────── the mma.sync weight gradient (csrc/wgrad.cuh) ───────────
+
+_MMA_TILE, _MMA_TARGET_BLOCKS, _MMA_MIN_ROWS = 64, 4 * SMS, 2048
+
+
+def mma_workspace(*problems) -> int:
+    """f32 elements of partials the mma.sync weight-gradient launches of one
+    backward need, for problems (rows, C, COUT, taps): the split rule of
+    `wgrad_splits` in csrc/wgrad.cuh, the same in bf16 and f32 (the launcher
+    takes fewer splits when the workspace is short, so the two cannot overrun
+    each other)."""
+    need = 0
+    for rows, c, cout, taps in problems:
+        tiles = taps * -(-c // _MMA_TILE) * -(-cout // _MMA_TILE)
+        splits = max(1, min(-(-_MMA_TARGET_BLOCKS // tiles), -(-rows // _MMA_MIN_ROWS)))
+        if splits > 1:
+            need = max(need, splits * taps * c * cout)
+    return need
+
+
+def identity_mma_problems(n, h, w, cin, f):
+    """The identity block's weight gradients as `mma_workspace` takes them
+    (rows, C, COUT, taps)."""
+    rows = n * h * w
+    return [(rows, f, cin, 1), (rows, f, f, 9), (rows, cin, f, 1)]
+
+
+def projection_mma_problems(n, h, w, cin, f, cout, stride):
+    """The projection block's weight gradients as `mma_workspace` takes them
+    (rows, C, COUT, taps)."""
+    rows, rows_o = n * h * w, n * (h // stride) * (w // stride)
+    return [(rows_o, f, cout, 1), (rows_o, cin, cout, 1), (rows_o, f, f, 9), (rows, cin, f, 1)]
+
+
+def chain_mma_problems(n, h, w, cin, f, cout, stride, has_proj):
+    """A chain's weight gradients (one identity block's, the same for each,
+    and its projection's) as `mma_workspace` takes them."""
+    s = stride if has_proj else 1
+    problems = identity_mma_problems(n, h // s, w // s, cout, f)
+    return problems + (projection_mma_problems(n, h, w, cin, f, cout, s) if has_proj else [])

@@ -7,7 +7,7 @@ Phases, each fatal on failure (nothing is caught and ignored):
 
 1. build every CUDA kernel of the serving, training, augmentation,
    keypoint, trained-stem, exact-BN, frozen-stage, pointwise and remat paths
-   from `argus_tpu_torch/csrc/` (17 sources, one nvcc each, in parallel) and
+   from `argus_tpu_torch/csrc/` (19 sources, one nvcc each, in parallel) and
    print the seconds and ptxas' register/spill report; `cuobjdump -sass` of
    the BasicBlock, projection and identity backwards' libraries (the
    identity's saved-residual and recompute backwards), the stage chain's
@@ -304,9 +304,21 @@ Phases, each fatal on failure (nothing is caught and ignored):
    camera-images/s of the second epoch and the resumed pass beside the
    compute-only step, and the replayed step beside the eager one; the TF32
    flags on every line (the epochs and `train()` under torch's defaults);
-22. the `kernels` JSON line, the card's name and power limit, and the result
+22. argus_tpu's frozen-BN ResNet-50 at its default compute dtype, f32
+   (`f32_phase`): the ten f32 kernels (TF32 products) at the f32 flagship
+   step's and eval forward's shapes against their plain versions at TF32
+   off, within max(F32_GATE, F32_LIB_SLACK x cuDNN TF32's distance), timed
+   beside them and cuDNN TF32; the f32 step "on" against "off" at TF32 off
+   (loss F32_LOSS_RTOL, gradients and Adam moments within F32_STEP_SLACK x
+   "off" at TF32 on), launches a step and an eval forward; "on" / "off" /
+   "auto" on CUDA graphs timed in pairs, peak memory, "auto" launching what
+   `AUTO_FUSE`'s f32 entries name; the "on" epoch captured, bit-equal to
+   eager; `train()` at `TrainConfig(model_config=NCameraCNNConfig(
+   bn_frozen=True, bn_frozen_affine=True))`, 2 epochs and 1 resumed;
+23. the `kernels` JSON line, the card's name and power limit, and the result
    line `{"ok": true, "device": {...}}` last. A kernel's bound takes the
    peak that applies: 989 TFLOP/s (bf16 tensor cores) for the conv kernels,
+   494.7 TFLOP/s (TF32 tensor cores) for the f32 conv kernels,
    67 TFLOP/s (f32 on the CUDA cores) for the blur and the augmentation
    kernel's f32 work, 133.8 TFLOP/s (packed bf16x2 on the CUDA cores) for
    its image-dtype work on bf16 images; where a kernel's work runs at two
@@ -377,11 +389,24 @@ REPLACES = {
     "pointwise": "argus_tpu/ops/pallas/pointwise.py:93",
     "pointwise_bwd": "argus_tpu/ops/pallas/pointwise.py:157",
     "block_fused_rbwd": "argus_tpu/ops/pallas/block_fused.py:519",
+    # the f32 instantiations (TF32 products) of the rows above
+    "stem_fused_f32": "argus_tpu/ops/pallas/stem_fused.py:244",
+    "stage_fused_f32": "argus_tpu/ops/pallas/stage_fused.py:527",
+    "stage_fused_save_f32": "argus_tpu/ops/pallas/stage_fused.py:364",
+    "stage_fused_bwd_f32": "argus_tpu/ops/pallas/stage_fused.py:586",
+    "proj_fused_f32": "argus_tpu/ops/pallas/proj_fused.py:205",
+    "proj_fused_save_f32": "argus_tpu/ops/pallas/proj_fused.py:205",
+    "proj_fused_bwd_f32": "argus_tpu/ops/pallas/proj_fused.py:363",
+    "block_fused_f32": "argus_tpu/ops/pallas/block_fused.py:270",
+    "block_fused_save_f32": "argus_tpu/ops/pallas/block_fused.py:314",
+    "block_fused_bwd_f32": "argus_tpu/ops/pallas/block_fused.py:394",
 }
 SOURCES = {name: f"argus_tpu_torch/csrc/{name.replace('_save', '')}.cu" for name in REPLACES}
 SOURCES.update(stem_fused_packed="argus_tpu_torch/csrc/stem_fused.cu",
                stage_fused_frozen="argus_tpu_torch/csrc/stage_fused.cu")
 SOURCES.update(bn_stats="argus_tpu_torch/csrc/bn_reduce.cu", bn_bwd_reduce="argus_tpu_torch/csrc/bn_reduce.cu")
+SOURCES.update({name: "argus_tpu_torch/csrc/conv_f32.cu" for name in REPLACES if name.endswith("_f32")},
+               stem_fused_f32="argus_tpu_torch/csrc/stem_fused_f32.cu")
 _NONE = {name: 0 for name in REPLACES}
 EXPECTED_LAUNCHES = {**_NONE, "stem_fused": 1, "stage_fused": 1, "proj_fused": 3, "block_fused": 10}
 EXPECTED_TRAIN_LAUNCHES = {
@@ -1840,9 +1865,10 @@ def _grad_errors(got: dict, want: dict):
 FUSE_ON = dict(fuse_block="on", fuse_proj="on", fuse_stem="on", fuse_stage="on")
 
 
-def flagship_train_setup(**model_overrides):
+def flagship_train_setup(amp: bool = True, **model_overrides):
     """(cfg, model, state, batch) of the flagship train step on the card:
-    ResNet-50 NCameraCNN at full width (2 cameras, 1024-d features), bf16,
+    ResNet-50 NCameraCNN at full width (2 cameras, 1024-d features), bf16
+    (f32, argus_tpu's default, with `amp=False`),
     frozen BN + affine, frozen stem, full backprop, argus_tpu's default
     augmentation, clip(1.0) + Adam at lr 1e-4; random weights from seed 0 with BN randomised; a batch
     of 256 seeded uint8 frame pairs with non-identity poses, on the card.
@@ -1860,7 +1886,7 @@ def flagship_train_setup(**model_overrides):
                stem_frozen=True, frozen_stages=0, **FUSE_ON),
         **model_overrides,
     })
-    cfg = TrainConfig(model_config=mcfg, amp=True, use_augmentation=True,
+    cfg = TrainConfig(model_config=mcfg, amp=amp, use_augmentation=True,
                       augmentation_config=AugmentationConfig(), batch_size=N_ROWS, learning_rate=1e-4,
                       max_grad_norm=1.0)
     model, state = create_train_state(cfg, seed=0)
@@ -2447,13 +2473,14 @@ def _expected_launches(frozen_stages: int, stem_trained: bool, serving: bool = F
     mode (`models/resnet.py`'s dispatch)."""
     from argus_tpu_torch.models.resnet import AUTO_FUSE
 
+    table = {(f, m): v for (f, m, d), v in AUTO_FUSE.items() if d == "bfloat16"}  # the flagship runs in bf16
     want = dict(_NONE, augment_fused=int(augment and not serving))
 
     def mode(frozen):
         return "forward" if serving or frozen else "train"
 
-    stem_on = AUTO_FUSE[("stem", "train" if stem_trained and not serving else "forward")]
-    packed = stem_on and frozen_stages >= 1 and AUTO_FUSE[("stage_chain_packed", "forward")]
+    stem_on = table[("stem", "train" if stem_trained and not serving else "forward")]
+    packed = stem_on and frozen_stages >= 1 and table[("stage_chain_packed", "forward")]
     if stem_on:
         key = "stem_fused_packed" if packed else "stem_fused_save" if stem_trained and not serving else "stem_fused"
         want[key] += 1
@@ -2464,7 +2491,7 @@ def _expected_launches(frozen_stages: int, stem_trained: bool, serving: bool = F
         m = mode(frozen)
         if i == 0 or frozen:
             chain = "stage_chain_packed" if i == 0 and m == "forward" else "stage_chain"
-            if AUTO_FUSE[(chain, m)]:
+            if table[(chain, m)]:
                 if m == "forward":
                     want["stage_fused" if i == 0 else "stage_fused_frozen"] += 1
                 else:
@@ -2472,13 +2499,13 @@ def _expected_launches(frozen_stages: int, stem_trained: bool, serving: bool = F
                     want["stage_fused_bwd"] += 1
                 continue
         for name, count, fn in (("proj_fused", 1, "projection"), ("block_fused", n - 1, "identity")):
-            if AUTO_FUSE[(fn, m)]:
+            if table[(fn, m)]:
                 if m == "forward":
                     want[name] += count
                 else:
                     want[name + "_save"] += count
                     want[name + "_bwd"] += count
-            elif pointwise and AUTO_FUSE[("pointwise", m)]:  # Conv_0 and Conv_2 of each block the kernels do not take
+            elif pointwise and table[("pointwise", m)]:  # Conv_0 and Conv_2 of each block the kernels do not take
                 want["pointwise"] += 2 * count
                 want["pointwise_bwd"] += 2 * count * (m == "train")
     return want
@@ -2628,7 +2655,7 @@ def auto_phase(tmpdir: str) -> dict:
     from argus_tpu_torch.serve import Estimator
     from argus_tpu_torch.train import TrainStepBody, make_train_step
 
-    say("auto: AUTO_FUSE " + ", ".join(f"{f}/{m} {'on' if v else 'off'}" for (f, m), v in AUTO_FUSE.items()))
+    say("auto: AUTO_FUSE " + ", ".join(f"{f}/{m}/{d} {'on' if v else 'off'}" for (f, m, d), v in AUTO_FUSE.items()))
     timings = {}
 
     def switch(backbone, flags, pointwise=True):
@@ -2969,8 +2996,9 @@ def _captured_vs_eager(cfg, sets, per_step: dict, label: str, mesh=None, n: int 
     whether the two epochs are bit-equal and a step's ms of each, by CUDA
     events and by the host clock (each epoch synchronised once), with the
     TF32 flags. With a `mesh` both run its data-parallel step (the graph
-    then holds the step's all-reduce). Returns a step's ms by CUDA events,
-    {"replayed": ms, "eager": ms}."""
+    then holds the step's all-reduce). Returns a step's ms by CUDA events
+    and whether the two epochs are bit-equal, {"replayed": ms, "eager": ms,
+    "bit_equal": bool}."""
     import torch
 
     from argus_tpu_torch.ops import kernels
@@ -3057,7 +3085,7 @@ def _captured_vs_eager(cfg, sets, per_step: dict, label: str, mesh=None, n: int 
         raise AssertionError(f"{label} the captured resident epoch disagrees with the eager one {unmoved[:5]}")
     del model, state, images, poses, graphed, step, snap, got, want
     torch.cuda.empty_cache()
-    return ms
+    return {**ms, "bit_equal": bit_equal}
 
 
 def _state_tensors(state) -> dict:
@@ -4329,6 +4357,480 @@ def default_config_phase(tmpdir: str, sets) -> None:
         f"step checks {t_step:.1f} s, the captured epochs {t_capture:.1f} s)")
 
 
+# ──────── phase 22: the frozen-BN ResNet-50 at argus_tpu's default dtype (f32) ────────
+
+PEAK_TF32 = 494.7e12  # H100 SXM dense TF32 tensor-core peak
+# an f32 kernel (TF32 products) against its plain version (f32, TF32 off):
+# the bf16 gate scaled by TF32's 8x finer rounding, or F32_LIB_SLACK times
+# the distance of cuDNN's TF32 composition from the same plain version,
+# whichever is larger
+F32_GATE = (2.5e-3, 1.25e-3)
+F32_LIB_SLACK = 1.25
+F32_LOSS_RTOL = 1e-3  # the f32 step "on" against "off" (TF32 off), loss
+F32_STEP_SLACK = 1.25  # gradients and Adam moments: this times "off" with TF32 on's distance from the same reference
+F32_ROUNDS = 24  # interleaved graph replays a setting of the f32 flagship step, in each of its pairs
+F32_CAPTURE = 768  # examples of the f32 captured-vs-eager epoch: 3 steps of 256 rows
+EXPECTED_F32_TRAIN_LAUNCHES = {
+    **_NONE, "augment_fused": 1, "stem_fused_f32": 1, "stage_fused_save_f32": 1, "stage_fused_bwd_f32": 1,
+    "proj_fused_save_f32": 3, "proj_fused_bwd_f32": 3, "block_fused_save_f32": 10, "block_fused_bwd_f32": 10,
+}
+EXPECTED_F32_EVAL_LAUNCHES = {**_NONE, "stem_fused_f32": 1, "stage_fused_f32": 1, "proj_fused_f32": 3,
+                              "block_fused_f32": 10}
+
+
+def _tensors(res) -> list:
+    """A kernel's or plain version's result (a tensor, or nested tuples and
+    lists of them, None for an output not asked for) as a flat list."""
+    if res is None:
+        return []
+    if isinstance(res, (tuple, list)):
+        return [t for r in res for t in _tensors(r)]
+    return [res]
+
+
+def _f32_record(results: dict, name: str, cases) -> None:
+    """cases: [(label, count per step or eval forward, kernel fn, plain fn,
+    cuDNN TF32 fn, flops, bytes)]. Each output of the kernel against the
+    plain version's (TF32 off) within max(F32_GATE, F32_LIB_SLACK x the
+    cuDNN composition's distance from the plain version: output by output
+    where the composition gives it, else its first output's); times by CUDA
+    events, the plain version's with TF32 off, the library's with it on."""
+    import torch
+
+    entry = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0, peak=PEAK_TF32)
+    for label, count, kern, plain, lib, flops, nb in cases:
+        _set_tf32(False)
+        got, want = _tensors(kern()), _tensors(plain())
+        _set_tf32(True)
+        ref = _tensors(lib())
+        if len(got) != len(want):
+            raise AssertionError(f"{name} {label}: {len(got)} outputs, plain version {len(want)}")
+        worst, tight = 0.0, (-1.0, "")  # the largest error, and the output nearest its gate
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.shape != b.shape or a.dtype != b.dtype or a.dtype != torch.float32:
+                raise AssertionError(f"{name} {label}[{i}]: {tuple(a.shape)} {a.dtype} vs plain {tuple(b.shape)} "
+                                     f"{b.dtype}")
+            c = ref[i] if i < len(ref) else ref[0]
+            w = b if i < len(ref) else want[0]
+            err = (a.float() - b.float()).abs().max().item()
+            lib_err = (c.float() - w.float()).abs().max().item()
+            fixed = F32_GATE[0] * b.float().abs().max().item() + F32_GATE[1]
+            gate = max(fixed, F32_LIB_SLACK * lib_err)
+            if not (err <= gate) or not a.isfinite().all():
+                raise AssertionError(f"{name} {label}[{i}]: max |kernel - plain| = {err} > {gate} (the fixed gate "
+                                     f"{fixed}, cuDNN TF32's distance {lib_err})")
+            worst = max(worst, err)
+            if err / gate > tight[0]:
+                tight = (err / gate, f"output {i}: {err:.4g} against the fixed gate {fixed:.4g} and cuDNN TF32's "
+                                     f"distance {lib_err:.4g}")
+        ms = cuda_ms(kern, 5)
+        _set_tf32(False)
+        pms = cuda_ms(plain, 2)
+        _set_tf32(True)
+        lms = cuda_ms(lib, 5)
+        b, by = bound_ms(flops, nb, PEAK_TF32)
+        say(f"f32 kernels: {name} {label} x{count}: max |kernel - plain| {worst:.4g}; nearest its gate {tight[1]}; "
+            f"kernel {ms:.3f} ms, plain {pms:.3f} ms (TF32 off), cuDNN TF32 "
+            f"{lms:.3f} ms, bound {b:.3f} ms ({by}), {flops / ms / 1e9:.1f} TFLOP/s")
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("flops", flops), ("bytes", nb)):
+            entry[k] += count * v
+    results[name] = entry
+
+
+def _f32_lib_bwd(fn, args, g, leaves):
+    """The autograd backward of the cuDNN composition `fn(*args)` for the
+    output gradient g w.r.t. `args[i]` for i in `leaves` (x and the
+    weights), re-run on one recorded graph; cuDNN's TF32 flag as it stands
+    when the graph is recorded and when it is re-run."""
+    import torch
+
+    args = [t.detach().requires_grad_(i in leaves) for i, t in enumerate(args)]
+    out = fn(*args)
+    return lambda: torch.autograd.grad(out, [args[i] for i in leaves], g, retain_graph=True)
+
+
+def _f32_kernels() -> dict:
+    """The ten f32 rows at the f32 flagship step's and eval forward's shapes
+    (N = 512 camera images of 256x256), each against its plain version in
+    f32 with TF32 off under `_f32_record`'s gate, timed beside it and beside
+    cuDNN's f32 composition in TF32 (the library call: `F.conv2d` on the
+    folded weights, autograd for the backwards). Returns the entries by
+    kernel name, times a step or eval forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from argus_tpu_torch.ops.kernels import block_fused, proj_fused, stage_fused, stem_fused
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    f32 = torch.float32
+    results = {}
+
+    def w_(*shape):
+        return _w(g, *shape).float()
+
+    def id_w(c, f):
+        return (w_(c, f), _b(g, f), w_(3, 3, f, f), _b(g, f), w_(f, c), _b(g, c))
+
+    def proj_w(cin, f, cout):
+        return (w_(cin, f), _b(g, f), w_(3, 3, f, f), _b(g, f), w_(f, cout), _b(g, cout), w_(cin, cout), _b(g, cout))
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device="cuda")
+
+    def grad_like(t):
+        return torch.randn(t.shape, generator=g, device="cuda")
+
+    def dw_bytes(*ws):
+        return sum(t.numel() * 4 for t in ws)
+
+    # the stem: (N, 256, 256, 3) -> (N, 64, 64, 64), no save (frozen stem)
+    x = rand(N_IMG, HW, HW, 3)
+    w7, b7 = w_(7, 7, 3, 64), _b(g, 64)
+    out = stem_fused.stem_pool(x, w7, b7)
+
+    def lib_stem():
+        y = torch.relu(_lib_conv(x, w7, 2, 3) + b7.reshape(-1))
+        return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+    _f32_record(results, "stem_fused_f32", [(
+        f"{tuple(x.shape)}", 1, lambda: stem_fused.stem_pool(x, w7, b7), lambda: stem_fused.stem_pool_plain(x, w7, b7),
+        lib_stem, 2 * N_IMG * (HW // 2) ** 2 * 64 * 147, nbytes(x, w7, b7, out),
+    )])
+    del x, out
+    torch.cuda.empty_cache()
+
+    # the stage-0 chain: no-save (eval), saving forward and backward (step)
+    x0 = rand(N_IMG, 64, 64, 64)
+    p0 = proj_w(64, 64, 256)
+    ids0 = [id_w(256, 64) for _ in range(2)]
+    wts0 = list(p0) + [t for w in ids0 for t in w]
+    flops0 = _block_flops(N_IMG, 64, 64, 64, 64, 256, 1, True) + 2 * _block_flops(N_IMG, 64, 64, 256, 64, 256, 1,
+                                                                                    False)
+
+    def lib_stage(x, *w):
+        y = _lib_block(x, *w[:8])
+        for j in range(2):
+            y = _lib_block(y, *w[8 + 6 * j: 14 + 6 * j])
+        return y
+
+    out_bytes = N_IMG * 64 * 64 * 256 * 4
+    _f32_record(results, "stage_fused_f32", [(
+        f"{tuple(x0.shape)} F=64", 1, lambda: stage_fused.fused_stage(x0, p0, ids0, 1),
+        lambda: stage_fused.stage_plain(x0, p0, ids0, 1), lambda: lib_stage(x0, *wts0),
+        flops0, nbytes(x0, *wts0) + out_bytes,
+    )])
+    out, bnds, h1s, h2s = stage_fused.fused_stage_save(x0, p0, ids0, 1)
+    _f32_record(results, "stage_fused_save_f32", [(
+        f"{tuple(x0.shape)} F=64", 1, lambda: stage_fused.fused_stage_save(x0, p0, ids0, 1),
+        lambda: stage_fused.stage_save_plain(x0, p0, ids0, 1), lambda: lib_stage(x0, *wts0),
+        flops0, nbytes(x0, *wts0, out, *bnds, *h1s, *h2s),
+    )])
+    g0 = grad_like(out)
+    pw0 = (p0[0], p0[2], p0[4], p0[6])
+    iw0 = [(w[0], w[2], w[4]) for w in ids0]
+    bwd_args = (x0, g0, out, bnds, h1s, h2s, pw0, iw0, 1)
+    dws0 = list(pw0) + [t for w in iw0 for t in w]
+    leaves0 = [0, 1, 3, 5, 7] + [9 + 6 * j + k for j in range(2) for k in (0, 2, 4)]
+    _f32_record(results, "stage_fused_bwd_f32", [(
+        f"{tuple(x0.shape)} F=64", 1, lambda: _flat(stage_fused.stage_bwd(*bwd_args)),
+        lambda: _flat(stage_fused.stage_bwd_plain(*bwd_args)), _f32_lib_bwd(lib_stage, [x0, *wts0], g0, leaves0),
+        2 * flops0, nbytes(x0, g0, out, *bnds, *h1s, *h2s, *dws0) + nbytes(x0) + dw_bytes(*dws0),
+    )])
+    del x0, out, bnds, h1s, h2s, g0, bwd_args
+    torch.cuda.empty_cache()
+
+    cases = {k: [] for k in ("proj_fused_f32", "proj_fused_save_f32", "proj_fused_bwd_f32", "block_fused_f32",
+                             "block_fused_save_f32", "block_fused_bwd_f32")}
+    for i, (h, cin, f, n_id) in enumerate([(64, 256, 128, 3), (32, 512, 256, 5), (16, 1024, 512, 2)]):
+        cout, ho = 4 * f, h // 2
+        xp = rand(N_IMG, h, h, cin)
+        pw = proj_w(cin, f, cout)
+        fl = _block_flops(N_IMG, h, h, cin, f, cout, 2, True)
+        saved = proj_fused.projection_block_save(xp, *pw, 2)
+        label = f"stage{i + 1} {tuple(xp.shape)} F={f}"
+        lib = lambda xp=xp, pw=pw: _lib_block(xp, *pw[:6], pw[6], pw[7], stride=2)  # noqa: E731
+        cases["proj_fused_f32"].append((
+            label, 1, lambda xp=xp, pw=pw: proj_fused.projection_block(xp, *pw, 2),
+            lambda xp=xp, pw=pw: proj_fused.projection_block_plain(xp, *pw, 2), lib, fl, nbytes(xp, *pw, saved[0]),
+        ))
+        cases["proj_fused_save_f32"].append((
+            label, 1, lambda xp=xp, pw=pw: proj_fused.projection_block_save(xp, *pw, 2),
+            lambda xp=xp, pw=pw: proj_fused.projection_block_save_plain(xp, *pw, 2), lib, fl, nbytes(xp, *pw, *saved),
+        ))
+        gp = grad_like(saved[0])
+        args = (xp, gp, *saved, pw[0], pw[2], pw[4], pw[6], 2)
+        cases["proj_fused_bwd_f32"].append((
+            label, 1, lambda args=args: proj_fused.proj_bwd(*args), lambda args=args: proj_fused.proj_bwd_plain(*args),
+            _f32_lib_bwd(lambda x, *w: _lib_block(x, *w[:6], w[6], w[7], stride=2), [xp, *pw], gp, [0, 1, 3, 5, 7]),
+            2 * fl, nbytes(xp, gp, *saved, pw[0], pw[2], pw[4], pw[6]) + nbytes(xp)
+            + dw_bytes(pw[0], pw[2], pw[4], pw[6]),
+        ))
+        xi = rand(N_IMG, ho, ho, cout)
+        iw = id_w(cout, f)
+        fl = _block_flops(N_IMG, ho, ho, cout, f, cout, 1, False)
+        saved = block_fused.bottleneck_block_save(xi, *iw)
+        label = f"stage{i + 1} {tuple(xi.shape)} F={f}"
+        lib = lambda xi=xi, iw=iw: _lib_block(xi, *iw)  # noqa: E731
+        cases["block_fused_f32"].append((
+            label, n_id, lambda xi=xi, iw=iw: block_fused.bottleneck_block(xi, *iw),
+            lambda xi=xi, iw=iw: block_fused.bottleneck_block_plain(xi, *iw), lib, fl, 2 * nbytes(xi) + nbytes(*iw),
+        ))
+        cases["block_fused_save_f32"].append((
+            label, n_id, lambda xi=xi, iw=iw: block_fused.bottleneck_block_save(xi, *iw),
+            lambda xi=xi, iw=iw: block_fused.bottleneck_block_save_plain(xi, *iw), lib, fl,
+            nbytes(xi, *iw, *saved),
+        ))
+        gi = grad_like(saved[0])
+        args = (xi, gi, *saved, iw[0], iw[2], iw[4])
+        cases["block_fused_bwd_f32"].append((
+            label, n_id, lambda args=args: block_fused.block_bwd(*args),
+            lambda args=args: block_fused.block_bwd_plain(*args),
+            _f32_lib_bwd(_lib_block, [xi, *iw], gi, [0, 1, 3, 5]),
+            2 * fl, nbytes(xi, gi, *saved, iw[0], iw[2], iw[4]) + nbytes(xi) + dw_bytes(iw[0], iw[2], iw[4]),
+        ))
+    for name, cs in cases.items():
+        _f32_record(results, name, cs)
+    del cases
+    torch.cuda.empty_cache()
+    return results
+
+
+def _f32_table() -> dict:
+    """`AUTO_FUSE`'s f32 entries by (function, mode)."""
+    from argus_tpu_torch.models.resnet import AUTO_FUSE
+
+    return {(f, m): v for (f, m, d), v in AUTO_FUSE.items() if d == "float32"}
+
+
+def _expected_f32_launches(serving: bool, stem_trained: bool = False) -> dict:
+    """The launches of one f32 flagship step (or, with `serving`, one eval
+    forward) with every fuse flag "auto": the f32 kernels `AUTO_FUSE`'s f32
+    entries name (the trained stem has no f32 kernel: ROADMAP A14)."""
+    table = _f32_table()
+    mode = "forward" if serving else "train"
+    want = dict(_NONE, augment_fused=int(not serving))
+    if table.get(("stem", "forward")) and (serving or not stem_trained):
+        want["stem_fused_f32"] += 1
+    chain = table.get(("stage_chain_packed" if serving else "stage_chain", mode), False)
+    if chain:
+        for k in (("stage_fused_f32",) if serving else ("stage_fused_save_f32", "stage_fused_bwd_f32")):
+            want[k] += 1
+    for i, n in enumerate((3, 4, 6, 3)):
+        if i == 0 and chain:
+            continue
+        for name, count, fn in (("proj_fused", 1, "projection"), ("block_fused", n - 1, "identity")):
+            if table.get((fn, mode)):
+                for k in ((name + "_f32",) if serving else (name + "_save_f32", name + "_bwd_f32")):
+                    want[k] += count
+    return want
+
+
+def _f32_step_checks() -> tuple:
+    """The f32 flagship step (`amp=False`, 256 rows, default augmentation)
+    from one state three ways: "off" with TF32 off (the reference), "on"
+    (the f32 kernels; TF32 off for what they leave to PyTorch) and "off"
+    with TF32 on (cuDNN as `train()` runs it). The loss of "on" within
+    F32_LOSS_RTOL of the reference's; its gradients (one augmented batch,
+    `_loss_and_grads_on`) and its Adam moments after one step no farther
+    from the reference than F32_STEP_SLACK times "off" with TF32 on is
+    (relative 2-norms, max and median over tensors). Launches of one step
+    and of one eval forward (no gradients) with "on". Returns (step
+    launches, eval launches)."""
+    import torch
+
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.ops.augment import apply_augmentation
+    from argus_tpu_torch.train import _loss_and_grads_on, feed_images, make_train_step
+
+    cfg, model, state, batch = flagship_train_setup(amp=False)
+    bb = model.backbone
+    images = apply_augmentation(cfg.augmentation_config, 99, feed_images(cfg, batch["images"], "cuda"))
+    snap = {k: t.detach().clone() for k, t in _state_tensors(state).items()}
+    step0 = state.step
+    step = make_train_step(model, cfg)
+    runs = {}
+    for label, flags, tf32 in (("ref", "off", False), ("on", "on", False), ("tf32", "off", True)):
+        for k in FUSE_ON:
+            setattr(bb, k, flags)
+        _set_tf32(tf32)
+        loss, grads = _loss_and_grads_on(model, state.params, images, batch)
+        grads = {k: v.detach().clone() for k, v in grads.items()}
+        kernels.reset_launch_counts()
+        state, step_loss = step(state, batch)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        moments = {k: t.detach().clone() for k, t in _state_tensors(state).items() if k[:3] in ("mu/", "nu/")}
+        with torch.no_grad():
+            for k, t in _state_tensors(state).items():
+                t.copy_(snap[k])
+        state.step = step0
+        runs[label] = (loss.item(), grads, moments, launches, step_loss.item())
+    if runs["on"][3] != EXPECTED_F32_TRAIN_LAUNCHES:
+        raise AssertionError(f"f32 step: launches {runs['on'][3]} != {EXPECTED_F32_TRAIN_LAUNCHES}")
+    ref = runs["ref"]
+    loss_err = abs(runs["on"][0] - ref[0]) / abs(ref[0])
+    spreads = {}
+    for label in ("on", "tf32"):
+        spreads[label] = [_spread(_grad_errors(runs[label][1], ref[1])),
+                          _spread(_grad_errors(runs[label][2], ref[2]))]
+    ok = loss_err <= F32_LOSS_RTOL
+    for j, what in enumerate(("gradients", "Adam moments")):
+        (w_on, m_on, n_on), (w_tf, m_tf, n_tf) = spreads["on"][j], spreads["tf32"][j]
+        ok = ok and w_on <= F32_STEP_SLACK * w_tf and m_on <= F32_STEP_SLACK * m_tf
+        say(f"f32 step ({N_ROWS} rows): {what} from 'off' with TF32 off: 'on' max rel {w_on:.3g} ({n_on}), median "
+            f"{m_on:.3g}; 'off' with TF32 on max rel {w_tf:.3g} ({n_tf}), median {m_tf:.3g} (limit {F32_STEP_SLACK}x)")
+    say(f"f32 step ({N_ROWS} rows): loss 'on' {runs['on'][0]:.7f}, 'off' TF32 off {ref[0]:.7f} (rel {loss_err:.3g}, "
+        f"tol {F32_LOSS_RTOL}), 'off' TF32 on {runs['tf32'][0]:.7f}; the step's own losses "
+        + ", ".join(f"{k} {v[4]:.7f}" for k, v in runs.items())
+        + f"; launches of an 'on' step {({k: v for k, v in runs['on'][3].items() if v})}")
+    if not ok:
+        raise AssertionError("the f32 step 'on' is farther from 'off' (TF32 off) than the gates allow")
+    for k in FUSE_ON:
+        setattr(bb, k, "on")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model(images)
+    eval_launches = kernels.launch_counts()
+    if eval_launches != EXPECTED_F32_EVAL_LAUNCHES:
+        raise AssertionError(f"f32 eval forward: launches {eval_launches} != {EXPECTED_F32_EVAL_LAUNCHES}")
+    say(f"f32 eval forward ({N_ROWS} rows, 'on'): launches {({k: v for k, v in eval_launches.items() if v})}")
+    _set_tf32(True)
+    launches = runs["on"][3]
+    del model, state, batch, images, runs, snap, step
+    torch.cuda.empty_cache()
+    return launches, eval_launches
+
+
+def _f32_graph_times() -> dict:
+    """The f32 flagship step with the fuse flags "on", "off" and "auto",
+    each on its own CUDA graph of `TrainStepBody.compute` (as the auto
+    phase), with TF32 as `train()` leaves it. Three f32 graphs of 256 rows
+    do not fit the card's 80 GB at once (two hold ~61 GiB in their pools),
+    so the graphs are timed in two pairs, "on" with "off" and then "auto"
+    with "off", each pair's replays interleaved (alternating which goes
+    first) F32_ROUNDS times a setting, by CUDA events, the fastest kept
+    ("off": of both pairs). The peak memory of one eager step each; an
+    eager "auto" step launches what the f32 entries of `AUTO_FUSE` name,
+    and "auto" is no slower than the faster of the others by more than
+    AUTO_SLACK. Returns {flags: (ms, peak bytes)}."""
+    import torch
+
+    from argus_tpu_torch.capture import WARMUP_STEPS, CapturedCall
+    from argus_tpu_torch.ops import kernels
+    from argus_tpu_torch.train import TrainStepBody, make_train_step
+
+    _set_tf32(True)
+    cfg, model, state, batch = flagship_train_setup(amp=False)
+    step = make_train_step(model, cfg)
+    peak, launched = {}, {}
+
+    def switch(flags):
+        for k in FUSE_ON:
+            setattr(model.backbone, k, flags)
+
+    for flags in ("on", "off", "auto"):
+        switch(flags)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        peak[flags], launched[flags] = torch.cuda.max_memory_allocated(), kernels.launch_counts()
+    want = _expected_f32_launches(serving=False)
+    if launched["auto"] != want:
+        raise AssertionError(f"f32 auto step: launches {launched['auto']} != the f32 table's {want}")
+    body = TrainStepBody(model, cfg)
+    operands = body.prepare(state.step, batch["images"], batch["cube_pose"], batch["mask"])
+    out = {}
+    for pair in (("on", "off"), ("auto", "off")):
+        runs = {}
+        for flags in pair:
+            switch(flags)
+            runs[flags] = CapturedCall(body.compute, body.device)
+            for _ in range(WARMUP_STEPS + 1):
+                runs[flags](state, operands)
+        torch.cuda.synchronize()
+        for r in range(F32_ROUNDS):
+            order = pair if r % 2 == 0 else pair[::-1]
+            events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in order]
+            for flags, (e0, e1) in zip(order, events):
+                e0.record()
+                runs[flags](state, operands)
+                e1.record()
+            torch.cuda.synchronize()
+            for flags, (e0, e1) in zip(order, events):
+                out.setdefault(flags, []).append(e0.elapsed_time(e1))
+        del runs
+        torch.cuda.empty_cache()
+    times = {flags: (min(ts), peak[flags]) for flags, ts in out.items()}
+    say(f"f32 flagship step ({N_ROWS} rows = {N_IMG} camera images, augmentation on; {_tf32_flags()}; graphs in "
+        f"pairs, on + off then auto + off): " + "; ".join(
+            f"{flags} fastest of {len(out[flags])} replays {ms:.2f} ms (median {sorted(out[flags])[len(out[flags]) // 2]:.2f}, "
+            f"{N_IMG / ms * 1e3:.1f} camera-images/s), peak {pk / 2**30:.2f} GiB an eager step"
+            for flags, (ms, pk) in times.items())
+        + f"; the f32 table: {({'/'.join(k): v for k, v in _f32_table().items()})}")
+    best = min(times["on"][0], times["off"][0])
+    if times["auto"][0] > (1 + AUTO_SLACK) * best:
+        raise AssertionError(f"f32 auto step {times['auto'][0]:.2f} ms is slower than the faster of on and off "
+                             f"({best:.2f}) by more than {AUTO_SLACK}")
+    del model, state, batch, step, body, operands
+    torch.cuda.empty_cache()
+    return times
+
+
+def f32_phase(tmpdir: str, sets) -> tuple:
+    """Phase 22: argus_tpu's frozen-BN ResNet-50 at its default compute
+    dtype, f32 (`_f32_kernels`, `_f32_step_checks`, `_f32_graph_times`);
+    the "on" flagship step's resident epoch captured as a CUDA graph, bit-
+    equal to the same epoch eager (`_captured_vs_eager`, F32_CAPTURE
+    examples); then `train()` at `TrainConfig(model_config=NCameraCNNConfig(
+    bn_frozen=True, bn_frozen_affine=True))`, every other field at its
+    default (f32, batch 32, the stem trained, fuse "auto"), 2 epochs and 1
+    resumed, resident, on DEFAULT_TRAIN + LOOP_VAL of the loop phase's
+    rendered examples, under `_check_loop`'s checks with the launches the
+    f32 table names. Returns (measured entries, step launches, eval
+    launches)."""
+    import torch
+
+    from argus_tpu_torch.models import NCameraCNNConfig
+    from argus_tpu_torch.train import TrainConfig
+
+    t0 = time.perf_counter()
+    measured = _f32_kernels()
+    t_kernels = time.perf_counter() - t0
+    launches, eval_launches = _f32_step_checks()
+    times = _f32_graph_times()
+
+    _set_tf32(True)
+    cfg_on, _, _, _ = flagship_train_setup(amp=False)
+    cap = _captured_vs_eager(cfg_on, sets, EXPECTED_F32_TRAIN_LAUNCHES, "f32 flagship ('on'):", n=F32_CAPTURE)
+    if not cap["bit_equal"]:
+        raise AssertionError("f32 flagship ('on'): the captured epoch is not bit-equal to the eager one")
+
+    cfg = TrainConfig(model_config=NCameraCNNConfig(bn_frozen=True, bn_frozen_affine=True), n_epochs=2,
+                      wandb_log=False, save_dir=os.path.join(tmpdir, "ckpt"))
+    B = cfg.batch_size
+    train_set = tuple(a[:DEFAULT_TRAIN] for a in sets[0])
+    datasets = (FramesDataset(*train_set), FramesDataset(*sets[1]))
+    steps, val_batches = -(-DEFAULT_TRAIN // B), -(-len(sets[1][0]) // B)
+    per_step = _expected_f32_launches(serving=False, stem_trained=True)
+    per_eval = _expected_f32_launches(serving=True)
+    want = {k: 2 * steps * per_step[k] + 2 * val_batches * per_eval[k] for k in per_step}
+    t1 = time.perf_counter()
+    first, resumed, runs, loop_launches, ready, loop_times = _loop_runs(cfg, datasets)
+    _check_loop("f32 frozen-BN default", cfg, first, resumed, runs, loop_launches, steps, loop_times, want)
+    rate = 2 * B / _second_epoch_ms(runs[0], steps) * 1e3
+    say(f"f32 frozen-BN default train() ({steps} steps of {B} rows an epoch, resident, fuse 'auto', {_tf32_flags()}): "
+        f"{rate:.1f} camera-images/s in the first run's second epoch; f32 flagship step ms: "
+        + ", ".join(f"{k} {v[0]:.2f}" for k, v in times.items())
+        + f"; captured epoch step {cap['replayed']:.2f} ms replayed, {cap['eager']:.2f} ms eager; the phase took "
+        f"{time.perf_counter() - t0:.1f} s (kernels {t_kernels:.1f} s, train() {time.perf_counter() - t1:.1f} s)")
+    torch.cuda.empty_cache()
+    return measured, launches, eval_launches
+
+
 def main() -> int:
     global GPU
     import torch
@@ -4410,6 +4912,9 @@ def main() -> int:
         profiling_phase(tmpdir)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
         default_config_phase(tmpdir, loop["sets"])
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmpdir:
+        f32_measured, f32_launches, f32_eval_launches = f32_phase(tmpdir, loop["sets"])
+    measured.update(f32_measured)
 
     rows = []
     for name, m in measured.items():
@@ -4418,7 +4923,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": (launches[name] or train_launches[name] or a_launches[name] or b_launches[name]
                          or aug_launches["per-op"][name] or kp_launches[name] or kp_eval_launches[name]
-                         or f_launches[name] or f_eval_launches[name] or p_launches[name] or r_launches[name]),
+                         or f_launches[name] or f_eval_launches[name] or p_launches[name] or r_launches[name]
+                         or f32_launches[name] or f32_eval_launches[name]),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": b, "bound_by": by, "library_ms": m["library_ms"],
         })

@@ -3,7 +3,7 @@
 fill `argus_tpu_torch.models.resnet.AUTO_FUSE` (what the fuse flags' "auto"
 chooses on a CUDA tensor).
 
-    python3 scripts/time_torch_auto_fuse.py [--steps 6] [--out outputs/auto_fuse.json]
+    python3 scripts/time_torch_auto_fuse.py [--steps 6] [--dtype bfloat16|float32] [--out outputs/auto_fuse.json]
 
 Needs one CUDA card. Every fuse flag (`fuse_pointwise` too) is set to
 "auto" and `AUTO_FUSE` is patched: first with every entry off (the baseline:
@@ -29,8 +29,13 @@ BN and affine, random weights, batch 256 rows = 512 camera images of
   frozen BN, affine and stem) eval forward and train step: the
   BasicBlock's two modes.
 
-Each workload is also timed with every flag "on", every flag "off" and the
-current table ("auto"). Prints one line per timing and writes them all to
+With `--dtype float32` (argus_tpu's default compute dtype: `amp=False`,
+cuDNN's convs in TF32 as PyTorch leaves them) it times the f32 entries:
+the functions with an f32 kernel in `flagship` and `serving`, every other
+flag "off" (the rows of `resnet.F32_TO_PORT` have no f32 kernel).
+
+Each workload is also timed with every flag "on" (f32: the functions that
+have a kernel), every flag "off" and the current table ("auto"). Prints one line per timing and writes them all to
 `--out` as JSON. Times are CUDA-event means over `--steps` calls after one
 warm-up call, beside the card's name and power limit.
 """
@@ -71,6 +76,7 @@ def _set_flags(backbone, value: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--out", default=os.path.join(REPO, "outputs", "auto_fuse.json"))
     args = ap.parse_args()
     import torch
@@ -88,7 +94,9 @@ def main() -> int:
     cs.GPU = cs.gpu_line()
     torch.backends.cudnn.benchmark = False
     table = dict(resnet.AUTO_FUSE)
-    results = {"gpu": cs.GPU, "table": {f"{k[0]}/{k[1]}": v for k, v in table.items()}, "runs": {}}
+    results = {"gpu": cs.GPU, "dtype": args.dtype, "table": {"/".join(k): v for k, v in table.items()}, "runs": {}}
+    f32 = args.dtype == "float32"
+    all_on = "auto" if f32 else "on"  # f32 "on": every entry of the dtype on under "auto" (no A14 row runs)
 
     def timed(workload, label, fn, patch=None, flags="auto", backbone=None):
         resnet.AUTO_FUSE.update(patch if patch is not None else table)
@@ -106,17 +114,19 @@ def main() -> int:
         base = timed(workload, "baseline (every entry off)", fn, off, backbone=backbone)
         for k in keys:
             ks = k if isinstance(k[0], tuple) else (k,)
-            ms = timed(workload, "+".join(f"{a}/{b}" for a, b in ks), fn, {**off, **{kk: True for kk in ks}},
-                       backbone=backbone)
+            ms = timed(workload, "+".join(f"{a}/{b}" for a, b in ks), fn,
+                       {**off, **{(*kk, args.dtype): True for kk in ks}}, backbone=backbone)
             cs.say(f"{workload}: {' + '.join(f'{a}/{b}' for a, b in ks)} on saves {base - ms:.2f} ms "
                    f"({'kernel' if ms < base else 'cuDNN'} wins)")
-        for flags in ("on", "off", "auto"):
+        every = {k: k[2] == args.dtype for k in table}
+        timed(workload, "all on", fn, every if f32 else None, flags=all_on, backbone=backbone)
+        for flags in ("off", "auto"):
             timed(workload, f"all {flags}", fn, None, flags=flags, backbone=backbone)
 
     t0 = time.perf_counter()
-    for workload, overrides in (("flagship", {}), ("stem_trained", {"stem_frozen": False}),
-                                ("frozen3", {"frozen_stages": 3})):
-        cfg, model, state, batch = cs.flagship_train_setup(**overrides)
+    workloads = (("flagship", {}), ("stem_trained", {"stem_frozen": False}), ("frozen3", {"frozen_stages": 3}))
+    for workload, overrides in workloads[:1] if f32 else workloads:
+        cfg, model, state, batch = cs.flagship_train_setup(amp=not f32, **overrides)
         step = make_train_step(model, cfg)
         holder = {"state": state}
 
@@ -125,7 +135,7 @@ def main() -> int:
 
         keys = {
             "flagship": [("stem", "forward"), ("stage_chain", "train"), ("projection", "train"),
-                         ("identity", "train"), ("pointwise", "train")],
+                         ("identity", "train")] + ([] if f32 else [("pointwise", "train")]),
             "stem_trained": [("stem", "train")],
             "frozen3": [(("stem", "forward"), ("stage_chain_packed", "forward")), ("stage_chain", "forward"),
                         ("projection", "train"), ("identity", "train"), ("pointwise", "forward"),
@@ -142,9 +152,11 @@ def main() -> int:
             model.backbone.fold_frozen_bn()  # once, as `serve.Estimator` folds
             sweep("serving", forward, model.backbone,
                   [("stem", "forward"), ("stage_chain_packed", "forward"), ("projection", "forward"),
-                   ("identity", "forward"), ("pointwise", "forward")])
+                   ("identity", "forward")] + ([] if f32 else [("pointwise", "forward")]))
         del model, state, batch, step, holder
         torch.cuda.empty_cache()
+    if f32:
+        return _write(results, args.out, t0)
 
     kcfg = CubeKeypointNetConfig(bn_frozen=True, bn_frozen_affine=True, stem_frozen=True, fuse_block="auto",
                                  fuse_stem="auto")
@@ -163,9 +175,15 @@ def main() -> int:
         holder["state"], _ = step(holder["state"], batch)
 
     sweep("keypoint_step", kp_run, model.backbone, [("basic", "train")])
+    return _write(results, args.out, t0)
+
+
+def _write(results: dict, out: str, t0: float) -> int:
+    import chip_smoke as cs
+
     cs.say(f"time_torch_auto_fuse: done in {time.perf_counter() - t0:.0f} s")
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(results, f, indent=1)
     return 0
 

@@ -3,7 +3,9 @@ the forwards, the saving forwards and the one-pass backwards (bottleneck and
 BasicBlock; the projection and chain forwards at their main-path widths), the two augmentation kernels, the trained stem's saving
 forward and weight gradient, BatchNorm's two reductions, the packed stem
 and the frozen stages' no-save chains, the pointwise forward and backward
-and the identity block's recompute backward, and the training steps
+and the identity block's recompute backward, the f32 kernels (TF32
+products: the stem's no-save forward, the identity and projection blocks
+and the stage-0 chain, and the A14 rows raising), and the training steps
 (fused, trained stem, exact BN, frozen stages, `fuse_pointwise`, remat)
 against their CPU runs; the device feed's batches; the launches of "auto"
 against `AUTO_FUSE`.
@@ -135,7 +137,7 @@ def test_stage_kernel(dev, with_proj):
 
 
 def test_wrappers_check_arguments(dev):
-    x = torch.zeros(1, 8, 8, 64, device=dev)  # f32: the kernels take bf16
+    x = torch.zeros(1, 8, 8, 64, device=dev)  # f32 activations with bf16 weights
     ws = _id(torch.Generator().manual_seed(4), 64, 16, dev)
     with pytest.raises(TypeError):
         tb.bottleneck_block(x, *ws)
@@ -148,6 +150,8 @@ def test_wrappers_check_arguments(dev):
         "basic_fused", "basic_fused_save", "basic_fused_bwd",
         "stem_fused_save", "stem_fused_bwd", "bn_stats", "bn_bwd_reduce",
         "stem_fused_packed", "stage_fused_frozen", "pointwise", "pointwise_bwd", "block_fused_rbwd",
+        "stem_fused_f32", "stage_fused_f32", "stage_fused_save_f32", "stage_fused_bwd_f32", "proj_fused_f32",
+        "proj_fused_save_f32", "proj_fused_bwd_f32", "block_fused_f32", "block_fused_save_f32", "block_fused_bwd_f32",
     }
 
 
@@ -367,7 +371,7 @@ def test_train_step_on_card_matches_cpu(dev):
         "basic_fused": 0, "basic_fused_save": 0, "basic_fused_bwd": 0,
         "stem_fused_save": 0, "stem_fused_bwd": 0, "bn_stats": 0, "bn_bwd_reduce": 0,
         "stem_fused_packed": 0, "stage_fused_frozen": 0, "pointwise": 0, "pointwise_bwd": 0,
-        "block_fused_rbwd": 0,
+        "block_fused_rbwd": 0, **{name: 0 for name in kernels.KERNELS if name.endswith("_f32")},
     }, counts
     assert abs(losses["cuda"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"]) + 1e-3, losses
 
@@ -848,22 +852,24 @@ def test_auto_launches_what_the_table_names(dev, frozen_stages):
              "cube_pose": np.tile(np.array([0.1, 0, 0.2, 0, 0, 0.6, 0.8], np.float32), (2, 1)),
              "mask": np.ones(2, np.float32)}
 
+    table = {(f, m): v for (f, m, d), v in AUTO_FUSE.items() if d == "bfloat16"}  # amp: the model runs in bf16
+
     def expect(mode_of):
         want = {name: 0 for name in kernels.KERNELS}
-        packed = frozen_stages >= 1 and AUTO_FUSE[("stem", "forward")] and AUTO_FUSE[("stage_chain_packed", "forward")]
-        if AUTO_FUSE[("stem", "forward")]:
+        packed = frozen_stages >= 1 and table[("stem", "forward")] and table[("stage_chain_packed", "forward")]
+        if table[("stem", "forward")]:
             want["stem_fused_packed" if packed else "stem_fused"] += 1
         for i, n in enumerate((3, 4, 6, 3)):
             m = mode_of(i)
             if i == 0 or i < frozen_stages:
                 chain = "stage_chain_packed" if i == 0 and m == "forward" else "stage_chain"
-                if AUTO_FUSE[(chain, m)]:
+                if table[(chain, m)]:
                     key = ("stage_fused" if i == 0 else "stage_fused_frozen") if m == "forward" else "stage_fused_save"
                     want[key] += 1
                     want["stage_fused_bwd"] += m == "train"
                     continue
             for name, count, fn in (("proj_fused", 1, "projection"), ("block_fused", n - 1, "identity")):
-                if AUTO_FUSE[(fn, m)]:
+                if table[(fn, m)]:
                     if m == "forward":
                         want[name] += count
                     else:
@@ -921,9 +927,9 @@ def test_pointwise_forward_at_two_million_rows(dev, cin, cout, residual):
     res = torch.randn(m, cout, generator=g).to(dev, torch.bfloat16) if residual else None
     for relu in (True, False):
         _close(tpw.pointwise_fwd(x, w, b, res, relu), tpw.pointwise_fwd_plain(x, w, b, res, relu))
-    before = tpw.KERNEL.launches
-    kernels = _device_kernels(lambda: tpw.pointwise_fwd(x, w, b, res), 3)
-    assert tpw.KERNEL.launches == before + 3
+    before, calls = tpw.KERNEL.launches, []
+    kernels = _device_kernels(lambda: (calls.append(1), tpw.pointwise_fwd(x, w, b, res)), 3)
+    assert len(calls) in (3, 6, 9) and tpw.KERNEL.launches == before + len(calls)  # a window read again re-runs fn
     assert len(kernels) == 1 and "conv_fwd_tma_sm90_kernel" in kernels[0][0] and 1 <= kernels[0][1] <= 3, kernels
 
 
@@ -1006,3 +1012,88 @@ def test_pointwise_and_remat_steps_launch_their_kernels(dev, config):
     state, loss = make_train_step(model, cfg, device="cuda")(state, batch)
     assert torch.isfinite(loss)
     assert kernels.launch_counts() == want
+
+
+# ─────────────── the f32 kernels (TF32 products, f32 sums) ───────────────
+#
+# Against the f32 plain versions with TF32 off (the `dev` fixture), within
+# chip_smoke.py's fixed f32 gate: 2.5e-3 * max |plain| + 1.25e-3 (the bf16
+# gate scaled by TF32's 8x finer rounding), at ragged spatial sizes.
+
+
+def _f32_close(got, want):
+    got = [t for t in got if t is not None] if isinstance(got, (tuple, list)) else [got]
+    want = [t for t in want if t is not None] if isinstance(want, (tuple, list)) else [want]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        err = (a - b).abs().max().item()
+        assert err <= 2.5e-3 * b.abs().max().item() + 1.25e-3, err
+
+
+def _f32(ws):
+    return tuple(t.float() for t in ws)
+
+
+def test_f32_stem_kernel(dev):
+    g = torch.Generator().manual_seed(30)
+    x = torch.rand(3, 72, 40, 3, generator=g).to(dev)
+    w, b = (0.2 * torch.randn(7, 7, 3, 64, generator=g)).to(dev), _b(g, 64, dev)
+    before = ts.KERNEL_F32.launches
+    _f32_close(ts.stem_pool(x, w, b), ts.stem_pool_plain(x, w, b))
+    assert ts.KERNEL_F32.launches == before + 1
+    for fn in (lambda: ts.stem_fwd_packed(x, w, b), lambda: ts.stem_fwd_save(x, w, b)):
+        with pytest.raises(NotImplementedError, match="A14"):
+            fn()
+
+
+@pytest.mark.parametrize("cin,f", [(64, 16), (256, 64)])
+def test_f32_identity_block_kernels(dev, cin, f):
+    g = torch.Generator().manual_seed(31)
+    x = torch.rand(2, 9, 7, cin, generator=g).to(dev)
+    ws = _f32(_id(g, cin, f, dev))
+    counts = [k.launches for k in (tb.KERNEL_F32, tb.KERNEL_SAVE_F32, tb.KERNEL_BWD_F32)]
+    _f32_close(tb.bottleneck_block(x, *ws), tb.bottleneck_block_plain(x, *ws))
+    saved = tb.bottleneck_block_save(x, *ws)
+    _f32_close(saved, tb.bottleneck_block_save_plain(x, *ws))
+    args = (x, torch.randn(x.shape, generator=g).to(dev), *saved, ws[0], ws[2], ws[4])
+    _f32_close(tb.block_bwd(*args), tb.block_bwd_plain(*args))
+    _f32_close(tb.block_bwd(*args, need_dx=False), tb.block_bwd_plain(*args, need_dx=False))
+    assert [k.launches for k in (tb.KERNEL_F32, tb.KERNEL_SAVE_F32, tb.KERNEL_BWD_F32)] == [
+        counts[0] + 1, counts[1] + 1, counts[2] + 2]
+    with pytest.raises(NotImplementedError, match="A14"):  # the recompute backward
+        tb.block_bwd_recompute(x, args[1], saved[0], *ws)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_f32_projection_block_kernels(dev, stride):
+    g = torch.Generator().manual_seed(32 + stride)
+    x = torch.rand(2, 10, 6, 64, generator=g).to(dev)
+    ws = _f32(_proj(g, 64, 32, 128, dev))
+    before = tp.KERNEL_BWD_F32.launches
+    _f32_close(tp.projection_block(x, *ws, stride), tp.projection_block_plain(x, *ws, stride))
+    saved = tp.projection_block_save(x, *ws, stride)
+    _f32_close(saved, tp.projection_block_save_plain(x, *ws, stride))
+    args = (x, torch.randn(saved[0].shape, generator=g).to(dev), *saved, ws[0], ws[2], ws[4], ws[6], stride)
+    _f32_close(tp.proj_bwd(*args), tp.proj_bwd_plain(*args))
+    assert tp.KERNEL_BWD_F32.launches == before + 1
+
+
+def test_f32_stage0_chain_kernels(dev):
+    """The stage-0 chain (a projection and two identity blocks, F = 64): the
+    no-save forward, the saving forward and the backward; the whole-stage
+    no-save chain of a frozen stage has no f32 kernel."""
+    g = torch.Generator().manual_seed(34)
+    x = torch.rand(2, 10, 6, 64, generator=g).to(dev)
+    proj, ids = _f32(_proj(g, 64, 64, 256, dev)), [_f32(_id(g, 256, 64, dev)) for _ in range(2)]
+    counts = [k.launches for k in (tst.KERNEL_F32, tst.KERNEL_SAVE_F32, tst.KERNEL_BWD_F32)]
+    _f32_close(tst.fused_stage(x, proj, ids, 1), tst.stage_plain(x, proj, ids, 1))
+    out, bnds, h1s, h2s = tst.fused_stage_save(x, proj, ids, 1)
+    _f32_close(_chain_flat_fwd((out, bnds, h1s, h2s)), _chain_flat_fwd(tst.stage_save_plain(x, proj, ids, 1)))
+    args = (x, torch.randn(out.shape, generator=g).to(dev), out, bnds, h1s, h2s, (proj[0], proj[2], proj[4], proj[6]),
+            [(w[0], w[2], w[4]) for w in ids], 1)
+    _f32_close(_chain_flat(tst.stage_bwd(*args)), _chain_flat(tst.stage_bwd_plain(*args)))
+    assert [k.launches for k in (tst.KERNEL_F32, tst.KERNEL_SAVE_F32, tst.KERNEL_BWD_F32)] == [c + 1 for c in counts]
+    x2 = torch.rand(2, 8, 8, 256, generator=g).to(dev)
+    with pytest.raises(NotImplementedError, match="A14"):
+        tst.fused_stage(x2, _f32(_proj(g, 256, 128, 512, dev)), [_f32(_id(g, 512, 128, dev))], 2)

@@ -162,22 +162,26 @@ class _OnCard:
 
 def test_auto_reads_the_table_on_cuda_and_is_off_on_the_cpu():
     cpu = torch.zeros(1)
-    for (fn, mode), on in resnet.AUTO_FUSE.items():
-        assert mode in ("forward", "train")
-        assert resnet.flag_on("auto", _OnCard(), fn, mode) is on
-        assert resnet.flag_on("auto", cpu, fn, mode) is False
-        assert resnet.flag_on("on", cpu, fn, mode) and not resnet.flag_on("off", _OnCard(), fn, mode)
+    bf = torch.bfloat16
+    for (fn, mode, dt), on in resnet.AUTO_FUSE.items():
+        assert mode in ("forward", "train") and dt in ("bfloat16", "float32")
+        if dt == "bfloat16":
+            assert resnet.flag_on("auto", _OnCard(), fn, mode, bf) is on
+        assert resnet.flag_on("auto", cpu, fn, mode, bf) is False
+        assert resnet.flag_on("on", cpu, fn, mode, bf) and not resnet.flag_on("off", _OnCard(), fn, mode, bf)
     with pytest.raises(ValueError):
-        resnet.flag_on("yes", cpu, "stem", "forward")
+        resnet.flag_on("yes", cpu, "stem", "forward", bf)
 
-    frozen = dict(bn_frozen=True, bn_frozen_affine=True)
+    # the bf16 table (the f32 choice: tests/test_torch_f32_route.py); the
+    # chain counts in the stages it takes: stage 0 (`fuse_stage_stages`)
+    frozen = dict(bn_frozen=True, bn_frozen_affine=True, dtype="bfloat16")
     auto = resnet.resnet50(**frozen)
-    t = resnet.AUTO_FUSE
+    t = {(fn, mode): on for (fn, mode, dt), on in resnet.AUTO_FUSE.items() if dt == "bfloat16"}
     for mode in ("forward", "train"):
         for i in range(4):
             chain = "stage_chain_packed" if i == 0 and mode == "forward" else "stage_chain"
             assert auto._fuse(_OnCard(), mode, i, 64 >> i) == (t[("identity", mode)], t[("projection", mode)],
-                                                               t[(chain, mode)])
+                                                               i == 0 and t[(chain, mode)])
             assert auto._fuse(cpu, mode, i, 64 >> i) == (False, False, False)
     # explicit flags keep argus_tpu's coupling: the chain needs blocks and projections
     for blk, prj, stg, want in (("on", "on", "on", True), ("off", "on", "on", False), ("on", "off", "on", False),
